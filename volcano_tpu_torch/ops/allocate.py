@@ -1,0 +1,254 @@
+"""The gang-allocate loop in plain PyTorch (counterpart of
+volcano_tpu/ops/allocate.py).
+
+One step places one task of the current job: predicates, scoring and the
+best-node argmax over every node, against the node state that every earlier
+placement changed. When the job's span ends, the gang check keeps its
+placements or restores the checkpoint, charges the queue and namespace, and
+the next job is chosen by the two-level rule: the namespace first (live
+weighted dominant share, or the static encode order), then the least-share
+non-overused queue inside it, then that (namespace, queue) pool's next job.
+
+``gang_allocate`` here is the plain version of the CUDA kernel
+(csrc/gang_allocate.cu): the CPU tests run it, and it is what the kernel is
+held against on the card. It is a Python loop over the task steps, so it is
+slow at full size; ops/cuda_allocate.py is the path that runs there.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+from .score import ScoreWeights, node_score
+
+NEG = -1e30
+BIG = 1e30
+
+
+class AllocState(NamedTuple):
+    """Node and fair-share state after the last step."""
+    idle: torch.Tensor       # [N, R] f32
+    future: torch.Tensor     # [N, R] f32 = idle + releasing - pipelined
+    n_tasks: torch.Tensor    # [N] i32
+    q_alloc: torch.Tensor    # [Q, R] f32 live queue allocations
+    ns_alloc: torch.Tensor   # [NS, R] f32 live namespace allocations
+    p_cursor: torch.Tensor   # [P] i32 jobs taken per pool
+
+
+def queue_share(q_alloc: torch.Tensor,
+                q_deserved: torch.Tensor) -> torch.Tensor:
+    """Dominant share per queue: max_r alloc/deserved with 0/0 = 0,
+    x/0 = 1; unbudgeted (+inf deserved) dims contribute 0."""
+    zero = q_deserved == 0.0
+    frac = torch.where(
+        torch.isinf(q_deserved), 0.0,
+        torch.where(zero, torch.where(q_alloc == 0.0, 0.0, 1.0),
+                    q_alloc / torch.where(zero, 1.0, q_deserved)))
+    return frac.max(dim=-1).values
+
+
+def queue_overused(q_alloc: torch.Tensor, q_deserved: torch.Tensor,
+                   eps: torch.Tensor) -> torch.Tensor:
+    """allocated > deserved in any dimension."""
+    le = (q_alloc <= q_deserved + eps[None, :]) | torch.isinf(q_deserved)
+    return ~torch.all(le, dim=-1)
+
+
+def namespace_share(ns_alloc: torch.Tensor, ns_total: torch.Tensor,
+                    ns_weight: torch.Tensor) -> torch.Tensor:
+    """Weighted dominant share per namespace: max_r alloc/total with
+    0/0 = 0, x/0 = 1, divided by the namespace weight."""
+    pos = ns_total[None, :] > 0.0
+    frac = torch.where(pos, ns_alloc / torch.where(pos, ns_total[None, :], 1.0),
+                       torch.where(ns_alloc == 0.0, 0.0, 1.0))
+    return frac.max(dim=-1).values / ns_weight
+
+
+def make_pool_select(queue_deserved, pool_queue, pool_ns, pool_job_start,
+                     pool_njobs, ns_weight, ns_total, eps, ns_live: bool
+                     ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
+    """The two-level (namespace, queue) job selection: first the namespace
+    (live weighted share when ``ns_live``, else the static encode rank),
+    then the best non-overused queue with jobs left inside it, by live
+    queue share, then that pool's next job. Ties go to the lower index at
+    both levels. The returned ``select(q_alloc, ns_alloc, p_cursor)`` gives
+    0-d (pool, job), -1/-1 when nothing is selectable."""
+    n_ns = ns_weight.shape[0]
+    ns_ids = torch.arange(n_ns, device=pool_ns.device)
+    pool_in_ns = pool_ns[None, :].long() == ns_ids[:, None]      # [NS, P]
+    pool_q = pool_queue.long()
+
+    def select(q_alloc, ns_alloc, p_cursor):
+        share = queue_share(q_alloc, queue_deserved)           # [Q]
+        over = queue_overused(q_alloc, queue_deserved, eps)    # [Q]
+        pool_ok = (p_cursor < pool_njobs) & ~over[pool_q]      # [P]
+        ns_has = torch.any(pool_in_ns & pool_ok[None, :], dim=1)
+        if ns_live:
+            ns_key = namespace_share(ns_alloc, ns_total, ns_weight)
+        else:
+            ns_key = ns_ids.to(torch.float32)
+        ns_sel = torch.argmin(torch.where(ns_has, ns_key, BIG))
+        eligible = pool_ok & (pool_ns == ns_sel)
+        p = torch.argmin(torch.where(eligible, share[pool_q], BIG))
+        ok = ns_has[ns_sel]
+        job = pool_job_start[p] + p_cursor[p]
+        return (torch.where(ok, p, -1).to(torch.int32),
+                torch.where(ok, job, -1).to(torch.int32))
+    return select
+
+
+def gang_allocate(task_group: torch.Tensor,      # [T] i32
+                  task_job: torch.Tensor,        # [T] i32 (padding -> sentinel)
+                  task_valid: torch.Tensor,      # [T] bool
+                  group_req: torch.Tensor,       # [G, R] f32
+                  group_mask: torch.Tensor,      # [G, N] bool static predicates
+                  group_static_score: torch.Tensor,  # [G, N] f32
+                  task_bucket: torch.Tensor,     # [T] i32 topology bucket (-1 none)
+                  group_pack_bonus: torch.Tensor,  # [G] f32 per-mate pack score
+                  job_min_available: torch.Tensor,   # [J] i32
+                  job_ready_base: torch.Tensor,      # [J] i32 occupied count
+                  job_task_start: torch.Tensor,      # [J] i32 span start
+                  job_n_tasks: torch.Tensor,         # [J] i32 span length
+                  job_queue: torch.Tensor,           # [J] i32
+                  pool_queue: torch.Tensor,          # [P] i32 queue of pool
+                  pool_ns: torch.Tensor,             # [P] i32 namespace of pool
+                  pool_job_start: torch.Tensor,      # [P] i32 jobs grouped/pool
+                  pool_njobs: torch.Tensor,          # [P] i32
+                  ns_weight: torch.Tensor,           # [NS] f32
+                  ns_alloc0: torch.Tensor,           # [NS, R] f32
+                  ns_total: torch.Tensor,            # [R] f32 cluster total
+                  queue_deserved: torch.Tensor,      # [Q, R] f32 (+inf ungated)
+                  queue_alloc0: torch.Tensor,        # [Q, R] f32
+                  node_idle: torch.Tensor,       # [N, R] f32
+                  node_future: torch.Tensor,     # [N, R] f32
+                  node_alloc: torch.Tensor,      # [N, R] f32
+                  node_ntasks: torch.Tensor,     # [N] i32
+                  node_max_tasks: torch.Tensor,  # [N] i32 (0 = uncapped)
+                  eps: torch.Tensor,             # [R] f32
+                  weights: ScoreWeights,
+                  allow_pipeline: bool = True,
+                  ns_live: bool = False,
+                  task_slot: Optional[torch.Tensor] = None,
+                  slot_ok: Optional[torch.Tensor] = None):
+    """Returns (assign [T] node or -1, pipelined [T] bool, ready [J] bool,
+    kept [J] bool, final AllocState), on the inputs' device.
+
+    ``task_slot``/``slot_ok`` (per-task topology-domain restriction) belong
+    to the constraints port and are not taken yet."""
+    if task_slot is not None or slot_ok is not None:
+        raise NotImplementedError(
+            "task_slot/slot_ok arrive with the constraints port")
+    T = task_group.shape[0]
+    J = job_min_available.shape[0]
+    dev = node_idle.device
+
+    select = make_pool_select(queue_deserved, pool_queue, pool_ns,
+                              pool_job_start, pool_njobs, ns_weight,
+                              ns_total, eps, ns_live)
+    # the loop's control flow reads the small integer metadata on the host
+    tg = task_group.tolist()
+    tv = task_valid.tolist()
+    tb = task_bucket.tolist()
+    j_start = job_task_start.tolist()
+    j_n = job_n_tasks.tolist()
+    j_min = job_min_available.tolist()
+    j_base = job_ready_base.tolist()
+    p_queue = pool_queue.tolist()
+    p_ns = pool_ns.tolist()
+
+    idle = node_idle.clone()
+    future = node_future.clone()
+    n_tasks = node_ntasks.clone()
+    ck_idle, ck_future, ck_ntasks = idle.clone(), future.clone(), n_tasks.clone()
+    pack = torch.zeros(node_ntasks.shape[0], dtype=torch.float32, device=dev)
+    q_alloc = queue_alloc0.clone()
+    ns_alloc = ns_alloc0.clone()
+    p_cursor = torch.zeros_like(pool_njobs)
+    uncapped = node_max_tasks == 0
+
+    assign = [-1] * T
+    pipelined = [False] * T
+    ready = [False] * J
+    kept = [False] * J
+
+    pool, job = (int(x) for x in select(q_alloc, ns_alloc, p_cursor))
+    cur_bucket = -1
+    t_off = placed = placed_alloc = 0
+    placed_res = torch.zeros_like(eps)
+    for _ in range(T):
+        if job < 0:
+            break          # nothing selectable: every later step is a no-op
+        t_idx = min(max(j_start[job] + t_off, 0), T - 1)
+        g = tg[t_idx]
+        valid = tv[t_idx] and t_off < j_n[job]
+        b = tb[t_idx]
+        if not (b >= 0 and b == cur_bucket):
+            pack.zero_()   # a new topology bucket starts with no mates
+        if valid:
+            req = group_req[g]
+            base_ok = group_mask[g] & (uncapped | (n_tasks < node_max_tasks))
+            fits_idle = torch.all(req[None, :] <= idle + eps[None, :],
+                                  dim=-1) & base_ok
+            fits_future = torch.all(req[None, :] <= future + eps[None, :],
+                                    dim=-1) & base_ok
+            score = node_score(req, idle, node_alloc, weights,
+                               group_static_score[g]
+                               + pack * group_pack_bonus[g])
+            any_idle = torch.any(fits_idle)
+            cand = torch.where(any_idle, fits_idle, fits_future) \
+                if allow_pipeline else fits_idle
+            sel = torch.argmax(torch.where(cand, score, NEG))
+            # one device-to-host read per step
+            sel, placed_ok, any_idle = torch.stack(
+                [sel, torch.any(cand).long(), any_idle.long()]).tolist()
+            if placed_ok:
+                pipe = allow_pipeline and not any_idle
+                if not pipe:
+                    idle[sel] -= req
+                    placed_alloc += 1
+                future[sel] -= req
+                n_tasks[sel] += 1
+                pack[sel] += 1.0
+                placed += 1
+                placed_res = placed_res + req
+                assign[t_idx] = sel
+                pipelined[t_idx] = pipe
+            cur_bucket = b
+        t_off += 1
+
+        # ---- job boundary: gang commit/rollback + charges + select
+        if t_off < j_n[job]:
+            continue
+        is_ready = j_base[job] + placed_alloc >= j_min[job]
+        is_kept = j_base[job] + placed >= j_min[job]
+        if is_ready or is_kept:
+            ck_idle.copy_(idle)
+            ck_future.copy_(future)
+            ck_ntasks.copy_(n_tasks)
+            q_alloc[p_queue[pool]] += placed_res
+            ns_alloc[p_ns[pool]] += placed_res
+        else:
+            idle.copy_(ck_idle)
+            future.copy_(ck_future)
+            n_tasks.copy_(ck_ntasks)
+        p_cursor[pool] += 1
+        ready[job] = ready[job] or is_ready
+        kept[job] = kept[job] or is_kept
+        pool, job = (int(x) for x in select(q_alloc, ns_alloc, p_cursor))
+        t_off = placed = placed_alloc = 0
+        placed_res = torch.zeros_like(eps)
+
+    # tasks of jobs that were neither committed nor kept are not placed
+    tj = task_job.tolist()
+    ok = [tv[t] and (ready[min(max(tj[t], 0), J - 1)]
+                     or kept[min(max(tj[t], 0), J - 1)]) for t in range(T)]
+    assign_t = torch.tensor([a if o else -1 for a, o in zip(assign, ok)],
+                            dtype=torch.int32, device=dev)
+    pipelined_t = torch.tensor([p and o for p, o in zip(pipelined, ok)],
+                               dtype=torch.bool, device=dev)
+    state = AllocState(idle, future, n_tasks, q_alloc, ns_alloc, p_cursor)
+    return (assign_t, pipelined_t,
+            torch.tensor(ready, dtype=torch.bool, device=dev),
+            torch.tensor(kept, dtype=torch.bool, device=dev), state)

@@ -1,0 +1,207 @@
+"""Synthetic dense solver inputs for benchmarks and scale tests.
+
+``synth_arrays`` builds what the scheduler sees after the cache snapshot
+has been encoded: a gang-heavy pending backlog over a partially utilized
+cluster, as numpy arrays. It is this port's own copy of
+volcano_tpu/utils/synth.py:synth_arrays and gives byte-identical arrays
+for the same arguments (the generator draws the same numpy bits in the
+same order), so both packages can be held against each other on one
+fixture.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+from typing import Dict, Optional
+
+import numpy as np
+
+from ..models.arrays import bucket
+
+
+@dataclass
+class SynthArrays:
+    """Dense solver inputs for a T-task x N-node synthetic cluster."""
+    task_group: np.ndarray      # [T] i32
+    task_job: np.ndarray        # [T] i32
+    task_valid: np.ndarray      # [T] bool
+    group_req: np.ndarray       # [G, R] f32
+    group_mask: np.ndarray      # [G, N] bool
+    group_static_score: np.ndarray  # [G, N] f32
+    task_bucket: np.ndarray     # [T] i32 (-1 = out of bucket)
+    group_pack_bonus: np.ndarray  # [G] f32
+    job_min_available: np.ndarray   # [J] i32
+    job_ready_base: np.ndarray      # [J] i32
+    job_task_start: np.ndarray      # [J] i32
+    job_n_tasks: np.ndarray         # [J] i32
+    job_queue: np.ndarray           # [J] i32
+    pool_queue: np.ndarray          # [P] i32 (single-ns: pools == queues)
+    pool_ns: np.ndarray             # [P] i32
+    pool_job_start: np.ndarray      # [P] i32
+    pool_njobs: np.ndarray          # [P] i32
+    ns_weight: np.ndarray           # [NS] f32
+    ns_alloc0: np.ndarray           # [NS, R] f32
+    ns_total: np.ndarray            # [R] f32
+    queue_deserved: np.ndarray      # [Q, R] f32
+    queue_alloc0: np.ndarray        # [Q, R] f32
+    node_idle: np.ndarray       # [N, R] f32
+    node_future: np.ndarray     # [N, R] f32
+    node_alloc: np.ndarray      # [N, R] f32
+    node_ntasks: np.ndarray     # [N] i32
+    node_max_tasks: np.ndarray  # [N] i32
+    eps: np.ndarray             # [R] f32
+
+    @property
+    def args(self) -> list:
+        """The 28 positional arrays of ops.allocate.gang_allocate, in order
+        (weights excluded)."""
+        return [getattr(self, f.name) for f in fields(self)]
+
+    def as_dict(self) -> Dict[str, np.ndarray]:
+        """{field: array} without copying (dataclasses.asdict deep-copies)."""
+        return {f.name: getattr(self, f.name) for f in fields(self)}
+
+    @property
+    def shapes(self) -> str:
+        return (f"T={self.task_group.shape[0]} N={self.node_idle.shape[0]} "
+                f"G={self.group_req.shape[0]} J={self.job_min_available.shape[0]} "
+                f"R={self.node_idle.shape[1]}")
+
+
+def synth_arrays(n_tasks: int, n_nodes: int, *, gang_size: int = 8,
+                 n_racks: int = 32, r: int = 4, seed: int = 0,
+                 utilization: float = 0.3, node_pad_to: Optional[int] = None,
+                 rack_affinity: bool = True, n_queues: int = 1,
+                 n_namespaces: int = 1) -> SynthArrays:
+    """A gang-heavy pending backlog over a partially utilized cluster.
+
+    Nodes: 64-core/256GiB-shaped with uniform random pre-existing usage around
+    ``utilization``; resource dims are [cpu(milli), memory(MiB), pods-slack,
+    accelerator]. Tasks: gangs of ``gang_size`` with per-gang resource shapes;
+    each gang is one group (homogeneous replicas). Rack-affinity static score
+    prefers a random rack per gang. Jobs are striped round-robin over
+    ``n_queues`` queues and drawn at random into ``n_namespaces`` namespaces,
+    then regrouped so each (namespace, queue) pool's jobs are contiguous.
+    """
+    rng = np.random.default_rng(seed)
+    n_jobs = max(1, n_tasks // gang_size)
+    n_tasks = n_jobs * gang_size
+    n_groups = n_jobs
+
+    t_pad = bucket(n_tasks, 256)
+    g_pad = bucket(n_groups, 16)
+    j_pad = bucket(n_jobs + 1, 16)          # + sentinel for padding tasks
+    n_pad = node_pad_to if node_pad_to else bucket(n_nodes, 256)
+
+    # nodes
+    cap = np.zeros((n_pad, r), np.float32)
+    cap[:n_nodes, 0] = 64_000.0                           # 64 cores (milli)
+    cap[:n_nodes, 1] = 256 * 1024.0                       # 256 GiB in MiB
+    cap[:n_nodes, 2] = 110.0                              # pods dimension
+    cap[:n_nodes, 3] = 8.0                                # accelerators
+    used_frac = rng.uniform(0.0, 2 * utilization, (n_pad, 1)).astype(np.float32)
+    used = (cap * used_frac).astype(np.float32)
+    idle = cap - used
+    node_ntasks = np.zeros(n_pad, np.int32)
+    node_ntasks[:n_nodes] = (used_frac[:n_nodes, 0] * 30).astype(np.int32)
+    node_max_tasks = np.zeros(n_pad, np.int32)            # uncapped
+
+    # gangs
+    group_req = np.zeros((g_pad, r), np.float32)
+    group_req[:n_groups, 0] = rng.choice([1000, 2000, 4000, 8000], n_groups)
+    group_req[:n_groups, 1] = rng.choice([2048, 4096, 8192, 16384], n_groups)
+    group_req[:n_groups, 2] = 1.0
+    group_req[:n_groups, 3] = rng.choice([0, 0, 0, 1], n_groups)
+
+    task_group = np.zeros(t_pad, np.int32)
+    task_job = np.full(t_pad, n_jobs, np.int32)           # sentinel fill
+    task_valid = np.zeros(t_pad, bool)
+    ids = np.arange(n_tasks)
+    task_group[:n_tasks] = ids // gang_size
+    task_job[:n_tasks] = ids // gang_size
+    task_valid[:n_tasks] = True
+
+    job_min_available = np.zeros(j_pad, np.int32)
+    job_min_available[:n_jobs] = gang_size
+    job_ready_base = np.zeros(j_pad, np.int32)
+    job_task_start = np.zeros(j_pad, np.int32)
+    job_task_start[:n_jobs] = np.arange(n_jobs) * gang_size
+    job_n_tasks = np.zeros(j_pad, np.int32)
+    job_n_tasks[:n_jobs] = gang_size
+
+    q_pad = bucket(n_queues, 8)
+    job_queue = np.zeros(j_pad, np.int32)
+    job_queue[:n_jobs] = np.arange(n_jobs) % n_queues
+    job_ns = np.zeros(j_pad, np.int32)
+    if n_namespaces > 1:
+        job_ns[:n_jobs] = rng.integers(0, n_namespaces, n_jobs)
+    if n_queues > 1 or n_namespaces > 1:
+        key = job_ns[:n_jobs].astype(np.int64) * n_queues \
+            + job_queue[:n_jobs]
+        order = np.argsort(key, kind="stable")
+        # rebuild task arrays in regrouped job order
+        new_task_order = np.concatenate(
+            [np.arange(j * gang_size, (j + 1) * gang_size) for j in order])
+        task_group[:n_tasks] = task_group[:n_tasks][new_task_order]
+        remap = np.empty(n_jobs, np.int64)
+        remap[order] = np.arange(n_jobs)
+        task_job[:n_tasks] = remap[task_job[:n_tasks][new_task_order]]
+        job_queue[:n_jobs] = job_queue[:n_jobs][order]
+        job_ns[:n_jobs] = job_ns[:n_jobs][order]
+    queue_deserved = np.full((q_pad, r), np.inf, np.float32)
+    queue_alloc0 = np.zeros((q_pad, r), np.float32)
+    # pools: contiguous (ns, queue) runs over the regrouped jobs
+    run_keys: list = []
+    pool_queue_l: list = []
+    pool_ns_l: list = []
+    pool_start_l: list = []
+    pool_n_l: list = []
+    for j in range(n_jobs):
+        k = (int(job_ns[j]), int(job_queue[j]))
+        if not run_keys or run_keys[-1] != k:
+            run_keys.append(k)
+            pool_ns_l.append(k[0])
+            pool_queue_l.append(k[1])
+            pool_start_l.append(j)
+            pool_n_l.append(0)
+        pool_n_l[-1] += 1
+    p_pad = bucket(max(1, len(run_keys)), 8)
+    pool_queue = np.zeros(p_pad, np.int32)
+    pool_queue[:len(run_keys)] = pool_queue_l
+    pool_ns = np.zeros(p_pad, np.int32)
+    pool_ns[:len(run_keys)] = pool_ns_l
+    pool_job_start = np.zeros(p_pad, np.int32)
+    pool_job_start[:len(run_keys)] = pool_start_l
+    pool_njobs = np.zeros(p_pad, np.int32)
+    pool_njobs[:len(run_keys)] = pool_n_l
+    ns_pad = max(1, n_namespaces)
+    ns_weight = np.ones(ns_pad, np.float32)
+    ns_alloc0 = np.zeros((ns_pad, r), np.float32)
+    ns_total = cap[:n_nodes].sum(axis=0).astype(np.float32)
+
+    # static predicates: valid nodes only; static score: rack affinity
+    group_mask = np.zeros((g_pad, n_pad), bool)
+    group_mask[:, :n_nodes] = True
+    group_static_score = np.zeros((g_pad, n_pad), np.float32)
+    if rack_affinity and n_racks > 0:
+        node_rack = rng.integers(0, n_racks, n_nodes)
+        gang_rack = rng.integers(0, n_racks, n_groups)
+        group_static_score[:n_groups, :n_nodes] = (
+            (gang_rack[:, None] == node_rack[None, :]) * 50.0)
+
+    eps = np.array([100.0, 0.1, 0.1, 0.1], np.float32)[:r]
+
+    return SynthArrays(
+        task_group=task_group, task_job=task_job, task_valid=task_valid,
+        group_req=group_req, group_mask=group_mask,
+        group_static_score=group_static_score,
+        task_bucket=np.full(t_pad, -1, np.int32),
+        group_pack_bonus=np.zeros(g_pad, np.float32),
+        job_min_available=job_min_available, job_ready_base=job_ready_base,
+        job_task_start=job_task_start, job_n_tasks=job_n_tasks,
+        job_queue=job_queue, pool_queue=pool_queue, pool_ns=pool_ns,
+        pool_job_start=pool_job_start, pool_njobs=pool_njobs,
+        ns_weight=ns_weight, ns_alloc0=ns_alloc0, ns_total=ns_total,
+        queue_deserved=queue_deserved, queue_alloc0=queue_alloc0,
+        node_idle=idle, node_future=idle.copy(), node_alloc=cap,
+        node_ntasks=node_ntasks, node_max_tasks=node_max_tasks, eps=eps)
