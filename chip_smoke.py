@@ -7,15 +7,14 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
 
 1. device: the card's name and capability (must be 9.0), and
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``;
-2. build: every kernel of volcano_tpu_torch/csrc, compiled with nvcc
-   (one process per source, all started together);
+2. build: every kernel of volcano_tpu_torch/csrc, compiled with nvcc;
 3. kernel against plain on the card at 4,096 tasks x 2,048 nodes, gang 8:
    one queue; four queues with budgets from the proportion water-fill;
    three namespaces with the live namespace order off and on; tight
    capacity that forces gang rollbacks; topology buckets with releasing
-   capacity, pipelining on and off. ready/kept must match exactly,
-   placements per job must match, and every placement must replay
-   feasibly; the count of assign mismatches is printed;
+   capacity, pipelining on and off. assign, pipelined, ready, kept and
+   the final node state must match exactly, and every placement must
+   replay feasibly;
 4. the main path at full size: DenseSolver.place on
    synth_arrays(50_000, 10_000, gang_size=8, seed=42, utilization=0.3),
    one warm-up and three timed runs, with every launch count set to 0
@@ -55,9 +54,12 @@ from volcano_tpu_torch.ops.score import ScoreWeights  # noqa: E402
 from volcano_tpu_torch.utils.synth import synth_arrays  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s
-# and float32 operations/s outside the tensor cores
+# and float32 operations/s outside the tensor cores. The float32 peak
+# counts a fused multiply-add as two operations; the kernel is built
+# with -fmad=false, so its separate adds and multiplies reach half of it
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP32_NO_FMA_OPS_PER_S = FP32_OPS_PER_S / 2
 # float32 operations the kernel does for one node in one step: fits
 # (2 R adds, 2 R compares), binpack (7 R), least/most/balanced over
 # cpu and memory (24), the weighted sum and pack bonus (13)
@@ -114,19 +116,18 @@ def gang_atomic(sa, assign, ready, kept) -> bool:
 
 
 def compare(sa, got, want, ctx: str) -> dict:
-    """The kernel's outputs (got) against the plain loop's (want): ready and
-    kept exact, placements per job equal, a feasible replay."""
+    """The kernel's outputs (got) against the plain loop's (want), exactly:
+    assign, pipelined, ready, kept and the final node state. Built with
+    -fmad=false and the score summed in the plain version's order, the
+    kernel rounds as the plain loop does on the card, so a wrong score
+    term or tie-break shows as a differing node even where every task is
+    placed. The placements must also replay feasibly and be gang-atomic."""
     a1, p1, r1, k1 = (to_np(x) for x in got[:4])
     a2, p2, r2, k2 = (to_np(x) for x in want[:4])
     if not np.array_equal(r1, r2):
         fail(f"{ctx}: ready differs on {int((r1 != r2).sum())} jobs")
     if not np.array_equal(k1, k2):
         fail(f"{ctx}: kept differs on {int((k1 != k2).sum())} jobs")
-    J = r1.shape[0]
-    c1 = np.bincount(sa.task_job[a1 >= 0], minlength=J)
-    c2 = np.bincount(sa.task_job[a2 >= 0], minlength=J)
-    if not np.array_equal(c1, c2):
-        fail(f"{ctx}: placements per job differ")
     if not replay_feasible(sa, a1, p1):
         fail(f"{ctx}: the kernel's placements do not replay feasibly")
     if not gang_atomic(sa, a1, r1, k1):
@@ -134,8 +135,13 @@ def compare(sa, got, want, ctx: str) -> dict:
     s1, s2 = got[4], want[4]
     state_err = max(float((s1.idle - s2.idle).abs().max()),
                     float((s1.future - s2.future).abs().max()))
-    return {"assign_mismatches": int((a1 != a2).sum()),
-            "pipelined_mismatches": int((p1 != p2).sum()),
+    assign_mismatches = int((a1 != a2).sum())
+    pipelined_mismatches = int((p1 != p2).sum())
+    if assign_mismatches or pipelined_mismatches or state_err > 0:
+        fail(f"{ctx}: {assign_mismatches} assign and {pipelined_mismatches} "
+             f"pipelined mismatches, node state error {state_err}")
+    return {"assign_mismatches": assign_mismatches,
+            "pipelined_mismatches": pipelined_mismatches,
             "placed": int((a1 >= 0).sum()), "ready": int(r1.sum()),
             "kept": int(k1.sum()), "state_max_abs_err": state_err}
 
@@ -212,11 +218,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     libs = build.build_all()
-    build_s = time.perf_counter() - t0
-    ptxas = {k: [ln for ln in open(f"{p}.ptxas.txt").read().splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for k, p in libs.items()}
-    line("build", seconds=build_s, libraries=sorted(libs), ptxas=ptxas)
+    line("build", seconds=time.perf_counter() - t0, libraries=sorted(libs))
 
     # ---- 3. kernel against plain at the mid size
     mid = {}
@@ -300,11 +302,14 @@ def main() -> None:
     ops = steps * N * OPS_PER_NODE_STEP_R4 * R / 4
     bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_OPS_PER_S * 1e3
-    # the per-step sweep re-reads the node state (16 words a node at R=4)
+    no_fma_ops_ms = ops / FP32_NO_FMA_OPS_PER_S * 1e3
+    # the floor of this design: each step re-reads the node state (16
+    # words a node at R=4) from memory
     sweep_floor_ms = steps * N * 16 * 4 / HBM_BYTES_PER_S * 1e3
     line("kernel_vs_plain", case="main_path_inputs", shape=sa.shapes, **full,
          kernel_ms=kernel_runs, plain_ms=plain_ms, bytes_ms=bytes_ms,
-         ops_ms=ops_ms, sweep_floor_ms=sweep_floor_ms, steps=steps)
+         ops_ms=ops_ms, no_fma_ops_ms=no_fma_ops_ms,
+         sweep_floor_ms=sweep_floor_ms, steps=steps)
 
     # where the step's time goes: the same task count over fewer nodes
     # separates the per-step fixed cost from the per-node sweep
@@ -330,6 +335,7 @@ def main() -> None:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
+        "no_fma_ops_ms": no_fma_ops_ms, "sweep_floor_ms": sweep_floor_ms,
         "shape": sa.shapes, "checked_against_plain": True,
         "assign_mismatches": full["assign_mismatches"],
         "mid_cases": {k: {"ms": v["ms"], "plain_ms": v["plain_ms"],

@@ -24,8 +24,7 @@ SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -54,38 +53,28 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 
-def _command(name: str, out: Path) -> List[str]:
-    return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(SRC_DIR / f"{name}.cu")]
+def build(name: str) -> Path:
+    """Build kernel ``name`` unless it is built already; returns its library
+    path. Raises RuntimeError with nvcc's output when the build fails."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+    proc = subprocess.run(
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
+                           f"{proc.returncode}\n{proc.stdout}")
+    os.replace(tmp, out)
+    return out
 
 
 def build_all(names: List[str] = None) -> Dict[str, Path]:
-    """Build the named kernels (default: all of csrc/) that are not built
-    yet, one nvcc process per source, all started together. Returns
-    {name: library path}; raises RuntimeError with nvcc's output when a
-    build fails. The ptxas report (registers, spills) of each build is
-    kept beside its library as ``<library>.ptxas.txt``."""
-    names = sources() if names is None else names
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-        procs[name] = (out, tmp, subprocess.Popen(
-            _command(name, tmp), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (out, tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
-            continue
-        Path(f"{out}.ptxas.txt").write_text(log)
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return {name: library_path(name) for name in names}
+    """Build the named kernels (default: all of csrc/); {name: library}."""
+    return {name: build(name)
+            for name in (sources() if names is None else names)}
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -93,7 +82,6 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build_all([name])[name]))
+            lib = ctypes.CDLL(str(build(name)))
             _loaded[name] = lib
         return lib
-
