@@ -7,14 +7,23 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
 
 1. device: the card's name and capability (must be 9.0), and
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``;
-2. build: every kernel of volcano_tpu_torch/csrc, compiled with nvcc;
+2. build: every kernel of volcano_tpu_torch/csrc, compiled with nvcc, and
+   ptxas's registers and spills of the R = 4 gang-allocate kernels;
 3. kernel against plain on the card at 4,096 tasks x 2,048 nodes, gang 8:
    one queue; four queues with budgets from the proportion water-fill;
    three namespaces with the live namespace order off and on; tight
    capacity that forces gang rollbacks; topology buckets with releasing
-   capacity, pipelining on and off. assign, pipelined, ready, kept and
-   the final node state must match exactly, and every placement must
-   replay feasibly;
+   capacity, pipelining on and off; then gang 1 (a table refresh every
+   step), gang 20 (longer than the table's chunk of 16, so it refreshes
+   inside a job, over tight capacity), a ragged node count (2,100, not
+   a multiple of the cluster's 8 blocks x 32), mixed gangs (pod caps,
+   padding tasks and a group change inside a job's span, rollbacks
+   followed by a job of the same group) and buckets shared by
+   neighbouring jobs. assign, pipelined, ready, kept and the final node
+   state must match exactly, and every placement must replay feasibly;
+   the kernel's count of table refreshes must equal that of its plain
+   model, ops/allocate.py:gang_allocate_chunked, whose counts by cause
+   show that the refreshes each case aims at happened;
 4. the main path at full size: DenseSolver.place on
    synth_arrays(50_000, 10_000, gang_size=8, seed=42, utilization=0.3),
    one warm-up and three timed runs, with every launch count set to 0
@@ -23,8 +32,14 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
 5. the kernel against its plain version on the main path's own inputs,
    each timed once, and the bound of the kernel's work; then the kernel's
    time per step at 50,000 tasks over fewer nodes;
-6. the kernels line, then the card's nvidia-smi line, then
-   {"ok": true, "device": {...}} as the last line.
+6. the table's worst case: 50,000 tasks of gang 1 over 10,000 nodes, the
+   kernel alone after a warm-up (no plain run: it would take minutes),
+   feasible and gang-atomic; with the gang-8 main-path inputs it splits
+   the kernel's time into microseconds per refresh and per served step;
+7. the kernels line (with the table refreshes, the cluster's blocks and
+   each block's shared memory, as the main path's launch reported them),
+   then the card's nvidia-smi line, then {"ok": true, "device": {...}} as
+   the last line.
 
 Any failed check exits non-zero before the last line. Without a CUDA
 device, or without the volcano_tpu_torch package beside it, it exits
@@ -34,6 +49,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -48,7 +64,8 @@ if not torch.cuda.is_available():
 from volcano_tpu_torch import convert  # noqa: E402
 from volcano_tpu_torch.framework.solver import DenseSolver  # noqa: E402
 from volcano_tpu_torch.ops import allocate, build  # noqa: E402
-from volcano_tpu_torch.ops.cuda_allocate import gang_allocate_cuda  # noqa: E402
+from volcano_tpu_torch.ops.cuda_allocate import (  # noqa: E402
+    gang_allocate_cuda)
 from volcano_tpu_torch.ops.fairshare import proportion_waterfill  # noqa: E402
 from volcano_tpu_torch.ops.score import ScoreWeights  # noqa: E402
 from volcano_tpu_torch.utils.synth import synth_arrays  # noqa: E402
@@ -182,13 +199,88 @@ def mid_cases():
     packed.node_idle *= np.float32(0.3)
     packed.node_future[:] = np.minimum(packed.node_idle * 4, packed.node_alloc)
     packed.job_ready_base[::5] = 2
+    gang1 = synth_arrays(n, m, gang_size=1, seed=6, utilization=0.3)
+    gang20 = synth_arrays(n, m, gang_size=20, seed=7, utilization=0.6)
+    gang20.node_idle *= np.float32(0.2)
+    gang20.node_future[:] = gang20.node_idle
+    ragged = synth_arrays(n, 2100, gang_size=g, seed=8, utilization=0.3,
+                          node_pad_to=2100)
+    # the second half of every other job takes the next job's group, a
+    # sixth of the tasks are padding, minAvailable varies and pod caps bite
+    rng = np.random.default_rng(9)
+    mixed = synth_arrays(n, m, gang_size=g, seed=9, utilization=0.6)
+    jobs = int((mixed.job_n_tasks > 0).sum())
+    for j in range(0, jobs - 1, 2):
+        s = mixed.job_task_start[j]
+        mixed.task_group[s + g // 2:s + g] = mixed.task_group[s] + 1
+    real = np.flatnonzero(mixed.task_valid)
+    mixed.task_valid[rng.choice(real, len(real) // 6, replace=False)] = False
+    mixed.job_min_available[:jobs] = rng.integers(1, g + 1, jobs)
+    mixed.node_max_tasks[:] = rng.integers(0, 40, mixed.node_idle.shape[0])
+    mixed.node_idle *= np.float32(0.2)
+    mixed.node_future[:] = mixed.node_idle
+    # neighbouring groups share a bucket, so a job's mates count into the
+    # next job's pack row
+    shared = synth_arrays(n, m, gang_size=g, seed=10, utilization=0.4)
+    groups = np.arange(shared.group_req.shape[0])
+    bucket = np.where(groups % 5 == 0, -1, (groups // 2) % 3)
+    shared.task_bucket[:] = np.where(shared.task_valid,
+                                     bucket[shared.task_group], -1)
+    shared.group_pack_bonus[:] = rng.uniform(0.0, 8.0, groups.shape[0])
     return [("one_queue", one_q, False, True),
             ("four_queues", four_q, False, True),
             ("three_namespaces", three_ns, False, True),
             ("three_namespaces_live", three_ns, True, True),
             ("tight_capacity", tight, False, True),
             ("buckets_pipelined", packed, False, True),
-            ("buckets_no_pipeline", packed, False, False)]
+            ("buckets_no_pipeline", packed, False, False),
+            ("gang1", gang1, False, True),
+            ("gang20", gang20, False, True),
+            ("ragged_nodes", ragged, False, True),
+            ("mixed_gangs", mixed, False, True),
+            ("buckets_shared", shared, False, True)]
+
+
+# the refresh causes (gang_allocate_chunked's counts) a mid case is built
+# to reach
+AIMS = {"gang20": ("in_job",), "mixed_gangs": ("forced", "in_job"),
+        "buckets_shared": ("bucket_carried",)}
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel: {registers, spill_stores, spill_loads}} from the ptxas
+    report, for the R = 4 instantiations (the shapes chip_smoke runs)."""
+    usage, name = {}, None
+    for text in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", text)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or "gang_allocate_kernelILi4E" not in name:
+            continue
+        key = "R4_B" + re.search(r"ILi4ELi(\d+)E", name).group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      text)
+        if m:
+            usage.setdefault(key, {}).update(spill_stores=int(m.group(1)),
+                                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", text)
+        if m:
+            usage.setdefault(key, {})["registers"] = int(m.group(1))
+            name = None
+    return usage
+
+
+def launch_stats() -> dict:
+    """What the kernel's last launch reported of itself."""
+    n, blocks, shared = gang_allocate_cuda.last_stats.tolist()
+    return {"refreshes": n, "cluster_blocks": blocks,
+            "shared_bytes_per_block": shared}
+
+
+def refreshes() -> int:
+    """Table refreshes of the kernel's last launch."""
+    return launch_stats()["refreshes"]
 
 
 def timed(fn):
@@ -218,7 +310,8 @@ def main() -> None:
 
     t0 = time.perf_counter()
     libs = build.build_all()
-    line("build", seconds=time.perf_counter() - t0, libraries=sorted(libs))
+    line("build", seconds=time.perf_counter() - t0, libraries=sorted(libs),
+         ptxas=ptxas_usage(build.report("gang_allocate")))
 
     # ---- 3. kernel against plain at the mid size
     mid = {}
@@ -229,10 +322,21 @@ def main() -> None:
         kw = dict(ns_live=ns_live, allow_pipeline=pipe)
         gang_allocate_cuda(*args, w, **kw)                # warm-up
         got, ms = timed(lambda: gang_allocate_cuda(*args, w, **kw))
+        stats = launch_stats()
         want, plain_ms = timed(lambda: allocate.gang_allocate(*args, w, **kw))
         res = compare(sa, got, want, case)
+        # the plain model of the kernel's table refreshes by the same rule
+        causes = allocate.gang_allocate_chunked(*args, w, **kw)[5]
+        if causes["total"] != stats["refreshes"]:
+            fail(f"{case}: the kernel refreshed its table "
+                 f"{stats['refreshes']} times, its plain model "
+                 f"{causes['total']} times")
+        for cause in AIMS.get(case, ()):
+            if causes[cause] == 0:
+                fail(f"{case}: no refresh of cause {cause}")
         mid[case] = {**res, "ms": ms, "plain_ms": plain_ms,
-                     "pipelined": int(to_np(got[1]).sum())}
+                     "pipelined": int(to_np(got[1]).sum()), **stats,
+                     "refresh_causes": causes}
         line("kernel_vs_plain", case=case, shape=sa.shapes, **kw,
              **mid[case])
 
@@ -251,7 +355,8 @@ def main() -> None:
         t0 = time.perf_counter()
         out = solver.place()
         torch.cuda.synchronize(dev)
-        runs.append(((time.perf_counter() - t0) * 1000.0, out.kernel_ms))
+        runs.append(((time.perf_counter() - t0) * 1000.0, out.kernel_ms,
+                     launch_stats()))
     launches = gang_allocate_cuda.launches
     if launches == 0:
         fail("the main path never launched the gang_allocate kernel")
@@ -274,8 +379,10 @@ def main() -> None:
     line("main_path", shape=sa.shapes, setup_s=setup_s,
          launches=launches, placed=placed, ready_jobs=int(ready.sum()),
          kept_jobs=int(kept.sum()),
-         kernel_ms=[k for _, k in timed_runs],
-         place_ms=[p for p, _ in timed_runs], warmup_place_ms=runs[0][0],
+         kernel_ms=[k for _, k, _ in timed_runs],
+         place_ms=[p for p, _, _ in timed_runs],
+         refreshes=[n["refreshes"] for _, _, n in timed_runs],
+         warmup_place_ms=runs[0][0],
          max_memory_allocated=torch.cuda.max_memory_allocated(dev))
 
     # ---- 5. the kernel against plain on the main path's inputs
@@ -293,23 +400,29 @@ def main() -> None:
     a1, a2 = to_np(got[0]), to_np(want[0])
     max_abs_err = max(full["state_max_abs_err"],
                       float(np.abs(a1.astype(np.float64) - a2).max()))
+    n_refresh = refreshes()
+    main_stats = runs[-1][2]
+    if main_stats["cluster_blocks"] < 2:
+        fail("the main path's kernel launch ran as a single block")
+    if main_stats["refreshes"] != n_refresh:
+        fail("the main path's launch and the kernel run alone refreshed "
+             "their tables a different number of times")
     # bound: each input read once and each output written once, against
-    # the operations of the steps this run took over every node
+    # the operations this run's data needs: every node scored at each
+    # refresh, and at most two table rows rescored at each step
     in_bytes = sum(x.numel() * x.element_size() for x in args)
     out_bytes = sum(x.numel() * x.element_size() for x in got[:4])
     steps = int(sa.job_n_tasks.sum())
     N, R = sa.node_idle.shape
-    ops = steps * N * OPS_PER_NODE_STEP_R4 * R / 4
+    node_ops = OPS_PER_NODE_STEP_R4 * R / 4
+    ops = (n_refresh * N + 2 * steps) * node_ops
     bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_OPS_PER_S * 1e3
     no_fma_ops_ms = ops / FP32_NO_FMA_OPS_PER_S * 1e3
-    # the floor of this design: each step re-reads the node state (16
-    # words a node at R=4) from memory
-    sweep_floor_ms = steps * N * 16 * 4 / HBM_BYTES_PER_S * 1e3
     line("kernel_vs_plain", case="main_path_inputs", shape=sa.shapes, **full,
-         kernel_ms=kernel_runs, plain_ms=plain_ms, bytes_ms=bytes_ms,
-         ops_ms=ops_ms, no_fma_ops_ms=no_fma_ops_ms,
-         sweep_floor_ms=sweep_floor_ms, steps=steps)
+         kernel_ms=kernel_runs, refreshes=n_refresh, plain_ms=plain_ms,
+         bytes_ms=bytes_ms, ops_ms=ops_ms, no_fma_ops_ms=no_fma_ops_ms,
+         steps=steps)
 
     # where the step's time goes: the same task count over fewer nodes
     # separates the per-step fixed cost from the per-node sweep
@@ -326,6 +439,36 @@ def main() -> None:
     line("sweep_scaling", steps=steps,
          us_per_step={n: ms * 1e3 / steps for n, ms in scaling.items()})
 
+    # ---- 6. the table's worst case: gang 1 changes group every step, so
+    # every step refreshes
+    worst = synth_arrays(FULL["n_tasks"], FULL["n_nodes"], gang_size=1,
+                         seed=42, utilization=0.3)
+    t, _ = convert.from_reference(worst.as_dict(), None, dev)
+    w_args = convert.args(t)
+    gang_allocate_cuda(*w_args, solver.weights)              # warm-up
+    worst_runs = [timed(lambda: gang_allocate_cuda(*w_args, solver.weights))
+                  for _ in range(3)]
+    w_out = worst_runs[-1][0]
+    w_refresh = refreshes()
+    if not replay_feasible(worst, to_np(w_out[0]), to_np(w_out[1])):
+        fail("gang 1: placements do not replay feasibly")
+    if not gang_atomic(worst, to_np(w_out[0]), to_np(w_out[2]),
+                       to_np(w_out[3])):
+        fail("gang 1: the result is not gang-atomic")
+    w_steps = int(worst.job_n_tasks.sum())
+    w_ms = min(ms for _, ms in worst_runs)
+    # t = refreshes * x + steps * y over the two runs: x is what a refresh
+    # adds to a step, y a served step (job boundaries folded in)
+    k_ms = min(kernel_runs)
+    per_refresh_us = ((w_ms - k_ms * w_steps / steps) * 1e3
+                      / (w_refresh - n_refresh * w_steps / steps))
+    per_step_us = (k_ms * 1e3 - n_refresh * per_refresh_us) / steps
+    line("refresh_worst_case", shape=worst.shapes, steps=w_steps,
+         refreshes=w_refresh, kernel_ms=[ms for _, ms in worst_runs],
+         placed=int((to_np(w_out[0]) >= 0).sum()),
+         us_per_refresh=per_refresh_us, us_per_served_step=per_step_us,
+         gang8_refreshes=n_refresh, gang8_steps=steps)
+
     kernels = [{
         "name": "gang_allocate", "route": "cuda",
         "source": "volcano_tpu_torch/csrc/gang_allocate.cu",
@@ -335,10 +478,12 @@ def main() -> None:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
-        "no_fma_ops_ms": no_fma_ops_ms, "sweep_floor_ms": sweep_floor_ms,
+        "no_fma_ops_ms": no_fma_ops_ms, **main_stats,
+        "worst_case_ms": w_ms, "worst_case_refreshes": w_refresh,
         "shape": sa.shapes, "checked_against_plain": True,
         "assign_mismatches": full["assign_mismatches"],
         "mid_cases": {k: {"ms": v["ms"], "plain_ms": v["plain_ms"],
+                          "refreshes": v["refreshes"],
                           "assign_mismatches": v["assign_mismatches"]}
                       for k, v in mid.items()}}]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -82,6 +82,66 @@ def test_ctypes_declaration_matches_c_entry_point():
     assert len(ints) == cuda_allocate._N_INTS
 
 
+def _c_expr(expr, names):
+    """A C integer expression of the kernel source, evaluated."""
+    return eval(" ".join(expr.split()).replace("/", "//"), {}, dict(names))
+
+
+def _c_constants():
+    src = (ROOT / "volcano_tpu_torch/csrc/gang_allocate.cu").read_text()
+    names = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", src):
+        try:
+            names[name] = _c_expr(expr, names)
+        except (NameError, SyntaxError):   # K = 2 * kC * B, kRefresh = 0, ..
+            pass
+    return src, names
+
+
+def test_cluster_plan_mirrors_the_kernel_layout():
+    """The plan's constants are the kernel's, and its shared size is the
+    kernel's shared_words for the same arguments."""
+    src, c = _c_constants()
+    assert c["kC"] == cuda_allocate.CHUNK
+    assert c["kThreads"] == cuda_allocate.THREADS
+    assert c["kWarps"] == cuda_allocate.WARPS
+    assert c["kDescWords"] == cuda_allocate.DESC_WORDS
+    assert c["kReqWords"] == cuda_allocate.REQ_WORDS
+    body = re.search(r"inline int shared_words\(.*?\)\s*\{\s*return(.*?);",
+                     src, re.S).group(1)
+    for nb, blocks, r, q, ns, p in ((1280, 8, 4, 8, 1, 8),
+                                    (640, 16, 8, 3, 2, 6), (8, 8, 2, 1, 1, 1)):
+        words = _c_expr(body, dict(c, nb=nb, blocks=blocks, R=r, Q=q, NS=ns,
+                                   P=p))
+        assert cuda_allocate.shared_bytes(nb, blocks, r, q, ns, p) \
+            == 4 * words
+
+
+@pytest.mark.parametrize("r", range(2, 9))
+def test_cluster_plan_per_resource_count(r):
+    plan = cuda_allocate.cluster_plan(10_240, r, 8, 1, 8)
+    assert plan.blocks == 16
+    assert plan.nodes_per_block == 640
+    assert plan.shared_bytes == cuda_allocate.shared_bytes(640, 16, r, 8, 1, 8)
+    # 8 blocks while one holds a pass of 512 nodes, else 16
+    small = cuda_allocate.cluster_plan(4096, r, 8, 1, 8)
+    assert (small.blocks, small.nodes_per_block) == (8, 512)
+    assert cuda_allocate.cluster_plan(4097, r, 8, 1, 8).blocks == 16
+    assert cuda_allocate.cluster_plan(2100, r, 8, 1, 8).nodes_per_block == 263
+    limit = cuda_allocate.node_limit(r, 8, 1, 8)
+    assert cuda_allocate.cluster_plan(limit, r, 8, 1, 8).shared_bytes \
+        <= cuda_allocate.MAX_SHARED_BYTES
+    with pytest.raises(ValueError, match=f"limit of {limit} nodes"):
+        cuda_allocate.cluster_plan(limit + 1, r, 8, 1, 8)
+
+
+def test_node_limit_covers_large_clusters():
+    """Kubernetes documents clusters of up to 5,000 nodes; the limit is far
+    above that and above the 10,240-node north star."""
+    assert cuda_allocate.node_limit(4, 8, 1, 8) >= 32_768
+    assert cuda_allocate.node_limit(8, 8, 1, 8) >= 16_384
+
+
 def test_check_inputs_accepts_the_snapshot_and_rejects_the_rest():
     sa, args, _ = _inputs(0)
     T, G, J, P, NS, N, R = check_inputs(args)
@@ -107,7 +167,7 @@ def test_check_inputs_accepts_the_snapshot_and_rejects_the_rest():
 @pytest.fixture
 def fake_toolchain(tmp_path, monkeypatch):
     """A csrc/ with one source and an nvcc stand-in that writes its -o
-    file and logs each call."""
+    file and a ptxas line, and logs each call."""
     src = tmp_path / "csrc"
     src.mkdir()
     (src / "k.cu").write_text("// kernel\n")
@@ -118,6 +178,7 @@ def fake_toolchain(tmp_path, monkeypatch):
     nvcc.write_text(
         "#!/bin/sh\n"
         f"echo call >> {log}\n"
+        "echo 'ptxas info    : Used 1 registers'\n"
         "if grep -q FAIL \"$(eval echo \\${$#})\"; then "
         "echo 'error: bad'; exit 2; fi\n"
         "while [ $# -gt 0 ]; do if [ \"$1\" = -o ]; then "
@@ -134,6 +195,7 @@ def test_build_caches_by_content(fake_toolchain):
     assert build.sources() == ["k"]
     first = build.build_all()["k"]
     assert first.exists() and first.parent.name == "_build"
+    assert "Used 1 registers" in build.report("k")   # kept beside it
     assert build.build("k") == first                # cached: no new call
     assert log.read_text().count("call") == 1
     (src / "k.cu").write_text("// kernel, changed\n")

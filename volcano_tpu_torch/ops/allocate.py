@@ -13,6 +13,11 @@ non-overused queue inside it, then that (namespace, queue) pool's next job.
 (csrc/gang_allocate.cu): the CPU tests run it, and it is what the kernel is
 held against on the card. It is a Python loop over the task steps, so it is
 slow at full size; ops/cuda_allocate.py is the path that runs there.
+
+``gang_allocate_chunked`` computes the same function by the kernel's own
+decision procedure (a top-C candidate table, refreshed by rule), so that the CPU tests can hold that procedure to the
+plain loop and to the JAX package's chunked scan. Nothing on the main path
+calls it.
 """
 
 from __future__ import annotations
@@ -252,3 +257,203 @@ def gang_allocate(task_group: torch.Tensor,      # [T] i32
     return (assign_t, pipelined_t,
             torch.tensor(ready, dtype=torch.bool, device=dev),
             torch.tensor(kept, dtype=torch.bool, device=dev), state)
+
+
+class _Table(NamedTuple):
+    """The candidate table: K = 2 * chunk rows, each a copy of one node's
+    state (rows of a node in both fit classes are kept equal)."""
+    gidx: torch.Tensor       # [K] i64 node index
+    live: torch.Tensor       # [K] bool the row holds a candidate
+    static: torch.Tensor     # [K] f32 static score of the refresh's group
+    pack: torch.Tensor       # [K] f32 pack row at the refresh, plus hits
+    n_tasks: torch.Tensor    # [K] i32
+    max_tasks: torch.Tensor  # [K] i32
+    idle: torch.Tensor       # [K, R] f32
+    future: torch.Tensor     # [K, R] f32
+    alloc: torch.Tensor      # [K, R] f32
+
+
+def _refresh(chunk: int, req, mask_row, static_row, bonus, pack, idle,
+             future, n_tasks, node_alloc, node_max_tasks, eps, weights,
+             allow_pipeline: bool) -> _Table:
+    """The top ``chunk`` fitting nodes per class (idle, then future), by
+    score descending and node index ascending."""
+    base_ok = mask_row & ((node_max_tasks == 0) | (n_tasks < node_max_tasks))
+    fits_idle = torch.all(req[None, :] <= idle + eps[None, :], dim=-1) \
+        & base_ok
+    fits_future = torch.all(req[None, :] <= future + eps[None, :], dim=-1) \
+        & base_ok
+    if not allow_pipeline:
+        fits_future = torch.zeros_like(fits_future)
+    score = node_score(req, idle, node_alloc, weights,
+                       static_row + pack * bonus)
+    rows, live = [], []
+    for fits in (fits_idle, fits_future):
+        keys = torch.where(fits, score, float("-inf"))
+        # a stable descending sort puts equal scores in index order
+        top = torch.sort(keys, descending=True, stable=True).indices[:chunk]
+        pad = chunk - top.shape[0]
+        rows.append(torch.cat([top, top.new_zeros(pad)]))
+        live.append(torch.cat([fits[top], fits.new_zeros(pad)]))
+    g = torch.cat(rows)
+    return _Table(g, torch.cat(live), static_row[g].clone(), pack[g].clone(),
+                  n_tasks[g].clone(), node_max_tasks[g].clone(),
+                  idle[g].clone(), future[g].clone(), node_alloc[g].clone())
+
+
+def gang_allocate_chunked(task_group, task_job, task_valid, group_req,
+                          group_mask, group_static_score, task_bucket,
+                          group_pack_bonus, job_min_available, job_ready_base,
+                          job_task_start, job_n_tasks, job_queue, pool_queue,
+                          pool_ns, pool_job_start, pool_njobs, ns_weight,
+                          ns_alloc0, ns_total, queue_deserved, queue_alloc0,
+                          node_idle, node_future, node_alloc, node_ntasks,
+                          node_max_tasks, eps, weights: ScoreWeights,
+                          allow_pipeline: bool = True, ns_live: bool = False,
+                          chunk: int = 16):
+    """``gang_allocate`` by the CUDA kernel's decision procedure: the port
+    of volcano_tpu/ops/sharded.py:_sharded_body_chunked on one device, a
+    table of the top ``chunk`` nodes per fit class over all nodes (the
+    kernel's blocks each sweep a contiguous range and merge their lists
+    into this one table). Same inputs and outputs as ``gang_allocate``,
+    plus a sixth output counting the table refreshes (the kernel counts
+    its refreshes by the same rule): ``total``; ``forced``, those that only
+    the force flag called for (after a rollback, or passed on by a padding
+    step), with the group and bucket unchanged and fewer than ``chunk``
+    steps served; ``in_job``, those after a job's first step; and
+    ``bucket_carried``, those at a job's first step in the bucket of the
+    job before, whose table takes that bucket's pack row.
+
+    A refresh sweeps every node and keeps the top ``chunk`` per fit class;
+    a step is then served from the table's rows alone. A valid step
+    refreshes when the previous step rolled back a gang, when ``chunk``
+    steps have been served, or when the group or the topology bucket
+    changed; an invalid step (a job's padding) serves nothing and passes a
+    refresh it needed on to the next step. The table is exact, tie-breaks
+    included (sharded.py:277-293): only placed-on nodes change within a
+    chunk, they are in the table, and it kept ``chunk`` candidates a class
+    of which at most ``chunk - 1`` were touched."""
+    T = task_group.shape[0]
+    J = job_min_available.shape[0]
+    N = node_ntasks.shape[0]
+    dev = node_idle.device
+    select = make_pool_select(queue_deserved, pool_queue, pool_ns,
+                              pool_job_start, pool_njobs, ns_weight,
+                              ns_total, eps, ns_live)
+    tg, tv, tb = task_group.tolist(), task_valid.tolist(), task_bucket.tolist()
+    j_start, j_n = job_task_start.tolist(), job_n_tasks.tolist()
+    j_min, j_base = job_min_available.tolist(), job_ready_base.tolist()
+    p_queue, p_ns = pool_queue.tolist(), pool_ns.tolist()
+
+    idle, future, n_tasks = (node_idle.clone(), node_future.clone(),
+                             node_ntasks.clone())
+    ck_idle, ck_future, ck_ntasks = idle.clone(), future.clone(), n_tasks.clone()
+    pack = torch.zeros(N, dtype=torch.float32, device=dev)
+    q_alloc, ns_alloc = queue_alloc0.clone(), ns_alloc0.clone()
+    p_cursor = torch.zeros_like(pool_njobs)
+    assign, pipelined = [-1] * T, [False] * T
+    ready, kept = [False] * J, [False] * J
+
+    pool, job = (int(x) for x in select(q_alloc, ns_alloc, p_cursor))
+    cur_bucket = -1
+    t_off = placed = placed_alloc = 0
+    placed_res = torch.zeros_like(eps)
+    table = None
+    since, prev_g, prev_b, force = chunk, -1, -1, True
+    refreshes = dict(total=0, forced=0, in_job=0, bucket_carried=0)
+    for _ in range(T):
+        if job < 0:
+            break
+        t_idx = min(max(j_start[job] + t_off, 0), T - 1)
+        g, b = tg[t_idx], tb[t_idx]
+        valid = tv[t_idx] and t_off < j_n[job]
+        sb = b >= 0 and b == cur_bucket
+        if not sb:
+            pack.zero_()
+        changed = since >= chunk or g != prev_g or b != prev_b
+        need = force or changed
+        prev_g, prev_b = g, b
+        if not valid:
+            force = need
+        else:
+            req = group_req[g]
+            bonus = group_pack_bonus[g]
+            if need:
+                table = _refresh(chunk, req, group_mask[g],
+                                 group_static_score[g], bonus, pack, idle,
+                                 future, n_tasks, node_alloc, node_max_tasks,
+                                 eps, weights, allow_pipeline)
+                refreshes["total"] += 1
+                refreshes["forced"] += not changed
+                refreshes["in_job"] += t_off > 0
+                refreshes["bucket_carried"] += t_off == 0 and sb
+                since, force = 1, False
+            else:
+                since += 1
+            t = table
+            base = t.live & ((t.max_tasks == 0) | (t.n_tasks < t.max_tasks))
+            fits_idle = torch.all(req[None, :] <= t.idle + eps[None, :],
+                                  dim=-1) & base
+            fits_future = torch.all(req[None, :] <= t.future + eps[None, :],
+                                    dim=-1) & base
+            row_pack = t.pack if sb else torch.zeros_like(t.pack)
+            score = node_score(req, t.idle, t.alloc, weights,
+                               t.static + row_pack * bonus)
+            any_idle = bool(fits_idle.any())
+            cand = fits_idle if any_idle or not allow_pipeline \
+                else fits_future
+            if bool(cand.any()):
+                best = torch.where(cand, score, NEG).max()
+                sel = int(t.gidx[cand & (score == best)].min())
+                pipe = not any_idle
+                hit = t.live & (t.gidx == sel)
+                if not pipe:
+                    t.idle[hit] -= req
+                    idle[sel] -= req
+                    placed_alloc += 1
+                t.future[hit] -= req
+                t.n_tasks[hit] += 1
+                t.pack[hit] += 1.0
+                future[sel] -= req
+                n_tasks[sel] += 1
+                pack[sel] += 1.0
+                placed += 1
+                placed_res = placed_res + req
+                assign[t_idx] = sel
+                pipelined[t_idx] = pipe
+            cur_bucket = b
+        t_off += 1
+
+        if t_off < j_n[job]:
+            continue
+        is_ready = j_base[job] + placed_alloc >= j_min[job]
+        is_kept = j_base[job] + placed >= j_min[job]
+        if is_ready or is_kept:
+            ck_idle.copy_(idle)
+            ck_future.copy_(future)
+            ck_ntasks.copy_(n_tasks)
+            q_alloc[p_queue[pool]] += placed_res
+            ns_alloc[p_ns[pool]] += placed_res
+        else:
+            idle.copy_(ck_idle)
+            future.copy_(ck_future)
+            n_tasks.copy_(ck_ntasks)
+            force = True
+        p_cursor[pool] += 1
+        ready[job] = ready[job] or is_ready
+        kept[job] = kept[job] or is_kept
+        pool, job = (int(x) for x in select(q_alloc, ns_alloc, p_cursor))
+        t_off = placed = placed_alloc = 0
+        placed_res = torch.zeros_like(eps)
+
+    tj = task_job.tolist()
+    ok = [tv[t] and (ready[min(max(tj[t], 0), J - 1)]
+                     or kept[min(max(tj[t], 0), J - 1)]) for t in range(T)]
+    state = AllocState(idle, future, n_tasks, q_alloc, ns_alloc, p_cursor)
+    return (torch.tensor([a if o else -1 for a, o in zip(assign, ok)],
+                         dtype=torch.int32, device=dev),
+            torch.tensor([p and o for p, o in zip(pipelined, ok)],
+                         dtype=torch.bool, device=dev),
+            torch.tensor(ready, dtype=torch.bool, device=dev),
+            torch.tensor(kept, dtype=torch.bool, device=dev), state,
+            refreshes)

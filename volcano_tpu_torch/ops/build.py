@@ -1,9 +1,10 @@
 """Builds the CUDA kernels of csrc/ with nvcc on first use.
 
 Each ``csrc/<name>.cu`` becomes a shared library with a plain C interface,
-``_build/lib<name>-<key>.so``, loaded with ctypes. The key hashes the
-source and the flags, so a changed source rebuilds and an unchanged one
-loads the library already built. Nothing is built when the package is
+``_build/lib<name>-<key>.so``, loaded with ctypes, with the compiler's
+report (ptxas: registers, spills and shared memory of each kernel) beside
+it in ``.log``. The key hashes the source and the flags, so a changed
+source rebuilds and an unchanged one loads the library already built. Nothing is built when the package is
 imported: the first wrapper call with a CUDA tensor builds, or
 ``build_all()`` builds every kernel ahead (chip_smoke.py times it).
 """
@@ -62,13 +63,21 @@ def build(name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
     proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")],
+        [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+         str(SRC_DIR / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
                            f"{proc.returncode}\n{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stdout)
     os.replace(tmp, out)
     return out
+
+
+def report(name: str) -> str:
+    """The compiler's report of kernel ``name``'s build (built if need
+    be): ptxas's registers, spills and shared memory of each kernel."""
+    return build(name).with_suffix(".log").read_text()
 
 
 def build_all(names: List[str] = None) -> Dict[str, Path]:

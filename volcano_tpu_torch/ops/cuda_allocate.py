@@ -5,15 +5,17 @@ gang_allocate_pallas and its host preparation).
 ``gang_allocate_cuda`` takes the 28 positional inputs of
 ops.allocate.gang_allocate and returns the same outputs. Inputs on a CUDA
 device go to the kernel in csrc/gang_allocate.cu (built on first use), one
-launch per call on the current stream, without synchronising; inputs on the
-CPU go to the plain loop; any other device raises. There is no fall-back:
-a failed build or launch raises.
+launch of one thread-block cluster per call on the current stream, without
+synchronising; inputs on the CPU go to the plain loop; any other device
+raises. There is no fall-back: a failed build or launch raises, and so does
+a node count whose state does not fit the cluster's shared memory
+(``cluster_plan``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -23,8 +25,67 @@ from .score import ScoreWeights
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_N_POINTERS = 37
-_N_INTS = 8
+_N_POINTERS = 38
+_N_INTS = 12
+
+# the kernel's constants (csrc/gang_allocate.cu): candidates a block keeps
+# per fit class, warps a block, words of the step descriptor and of the
+# table's group request
+CHUNK = 16
+WARPS = 16
+DESC_WORDS = 4
+REQ_WORDS = 22
+# shared memory a block may use on an H100 (227 KB), and the cluster sizes:
+# 8 is portable, 16 needs the non-portable attribute
+MAX_SHARED_BYTES = 232_448
+CLUSTER_SIZES = (8, 16)
+# threads a block: a refresh scores one node a thread at a time, so 8
+# blocks serve up to 8 * THREADS nodes in one pass, and 16 beyond
+THREADS = 512
+
+
+class ClusterPlan(NamedTuple):
+    """How the node axis is laid over the cluster."""
+    blocks: int             # blocks in the cluster
+    nodes_per_block: int    # contiguous nodes each block owns
+    shared_bytes: int       # dynamic shared memory of each block
+
+
+def shared_bytes(nodes_per_block: int, blocks: int, r: int, q: int,
+                 ns: int, p: int) -> int:
+    """A block's dynamic shared memory (csrc/gang_allocate.cu:shared_words):
+    its nodes' state (idle, future, alloc, pod count and cap, pack and its
+    generation), the candidate table of 2 * CHUNK rows a block, the warps'
+    candidate lists, the step descriptor, the table's group request, and
+    the fair-share state of Q queues, NS namespaces and P pools."""
+    words = ((3 * r + 4) * nodes_per_block
+             + (3 * r + 7) * 2 * CHUNK * blocks
+             + WARPS * 2 * CHUNK * 2 + DESC_WORDS + REQ_WORDS
+             + (q + ns) * r + p)
+    return 4 * words
+
+
+def cluster_plan(n: int, r: int, q: int, ns: int, p: int) -> ClusterPlan:
+    """The cluster for N nodes at R resources (with Q queues, NS namespaces
+    and P pools): 8 blocks while each holds at most THREADS nodes, else 16;
+    ValueError above ``node_limit``."""
+    for blocks in CLUSTER_SIZES:
+        per_block = -(-n // blocks)
+        size = shared_bytes(per_block, blocks, r, q, ns, p)
+        if size <= MAX_SHARED_BYTES and (per_block <= THREADS
+                                         or blocks == CLUSTER_SIZES[-1]):
+            return ClusterPlan(blocks, per_block, size)
+    raise ValueError(
+        f"gang_allocate_cuda: {n} nodes at R={r} exceed the kernel's limit "
+        f"of {node_limit(r, q, ns, p)} nodes (their state must fit the "
+        f"shared memory of a {CLUSTER_SIZES[-1]}-block cluster)")
+
+
+def node_limit(r: int, q: int, ns: int, p: int) -> int:
+    """The most nodes the kernel takes at R resources."""
+    blocks = CLUSTER_SIZES[-1]
+    fixed = shared_bytes(0, blocks, r, q, ns, p)
+    return blocks * ((MAX_SHARED_BYTES - fixed) // (4 * (3 * r + 4)))
 
 
 def _lib() -> ctypes.CDLL:
@@ -118,7 +179,10 @@ def gang_allocate_cuda(task_group, task_job, task_valid, group_req,
     """Returns (assign [T] node or -1, pipelined [T] bool, ready [J] bool,
     kept [J] bool, final AllocState), as ops.allocate.gang_allocate does.
 
-    ``gang_allocate_cuda.launches`` counts the kernel launches."""
+    ``gang_allocate_cuda.launches`` counts the kernel launches;
+    ``gang_allocate_cuda.last_stats`` is what the last launch reports of
+    itself, an int32 tensor on the device: its table refreshes, the
+    cluster's blocks and each block's dynamic shared memory in bytes."""
     args: List[torch.Tensor] = [
         task_group, task_job, task_valid, group_req, group_mask,
         group_static_score, task_bucket, group_pack_bonus, job_min_available,
@@ -138,20 +202,17 @@ def gang_allocate_cuda(task_group, task_job, task_valid, group_req,
             "task_slot/slot_ok arrive with the constraints port")
 
     T, G, J, P, NS, N, R = check_inputs(args)
+    Q = queue_deserved.shape[0]
+    plan = cluster_plan(N, R, Q, NS, P)
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
     w = torch.cat([torch.stack([weights.binpack, weights.least, weights.most,
                                 weights.balanced]).reshape(4),
                    weights.binpack_res.reshape(R)]).to(device, f32)
 
-    # node state resource-major; the kernel updates these in place
-    idle = node_idle.t().contiguous()
-    future = node_future.t().contiguous()
-    alloc_rn = node_alloc.t().contiguous()
-    ntasks = node_ntasks.clone()
-    ck_idle = torch.empty_like(idle)
-    ck_future = torch.empty_like(future)
-    ck_ntasks = torch.empty_like(ntasks)
-    pack = torch.empty(N, dtype=f32, device=device)
+    idle = torch.empty_like(node_idle)
+    future = torch.empty_like(node_future)
+    ntasks = torch.empty_like(node_ntasks)
+    undo = torch.empty((T, 2 + 2 * R), dtype=f32, device=device)
     q_alloc = queue_alloc0.clone()
     ns_alloc = ns_alloc0.clone()
     p_cursor = torch.empty(P, dtype=i32, device=device)
@@ -159,28 +220,30 @@ def gang_allocate_cuda(task_group, task_job, task_valid, group_req,
     pipelined = torch.empty(T, dtype=b8, device=device)
     ready = torch.empty(J, dtype=b8, device=device)
     kept = torch.empty(J, dtype=b8, device=device)
+    stats = torch.empty(3, dtype=i32, device=device)
 
     pointers = [task_group, task_valid, task_bucket, task_job, group_req,
                 group_mask, group_static_score, group_pack_bonus,
                 job_min_available, job_ready_base, job_task_start,
                 job_n_tasks, pool_queue, pool_ns, pool_job_start, pool_njobs,
-                ns_weight, ns_total, queue_deserved, alloc_rn, node_max_tasks,
-                eps, w, idle, future, ntasks, ck_idle, ck_future, ck_ntasks,
-                pack, q_alloc, ns_alloc, p_cursor, assign, pipelined, ready,
-                kept]
+                ns_weight, ns_total, queue_deserved, node_idle, node_future,
+                node_alloc, node_ntasks, node_max_tasks, eps, w, idle, future,
+                ntasks, undo, q_alloc, ns_alloc, p_cursor, assign, pipelined,
+                ready, kept, stats]
     lib = _lib()
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.gang_allocate_launch(
         *(x.data_ptr() for x in pointers),
-        T, J, P, NS, N, R, int(bool(allow_pipeline)), int(bool(ns_live)),
-        stream)
+        T, J, P, NS, Q, N, R, int(bool(allow_pipeline)), int(bool(ns_live)),
+        *plan, stream)
     if rc != 0:
         raise RuntimeError("gang_allocate kernel launch failed: "
                            + lib.gang_allocate_error_string(rc).decode())
     gang_allocate_cuda.launches += 1
-    state = AllocState(idle.t(), future.t(), ntasks, q_alloc, ns_alloc,
-                       p_cursor)
+    gang_allocate_cuda.last_stats = stats
+    state = AllocState(idle, future, ntasks, q_alloc, ns_alloc, p_cursor)
     return assign, pipelined, ready, kept, state
 
 
 gang_allocate_cuda.launches = 0
+gang_allocate_cuda.last_stats = None
