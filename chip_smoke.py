@@ -36,10 +36,32 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
    kernel alone after a warm-up (no plain run: it would take minutes),
    feasible and gang-atomic; with the gang-8 main-path inputs it splits
    the kernel's time into microseconds per refresh and per served step;
-7. the kernels line (with the table refreshes, the cluster's blocks and
-   each block's shared memory, as the main path's launch reported them),
-   then the card's nvidia-smi line, then {"ok": true, "device": {...}} as
-   the last line.
+7. cycle_vs_plain: the scheduling cycle through the objects,
+   ``Scheduler(store, device="cuda").run_once()`` against the same cycle
+   with ``device="cpu"`` (the plain loop), each on its own store built by
+   the same seeded builders, at 4,096 tasks x 2,048 nodes in gangs of 8:
+   one queue; four queues (weights 1, 2, 4, 1, the last capped) in three
+   namespaces with drf's live namespace order; tight capacity with zone
+   selectors and NoSchedule taints, where gangs roll back. Binds must be
+   equal pod for pod and PodGroup phases gang for gang, the binds must
+   replay within every node's allocatable and every gang be
+   all-or-nothing;
+8. cycle: the port's main path through the objects at the north star's
+   size, volcano_tpu_torch.cmd.cycle.run_cycle: populate_store(10,000
+   nodes, 6,250 gangs of 8), a fresh cache, one Scheduler.run_once with
+   the default conf plus binpack; one cold and two warm runs on fresh
+   stores, the launch count set to 0 just before each cycle and read just
+   after. Each prints populate and sync seconds, the cycle's wall ms and
+   its split, the kernel's CUDA-event ms and launch report, binds (all
+   50,000), committed gangs (all 6,250) and peak device memory; the binds
+   must replay within allocatable and be gang-atomic;
+9. the kernel against its plain version on the cycle's own inputs at
+   that size (R = 2, the encode of the allocate action's phase-A batch),
+   held exactly like phase 5;
+10. the kernels line (with the table refreshes, the cluster's blocks and
+    each block's shared memory, as the main path's launch reported them,
+    and the kernel's launches per cycle), then the card's nvidia-smi line,
+    then {"ok": true, "device": {...}} as the last line.
 
 Any failed check exits non-zero before the last line. Without a CUDA
 device, or without the volcano_tpu_torch package beside it, it exits
@@ -62,12 +84,18 @@ if not torch.cuda.is_available():
     raise SystemExit(2)
 
 from volcano_tpu_torch import convert  # noqa: E402
+from volcano_tpu_torch.apiserver import ObjectStore  # noqa: E402
+from volcano_tpu_torch.cmd import cycle as cycle_cmd  # noqa: E402
 from volcano_tpu_torch.framework.solver import DenseSolver  # noqa: E402
 from volcano_tpu_torch.ops import allocate, build  # noqa: E402
 from volcano_tpu_torch.ops.cuda_allocate import (  # noqa: E402
     gang_allocate_cuda)
 from volcano_tpu_torch.ops.fairshare import proportion_waterfill  # noqa: E402
+from volcano_tpu_torch.models import objects as obj  # noqa: E402
+from volcano_tpu_torch.models.resource import Resource  # noqa: E402
 from volcano_tpu_torch.ops.score import ScoreWeights  # noqa: E402
+from volcano_tpu_torch.scheduler import Scheduler  # noqa: E402
+from volcano_tpu_torch.utils import test_utils as tu  # noqa: E402
 from volcano_tpu_torch.utils.synth import synth_arrays  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s
@@ -84,6 +112,22 @@ OPS_PER_NODE_STEP_R4 = 16 + 28 + 24 + 13
 
 MID = dict(n_tasks=4096, n_nodes=2048, gang=8)
 FULL = dict(n_tasks=50_000, n_nodes=10_000, gang=8)
+
+# the scheduler conf of the cycle phases: the default conf's plugins plus
+# binpack; ``{drf}`` takes drf's options
+CYCLE_CONF = """
+actions: "enqueue, allocate, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+- plugins:
+  - name: drf{drf}
+  - name: predicates
+  - name: proportion
+  - name: nodeorder
+  - name: binpack
+"""
 
 
 def fail(msg: str) -> None:
@@ -283,6 +327,106 @@ def refreshes() -> int:
     return launch_stats()["refreshes"]
 
 
+def cycle_store(case: str, seed: int) -> ObjectStore:
+    """A store of MID's size for the cycle_vs_plain phase, built from a
+    seed with the port's builders: 512 gangs of 8 whose requests vary by
+    job over 2,048 nodes. ``four_queues``: queues of weights 1, 2, 4 and 1,
+    the last capped, in three namespaces of weights 1, 2 and 4.
+    ``tight``: small nodes that cannot hold every gang, a zone selector on
+    a quarter of the jobs, a NoSchedule taint on a fifth of the nodes that
+    a third of the jobs tolerate."""
+    rng = np.random.default_rng(seed)
+    n_nodes, n_jobs, gang = MID["n_nodes"], MID["n_tasks"] // 8, MID["gang"]
+    store = ObjectStore()
+    queues, namespaces = [("default", 1, None)], ["default"]
+    if case == "four_queues":
+        queues = [("q0", 1, None), ("q1", 2, None), ("q2", 4, None),
+                  ("q3", 1, {"cpu": "1500", "memory": "3000Gi"})]
+        namespaces = ["ns-a", "ns-b", "ns-c"]
+        for ns, weight in zip(namespaces, (1, 2, 4)):
+            store.create("resourcequotas", obj.ResourceQuota(
+                metadata=obj.ObjectMeta(name=f"weight-{ns}", namespace=ns),
+                hard={"namespace.weight": str(weight)}))
+    for name, weight, cap in queues:
+        q = tu.build_queue(name, weight=weight, capability=cap)
+        q.metadata.creation_timestamp = 1.0
+        store.create("queues", q)
+    tight = case == "tight"
+    for i in range(n_nodes):
+        cpu = int(rng.integers(2, 7) if tight else rng.integers(4, 13))
+        node = tu.build_node(
+            f"node-{i:05d}", {"cpu": str(cpu), "memory": f"{4 * cpu}Gi",
+                              "pods": "110"},
+            labels={"zone": f"z{i % 3}", "rack": f"rack-{i % 32}"})
+        if tight and i % 5 == 0:
+            node.spec.taints = [obj.Taint(key="dedicated", value="batch",
+                                          effect="NoSchedule")]
+        node.metadata.creation_timestamp = 1.0
+        store.create("nodes", node)
+    for j in range(n_jobs):
+        ns = namespaces[j % len(namespaces)]
+        pg = tu.build_pod_group(f"pg-{j}", ns, queues[j % len(queues)][0],
+                                gang, phase="Inqueue")
+        pg.metadata.creation_timestamp = 10.0 + j
+        store.create("podgroups", pg)
+        cpu_m = int(rng.integers(500, 4001))
+        mem_mi = int(rng.integers(512, 8193))
+        for t in range(gang):
+            pod = tu.build_pod(
+                ns, f"job{j}-task{t}", "", "Pending",
+                {"cpu": f"{cpu_m}m", "memory": f"{mem_mi}Mi"},
+                groupname=f"pg-{j}",
+                selector={"zone": f"z{j % 3}"} if tight and j % 4 == 1
+                else None)
+            if tight and j % 3 == 0:
+                pod.spec.tolerations = [obj.Toleration(
+                    key="dedicated", value="batch", effect="NoSchedule")]
+            pod.metadata.creation_timestamp = 10.0 + j
+            store.create("pods", pod)
+    return store
+
+
+def cycle_outcome(store: ObjectStore):
+    """(binds pod -> node, PodGroup phases, PodGroups carrying the
+    Unschedulable condition) as read back from the store."""
+    binds = {p.metadata.key(): p.spec.node_name for p in store.list("pods")
+             if p.spec.node_name}
+    pgs = store.list("podgroups")
+    phases = {g.metadata.key(): g.status.phase for g in pgs}
+    unschedulable = sum(
+        any(c.type == "Unschedulable" and c.status == "True"
+            for c in g.status.conditions) for g in pgs)
+    return binds, phases, unschedulable
+
+
+def check_binds(store: ObjectStore, ctx: str) -> None:
+    """The binds replay feasibly against every node's allocatable (cpu,
+    memory and pod count), and every gang is all-or-nothing: a PodGroup
+    has no bound pod or at least minMember."""
+    alloc = {n.metadata.name: Resource.from_resource_list(
+        n.status.allocatable) for n in store.list("nodes")}
+    used = {name: Resource() for name in alloc}
+    count = dict.fromkeys(alloc, 0)
+    per_group: dict = {}
+    for p in store.list("pods"):
+        if not p.spec.node_name:
+            continue
+        used[p.spec.node_name].add(p.resource_request())
+        count[p.spec.node_name] += 1
+        key = (p.metadata.namespace,
+               p.metadata.annotations.get(obj.GROUP_NAME_ANNOTATION, ""))
+        per_group[key] = per_group.get(key, 0) + 1
+    for name, res in used.items():
+        if not res.less_equal(alloc[name]) or \
+                count[name] > alloc[name].max_task_num:
+            fail(f"{ctx}: the binds on {name} exceed its allocatable")
+    for g in store.list("podgroups"):
+        n = per_group.get((g.metadata.namespace, g.metadata.name), 0)
+        if 0 < n < g.spec.min_member:
+            fail(f"{ctx}: gang {g.metadata.key()} bound {n} of "
+                 f"{g.spec.min_member} pods")
+
+
 def timed(fn):
     """(result, ms) of fn() with CUDA events, synchronised."""
     start = torch.cuda.Event(enable_timing=True)
@@ -292,6 +436,134 @@ def timed(fn):
     end.record()
     end.synchronize()
     return out, start.elapsed_time(end)
+
+
+def cycle_vs_plain() -> None:
+    """Phase 7: the cycle through the objects on the GPU against the same
+    cycle with the plain loop on the CPU, at MID's size, in three cases;
+    binds and PodGroup phases must be equal."""
+    for case, seed, drf in (("one_queue", 1, ""),
+                            ("four_queues", 2,
+                             "\n    enableNamespaceOrder: true"),
+                            ("tight", 3, "")):
+        conf = CYCLE_CONF.format(drf=drf)
+        res = {}
+        for device in ("cuda", "cpu"):
+            store = cycle_store(case, seed)
+            sched = Scheduler(store, scheduler_conf=conf, device=device)
+            sched.cache.run()
+            launches0 = gang_allocate_cuda.launches
+            t0 = time.perf_counter()
+            sched.run_once()
+            res[device] = (cycle_outcome(store),
+                           (time.perf_counter() - t0) * 1000.0,
+                           gang_allocate_cuda.launches - launches0,
+                           sched.last_cycle)
+            check_binds(store, f"cycle_vs_plain {case} on {device}")
+        (k_binds, k_phases, k_unsched), k_ms, k_launches, k_split = \
+            res["cuda"]
+        (p_binds, p_phases, p_unsched), p_ms, p_launches, _ = res["cpu"]
+        if k_launches < 1 or p_launches != 0:
+            fail(f"cycle_vs_plain {case}: {k_launches} kernel launches on "
+                 f"the GPU cycle, {p_launches} on the CPU cycle")
+        diff = sum(k_binds.get(k) != p_binds.get(k)
+                   for k in set(k_binds) | set(p_binds))
+        phase_diff = sum(k_phases[k] != p_phases.get(k) for k in k_phases)
+        if diff or phase_diff or k_unsched != p_unsched:
+            fail(f"cycle_vs_plain {case}: {diff} binds and {phase_diff} "
+                 f"PodGroup phases differ between the kernel's cycle and "
+                 f"the plain loop's")
+        committed = sum(v == "Running" for v in k_phases.values())
+        if not k_binds or (case == "tight" and k_unsched == 0):
+            fail(f"cycle_vs_plain {case}: {len(k_binds)} binds, "
+                 f"{k_unsched} rolled-back gangs")
+        line("cycle_vs_plain", case=case, pods=MID["n_tasks"],
+             nodes=MID["n_nodes"], binds=len(k_binds),
+             committed_gangs=committed, rolled_back_gangs=k_unsched,
+             bind_mismatches=diff, phase_mismatches=phase_diff,
+             kernel_launches=k_launches, cycle_ms=k_ms, plain_cycle_ms=p_ms,
+             kernel_ms=[pl["kernel_ms"] for pl in k_split["places"]])
+
+
+def cycle(dev):
+    """Phase 8: the port's main path through the objects at the north
+    star's size, one cold cycle and two warm ones on fresh stores, the
+    launch count set to 0 just before each cycle and read just after.
+    Returns (launches per cycle, the cycles' lines)."""
+    cycles = []
+    cycle_launches = []
+    for i in range(3):          # one cold cycle, then warm ones
+        gang_allocate_cuda.launches = 0
+        r = cycle_cmd.run_cycle(FULL["n_tasks"], FULL["n_nodes"], 1, dev)
+        cycle_launches.append(gang_allocate_cuda.launches)
+        store = r.pop("store")
+        if r["binds"] != FULL["n_tasks"] or \
+                r["committed_gangs"] != FULL["n_tasks"] // FULL["gang"]:
+            fail(f"cycle: {r['binds']} binds and {r['committed_gangs']} "
+                 f"committed gangs")
+        check_binds(store, "cycle")
+        if cycle_launches[-1] != len(r["places"]):
+            fail(f"cycle: {cycle_launches[-1]} kernel launches for "
+                 f"{len(r['places'])} placements")
+        del store
+        cycles.append(r)
+        line("cycle", run="cold" if i == 0 else f"warm{i}",
+             shape={"tasks": FULL["n_tasks"], "nodes": FULL["n_nodes"],
+                    "gang": FULL["gang"]},
+             kernel_launches=cycle_launches[-1], **r)
+    return cycle_launches, cycles
+
+
+def cycle_inputs_vs_plain(dev) -> dict:
+    """Phase 9: the kernel against its plain version on the cycle's own
+    inputs at the north star's size: a fresh store as phase 8 builds it,
+    one session on the GPU, enqueue, then the allocate action's phase-A
+    batch encoded by the session's BatchSolver; the kernel (three timed
+    runs) and the plain loop (one) on those tensors, held exactly."""
+    from volcano_tpu_torch.actions.allocate import AllocateAction
+    from volcano_tpu_torch.cache import SchedulerCache
+    from volcano_tpu_torch.framework import (get_action, open_session,
+                                             parse_scheduler_conf)
+    from volcano_tpu_torch.utils.synth import populate_store
+    store = ObjectStore()
+    populate_store(store, n_nodes=FULL["n_nodes"],
+                   n_jobs=FULL["n_tasks"] // FULL["gang"],
+                   gang_size=FULL["gang"])
+    cache = SchedulerCache(store)
+    cache.run()
+    conf = parse_scheduler_conf(cycle_cmd.CONF)
+    ssn = open_session(cache, conf.tiers, conf.configurations, device=dev)
+    get_action("enqueue").execute(ssn)
+    act = AllocateAction()
+    jobs = []
+    for job in act._ordered_jobs(ssn):
+        tasks = act._pending_tasks(ssn, job)
+        if tasks:
+            need = max(0, job.min_available - job.ready_task_num())
+            jobs.append((job, tasks[:need]))
+    _, _, dense = ssn.solver._context(jobs, dev)
+    args = convert.args(dense.arrays)
+    args[list(convert.FIELDS).index("group_mask")] = dense.static_mask()
+    kw = dict(ns_live=ssn.solver._ns_live)
+    gang_allocate_cuda(*args, dense.weights, **kw)           # warm-up
+    runs = [timed(lambda: gang_allocate_cuda(*args, dense.weights, **kw))
+            for _ in range(3)]
+    got = runs[-1][0]
+    stats = launch_stats()
+    want, plain_ms = timed(lambda: allocate.gang_allocate(
+        *args, dense.weights, **kw))
+    sa = type("Inputs", (), {k: to_np(v) for k, v in dense.arrays.items()})
+    res = compare(sa, got, want, "cycle inputs")
+    a1, a2 = to_np(got[0]), to_np(want[0])
+    res["max_abs_err"] = max(res["state_max_abs_err"],
+                             float(np.abs(a1.astype(np.float64) - a2).max()))
+    res.update(kernel_ms=[ms for _, ms in runs], plain_ms=plain_ms,
+               steps=int(sa.job_n_tasks.sum()), **stats)
+    line("kernel_vs_plain", case="cycle_inputs",
+         shape={"T": sa.task_group.shape[0], "G": sa.group_req.shape[0],
+                "N": sa.node_idle.shape[0], "R": sa.group_req.shape[1]},
+         **res)
+    return res
 
 
 def main() -> None:
@@ -469,6 +741,13 @@ def main() -> None:
          us_per_refresh=per_refresh_us, us_per_served_step=per_step_us,
          gang8_refreshes=n_refresh, gang8_steps=steps)
 
+    cycle_vs_plain()
+    cycle_launches, cycles = cycle(dev)
+    cyc = cycle_inputs_vs_plain(dev)
+    warm = cycles[1:]
+    cycle_kernel_ms = [sum(pl["kernel_ms"] for pl in r["places"])
+                       for r in warm]
+
     kernels = [{
         "name": "gang_allocate", "route": "cuda",
         "source": "volcano_tpu_torch/csrc/gang_allocate.cu",
@@ -479,6 +758,13 @@ def main() -> None:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
         "no_fma_ops_ms": no_fma_ops_ms, **main_stats,
+        "launches_per_cycle": cycle_launches[-1],
+        "cycle_kernel_ms": cycle_kernel_ms,
+        "cycle_ms": [r["cycle_ms"] for r in warm],
+        "cycle_inputs": {"ms": min(cyc["kernel_ms"]),
+                         "plain_ms": cyc["plain_ms"],
+                         "max_abs_err": cyc["max_abs_err"],
+                         "assign_mismatches": cyc["assign_mismatches"]},
         "worst_case_ms": w_ms, "worst_case_refreshes": w_refresh,
         "shape": sa.shapes, "checked_against_plain": True,
         "assign_mismatches": full["assign_mismatches"],

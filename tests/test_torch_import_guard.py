@@ -24,7 +24,16 @@ for name in names:
 leaked = sorted(m for m in sys.modules
                 if m == 'volcano_tpu' or m.startswith('volcano_tpu.'))
 print(len(names), leaked)
+print(' '.join(names))
 """
+
+# the packages of the scheduling cycle the walk must reach
+CYCLE_MODULES = ("volcano_tpu_torch.apiserver.store",
+                 "volcano_tpu_torch.cache.cache",
+                 "volcano_tpu_torch.actions.allocate",
+                 "volcano_tpu_torch.plugins.predicates",
+                 "volcano_tpu_torch.scheduler",
+                 "volcano_tpu_torch.cmd.cycle")
 
 
 def _is_reference(module: str) -> bool:
@@ -36,9 +45,11 @@ def test_every_port_module_imports_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    count, leaked = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 15, out.stdout
+    first, walked = out.stdout.strip().split("\n")
+    count, leaked = first.split(" ", 1)
+    assert int(count) >= 56, out.stdout
     assert leaked == "[]", leaked
+    assert set(CYCLE_MODULES) <= set(walked.split()), walked
 
 
 @pytest.mark.parametrize("path", [

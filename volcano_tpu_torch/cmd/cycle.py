@@ -1,0 +1,122 @@
+"""Run the scheduling cycle through the objects and print one JSON line.
+
+    python -m volcano_tpu_torch.cmd.cycle --tasks 50000 --nodes 10000 \\
+        [--queues 1] [--warm 1] [--device cpu]
+
+Each run builds a fresh store with ``populate_store(n_nodes, n_jobs=tasks //
+8, gang_size=8)`` over ``--queues`` queues, lets a new SchedulerCache
+ingest it, and runs one ``Scheduler.run_once`` with the default conf plus
+binpack (``enqueue, allocate, backfill``). The first run is cold (it
+builds the kernel on the GPU); ``--warm`` more runs follow, each in a
+fresh store. The line gives, per run, the populate and cache-sync seconds,
+the cycle's wall ms and its split (``Scheduler.last_cycle``: snapshot,
+open_session, each action, the allocate action's ordering, placement,
+staging and commit, close_session, and each placement's encode, solve,
+kernel and decode), the binds, the committed gangs and, on the GPU, the
+cycle's peak device memory above what the process already held.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import time
+from typing import List, Optional
+
+import torch
+
+from ..apiserver.store import ObjectStore
+from ..cache import SchedulerCache
+from ..scheduler import Scheduler
+from ..utils.platform import default_device
+from ..utils.synth import populate_store
+
+CONF = """
+actions: "enqueue, allocate, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
+  - name: nodeorder
+  - name: binpack
+"""
+
+
+def run_cycle(n_tasks: int, n_nodes: int, n_queues: int = 1,
+              device=None) -> dict:
+    """One cycle on a fresh store: populate, sync the cache, run_once.
+    Returns the timings and counts, and the store (key ``store``)."""
+    device = default_device(device)
+    queues = [(f"queue-{i}", 1) for i in range(n_queues)] \
+        if n_queues > 1 else None
+    store = ObjectStore()
+    t0 = time.perf_counter()
+    populate_store(store, n_nodes=n_nodes, n_jobs=n_tasks // 8, gang_size=8,
+                   queues=queues)
+    t1 = time.perf_counter()
+    cache = SchedulerCache(store)
+    cache.run()
+    t2 = time.perf_counter()
+    sched = Scheduler(store, scheduler_conf=CONF, cache=cache, device=device)
+    # the long-lived cluster objects are frozen out of the cyclic
+    # collector, as the scheduler's own loop does (Scheduler.run)
+    gc.collect()
+    gc.freeze()
+    try:
+        if device.type == "cuda":
+            resident = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        sched.run_once()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    finally:
+        gc.unfreeze()
+    pods = store.list("pods")
+    binds = sum(1 for p in pods if p.spec.node_name)
+    committed = sum(1 for g in store.list("podgroups")
+                    if g.status.phase == "Running")
+    out = {"populate_s": t1 - t0, "sync_s": t2 - t1,
+           **sched.last_cycle, "binds": binds, "committed_gangs": committed,
+           "store": store}
+    if device.type == "cuda":
+        # the cycle's own peak, above what the process already held
+        out["peak_device_bytes"] = \
+            torch.cuda.max_memory_allocated(device) - resident
+    cache.stop()
+    return out
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = argparse.ArgumentParser(prog="volcano_tpu_torch.cmd.cycle",
+                                 description=__doc__.splitlines()[0])
+    ap.add_argument("--tasks", type=int, default=50_000)
+    ap.add_argument("--nodes", type=int, default=10_000)
+    ap.add_argument("--queues", type=int, default=1)
+    ap.add_argument("--warm", type=int, default=1,
+                    help="warm runs after the cold one, each on a fresh "
+                         "store")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the GPU; 'cpu' runs the "
+                         "plain loop)")
+    opts = ap.parse_args(argv)
+    device = default_device(opts.device)
+    runs = []
+    for _ in range(1 + opts.warm):
+        r = run_cycle(opts.tasks, opts.nodes, opts.queues, device)
+        r.pop("store")
+        runs.append(r)
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(device)
+        if device.type == "cuda" else str(device),
+        "tasks": opts.tasks, "nodes": opts.nodes, "queues": opts.queues,
+        "cold": runs[0], "warm": runs[1:]}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,4 +1,8 @@
-"""Device selection and synthetic clusters."""
+"""Clocks, device selection, synthetic clusters and test builders.
 
-from .platform import default_device  # noqa: F401
-from .synth import SynthArrays, synth_arrays  # noqa: F401
+The submodules are imported by path (``utils.synth``, ``utils.platform``):
+importing the package itself loads only the clock, which the object model
+and the store read.
+"""
+
+from .clock import Clock, FakeClock, GLOBAL_CLOCK  # noqa: F401

@@ -1,18 +1,21 @@
-"""Synthetic dense solver inputs for benchmarks and scale tests.
+"""Synthetic clusters for benchmarks and scale tests, at two levels (this
+port's own copy of volcano_tpu/utils/synth.py):
 
-``synth_arrays`` builds what the scheduler sees after the cache snapshot
-has been encoded: a gang-heavy pending backlog over a partially utilized
-cluster, as numpy arrays. It is this port's own copy of
-volcano_tpu/utils/synth.py:synth_arrays and gives byte-identical arrays
-for the same arguments (the generator draws the same numpy bits in the
-same order), so both packages can be held against each other on one
-fixture.
+* ``synth_arrays`` builds what the scheduler sees after the cache snapshot
+  has been encoded: a gang-heavy pending backlog over a partially utilized
+  cluster, as numpy arrays. It gives byte-identical arrays to the JAX
+  package's for the same arguments (the generator draws the same numpy
+  bits in the same order), so both packages can be held against each
+  other on one fixture.
+* ``populate_store`` fills an ObjectStore with Nodes, Pods, PodGroups and
+  Queues for the whole scheduling cycle; it is deterministic by index and
+  builds the same objects as the JAX package's for the same arguments.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -205,3 +208,64 @@ def synth_arrays(n_tasks: int, n_nodes: int, *, gang_size: int = 8,
         queue_deserved=queue_deserved, queue_alloc0=queue_alloc0,
         node_idle=idle, node_future=idle.copy(), node_alloc=cap,
         node_ntasks=node_ntasks, node_max_tasks=node_max_tasks, eps=eps)
+
+
+def populate_store(store, *, n_nodes: int, n_jobs: int, gang_size: int,
+                   queues: Optional[List[Tuple[str, int]]] = None,
+                   cpu_req: str = "2", mem_req: str = "4Gi",
+                   node_cpu: str = "64", node_mem: str = "256Gi",
+                   namespace: str = "default",
+                   phase: str = "Inqueue", zones: int = 0,
+                   spread_every: int = 0,
+                   anti_every: int = 0) -> Dict[str, int]:
+    """Object-level synthetic cluster in an ObjectStore.
+
+    ``zones`` > 0 labels node i with topology.kubernetes.io/zone =
+    zone-<i % zones>; ``spread_every`` / ``anti_every`` give every Nth
+    job a hard zone topology-spread constraint / a required one-replica-
+    per-zone self-anti-affinity term (which this port's predicates refuse
+    with NotImplementedError until the constraint port). Deterministic by
+    job index, no rng."""
+    from ..models.objects import (Affinity, NodeSelectorRequirement,
+                                  PodAffinity, PodAffinityTerm,
+                                  TopologySpreadConstraint)
+    from .test_utils import (build_node, build_pod, build_pod_group,
+                             build_queue)
+    queues = queues or [("default", 1)]
+    for qname, weight in queues:
+        if store.get("queues", qname) is None:
+            store.create("queues", build_queue(qname, weight=weight))
+    for i in range(n_nodes):
+        labels = {"rack": f"rack-{i % 32}"}
+        if zones > 0:
+            labels["topology.kubernetes.io/zone"] = f"zone-{i % zones}"
+        store.create("nodes", build_node(
+            f"node-{i}", {"cpu": node_cpu, "memory": node_mem, "pods": "110"},
+            labels=labels))
+    for j in range(n_jobs):
+        qname = queues[j % len(queues)][0]
+        pg = build_pod_group(f"pg-{j}", namespace, qname, gang_size,
+                             phase=phase)
+        store.create("podgroups", pg)
+        spread = zones > 0 and spread_every > 0 and j % spread_every == 0
+        anti = zones > 0 and anti_every > 0 and not spread \
+            and j % anti_every == 1 % max(1, anti_every)
+        for t in range(gang_size):
+            pod = build_pod(
+                namespace, f"job{j}-task{t}", "", "Pending",
+                {"cpu": cpu_req, "memory": mem_req}, groupname=f"pg-{j}",
+                labels={"synth-job": f"pg-{j}"} if anti else None)
+            if spread:
+                pod.spec.topology_spread = [TopologySpreadConstraint(
+                    max_skew=1,
+                    topology_key="topology.kubernetes.io/zone",
+                    when_unsatisfiable="DoNotSchedule")]
+            elif anti:
+                pod.spec.affinity = Affinity(pod_anti_affinity=PodAffinity(
+                    required=[PodAffinityTerm(
+                        label_selector=[NodeSelectorRequirement(
+                            key="synth-job", operator="In",
+                            values=[f"pg-{j}"])],
+                        topology_key="topology.kubernetes.io/zone")]))
+            store.create("pods", pod)
+    return {"nodes": n_nodes, "jobs": n_jobs, "tasks": n_jobs * gang_size}
