@@ -19,11 +19,15 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
    a multiple of the cluster's 8 blocks x 32), mixed gangs (pod caps,
    padding tasks and a group change inside a job's span, rollbacks
    followed by a job of the same group) and buckets shared by
-   neighbouring jobs. assign, pipelined, ready, kept and the final node
-   state must match exactly, and every placement must replay feasibly;
-   the kernel's count of table refreshes must equal that of its plain
-   model, ops/allocate.py:gang_allocate_chunked, whose counts by cause
-   show that the refreshes each case aims at happened;
+   neighbouring jobs; then per-task domain slots over 8 zones
+   (utils/synth.py:zone_slots): every gang rotating over the zones, an
+   all-false row, slots with buckets, and slots over tight capacity.
+   assign, pipelined, ready, kept and the final node state must match
+   exactly, every placement must replay feasibly and lie in its task's
+   slot row; the kernel's count of table refreshes must equal that of its
+   plain model, ops/allocate.py:gang_allocate_chunked (run meanwhile on
+   the host's CPU by four worker processes), whose counts by cause show
+   that the refreshes each case aims at happened;
 4. the main path at full size: DenseSolver.place on
    synth_arrays(50_000, 10_000, gang_size=8, seed=42, utilization=0.3),
    one warm-up and three timed runs, with every launch count set to 0
@@ -42,10 +46,13 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
    the same seeded builders, at 4,096 tasks x 2,048 nodes in gangs of 8:
    one queue; four queues (weights 1, 2, 4, 1, the last capped) in three
    namespaces with drf's live namespace order; tight capacity with zone
-   selectors and NoSchedule taints, where gangs roll back. Binds must be
+   selectors and NoSchedule taints, where gangs roll back; and the
+   constrained mix (populate_store over 8 zones, every 4th gang spread
+   with max_skew 1, every 8th one replica per zone). Binds must be
    equal pod for pod and PodGroup phases gang for gang, the binds must
-   replay within every node's allocatable and every gang be
-   all-or-nothing;
+   replay within every node's allocatable, every gang be all-or-nothing,
+   every spread gang keep max_skew 1 and every anti gang one replica a
+   zone;
 8. cycle: the port's main path through the objects at the north star's
    size, volcano_tpu_torch.cmd.cycle.run_cycle: populate_store(10,000
    nodes, 6,250 gangs of 8), a fresh cache, one Scheduler.run_once with
@@ -58,10 +65,20 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
 9. the kernel against its plain version on the cycle's own inputs at
    that size (R = 2, the encode of the allocate action's phase-A batch),
    held exactly like phase 5;
-10. the kernels line (with the table refreshes, the cluster's blocks and
+10. cycle_constrained: the slot path, the constrained mix of phase 7 at
+    the north star's size (50,000 pods, 10,000 nodes), one cold and two
+    warm runs, each with the launch count set to 0 just before and read
+    just after; each prints the cycle's split with the constraint passes'
+    ms, the kernel's CUDA-event ms and table refreshes, binds and
+    committed gangs, and fails on an infeasible bind, a broken gang, or a
+    spread or anti-affinity violation; then that cycle's own kernel
+    inputs (with task_slot and slot_ok) against the plain loop once, and
+    the kernel's refreshes against the count its rule gives;
+11. the kernels line (with the table refreshes, the cluster's blocks and
     each block's shared memory, as the main path's launch reported them,
-    and the kernel's launches per cycle), then the card's nvidia-smi line,
-    then {"ok": true, "device": {...}} as the last line.
+    and the kernel's launches per cycle; a second entry for the slot
+    path), then the card's nvidia-smi line, then {"ok": true, "device":
+    {...}} as the last line.
 
 Any failed check exits non-zero before the last line. Without a CUDA
 device, or without the volcano_tpu_torch package beside it, it exits
@@ -70,7 +87,9 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
+import multiprocessing
 import re
 import subprocess
 import sys
@@ -96,7 +115,8 @@ from volcano_tpu_torch.models.resource import Resource  # noqa: E402
 from volcano_tpu_torch.ops.score import ScoreWeights  # noqa: E402
 from volcano_tpu_torch.scheduler import Scheduler  # noqa: E402
 from volcano_tpu_torch.utils import test_utils as tu  # noqa: E402
-from volcano_tpu_torch.utils.synth import synth_arrays  # noqa: E402
+from volcano_tpu_torch.utils.synth import (  # noqa: E402
+    populate_store, synth_arrays, zone_slots)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s
 # and float32 operations/s outside the tensor cores. The float32 peak
@@ -111,7 +131,13 @@ FP32_NO_FMA_OPS_PER_S = FP32_OPS_PER_S / 2
 OPS_PER_NODE_STEP_R4 = 16 + 28 + 24 + 13
 
 MID = dict(n_tasks=4096, n_nodes=2048, gang=8)
+# worker processes that run the mid cases' plain refresh model on the
+# host's CPU while the card runs the kernel and the plain loop
+MODEL_WORKERS = 4
 FULL = dict(n_tasks=50_000, n_nodes=10_000, gang=8)
+# the reference's constraint benchmark mix (bench.py:455's "heavy")
+HEAVY = dict(zones=8, spread_every=4, anti_every=8)
+ZONE_KEY = "topology.kubernetes.io/zone"
 
 # the scheduler conf of the cycle phases: the default conf's plugins plus
 # binpack; ``{drf}`` takes drf's options
@@ -207,8 +233,32 @@ def compare(sa, got, want, ctx: str) -> dict:
             "kept": int(k1.sum()), "state_max_abs_err": state_err}
 
 
+def in_slot_rows(assign: np.ndarray, slots) -> bool:
+    """Every placed task lies on a node of its slot row (no slots: True)."""
+    if slots is None:
+        return True
+    task_slot, slot_ok = slots
+    placed = np.flatnonzero(assign >= 0)
+    return bool(slot_ok[task_slot[placed], assign[placed]].all())
+
+
+def bound(args, slot_args, outputs, n_refresh: int, steps: int, N: int,
+          R: int):
+    """(bytes ms, operations ms, operations ms without FMA): each input
+    read once and each output written once over HBM, against the
+    operations this run's data needs, every node scored at each refresh
+    and at most two table rows rescored at each step."""
+    in_bytes = sum(x.numel() * x.element_size()
+                   for x in [*args, *slot_args])
+    out_bytes = sum(x.numel() * x.element_size() for x in outputs)
+    ops = (n_refresh * N + 2 * steps) * OPS_PER_NODE_STEP_R4 * R / 4
+    return ((in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
+            ops / FP32_OPS_PER_S * 1e3, ops / FP32_NO_FMA_OPS_PER_S * 1e3)
+
+
 def mid_cases():
-    """The mid-size scenarios: (name, SynthArrays, ns_live, allow_pipeline)."""
+    """The mid-size scenarios: (name, SynthArrays, ns_live, allow_pipeline,
+    (task_slot, slot_ok) or None)."""
     n, m, g = MID["n_tasks"], MID["n_nodes"], MID["gang"]
     one_q = synth_arrays(n, m, gang_size=g, seed=1, utilization=0.3)
     four_q = synth_arrays(n, m, gang_size=g, seed=2, utilization=0.3,
@@ -271,24 +321,48 @@ def mid_cases():
     shared.task_bucket[:] = np.where(shared.task_valid,
                                      bucket[shared.task_group], -1)
     shared.group_pack_bonus[:] = rng.uniform(0.0, 8.0, groups.shape[0])
-    return [("one_queue", one_q, False, True),
-            ("four_queues", four_q, False, True),
-            ("three_namespaces", three_ns, False, True),
-            ("three_namespaces_live", three_ns, True, True),
-            ("tight_capacity", tight, False, True),
-            ("buckets_pipelined", packed, False, True),
-            ("buckets_no_pipeline", packed, False, False),
-            ("gang1", gang1, False, True),
-            ("gang20", gang20, False, True),
-            ("ragged_nodes", ragged, False, True),
-            ("mixed_gangs", mixed, False, True),
-            ("buckets_shared", shared, False, True)]
+    # per-task domain slots over 8 zones: every gang rotating over them;
+    # every other gang, with an all-false row for the last task of every
+    # second such gang; with topology buckets; over tight capacity
+    rotating = synth_arrays(n, m, gang_size=g, seed=11, utilization=0.3)
+    unsat = synth_arrays(n, m, gang_size=g, seed=12, utilization=0.3)
+    slot_buckets = synth_arrays(n, m, gang_size=g, seed=13, utilization=0.5)
+    groups = np.arange(slot_buckets.group_req.shape[0])
+    bucket = np.where(groups % 3 == 0, -1, groups % 5)
+    slot_buckets.task_bucket[:] = np.where(
+        slot_buckets.task_valid, bucket[slot_buckets.task_group], -1)
+    slot_buckets.group_pack_bonus[:] = 5.0
+    slot_tight = synth_arrays(n, m, gang_size=g, seed=14, utilization=0.6)
+    slot_tight.node_idle *= np.float32(0.15)
+    slot_tight.node_future[:] = slot_tight.node_idle
+    return [("one_queue", one_q, False, True, None),
+            ("four_queues", four_q, False, True, None),
+            ("three_namespaces", three_ns, False, True, None),
+            ("three_namespaces_live", three_ns, True, True, None),
+            ("tight_capacity", tight, False, True, None),
+            ("buckets_pipelined", packed, False, True, None),
+            ("buckets_no_pipeline", packed, False, False, None),
+            ("gang1", gang1, False, True, None),
+            ("gang20", gang20, False, True, None),
+            ("ragged_nodes", ragged, False, True, None),
+            ("mixed_gangs", mixed, False, True, None),
+            ("buckets_shared", shared, False, True, None),
+            ("slots_rotating", rotating, False, True,
+             zone_slots(rotating, 8, every=1, seed=11)),
+            ("slots_all_false", unsat, False, True,
+             zone_slots(unsat, 8, every=2, unsat_every=2, seed=12)),
+            ("slots_buckets", slot_buckets, False, True,
+             zone_slots(slot_buckets, 8, every=2, seed=13)),
+            ("slots_tight", slot_tight, False, True,
+             zone_slots(slot_tight, 8, every=2, seed=14))]
 
 
 # the refresh causes (gang_allocate_chunked's counts) a mid case is built
 # to reach
 AIMS = {"gang20": ("in_job",), "mixed_gangs": ("forced", "in_job"),
-        "buckets_shared": ("bucket_carried",)}
+        "buckets_shared": ("bucket_carried",), "slots_rotating": ("slot",),
+        "slots_all_false": ("slot",), "slots_buckets": ("slot",),
+        "slots_tight": ("slot",)}
 
 
 def ptxas_usage(log: str) -> dict:
@@ -334,10 +408,15 @@ def cycle_store(case: str, seed: int) -> ObjectStore:
     the last capped, in three namespaces of weights 1, 2 and 4.
     ``tight``: small nodes that cannot hold every gang, a zone selector on
     a quarter of the jobs, a NoSchedule taint on a fifth of the nodes that
-    a third of the jobs tolerate."""
+    a third of the jobs tolerate. ``constrained``: populate_store's nodes
+    and gangs with the HEAVY constraint mix."""
     rng = np.random.default_rng(seed)
     n_nodes, n_jobs, gang = MID["n_nodes"], MID["n_tasks"] // 8, MID["gang"]
     store = ObjectStore()
+    if case == "constrained":
+        populate_store(store, n_nodes=n_nodes, n_jobs=n_jobs, gang_size=gang,
+                       **HEAVY)
+        return store
     queues, namespaces = [("default", 1, None)], ["default"]
     if case == "four_queues":
         queues = [("q0", 1, None), ("q1", 2, None), ("q2", 4, None),
@@ -427,6 +506,41 @@ def check_binds(store: ObjectStore, ctx: str) -> None:
                  f"{g.spec.min_member} pods")
 
 
+def check_constraints(store: ObjectStore, ctx: str) -> dict:
+    """Every spread gang's bound pods keep max_skew 1 over the zones, and
+    every anti-affinity gang has at most one bound pod a zone; no pod of
+    either is bound to a node without a zone. Returns the gangs checked."""
+    zone = {n.metadata.name: n.metadata.labels.get(ZONE_KEY)
+            for n in store.list("nodes")}
+    zones = sorted({z for z in zone.values() if z is not None})
+    gangs: dict = {}
+    for p in store.list("pods"):
+        aff = p.spec.affinity
+        kind = "spread" if p.spec.topology_spread else \
+            "anti" if aff is not None and aff.pod_anti_affinity is not None \
+            else None
+        if kind is None or not p.spec.node_name:
+            continue
+        key = (p.metadata.namespace,
+               p.metadata.annotations.get(obj.GROUP_NAME_ANNOTATION, ""))
+        counts = gangs.setdefault(key, (kind, {}))[1]
+        z = zone[p.spec.node_name]
+        counts[z] = counts.get(z, 0) + 1
+    n = {"spread": 0, "anti": 0}
+    for key, (kind, counts) in gangs.items():
+        n[kind] += 1
+        if None in counts:
+            fail(f"{ctx}: {kind} gang {key} bound a pod to a node without "
+                 f"a zone")
+        per_zone = [counts.get(z, 0) for z in zones]
+        if kind == "spread" and max(per_zone) - min(per_zone) > 1:
+            fail(f"{ctx}: spread gang {key} breaks max_skew 1: {counts}")
+        if kind == "anti" and max(per_zone) > 1:
+            fail(f"{ctx}: anti-affinity gang {key} has two pods in a zone: "
+                 f"{counts}")
+    return {"spread_gangs": n["spread"], "anti_gangs": n["anti"]}
+
+
 def timed(fn):
     """(result, ms) of fn() with CUDA events, synchronised."""
     start = torch.cuda.Event(enable_timing=True)
@@ -440,12 +554,12 @@ def timed(fn):
 
 def cycle_vs_plain() -> None:
     """Phase 7: the cycle through the objects on the GPU against the same
-    cycle with the plain loop on the CPU, at MID's size, in three cases;
+    cycle with the plain loop on the CPU, at MID's size, in four cases;
     binds and PodGroup phases must be equal."""
     for case, seed, drf in (("one_queue", 1, ""),
                             ("four_queues", 2,
                              "\n    enableNamespaceOrder: true"),
-                            ("tight", 3, "")):
+                            ("tight", 3, ""), ("constrained", 4, "")):
         conf = CYCLE_CONF.format(drf=drf)
         res = {}
         for device in ("cuda", "cpu"):
@@ -460,6 +574,9 @@ def cycle_vs_plain() -> None:
                            gang_allocate_cuda.launches - launches0,
                            sched.last_cycle)
             check_binds(store, f"cycle_vs_plain {case} on {device}")
+            if case == "constrained":
+                gangs = check_constraints(
+                    store, f"cycle_vs_plain {case} on {device}")
         (k_binds, k_phases, k_unsched), k_ms, k_launches, k_split = \
             res["cuda"]
         (p_binds, p_phases, p_unsched), p_ms, p_launches, _ = res["cpu"]
@@ -477,12 +594,21 @@ def cycle_vs_plain() -> None:
         if not k_binds or (case == "tight" and k_unsched == 0):
             fail(f"cycle_vs_plain {case}: {len(k_binds)} binds, "
                  f"{k_unsched} rolled-back gangs")
+        slots = [pl["slots"] for pl in k_split["places"]]
+        extra = {}
+        if case == "constrained":
+            if not gangs["spread_gangs"] or not gangs["anti_gangs"] \
+                    or not max(slots):
+                fail(f"cycle_vs_plain {case}: {gangs}, slots {slots}: the "
+                     f"slot path was not taken")
+            extra = dict(gangs, slots=slots)
         line("cycle_vs_plain", case=case, pods=MID["n_tasks"],
              nodes=MID["n_nodes"], binds=len(k_binds),
              committed_gangs=committed, rolled_back_gangs=k_unsched,
              bind_mismatches=diff, phase_mismatches=phase_diff,
              kernel_launches=k_launches, cycle_ms=k_ms, plain_cycle_ms=p_ms,
-             kernel_ms=[pl["kernel_ms"] for pl in k_split["places"]])
+             kernel_ms=[pl["kernel_ms"] for pl in k_split["places"]],
+             **extra)
 
 
 def cycle(dev):
@@ -514,21 +640,56 @@ def cycle(dev):
     return cycle_launches, cycles
 
 
-def cycle_inputs_vs_plain(dev) -> dict:
-    """Phase 9: the kernel against its plain version on the cycle's own
-    inputs at the north star's size: a fresh store as phase 8 builds it,
-    one session on the GPU, enqueue, then the allocate action's phase-A
-    batch encoded by the session's BatchSolver; the kernel (three timed
-    runs) and the plain loop (one) on those tensors, held exactly."""
+def cycle_constrained(dev):
+    """Phase 10: the slot path at the north star's size, populate_store
+    with the HEAVY mix, one cold cycle and two warm ones on fresh stores,
+    the launch count set to 0 just before each cycle and read just after.
+    Returns (launches per cycle, the cycles' results)."""
+    cycles, launches = [], []
+    for i in range(3):
+        gang_allocate_cuda.launches = 0
+        r = cycle_cmd.run_cycle(FULL["n_tasks"], FULL["n_nodes"], 1, dev,
+                                **HEAVY)
+        launches.append(gang_allocate_cuda.launches)
+        store = r.pop("store")
+        if r["binds"] != FULL["n_tasks"] or \
+                r["committed_gangs"] != FULL["n_tasks"] // FULL["gang"]:
+            fail(f"cycle_constrained: {r['binds']} binds and "
+                 f"{r['committed_gangs']} committed gangs")
+        check_binds(store, "cycle_constrained")
+        gangs = check_constraints(store, "cycle_constrained")
+        if launches[-1] != len(r["places"]) or launches[-1] < 1 or \
+                not r["places"][0]["slots"]:
+            fail(f"cycle_constrained: {launches[-1]} kernel launches for "
+                 f"{len(r['places'])} placements, slots "
+                 f"{[pl['slots'] for pl in r['places']]}")
+        del store
+        cycles.append(r)
+        line("cycle_constrained", run="cold" if i == 0 else f"warm{i}",
+             shape={"tasks": FULL["n_tasks"], "nodes": FULL["n_nodes"],
+                    "gang": FULL["gang"], **HEAVY},
+             kernel_launches=launches[-1],
+             refreshes=[pl["launch"][0] for pl in r["places"]],
+             **gangs, **r)
+    return launches, cycles
+
+
+def cycle_inputs_vs_plain(dev, constraints=None) -> dict:
+    """Phases 9 and 10: the kernel against its plain version on the
+    cycle's own inputs at the north star's size: a fresh store as phase 8
+    (``constraints``: phase 10, with that mix) builds it, one session on
+    the GPU, enqueue, then the allocate action's phase-A batch encoded by
+    the session's BatchSolver as place() encodes it; the kernel (three
+    timed runs) and the plain loop (one) on those tensors, held exactly.
+    With slots, the kernel's refreshes must equal the rule's count."""
     from volcano_tpu_torch.actions.allocate import AllocateAction
     from volcano_tpu_torch.cache import SchedulerCache
     from volcano_tpu_torch.framework import (get_action, open_session,
                                              parse_scheduler_conf)
-    from volcano_tpu_torch.utils.synth import populate_store
     store = ObjectStore()
     populate_store(store, n_nodes=FULL["n_nodes"],
                    n_jobs=FULL["n_tasks"] // FULL["gang"],
-                   gang_size=FULL["gang"])
+                   gang_size=FULL["gang"], **(constraints or {}))
     cache = SchedulerCache(store)
     cache.run()
     conf = parse_scheduler_conf(cycle_cmd.CONF)
@@ -541,10 +702,13 @@ def cycle_inputs_vs_plain(dev) -> dict:
         if tasks:
             need = max(0, job.min_available - job.ready_task_num())
             jobs.append((job, tasks[:need]))
-    _, _, dense = ssn.solver._context(jobs, dev)
+    _, _, dense = ssn.solver._context(jobs, dev, slot_tensors=True)
     args = convert.args(dense.arrays)
     args[list(convert.FIELDS).index("group_mask")] = dense.static_mask()
-    kw = dict(ns_live=ssn.solver._ns_live)
+    slot_kw = convert.slot_kwargs(dense.arrays)
+    if bool(constraints) != bool(slot_kw):
+        fail(f"cycle inputs {constraints}: slot inputs {sorted(slot_kw)}")
+    kw = dict(ns_live=ssn.solver._ns_live, **slot_kw)
     gang_allocate_cuda(*args, dense.weights, **kw)           # warm-up
     runs = [timed(lambda: gang_allocate_cuda(*args, dense.weights, **kw))
             for _ in range(3)]
@@ -553,16 +717,101 @@ def cycle_inputs_vs_plain(dev) -> dict:
     want, plain_ms = timed(lambda: allocate.gang_allocate(
         *args, dense.weights, **kw))
     sa = type("Inputs", (), {k: to_np(v) for k, v in dense.arrays.items()})
-    res = compare(sa, got, want, "cycle inputs")
+    ctx = "cycle constrained inputs" if constraints else "cycle inputs"
+    res = compare(sa, got, want, ctx)
     a1, a2 = to_np(got[0]), to_np(want[0])
     res["max_abs_err"] = max(res["state_max_abs_err"],
                              float(np.abs(a1.astype(np.float64) - a2).max()))
+    steps = int(sa.job_n_tasks.sum())
+    N, R = sa.node_idle.shape
+    bytes_ms, ops_ms, _ = bound(args, slot_kw.values(), got[:4],
+                                stats["refreshes"], steps, N, R)
     res.update(kernel_ms=[ms for _, ms in runs], plain_ms=plain_ms,
-               steps=int(sa.job_n_tasks.sum()), **stats)
-    line("kernel_vs_plain", case="cycle_inputs",
+               steps=steps, bytes_ms=bytes_ms, ops_ms=ops_ms, **stats)
+    if slot_kw:
+        slots = (sa.task_slot, sa.slot_ok)
+        if not in_slot_rows(a1, slots):
+            fail(f"{ctx}: a task was placed outside its slot row")
+        if not to_np(got[2])[:len(jobs)].all():
+            fail(f"{ctx}: a gang was not committed")
+        res.update(slots=int(sa.slot_ok.shape[0] - 1),
+                   rule_refreshes=allocate.rule_refreshes(
+                       sa.task_group, sa.task_bucket, sa.task_slot,
+                       sa.job_task_start, sa.job_n_tasks))
+        if res["rule_refreshes"] != stats["refreshes"]:
+            fail(f"{ctx}: the kernel refreshed {stats['refreshes']} times, "
+                 f"its rule gives {res['rule_refreshes']}")
+    line("kernel_vs_plain", case="cycle_constrained_inputs" if constraints
+         else "cycle_inputs",
          shape={"T": sa.task_group.shape[0], "G": sa.group_req.shape[0],
-                "N": sa.node_idle.shape[0], "R": sa.group_req.shape[1]},
-         **res)
+                "N": N, "R": R}, **res)
+    return res
+
+
+def model_refreshes(arrays: dict, ns_live: bool, allow_pipeline: bool):
+    """The plain model's table refreshes by cause
+    (ops/allocate.py:gang_allocate_chunked) on the host's CPU, in a worker
+    process. Its decisions are the plain loop's, which rounds alike on the
+    CPU and the card, so the counts are those of the model on the card."""
+    torch.set_num_threads(1)
+    t, _ = convert.from_reference(arrays, None, "cpu")
+    w = ScoreWeights.make(t["node_idle"].shape[1], binpack=1.0)
+    return allocate.gang_allocate_chunked(
+        *convert.args(t), w, ns_live=ns_live, allow_pipeline=allow_pipeline,
+        **convert.slot_kwargs(t))[5]
+
+
+def kernel_vs_plain_mid(dev) -> dict:
+    """Phase 3: the kernel against the plain loop and its refreshes
+    against the plain model's, in every mid case. The model runs in
+    MODEL_WORKERS spawned processes on the host's CPU meanwhile; all of
+    them are stopped before this returns. Returns {case: results}."""
+    cases = []
+    for case, sa, ns_live, pipe, slots in mid_cases():
+        arrays = sa.as_dict()
+        if slots is not None:
+            arrays.update(task_slot=slots[0], slot_ok=slots[1])
+        cases.append((case, sa, arrays, ns_live, pipe, slots))
+    pool = concurrent.futures.ProcessPoolExecutor(
+        MODEL_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        models = {case: pool.submit(model_refreshes, arrays, ns_live, pipe)
+                  for case, _, arrays, ns_live, pipe, _ in cases}
+        return {case: kernel_vs_plain_case(dev, case, sa, arrays, ns_live,
+                                           pipe, slots, models[case])
+                for case, sa, arrays, ns_live, pipe, slots in cases}
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def kernel_vs_plain_case(dev, case, sa, arrays, ns_live, pipe, slots,
+                         model) -> dict:
+    """One mid case of phase 3 (``model``: the future of its refresh
+    counts by cause)."""
+    t, _ = convert.from_reference(arrays, None, dev)
+    w = ScoreWeights.make(sa.group_req.shape[1], binpack=1.0, device=dev)
+    args = convert.args(t)
+    opts = dict(ns_live=ns_live, allow_pipeline=pipe)
+    kw = dict(opts, **convert.slot_kwargs(t))
+    gang_allocate_cuda(*args, w, **kw)                # warm-up
+    got, ms = timed(lambda: gang_allocate_cuda(*args, w, **kw))
+    stats = launch_stats()
+    want, plain_ms = timed(lambda: allocate.gang_allocate(*args, w, **kw))
+    res = compare(sa, got, want, case)
+    if not in_slot_rows(to_np(got[0]), slots):
+        fail(f"{case}: a task was placed outside its slot row")
+    # the plain model of the kernel's table refreshes by the same rule
+    causes = model.result()
+    if causes["total"] != stats["refreshes"]:
+        fail(f"{case}: the kernel refreshed its table {stats['refreshes']} "
+             f"times, its plain model {causes['total']} times")
+    for cause in AIMS.get(case, ()):
+        if causes[cause] == 0:
+            fail(f"{case}: no refresh of cause {cause}")
+    res.update(ms=ms, plain_ms=plain_ms, pipelined=int(to_np(got[1]).sum()),
+               **stats, refresh_causes=causes,
+               slots=0 if slots is None else len(slots[1]) - 1)
+    line("kernel_vs_plain", case=case, shape=sa.shapes, **opts, **res)
     return res
 
 
@@ -586,31 +835,7 @@ def main() -> None:
          ptxas=ptxas_usage(build.report("gang_allocate")))
 
     # ---- 3. kernel against plain at the mid size
-    mid = {}
-    for case, sa, ns_live, pipe in mid_cases():
-        t, _ = convert.from_reference(sa.as_dict(), None, dev)
-        w = ScoreWeights.make(sa.group_req.shape[1], binpack=1.0, device=dev)
-        args = convert.args(t)
-        kw = dict(ns_live=ns_live, allow_pipeline=pipe)
-        gang_allocate_cuda(*args, w, **kw)                # warm-up
-        got, ms = timed(lambda: gang_allocate_cuda(*args, w, **kw))
-        stats = launch_stats()
-        want, plain_ms = timed(lambda: allocate.gang_allocate(*args, w, **kw))
-        res = compare(sa, got, want, case)
-        # the plain model of the kernel's table refreshes by the same rule
-        causes = allocate.gang_allocate_chunked(*args, w, **kw)[5]
-        if causes["total"] != stats["refreshes"]:
-            fail(f"{case}: the kernel refreshed its table "
-                 f"{stats['refreshes']} times, its plain model "
-                 f"{causes['total']} times")
-        for cause in AIMS.get(case, ()):
-            if causes[cause] == 0:
-                fail(f"{case}: no refresh of cause {cause}")
-        mid[case] = {**res, "ms": ms, "plain_ms": plain_ms,
-                     "pipelined": int(to_np(got[1]).sum()), **stats,
-                     "refresh_causes": causes}
-        line("kernel_vs_plain", case=case, shape=sa.shapes, **kw,
-             **mid[case])
+    mid = kernel_vs_plain_mid(dev)
 
     # ---- 4. the main path at full size
     sa = synth_arrays(FULL["n_tasks"], FULL["n_nodes"],
@@ -679,18 +904,10 @@ def main() -> None:
     if main_stats["refreshes"] != n_refresh:
         fail("the main path's launch and the kernel run alone refreshed "
              "their tables a different number of times")
-    # bound: each input read once and each output written once, against
-    # the operations this run's data needs: every node scored at each
-    # refresh, and at most two table rows rescored at each step
-    in_bytes = sum(x.numel() * x.element_size() for x in args)
-    out_bytes = sum(x.numel() * x.element_size() for x in got[:4])
     steps = int(sa.job_n_tasks.sum())
     N, R = sa.node_idle.shape
-    node_ops = OPS_PER_NODE_STEP_R4 * R / 4
-    ops = (n_refresh * N + 2 * steps) * node_ops
-    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    no_fma_ops_ms = ops / FP32_NO_FMA_OPS_PER_S * 1e3
+    bytes_ms, ops_ms, no_fma_ops_ms = bound(args, [], got[:4], n_refresh,
+                                            steps, N, R)
     line("kernel_vs_plain", case="main_path_inputs", shape=sa.shapes, **full,
          kernel_ms=kernel_runs, refreshes=n_refresh, plain_ms=plain_ms,
          bytes_ms=bytes_ms, ops_ms=ops_ms, no_fma_ops_ms=no_fma_ops_ms,
@@ -744,6 +961,13 @@ def main() -> None:
     cycle_vs_plain()
     cycle_launches, cycles = cycle(dev)
     cyc = cycle_inputs_vs_plain(dev)
+    con_launches, con_cycles = cycle_constrained(dev)
+    con = cycle_inputs_vs_plain(dev, HEAVY)
+    for r in con_cycles:
+        if [pl["launch"][0] for pl in r["places"]] != [con["refreshes"]]:
+            fail("cycle_constrained: the cycle's launch and the kernel run "
+                 "on its inputs refreshed their tables a different number "
+                 "of times")
     warm = cycles[1:]
     cycle_kernel_ms = [sum(pl["kernel_ms"] for pl in r["places"])
                        for r in warm]
@@ -771,7 +995,31 @@ def main() -> None:
         "mid_cases": {k: {"ms": v["ms"], "plain_ms": v["plain_ms"],
                           "refreshes": v["refreshes"],
                           "assign_mismatches": v["assign_mismatches"]}
-                      for k, v in mid.items()}}]
+                      for k, v in mid.items()}}, {
+        "name": "gang_allocate_slots", "route": "cuda",
+        "source": "volcano_tpu_torch/csrc/gang_allocate.cu",
+        "replaces": "volcano_tpu/ops/pallas_allocate.py:55",
+        "launches": con_launches[-1], "max_abs_err": con["max_abs_err"],
+        "ms": min(con["kernel_ms"]), "plain_ms": con["plain_ms"],
+        "bound_ms": max(con["bytes_ms"], con["ops_ms"]),
+        "bound_by": "bytes" if con["bytes_ms"] >= con["ops_ms"]
+        else "operations",
+        "library_ms": None, "slots": con["slots"],
+        "refreshes": con["refreshes"],
+        "rule_refreshes": con["rule_refreshes"], "steps": con["steps"],
+        "cycle_kernel_ms": [sum(pl["kernel_ms"] for pl in r["places"])
+                            for r in con_cycles[1:]],
+        "cycle_ms": [r["cycle_ms"] for r in con_cycles[1:]],
+        "constraint_ms": [sum(pl["constraint_ms"] for pl in r["places"])
+                          for r in con_cycles[1:]],
+        "shape": {"tasks": FULL["n_tasks"], "nodes": FULL["n_nodes"],
+                  **HEAVY},
+        "checked_against_plain": True,
+        "assign_mismatches": con["assign_mismatches"],
+        "mid_cases": {k: {"ms": v["ms"], "plain_ms": v["plain_ms"],
+                          "refreshes": v["refreshes"],
+                          "assign_mismatches": v["assign_mismatches"]}
+                      for k, v in mid.items() if v["slots"]}}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ Scenarios follow tests/test_namespace_fairness.py:_scenario: tight capacity
 that forces rollbacks, finite queue budgets that drop pools, several
 namespaces with random weights and prior allocations; plus topology
 buckets with a pack bonus, pipelining on and off, and both namespace
-orders. Every case is held to exact equality of assign, pipelined, ready
+orders; plus per-task domain slots (``task_slot``/``slot_ok``): gangs
+rotating over zones, an all-false row, slots with buckets, and slots under
+tight capacity with rollbacks. Every case is held to exact equality of assign, pipelined, ready
 and kept: none needs the Pallas near-tie contract of
 tests/test_pallas_allocate.py, because on the CPU the port's score rounds
 like the reference's at every argmax these fixtures reach (the pack bonus
@@ -26,6 +28,7 @@ from volcano_tpu_torch import convert
 from volcano_tpu_torch.ops.allocate import (gang_allocate, make_pool_select,
                                             namespace_share, queue_overused,
                                             queue_share)
+from volcano_tpu_torch.utils.synth import zone_slots
 
 
 def _scenario(seed, buckets=False):
@@ -148,7 +151,69 @@ def test_pool_select_pieces_match_reference():
             assert [int(x) for x in got] == [int(x) for x in want]
 
 
-def test_task_slots_not_taken_yet():
-    sa, weights = _scenario(0)
-    with pytest.raises(NotImplementedError):
-        _port(sa, weights, task_slot=torch.zeros(1, dtype=torch.int32))
+SLOT_KINDS = ["rotating", "all_false", "buckets", "tight"]
+
+
+def slot_scenario(kind, seed=0):
+    """(SynthArrays, reference weights, task_slot, slot_ok) for one slot
+    case: zones of 4 nodes' stride, every job rotating its tasks over the
+    zones (``rotating``), every other job with the last task of every
+    second such job on the all-false row (``all_false``), every other job
+    with topology buckets and a pack bonus (``buckets``), or every other
+    job over small nodes that cannot hold every gang (``tight``)."""
+    rng = np.random.default_rng(seed + 70)
+    sa = synth_arrays(int(rng.integers(150, 300)), int(rng.integers(24, 80)),
+                      gang_size=int(rng.integers(3, 7)), seed=seed * 11 + 1,
+                      utilization=float(rng.uniform(0.1, 0.5)))
+    if kind == "buckets":
+        g = sa.group_req.shape[0]
+        gb = np.where(np.arange(g) % 3 == 0, -1, np.arange(g) % 4)
+        sa.task_bucket[:] = np.where(sa.task_valid, gb[sa.task_group], -1)
+        sa.group_pack_bonus[:] = rng.choice([0.5, 5.0, 20.0], g)
+    if kind == "tight":
+        sa.node_idle *= np.float32(0.1)
+        sa.node_future[:] = sa.node_idle
+    task_slot, slot_ok = zone_slots(
+        sa, zones=4, every=1 if kind == "rotating" else 2,
+        unsat_every=2 if kind == "all_false" else 0, seed=seed)
+    weights = RefWeights.make(sa.group_req.shape[1],
+                              binpack=float(rng.uniform(0, 2)),
+                              least=float(rng.uniform(0, 2)),
+                              balanced=float(rng.uniform(0, 2)))
+    return sa, weights, task_slot, slot_ok
+
+
+def slot_aims_reached(sa, task_slot, slot_ok, out, kind):
+    """Every placement lies in its task's slot row, and each case reaches
+    what it was built for."""
+    assign, ready, kept = (np.asarray(x) for x in (out[0], out[2], out[3]))
+    placed = np.flatnonzero(assign >= 0)
+    assert placed.size > 0
+    assert slot_ok[task_slot[placed], assign[placed]].all()
+    jobs = int((sa.job_n_tasks > 0).sum())
+    if kind == "all_false":
+        unsat_jobs = np.unique(sa.task_job[task_slot == slot_ok.shape[0] - 2])
+        assert unsat_jobs.size and not (ready | kept)[unsat_jobs].any()
+    if kind == "tight":
+        assert not (ready | kept)[:jobs].all(), "no gang rolled back"
+
+
+@pytest.mark.parametrize("seed", range(2))
+@pytest.mark.parametrize("kind", SLOT_KINDS)
+def test_slots_match_scan(kind, seed):
+    sa, weights, task_slot, slot_ok = slot_scenario(kind, seed)
+    allow_pipeline = seed == 0
+    ref = ref_gang_allocate(*[jnp.asarray(a) for a in sa.args], weights,
+                            allow_pipeline=allow_pipeline,
+                            task_slot=jnp.asarray(task_slot),
+                            slot_ok=jnp.asarray(slot_ok))
+    got = _port(sa, weights, allow_pipeline=allow_pipeline,
+                task_slot=torch.from_numpy(task_slot),
+                slot_ok=torch.from_numpy(slot_ok))
+    ctx = f"{kind} seed={seed}"
+    _assert_equal(ref, got, ctx)
+    for name in ("idle", "future", "n_tasks", "q_alloc", "p_cursor"):
+        np.testing.assert_array_equal(getattr(got[4], name).numpy(),
+                                      np.asarray(getattr(ref[4], name)),
+                                      f"{name}: {ctx}")
+    slot_aims_reached(sa, task_slot, slot_ok, got, kind)

@@ -10,7 +10,10 @@ pipelining on and off, tight capacity that forces rollbacks, gang 1 (a
 refresh every step) and gang 20 (longer than the chunk, so the table
 refreshes inside a job). Every case is held to exact equality of assign,
 pipelined, ready, kept and the final node state, at chunks from 1 (a
-refresh every step) to the kernel's 16.
+refresh every step) to the kernel's 16. The per-task domain slot cases of
+tests/test_torch_allocate.py (a slot change forces a refresh, whose mask
+takes the slot's row) are held the same way, and their refresh counts to
+the rule.
 """
 
 import functools
@@ -26,7 +29,10 @@ from volcano_tpu.ops.score import ScoreWeights as RefWeights
 from volcano_tpu.utils.synth import synth_arrays
 from volcano_tpu_torch import convert
 from volcano_tpu_torch.ops.allocate import (gang_allocate,
-                                            gang_allocate_chunked)
+                                            gang_allocate_chunked,
+                                            rule_refreshes)
+from tests.test_torch_allocate import SLOT_KINDS, slot_aims_reached, \
+    slot_scenario
 
 SCENARIOS = ["mixed_gangs", "budgets", "buckets", "releasing_pipelined",
              "releasing_no_pipeline", "tight", "gang1", "gang20"]
@@ -164,3 +170,87 @@ def test_scenarios_reach_the_refresh_causes(name, chunk, cause):
                                    chunk=chunk)[5]
     assert counts[cause] > 0, counts
     assert counts[cause] <= counts["total"]
+
+
+@functools.lru_cache(maxsize=None)
+def _slot_prepared(kind):
+    sa, weights, task_slot, slot_ok = slot_scenario(kind, seed=3)
+    arrays = {f: getattr(sa, f) for f in convert.FIELDS}
+    arrays.update(task_slot=task_slot, slot_ok=slot_ok)
+    t, w = convert.from_reference(
+        arrays, {f: np.asarray(getattr(weights, f)) for f in weights._fields},
+        "cpu")
+    plain = gang_allocate(*convert.args(t), w, **convert.slot_kwargs(t))
+    return sa, weights, task_slot, slot_ok, t, w, plain
+
+
+@pytest.mark.parametrize("chunk", [1, 16])
+@pytest.mark.parametrize("kind", SLOT_KINDS)
+def test_slots_chunked_equals_reference_and_plain(kind, chunk):
+    sa, weights, task_slot, slot_ok, t, w, plain = _slot_prepared(kind)
+    got = gang_allocate_chunked(*convert.args(t), w, chunk=chunk,
+                                **convert.slot_kwargs(t))
+    ref = ref_gang_allocate_chunked(*[jnp.asarray(a) for a in sa.args],
+                                    weights, chunk=chunk,
+                                    task_slot=jnp.asarray(task_slot),
+                                    slot_ok=jnp.asarray(slot_ok))
+    ctx = f"{kind} chunk={chunk}"
+    for field, g, r, p in zip(("assign", "pipelined", "ready", "kept"),
+                              got[:4], ref[:4], plain[:4]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r),
+                                      f"{field} vs JAX: {ctx}")
+        assert torch.equal(g, p), f"{field} vs plain: {ctx}"
+    np.testing.assert_array_equal(got[4].idle.numpy(), np.asarray(ref[4]),
+                                  ctx)
+    for field in ("future", "n_tasks", "q_alloc"):
+        assert torch.equal(getattr(got[4], field), getattr(plain[4], field))
+    slot_aims_reached(sa, task_slot, slot_ok, got, kind)
+
+
+@pytest.mark.parametrize("kind", ["rotating", "all_false"])
+def test_slot_refreshes_follow_the_rule(kind):
+    """A rotating gang refreshes at every task; the count by the rule and
+    the model's agree, and the slot cause counts the refreshes that only
+    the slot change called for."""
+    sa, _, task_slot, slot_ok, t, w, _ = _slot_prepared(kind)
+    out = gang_allocate_chunked(*convert.args(t), w, chunk=16,
+                                **convert.slot_kwargs(t))
+    counts = out[5]
+    jobs = int((sa.job_n_tasks > 0).sum())
+    rolled = int((~(out[2] | out[3]))[:jobs].sum())
+    by_rule = rule_refreshes(sa.task_group, sa.task_bucket, task_slot,
+                             sa.job_task_start, sa.job_n_tasks)
+    if rolled == 0:
+        assert counts["total"] == by_rule
+    else:
+        # a rollback forces the next job's first refresh, which a group
+        # change there calls for anyway
+        assert counts["total"] >= by_rule
+    rotating = np.isin(sa.task_job, np.flatnonzero(
+        np.bincount(sa.task_job[task_slot < slot_ok.shape[0] - 1],
+                    minlength=sa.job_n_tasks.shape[0])))
+    steps_in_rotating = int((rotating & sa.task_valid).sum())
+    assert counts["total"] >= steps_in_rotating
+    assert 0 < counts["slot"] < counts["total"]
+
+
+@pytest.mark.parametrize("outside", ["below", "above"])
+@pytest.mark.parametrize("route", ["plain", "chunked"])
+def test_slot_outside_rows_admits_no_node(route, outside):
+    """A slot outside 0..S admits no node, as the kernel's refresh does:
+    the all-false case with its empty row's tasks moved to slot -1 or
+    S + 1 places exactly what it placed on the empty row."""
+    sa, _, task_slot, slot_ok, t, w, plain = _slot_prepared("all_false")
+    S = slot_ok.shape[0] - 1
+    empty = task_slot == S - 1
+    assert empty.any() and not slot_ok[S - 1].any()
+    moved = np.where(empty, -1 if outside == "below" else S + 1, task_slot)
+    kw = dict(task_slot=torch.from_numpy(moved.astype(np.int32)),
+              slot_ok=torch.from_numpy(slot_ok))
+    got = gang_allocate(*convert.args(t), w, **kw) if route == "plain" \
+        else gang_allocate_chunked(*convert.args(t), w, chunk=16, **kw)
+    for field, g, p in zip(("assign", "pipelined", "ready", "kept"),
+                           got[:4], plain[:4]):
+        assert torch.equal(g, p), f"{field}: {route} {outside}"
+    for field in ("idle", "future", "n_tasks", "q_alloc"):
+        assert torch.equal(getattr(got[4], field), getattr(plain[4], field))

@@ -144,8 +144,21 @@ def test_node_limit_covers_large_clusters():
 
 def test_check_inputs_accepts_the_snapshot_and_rejects_the_rest():
     sa, args, _ = _inputs(0)
-    T, G, J, P, NS, N, R = check_inputs(args)
-    assert (T, N, R) == (sa.task_group.shape[0], sa.node_idle.shape[0], 4)
+    T, G, J, P, NS, N, R, S = check_inputs(args)
+    assert (T, N, R, S) == (sa.task_group.shape[0], sa.node_idle.shape[0],
+                            4, -1)
+    # the slot inputs: both or neither, task_slot [T] i32, slot_ok [S+1, N]
+    task_slot = torch.zeros(T, dtype=torch.int32)
+    slot_ok = torch.ones(3, N, dtype=torch.bool)
+    assert check_inputs(args, task_slot, slot_ok)[-1] == 2
+    with pytest.raises(ValueError, match="both or neither"):
+        check_inputs(args, task_slot, None)
+    with pytest.raises(ValueError, match="task_slot"):
+        check_inputs(args, task_slot[:-1], slot_ok)
+    with pytest.raises(ValueError, match="slot_ok"):
+        check_inputs(args, task_slot, slot_ok[:, :-1])
+    with pytest.raises(ValueError, match="slot_ok"):
+        check_inputs(args, task_slot, slot_ok.to(torch.uint8))
     bad = list(args)
     bad[0] = bad[0].to(torch.int64)
     with pytest.raises(ValueError, match="task_group"):

@@ -52,6 +52,10 @@ tiers:
   - name: proportion
   - name: nodeorder{extra}
 """
+ZONE = "topology.kubernetes.io/zone"
+HOSTNAME = "kubernetes.io/hostname"
+AFFINITY_ANNOTATION = "volcano.sh/task-topology-affinity"
+ANTI_AFFINITY_ANNOTATION = "volcano.sh/task-topology-anti-affinity"
 PIN = """
 configurations:
 - name: solver
@@ -60,11 +64,28 @@ configurations:
 
 
 def conf(actions="enqueue, allocate, backfill", binpack=False,
-         ns_order=False, pin=True):
+         ns_order=False, pin=True, compile_off=False, tieredpack=0,
+         task_topology=False):
+    """The scheduler conf of a case: ``compile_off`` sets the solver's
+    ``constraints.compile: off``, ``tieredpack`` the priority plugin's
+    ``tieredpack.weight``, ``task_topology`` adds that plugin (weight 10)."""
+    extra = "\n  - name: binpack" if binpack else ""
+    if task_topology:
+        extra += ("\n  - name: task-topology\n    arguments:\n"
+                  "      task-topology.weight: 10")
     text = f'actions: "{actions}"' + TIERS.format(
         drf="\n    enableNamespaceOrder: true" if ns_order else "",
-        extra="\n  - name: binpack" if binpack else "")
-    return text + (PIN if pin else "")
+        extra=extra)
+    if tieredpack:
+        text = text.replace("  - name: priority\n",
+                            "  - name: priority\n    arguments:\n"
+                            f"      tieredpack.weight: {tieredpack}\n")
+    pin_text = PIN
+    if compile_off:
+        pin_text = PIN.replace('mesh.enable: "false"}',
+                               'mesh.enable: "false", '
+                               'constraints.compile: "off"}')
+    return text + (pin_text if pin else "")
 
 
 # -- the cluster description --------------------------------------------------
@@ -74,9 +95,25 @@ def make_spec(seed, *, n_nodes=32, n_jobs=24, gang=(2, 8), queues=None,
               req_cpu_m=(500, 4001), req_mem_mi=(512, 8193), surplus=0.0,
               selectors=False, taints=False, running=0, pending_pg=0,
               best_effort=0, priorities=False, not_ready=0, releasing=0,
-              job_offset=0, node_offset=0):
+              job_offset=0, node_offset=0, zones=0, spread_every=0,
+              soft_every=0, anti_every=0, web_running=False,
+              pod_affinity=None, symmetry=False, topology_every=0):
     """A plain description of a cluster (lists of tuples and dicts),
-    drawn with numpy from ``seed``; ``populate`` turns it into objects."""
+    drawn with numpy from ``seed``; ``populate`` turns it into objects.
+
+    Placement constraints, none by default (no option draws from the
+    rng): ``zones`` labels node i with the zone key (zone-<i % zones>)
+    and the hostname key; every ``spread_every``-th job spreads hard over
+    the zones (max_skew 1), every ``soft_every``-th (offset 1) softly,
+    every ``anti_every``-th (offset 2) places one replica per zone by
+    required self-anti-affinity; ``web_running`` labels running pods
+    app=web, and ``pod_affinity`` = (kind, topology key, every) gives
+    every ``every``-th pending job a term on app=web (kind: "req",
+    "anti", "pref" or "anti_pref"); ``symmetry`` gives running pods a
+    required anti-affinity to app=backend by hostname, which every other
+    pending job's pods carry; every ``topology_every``-th job has ps and
+    worker tasks under task-topology annotations (affinity "ps,worker"
+    and anti-affinity "ps", alternating)."""
     rng = np.random.default_rng(seed)
     queues = queues or [("default", 1, None)]
     spec = {"queues": [] if job_offset else list(queues), "quotas": [],
@@ -91,6 +128,8 @@ def make_spec(seed, *, n_nodes=32, n_jobs=24, gang=(2, 8), queues=None,
     for i in range(n_nodes if not job_offset else 0):
         name = f"node-{node_offset + i:03d}"
         labels = {"rack": f"rack-{i % 4}", "zone": f"z{i % 3}"}
+        if zones:
+            labels.update({ZONE: f"zone-{i % zones}", HOSTNAME: name})
         node_taints = []
         if taints and i % 5 == 0:
             node_taints.append(("dedicated", "gpu", "NoSchedule"))
@@ -139,9 +178,35 @@ def make_spec(seed, *, n_nodes=32, n_jobs=24, gang=(2, 8), queues=None,
         if taints and j % 6 == 1:
             tolerations.append(("spot", "Exists", "", ""))
         pg_name = f"pg-{jid}"
+        # placement constraints of the job's pods
+        spread, aff, labels, pg_ann = [], [], {}, {}
+        if spread_every and j % spread_every == 0:
+            spread.append((ZONE, 1, "DoNotSchedule"))
+        if soft_every and j % soft_every == 1 % soft_every:
+            spread.append((ZONE, 1, "ScheduleAnyway"))
+        if anti_every and j % anti_every == 2 % anti_every:
+            labels["job-group"] = pg_name
+            aff.append(("anti", "job-group", pg_name, ZONE, 0))
+        if is_running and web_running:
+            labels["app"] = "web"
+        if pod_affinity and not is_running and \
+                j % pod_affinity[2] == 0:
+            kind, key = pod_affinity[:2]
+            aff.append((kind, "app", "web", key, 1 + j % 3))
+        if symmetry:
+            if is_running:
+                labels["app"] = "iso"
+                aff.append(("anti", "app", "backend", HOSTNAME, 0))
+            elif j % 2 == 0:
+                labels["app"] = "backend"
+        topo = topology_every and j % topology_every == 0
+        if topo:
+            pg_ann = ({AFFINITY_ANNOTATION: "ps,worker"}
+                      if (j // topology_every) % 2 == 0
+                      else {ANTI_AFFINITY_ANNOTATION: "ps"})
         spec["podgroups"].append(dict(
             name=pg_name, ns=ns, queue=q, min_member=min_member, phase=phase,
-            min_res=min_res, pc=pc, ts=ts + j))
+            min_res=min_res, pc=pc, ts=ts + j, annotations=pg_ann))
         for t in range(n_pods):
             node = ""
             pod_phase = "Pending"
@@ -161,8 +226,36 @@ def make_spec(seed, *, n_nodes=32, n_jobs=24, gang=(2, 8), queues=None,
                 req=req, group=pg_name, selector=selector,
                 tolerations=tolerations,
                 priority=[100, 1, None][j % 3] if priorities else None,
-                ts=ts + j, deleting=bool(is_releasing and node)))
+                ts=ts + j, deleting=bool(is_releasing and node),
+                labels=dict(labels), spread=spread, aff=aff,
+                task=("ps" if t % 2 == 0 else "worker") if topo else ""))
     return spec
+
+
+def _constraints(o, p):
+    """The pod's topology spread and pod (anti-)affinity objects, in
+    package ``o``'s classes, from the description's tuples."""
+    spread = [o.TopologySpreadConstraint(max_skew=skew, topology_key=key,
+                                         when_unsatisfiable=mode)
+              for key, skew, mode in p.get("spread", ())]
+    if not p.get("aff"):
+        return spread, None
+    parts = {"req": [], "anti": [], "pref": [], "anti_pref": []}
+    for kind, key, value, topology, weight in p["aff"]:
+        term = o.PodAffinityTerm(
+            label_selector=[o.NodeSelectorRequirement(
+                key=key, operator="In", values=[value])],
+            topology_key=topology)
+        parts[kind].append(o.WeightedPodAffinityTerm(weight=weight, term=term)
+                           if kind.endswith("pref") else term)
+    aff = o.Affinity()
+    if parts["req"] or parts["pref"]:
+        aff.pod_affinity = o.PodAffinity(required=parts["req"],
+                                         preferred=parts["pref"])
+    if parts["anti"] or parts["anti_pref"]:
+        aff.pod_anti_affinity = o.PodAffinity(required=parts["anti"],
+                                              preferred=parts["anti_pref"])
+    return spread, aff
 
 
 def populate(pkg, store, spec):
@@ -193,14 +286,18 @@ def populate(pkg, store, spec):
         pg.spec.min_resources = g["min_res"]
         pg.metadata.creation_timestamp = g["ts"]
         pg.metadata.uid = f"{g['ns']}-{g['name']}"
+        pg.metadata.annotations.update(g.get("annotations", {}))
         store.create("podgroups", pg)
     for p in spec["pods"]:
         pod = tu.build_pod(p["ns"], p["name"], p["node"], p["phase"],
                            p["req"], groupname=p["group"],
-                           selector=p["selector"], priority=p["priority"])
+                           selector=p["selector"], priority=p["priority"],
+                           labels=p.get("labels"),
+                           task_name=p.get("task", ""))
         pod.spec.tolerations = [
             o.Toleration(key=k, operator=op, value=v, effect=e)
             for k, op, v, e in p["tolerations"]]
+        pod.spec.topology_spread, pod.spec.affinity = _constraints(o, p)
         pod.metadata.creation_timestamp = p["ts"]
         if p.get("deleting"):
             pod.metadata.deletion_timestamp = p["ts"] + 1.0
@@ -383,30 +480,130 @@ def test_scheduler_default_conf_and_device():
             PortScheduler(PortStore())
 
 
-@pytest.mark.parametrize("kind", ["anti", "spread", "running_affinity"])
-def test_pod_constraints_raise_not_implemented(kind):
-    store = PortStore()
-    if kind == "running_affinity":
-        port_synth.populate_store(store, n_nodes=4, n_jobs=2, gang_size=2)
-        o = port_obj
-        pod = port_tu.build_pod("default", "placed", "node-0", "Running",
-                                {"cpu": "1", "memory": "1Gi"},
-                                groupname="pg-0")
-        pod.spec.affinity = o.Affinity(pod_affinity=o.PodAffinity(
-            preferred=[o.WeightedPodAffinityTerm(
-                weight=1, term=o.PodAffinityTerm(topology_key="zone"))]))
-        store.create("pods", pod)
-    else:
-        port_synth.populate_store(
-            store, n_nodes=4, n_jobs=4, gang_size=2, zones=2,
-            spread_every=4 if kind == "spread" else 0,
-            anti_every=4 if kind == "anti" else 0)
-    s = PortScheduler(store, device="cpu")
-    s.cache.run()
-    with pytest.raises(NotImplementedError):
-        s.run_once()
-    assert not any(p.spec.node_name for p in store.list("pods")
-                   if p.metadata.name != "placed")
+# -- placement constraints ------------------------------------------------------
+
+ZONED = dict(zones=4, n_nodes=16, n_jobs=20, gang=(2, 6))
+WEB = dict(running=3, web_running=True, n_nodes=12, n_jobs=24, zones=3)
+
+CONSTRAINED_CASES = {
+    "hard_spread": dict(kw=dict(ZONED, spread_every=2), conf=dict()),
+    # gangs of up to 4 over 4 zones, with surplus replicas beyond them
+    "self_anti_one_per_zone": dict(
+        kw=dict(ZONED, anti_every=2, gang=(2, 4), surplus=0.8),
+        conf=dict()),
+    "required_affinity_hostname": dict(
+        kw=dict(WEB, pod_affinity=("req", HOSTNAME, 2)), conf=dict()),
+    "required_affinity_zone": dict(
+        kw=dict(WEB, pod_affinity=("req", ZONE, 2)), conf=dict()),
+    # few running app=web pods, so that some hosts and zones have none
+    "required_anti_affinity_hostname": dict(
+        kw=dict(WEB, pod_affinity=("anti", HOSTNAME, 2), running=8,
+                n_nodes=20), conf=dict()),
+    "required_anti_affinity_zone": dict(
+        kw=dict(WEB, pod_affinity=("anti", ZONE, 3), running=12, zones=8,
+                n_nodes=24), conf=dict()),
+    "preferred_affinity": dict(
+        kw=dict(WEB, pod_affinity=("pref", ZONE, 2)), conf=dict()),
+    "running_pod_symmetry": dict(
+        kw=dict(running=8, symmetry=True, zones=3, n_nodes=20, n_jobs=24),
+        conf=dict()),
+    "soft_spread": dict(
+        kw=dict(ZONED, soft_every=2, running=4, surplus=0.8),
+        conf=dict(binpack=True)),
+    "tieredpack": dict(
+        kw=dict(priorities=True, running=2, n_nodes=16, n_jobs=28),
+        conf=dict(tieredpack=2, binpack=True)),
+    "task_topology": dict(
+        kw=dict(topology_every=2, n_nodes=12, n_jobs=20, gang=(3, 6)),
+        conf=dict(task_topology=True)),
+    # the reference constraint benchmark's mix, smaller
+    "heavy_mix": dict(
+        kw=dict(zones=4, spread_every=4, anti_every=4, soft_every=3,
+                running=5, n_nodes=24, n_jobs=32, gang=(2, 4)),
+        conf=dict(binpack=True)),
+}
+
+
+def _zone_counts(spec, binds, job):
+    """{zone: bound pods} of one job of the description."""
+    zone = {n["name"]: n["labels"].get(ZONE) for n in spec["nodes"]}
+    counts = {}
+    for p in spec["pods"]:
+        node = binds.get(f"{p['ns']}/{p['name']}")
+        if p["group"] == job and node:
+            counts[zone[node]] = counts.get(zone[node], 0) + 1
+    return counts
+
+
+def _check_semantics(spec, binds):
+    """Hard spread keeps max_skew 1 over the zones; one replica per zone
+    for the self-anti gangs; a pod with required (anti-)affinity to app=web
+    lands in (out of) a domain of a node hosting one; symmetric
+    anti-affinity keeps app=backend pods off the nodes of app=iso pods."""
+    labels = {n["name"]: n["labels"] for n in spec["nodes"]}
+    zones = sorted({lab[ZONE] for lab in labels.values() if ZONE in lab})
+    hosts = {}
+    for p in spec["pods"]:
+        node = binds.get(f"{p['ns']}/{p['name']}")
+        if node:
+            hosts.setdefault(p["labels"].get("app"), set()).add(node)
+    for g in spec["podgroups"]:
+        pods = [p for p in spec["pods"] if p["group"] == g["name"]]
+        counts = _zone_counts(spec, binds, g["name"])
+        if not counts or any(p["node"] for p in pods):
+            continue    # placed by the description, not by the cycle
+        if any(s[2] == "DoNotSchedule" for s in pods[0]["spread"]):
+            per_zone = [counts.get(z, 0) for z in zones]
+            assert max(per_zone) - min(per_zone) <= 1, (g["name"], counts)
+        if any(a[:2] == ("anti", "job-group") for a in pods[0]["aff"]):
+            assert max(counts.values()) <= 1, (g["name"], counts)
+    for p in spec["pods"]:
+        node = binds.get(f"{p['ns']}/{p['name']}")
+        if not node or p["node"]:
+            continue
+        for kind, key, value, topology, _ in p["aff"]:
+            if key != "app" or kind not in ("req", "anti"):
+                continue
+            domains = {labels[h].get(topology) for h in hosts.get(value, ())}
+            inside = labels[node].get(topology) in domains
+            assert inside == (kind == "req"), (p["name"], node, kind)
+        if p["labels"].get("app") == "backend":
+            assert node not in hosts.get("iso", ()), (p["name"], node)
+
+
+@pytest.mark.parametrize("mode", ["compiled", "compile_off"])
+@pytest.mark.parametrize("case", sorted(CONSTRAINED_CASES))
+def test_constrained_cycle_matches_reference(case, mode):
+    """A cycle whose pods carry placement constraints binds what the
+    reference binds, in the compiled mode (the slot path) and under
+    ``constraints.compile: off`` (per-pair mask, split groups)."""
+    c = CONSTRAINED_CASES[case]
+    seed = sorted(CONSTRAINED_CASES).index(case) + 51
+    spec = make_spec(seed, **c["kw"])
+    (binds, _, _), = assert_same(
+        spec, conf(compile_off=mode == "compile_off", **c["conf"]))
+    _check_semantics(spec, binds)
+
+
+def test_constrained_cycle_takes_the_slot_path():
+    """The compiled mode hands the kernel per-task domain slots and keeps
+    base groups; ``constraints.compile: off`` splits groups instead and
+    hands it none. Both bind the same."""
+    spec = make_spec(61, **CONSTRAINED_CASES["heavy_mix"]["kw"])
+    out, split = {}, {}
+    for off in (False, True):
+        store = PortStore()
+        populate(PORT, store, spec)
+        sched = PortScheduler(store, scheduler_conf=conf(compile_off=off,
+                                                         binpack=True),
+                              device="cpu")
+        sched.cache.run()
+        sched.run_once()
+        out[off] = outcome(store)[0]
+        split[off] = sched.last_cycle["places"]
+    assert out[False] == out[True] and out[False]
+    assert split[False][0]["slots"] > 0 and split[True][0]["slots"] == 0
+    assert all(pl["constraint_ms"] > 0 for pl in split[False])
 
 
 def _small_session(conf_text):
@@ -422,17 +619,20 @@ def _small_session(conf_text):
 
 def test_placement_changing_options_raise_not_implemented():
     """Options that would change placements in ways this port cannot
-    reproduce raise instead of being ignored: node sampling, and the
-    priority plugin's tiered packing score."""
+    reproduce raise instead of being ignored: node sampling. The priority
+    plugin's tiered packing score is ported: a session with it runs a
+    cycle and adds its score to the solver."""
+    from volcano_tpu_torch.framework import get_action
     sampling = conf().replace('mesh.enable: "false"}',
                               'mesh.enable: "false", sampling.enable: on}')
     with pytest.raises(NotImplementedError, match="sampling"):
         _small_session(sampling)()
-    tiered = conf().replace("  - name: priority\n",
-                            "  - name: priority\n    arguments:\n"
-                            "      tieredpack.weight: 2\n")
-    with pytest.raises(NotImplementedError, match="tieredpack"):
-        _small_session(tiered)()
+    ssn = _small_session(conf(tieredpack=2))()
+    plain = _small_session(conf())()
+    assert len(ssn.solver.static_score_fns) == \
+        len(plain.solver.static_score_fns) + 1
+    get_action("allocate").execute(ssn)
+    assert ssn.solver.stats and ssn.solver.stats[0]["kernel_ms"] >= 0
     # the keys that only choose among exact kernels are accepted
     ssn = _small_session(conf().replace(
         '{kernel: scan,',
@@ -484,3 +684,21 @@ def test_cycle_command_on_cpu(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cycle.main(["--tasks", "64", "--nodes", "8"])
+
+
+def test_cycle_command_with_constraints_on_cpu(capsys):
+    """cmd.cycle with --zones, --spread-every and --anti-every: the
+    constraint mix reaches the kernel as per-task slots, and every gang
+    binds."""
+    import json
+
+    from volcano_tpu_torch.cmd import cycle
+    assert cycle.main(["--device", "cpu", "--tasks", "128", "--nodes", "32",
+                       "--warm", "0", "--zones", "8", "--spread-every", "2",
+                       "--anti-every", "4"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert (out["zones"], out["spread_every"], out["anti_every"]) == (8, 2, 4)
+    run = out["cold"]
+    assert run["binds"] == 128 and run["committed_gangs"] == 16
+    assert run["places"][0]["slots"] == 8
+    assert run["places"][0]["constraint_ms"] > 0

@@ -27,11 +27,15 @@ print(len(names), leaked)
 print(' '.join(names))
 """
 
-# the packages of the scheduling cycle the walk must reach
+# the packages of the scheduling cycle the walk must reach, the
+# placement-constraint layer included
 CYCLE_MODULES = ("volcano_tpu_torch.apiserver.store",
                  "volcano_tpu_torch.cache.cache",
                  "volcano_tpu_torch.actions.allocate",
                  "volcano_tpu_torch.plugins.predicates",
+                 "volcano_tpu_torch.plugins.interpod",
+                 "volcano_tpu_torch.plugins.task_topology",
+                 "volcano_tpu_torch.ops.constraints",
                  "volcano_tpu_torch.scheduler",
                  "volcano_tpu_torch.cmd.cycle")
 
@@ -47,7 +51,7 @@ def test_every_port_module_imports_without_jax_or_reference():
     assert out.returncode == 0, out.stderr
     first, walked = out.stdout.strip().split("\n")
     count, leaked = first.split(" ", 1)
-    assert int(count) >= 56, out.stdout
+    assert int(count) >= 59, out.stdout
     assert leaked == "[]", leaked
     assert set(CYCLE_MODULES) <= set(walked.split()), walked
 

@@ -1,10 +1,14 @@
 """Run the scheduling cycle through the objects and print one JSON line.
 
     python -m volcano_tpu_torch.cmd.cycle --tasks 50000 --nodes 10000 \\
-        [--queues 1] [--warm 1] [--device cpu]
+        [--queues 1] [--warm 1] [--device cpu] \\
+        [--zones 8 --spread-every 4 --anti-every 8]
 
 Each run builds a fresh store with ``populate_store(n_nodes, n_jobs=tasks //
-8, gang_size=8)`` over ``--queues`` queues, lets a new SchedulerCache
+8, gang_size=8)`` over ``--queues`` queues (with ``--zones`` > 0, nodes
+in that many zones, every ``--spread-every``-th gang spread over them with
+max_skew 1 and every ``--anti-every``-th gang one replica per zone), lets
+a new SchedulerCache
 ingest it, and runs one ``Scheduler.run_once`` with the default conf plus
 binpack (``enqueue, allocate, backfill``). The first run is cold (it
 builds the kernel on the GPU); ``--warm`` more runs follow, each in a
@@ -48,7 +52,8 @@ tiers:
 
 
 def run_cycle(n_tasks: int, n_nodes: int, n_queues: int = 1,
-              device=None) -> dict:
+              device=None, zones: int = 0, spread_every: int = 0,
+              anti_every: int = 0) -> dict:
     """One cycle on a fresh store: populate, sync the cache, run_once.
     Returns the timings and counts, and the store (key ``store``)."""
     device = default_device(device)
@@ -57,7 +62,8 @@ def run_cycle(n_tasks: int, n_nodes: int, n_queues: int = 1,
     store = ObjectStore()
     t0 = time.perf_counter()
     populate_store(store, n_nodes=n_nodes, n_jobs=n_tasks // 8, gang_size=8,
-                   queues=queues)
+                   queues=queues, zones=zones, spread_every=spread_every,
+                   anti_every=anti_every)
     t1 = time.perf_counter()
     cache = SchedulerCache(store)
     cache.run()
@@ -100,6 +106,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--warm", type=int, default=1,
                     help="warm runs after the cold one, each on a fresh "
                          "store")
+    ap.add_argument("--zones", type=int, default=0,
+                    help="zones the nodes lie in (0: no zone labels)")
+    ap.add_argument("--spread-every", type=int, default=0,
+                    help="every Nth gang spreads over the zones")
+    ap.add_argument("--anti-every", type=int, default=0,
+                    help="every Nth gang places one replica per zone")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "plain loop)")
@@ -107,13 +119,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     device = default_device(opts.device)
     runs = []
     for _ in range(1 + opts.warm):
-        r = run_cycle(opts.tasks, opts.nodes, opts.queues, device)
+        r = run_cycle(opts.tasks, opts.nodes, opts.queues, device,
+                      zones=opts.zones, spread_every=opts.spread_every,
+                      anti_every=opts.anti_every)
         r.pop("store")
         runs.append(r)
     print(json.dumps({
         "device": torch.cuda.get_device_name(device)
         if device.type == "cuda" else str(device),
         "tasks": opts.tasks, "nodes": opts.nodes, "queues": opts.queues,
+        "zones": opts.zones, "spread_every": opts.spread_every,
+        "anti_every": opts.anti_every,
         "cold": runs[0], "warm": runs[1:]}))
     return 0
 

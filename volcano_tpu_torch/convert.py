@@ -36,6 +36,12 @@ FIELDS: Dict[str, torch.dtype] = {
     "node_max_tasks": torch.int32, "eps": torch.float32,
 }
 
+# the optional per-task topology-domain inputs (keyword arguments of
+# gang_allocate): task_slot [T] indexes a slot_ok [S+1, N] row
+SLOT_FIELDS: Dict[str, torch.dtype] = {
+    "task_slot": torch.int32, "slot_ok": torch.bool,
+}
+
 Device = Union[str, torch.device, None]
 
 
@@ -43,12 +49,22 @@ def _field(src: Any, name: str):
     return src[name] if isinstance(src, Mapping) else getattr(src, name)
 
 
+def _optional(src: Any, name: str):
+    if isinstance(src, Mapping):
+        return src.get(name)
+    return getattr(src, name, None)
+
+
 def as_tensors(arrays: Any, device: Device = None) -> Dict[str, torch.Tensor]:
     """{field: tensor} on ``device`` (default: the GPU) from a mapping or an
-    object with the ``FIELDS`` attributes (numpy arrays or tensors)."""
+    object with the ``FIELDS`` attributes (numpy arrays or tensors), and
+    the ``SLOT_FIELDS`` when it carries them (not None)."""
     dev = default_device(device)
     out = {}
-    for name, dtype in FIELDS.items():
+    fields = dict(FIELDS)
+    if _optional(arrays, "task_slot") is not None:
+        fields.update(SLOT_FIELDS)
+    for name, dtype in fields.items():
         x = _field(arrays, name)
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.ascontiguousarray(x))
@@ -61,12 +77,18 @@ def args(tensors: Mapping[str, torch.Tensor]) -> List[torch.Tensor]:
     return [tensors[name] for name in FIELDS]
 
 
+def slot_kwargs(tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The slot keyword inputs of gang_allocate, or {} without slots."""
+    return {name: tensors[name] for name in SLOT_FIELDS if name in tensors}
+
+
 def from_reference(arrays: Any, weights: Optional[Any],
                    device: Device = None
                    ) -> Tuple[Dict[str, torch.Tensor], Optional[ScoreWeights]]:
-    """The reference solver inputs (``arrays``: field -> numpy array;
-    ``weights``: ScoreWeights field -> numpy array or float, or None) as
-    this port's tensors on ``device``."""
+    """The reference solver inputs (``arrays``: field -> numpy array, with
+    ``task_slot`` and ``slot_ok`` when it has them; ``weights``:
+    ScoreWeights field -> numpy array or float, or None) as this port's
+    tensors on ``device``."""
     tensors = as_tensors(arrays, device)
     if weights is None:
         return tensors, None

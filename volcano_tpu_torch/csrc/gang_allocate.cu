@@ -27,16 +27,25 @@
 // once and keeps the top kC = 16 nodes per fit class (idle, future; score
 // descending, node index ascending); up to kC steps are then SERVED from
 // that table by one warp of block 0 alone, with no barrier. A valid step
-// refreshes after a rollback, after kC served steps, and when the group or
-// the bucket changed; an invalid (padding) step serves nothing and passes
-// the refresh it needed on. The table is exact, ties included: only
-// placed-on nodes change within a chunk, and they are in the table; the
-// table kept kC candidates a class, of which at most kC - 1 were touched,
-// so an untouched node outside it never beats its best (sharded.py:
-// 277-293).
+// refreshes after a rollback, after kC served steps, and when the group,
+// the bucket or the task's domain slot changed; an invalid (padding) step
+// serves nothing and passes the refresh it needed on. The table is exact,
+// ties included: only placed-on nodes change within a chunk, and they are
+// in the table; the table kept kC candidates a class, of which at most
+// kC - 1 were touched, so an untouched node outside it never beats its
+// best (sharded.py:277-293).
+//
+// Domain slots (the constraint compiler's task_slot [T] and slot_ok
+// [S+1, N], ops/constraints.py): task t may use only the nodes of row
+// task_slot[t]. The refresh masks every node with the row of the step's
+// slot, read from global memory (once a refresh, like the group's mask
+// row); a slot change forces a refresh, so a served step's table was
+// always built under its own slot and a served step reads no slot row.
+// An all-false row gives an empty table: the task fails, and its gang
+// pipelines or rolls back as if the domain were full.
 //
 // A refresh: the serving warp publishes the step (group, same-bucket flag,
-// pack generation) to every block and all meet at cluster.sync(). Each
+// pack generation, slot) to every block and all meet at cluster.sync(). Each
 // block sweeps its nodes, one a lane in batches of 32 a warp, keeps a
 // running sorted top-kC per warp by bitonic sort and merge in registers
 // (a batch that beats nothing is skipped, and while no node's future
@@ -90,7 +99,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kNone = 0x7fffffff;  // node index of "no candidate"
 constexpr float kBig = 1e30f;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kDescWords = 4;      // kind, group, same bucket, pack generation
+constexpr int kDescWords = 5;  // kind, group, same bucket, pack generation, slot
 constexpr int kReqWords = 2 * 8 + 6;  // a Req<R> at the largest R
 constexpr int kRefresh = 0, kDone = 1;
 
@@ -102,6 +111,8 @@ struct Args {
   const uint8_t* task_valid;
   const int32_t* task_bucket;
   const int32_t* task_job;
+  const int32_t* task_slot;       // [T] domain slot, or null: no slots
+  const uint8_t* slot_ok;         // [S+1, N] the slots' node rows
   // group axis
   const float* group_req;         // [G, R]
   const uint8_t* group_mask;      // [G, N]
@@ -147,7 +158,7 @@ struct Args {
   // what the launch did: table refreshes, the cluster's blocks and each
   // block's dynamic shared memory in bytes
   int32_t* stats;                 // [3]
-  int T, J, P, NS, Q, N;
+  int T, J, P, NS, Q, N, S;
   int allow_pipeline, ns_live;
   int nb;                         // nodes a block owns
 };
@@ -565,9 +576,15 @@ __device__ void refresh(const Args& a, const Smem<R>& S,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nb = a.nb;
   const int g = S.desc[1], sb = S.desc[2], gen = S.desc[3];
+  const int slot = S.desc[4];
   const Req<R> q(a, g);
   if (rank == 0 && threadIdx.x == 0) *S.q = q;
   const uint8_t* mask_row = a.group_mask + (size_t)g * a.N;
+  // the step's domain row; a slot outside 0..S admits no node
+  const bool slot_in = a.task_slot == nullptr || (slot >= 0 && slot <= a.S);
+  const uint8_t* slot_row =
+      a.task_slot != nullptr && slot_in ? a.slot_ok + (size_t)slot * a.N
+                                        : nullptr;
   const float* static_row = a.group_static + (size_t)g * a.N;
 
   float as_i = -INFINITY, as_f = -INFINITY;
@@ -582,7 +599,11 @@ __device__ void refresh(const Args& a, const Smem<R>& S,
     const int lc = real ? li : 0;
     // read once a refresh: kept out of L1, which holds the serving
     // warp's task and job arrays
-    const bool in_mask = __ldcg(mask_row + lo + lc) != 0;
+    // (slot_row is the same for the whole cluster: no divergence)
+    const bool in_slot =
+        slot_row == nullptr || __ldcg(slot_row + lo + lc) != 0;
+    const bool in_mask =
+        slot_in & (__ldcg(mask_row + lo + lc) != 0) & in_slot;
     const float stat = __ldcg(static_row + lo + lc);
     const int nt = S.ntasks[lc], maxt = S.maxt[lc];
     const float pk = (sb && S.pgen[lc] == gen) ? S.pack[lc] : 0.0f;
@@ -756,7 +777,7 @@ __global__ void __launch_bounds__(kThreads, 1) gang_allocate_kernel(Args a) {
   // the serving warp's state, the same in each of its lanes
   int pool = -1, job = -1, t_off = 0, placed = 0, placed_alloc = 0;
   int cur_bucket = -1, step = 0, since = kC, prev_g = -1, prev_b = -1;
-  int gen = 0, refreshes = 0, t_idx = 0, g = 0, b = -1;
+  int prev_s = -1, gen = 0, refreshes = 0, t_idx = 0, g = 0, b = -1, slot = -1;
   bool force = true, fresh = false, cached_sb = false, valid = false,
        sb = false;
   // this lane's candidate row: lanes 0..15 the idle class, 16..31 the
@@ -808,13 +829,15 @@ __global__ void __launch_bounds__(kThreads, 1) gang_allocate_kernel(Args a) {
             t_idx = min(max(j_start + t_off, 0), T - 1);
             g = __ldg(a.task_group + t_idx);
             b = __ldg(a.task_bucket + t_idx);
+            slot = a.task_slot != nullptr ? __ldg(a.task_slot + t_idx) : -1;
             valid = __ldg(a.task_valid + t_idx) && t_off < j_n;
             sb = b >= 0 && b == cur_bucket;
             if (!sb) gen += 1;   // the pack row starts over
-            const bool need =
-                force || since >= kC || g != prev_g || b != prev_b;
+            const bool need = force || since >= kC || g != prev_g ||
+                              b != prev_b || slot != prev_s;
             prev_g = g;
             prev_b = b;
+            prev_s = slot;
             if (!valid) force = need;
             else if (need) kind = kRefresh;
             else since += 1;
@@ -826,6 +849,7 @@ __global__ void __launch_bounds__(kThreads, 1) gang_allocate_kernel(Args a) {
               d[1] = g;
               d[2] = sb;
               d[3] = gen;
+              d[4] = slot;
             }
             break;
           }
@@ -1061,12 +1085,15 @@ extern "C" {
 // Launches the kernel as one cluster of `blocks` blocks on `stream`
 // without synchronising. Returns the cudaError_t of the launch (0 on
 // success): cudaErrorInvalidValue (1) for a resource count outside 2..8,
-// a cluster size other than 8 or 16, or a shared-memory size that is not
-// this file's layout; cudaErrorInvalidClusterSize
+// a cluster size other than 8 or 16, a task_slot without slot_ok rows, or
+// a shared-memory size that is not this file's layout (task_slot null
+// means no domain slots, else slot_ok holds S + 1 rows of N bytes);
+// cudaErrorInvalidClusterSize
 // when the card cannot host the cluster.
 int gang_allocate_launch(
     const void* task_group, const void* task_valid, const void* task_bucket,
-    const void* task_job, const void* group_req, const void* group_mask,
+    const void* task_job, const void* task_slot, const void* slot_ok,
+    const void* group_req, const void* group_mask,
     const void* group_static, const void* group_pack_bonus,
     const void* job_min_available, const void* job_ready_base,
     const void* job_task_start, const void* job_n_tasks,
@@ -1078,10 +1105,12 @@ int gang_allocate_launch(
     void* out_idle, void* out_future, void* out_ntasks, void* undo,
     void* q_alloc, void* ns_alloc, void* p_cursor, void* assign,
     void* pipelined, void* ready, void* kept, void* stats,
-    int T, int J, int P, int NS, int Q, int N, int R, int allow_pipeline,
+    int T, int J, int P, int NS, int Q, int N, int S, int R,
+    int allow_pipeline,
     int ns_live, int blocks, int nodes_per_block, int shared_bytes,
     void* stream) {
   if (R < 2 || R > 8 || (blocks != 8 && blocks != 16) ||
+      (task_slot != nullptr && (slot_ok == nullptr || S < 0)) ||
       nodes_per_block < 1 || (long)blocks * nodes_per_block < N ||
       shared_bytes !=
           4 * shared_words(nodes_per_block, blocks, R, Q, NS, P))
@@ -1091,6 +1120,8 @@ int gang_allocate_launch(
   a.task_valid = static_cast<const uint8_t*>(task_valid);
   a.task_bucket = static_cast<const int32_t*>(task_bucket);
   a.task_job = static_cast<const int32_t*>(task_job);
+  a.task_slot = static_cast<const int32_t*>(task_slot);
+  a.slot_ok = static_cast<const uint8_t*>(slot_ok);
   a.group_req = static_cast<const float*>(group_req);
   a.group_mask = static_cast<const uint8_t*>(group_mask);
   a.group_static = static_cast<const float*>(group_static);
@@ -1131,6 +1162,7 @@ int gang_allocate_launch(
   a.NS = NS;
   a.Q = Q;
   a.N = N;
+  a.S = S;
   a.allow_pipeline = allow_pipeline;
   a.ns_live = ns_live;
   a.nb = nodes_per_block;

@@ -15,8 +15,11 @@ plain loop on the CPU.
 weights, mask and static-score functions and fair-share budgets while the
 session opens; ``place`` encodes the session's Pods and Nodes
 (models/arrays.py), runs a ``DenseSolver`` over them and decodes the
-kernel's assignment back into per-job placements. The conf keys of the
-reference that only choose among exact kernels are accepted and ignored.
+kernel's assignment back into per-job placements. Placement constraints
+(topology spread, pod anti-affinity) reach the kernel through
+ops/constraints.py, as per-task domain slots on the place path and as
+split groups in host contexts. The conf keys of the reference that only
+choose among exact kernels are accepted and ignored.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from ..models import arrays
 from ..models.arrays import NodeArrays, ResourceIndex, TaskBatch
 from ..models.job_info import JobInfo, TaskInfo
 from ..models.unschedule_info import FitErrors
+from ..ops import constraints
 from ..ops.cuda_allocate import gang_allocate_cuda
 from ..ops.fairshare import proportion_waterfill
 from ..ops.fit import group_fit_mask, selector_mask, taint_mask
@@ -94,7 +98,8 @@ class DenseSolver:
     ([N, R]) when it is given, else the snapshot's ``node_alloc``; only the
     nodes marked in ``valid`` ([N] bool) are placeable when it is given,
     else every node is (padded nodes have zero capability and fail the
-    fit)."""
+    fit). A snapshot that carries ``task_slot`` ([T] i32) and ``slot_ok``
+    ([S+1, N] bool) restricts each task to the nodes of its slot row."""
 
     def __init__(self, snapshot: Any, weights: ScoreWeights,
                  device=None, *, features: Optional[PredicateFeatures] = None,
@@ -164,7 +169,7 @@ class DenseSolver:
             t0 = time.perf_counter()
         assign, pipelined, ready, kept, _ = gang_allocate_cuda(
             *args, self.weights, allow_pipeline=allow_pipeline,
-            ns_live=ns_live)
+            ns_live=ns_live, **convert.slot_kwargs(a))
         if on_cuda:
             end.record()
         else:
@@ -211,21 +216,6 @@ class PlacementResult:
     unplaced: Dict[str, List[TaskInfo]]         # job uid -> tasks left pending
 
 
-def has_constraints(ordered_jobs) -> bool:
-    """Does any pending task carry a constraint whose lowering is a
-    topology-domain restriction (spread, required pod anti-affinity)?"""
-    for _, jtasks in ordered_jobs:
-        for t in jtasks:
-            spec = t.pod.spec
-            if spec.topology_spread:
-                return True
-            aff = spec.affinity
-            if aff is not None and aff.pod_anti_affinity is not None \
-                    and aff.pod_anti_affinity.required:
-                return True
-    return False
-
-
 class BatchSolver:
     """The session's placement context on one device (``device``:
     default the GPU, which raises when there is none).
@@ -236,7 +226,9 @@ class BatchSolver:
     ``prune.*``, ``apply``) are accepted and ignored: this port runs one
     kernel per device and stages placements eagerly. ``sampling.enable``
     raises NotImplementedError, because a sampled node window changes
-    placements."""
+    placements. ``constraints.compile: off`` evaluates the constraint
+    mask per pair and lowers domains by splitting groups
+    (ops/constraints.py)."""
 
     def __init__(self, ssn, device=None, rindex: Optional[ResourceIndex] = None):
         self.ssn = ssn
@@ -250,10 +242,13 @@ class BatchSolver:
         self.static_score_fns: List[Callable] = []
         self.queue_budget_fns: List[Callable] = []
         self.namespace_budget_fn: Optional[Callable] = None
+        self.bucket_fn: Optional[Callable] = None
         self.vectorized_plugins: set = set()
         self.enable_default_predicates = False
-        # one entry per place(): host encode, device solve, object decode
-        # and kernel times (ms) and the launch's own report
+        # one entry per place(): host encode (of which the constraint
+        # lowering and compile passes, constraint_ms), device solve,
+        # object decode and kernel times (ms), the batch's domain slots
+        # and the launch's own report
         self.stats: List[Dict[str, Any]] = []
         solver_args = (ssn.configurations or {}).get("solver")
         if solver_args is not None and \
@@ -297,6 +292,13 @@ class BatchSolver:
         kernel's live namespace re-selection (drf's NamespaceOrderFn)."""
         self.namespace_budget_fn = fn
 
+    def set_bucket_fn(self, fn: Callable) -> None:
+        """fn(task) -> None | (bucket_key, per_mate_bonus). Tasks sharing a
+        bucket_key attract each other inside the kernel: every same-bucket
+        placement on a node adds per_mate_bonus to that node's score for
+        later bucket mates (the task-topology plugin's packing term)."""
+        self.bucket_fn = fn
+
     def mark_vectorized(self, plugin_name: str) -> None:
         self.vectorized_plugins.add(plugin_name)
 
@@ -313,16 +315,60 @@ class BatchSolver:
 
     # -- context build -----------------------------------------------------
 
-    def _context(self, ordered_jobs, device) -> Tuple[NodeArrays, TaskBatch,
-                                                       "DenseSolver"]:
+    def _lower_constraints(self, ordered_jobs, narr: NodeArrays,
+                           slot_tensors: bool):
+        """(batch, slot entries for the selector feature pairs or None):
+        the batch with its topology-domain assignments lowered
+        (volcano_tpu/framework/solver.py:528-617). ``slot_tensors`` (the
+        place path) gives the batch the kernel's per-task
+        ``task_slot``/``slot_rows`` and keeps base groups; otherwise (host
+        contexts, ``constraints.compile: off``, or more than SLOT_CAP
+        distinct slots) each assigned domain splits off a derived group
+        whose domain rides the selector feature pairs. The constraint
+        passes, not the batch build, count into ``constraint_ms``."""
+        ssn = self.ssn
+        use_tensors, sig_override = constraints.lower_slots(
+            ssn, ordered_jobs, narr.names, slot_tensors)
+        batch = TaskBatch.build(ordered_jobs, self.rindex,
+                                sig_override=sig_override)
+        if use_tensors:
+            slot_data = constraints.build_slot_tensors(ssn, batch, narr)
+            if slot_data is not None:
+                batch.task_slot, batch.slot_rows = slot_data
+        # split slots lower through the selector feature pairs, tensor
+        # slots through the kernel's inputs; either way compile_mask then
+        # skips its group-wide slot rows
+        slot_entries = getattr(ssn, "_constraint_slots", None) \
+            if sig_override else None
+        if slot_entries or batch.task_slot is not None:
+            ssn._constraint_slots_lowered = True
+        return batch, slot_entries
+
+    def _buckets(self, batch: TaskBatch) -> Tuple[np.ndarray, np.ndarray]:
+        """(task_bucket [T] i32, group_pack_bonus [G] f32) from the bucket
+        fn (volcano_tpu/framework/solver.py:954-967): -1 and 0 without
+        one."""
+        task_bucket = np.full(batch.t_pad, -1, np.int32)
+        pack_bonus = np.zeros(batch.g_pad, np.float32)
+        if self.bucket_fn is not None:
+            keys: Dict = {}
+            for t_idx, task in enumerate(batch.tasks):
+                res = self.bucket_fn(task)
+                if res is None:
+                    continue
+                key, bonus = res
+                task_bucket[t_idx] = keys.setdefault(key, len(keys))
+                pack_bonus[batch.task_group[t_idx]] = bonus
+        return task_bucket, pack_bonus
+
+    def _context(self, ordered_jobs, device, slot_tensors: bool = False
+                 ) -> Tuple[NodeArrays, TaskBatch, "DenseSolver"]:
         """Encode the batch against the session's current node state and
         compose the plugins' contributions into a DenseSolver on
-        ``device`` (volcano_tpu/framework/solver.py:528-811)."""
+        ``device`` (volcano_tpu/framework/solver.py:528-811);
+        ``slot_tensors`` picks the topology-domain lowering
+        (``_lower_constraints``)."""
         ssn = self.ssn
-        if has_constraints(ordered_jobs):
-            raise NotImplementedError(
-                "topology-spread and pod anti-affinity lowering arrive with "
-                "the constraints port")
         extra = {name for name in ssn.predicate_fns
                  if name not in self.vectorized_plugins}
         if extra:
@@ -331,8 +377,10 @@ class BatchSolver:
                 "places only through vectorized masks")
         narr = NodeArrays.build(ssn.nodes, [n.name for n in ssn.node_list],
                                 self.rindex)
-        batch = TaskBatch.build(ordered_jobs, self.rindex)
-        feats = arrays.PredicateFeatures.build(ssn.nodes, narr, batch)
+        batch, slot_entries = self._lower_constraints(ordered_jobs, narr,
+                                                      slot_tensors)
+        feats = arrays.PredicateFeatures.build(ssn.nodes, narr, batch,
+                                               slot_entries=slot_entries)
 
         gmask = None
         if self.enable_default_predicates and \
@@ -381,12 +429,12 @@ class BatchSolver:
                     ns_alloc0[ni] = allocated
                     ns_weight[ni] = max(float(weight), 1e-9)
 
+        task_bucket, pack_bonus = self._buckets(batch)
         snapshot = {
             "task_group": batch.task_group, "task_job": batch.task_job,
             "task_valid": batch.task_valid, "group_req": batch.group_req,
             "group_mask": gmask, "group_static_score": static_score,
-            "task_bucket": np.full(batch.t_pad, -1, np.int32),
-            "group_pack_bonus": np.zeros(batch.g_pad, np.float32),
+            "task_bucket": task_bucket, "group_pack_bonus": pack_bonus,
             "job_min_available": batch.job_min_available,
             "job_ready_base": batch.job_ready_base,
             "job_task_start": batch.job_task_start,
@@ -400,6 +448,9 @@ class BatchSolver:
             "node_idle": narr.idle, "node_future": narr.future_idle,
             "node_alloc": narr.allocatable, "node_ntasks": narr.n_tasks,
             "node_max_tasks": narr.max_tasks, "eps": self.rindex.eps}
+        if batch.task_slot is not None:
+            snapshot["task_slot"] = batch.task_slot
+            snapshot["slot_ok"] = batch.slot_rows
         features = None
         if self.enable_default_predicates:
             features = PredicateFeatures(
@@ -425,7 +476,9 @@ class BatchSolver:
         """Run the gang-allocate kernel for the ordered job/task batch
         against the session's *current* node state."""
         t0 = time.perf_counter()
-        narr, batch, dense = self._context(ordered_jobs, self.device)
+        self.ssn._constraint_ms = 0.0
+        narr, batch, dense = self._context(ordered_jobs, self.device,
+                                           slot_tensors=True)
         t1 = time.perf_counter()
         out = dense.place(allow_pipeline=allow_pipeline, ns_live=self._ns_live)
         assign = out.assign.cpu().numpy()
@@ -435,7 +488,11 @@ class BatchSolver:
         t2 = time.perf_counter()
         stats = gang_allocate_cuda.last_stats
         self.stats.append({
-            "encode_ms": (t1 - t0) * 1000.0, "solve_ms": (t2 - t1) * 1000.0,
+            "encode_ms": (t1 - t0) * 1000.0,
+            "constraint_ms": self.ssn._constraint_ms,
+            "slots": 0 if batch.slot_rows is None
+            else batch.slot_rows.shape[0] - 1,
+            "solve_ms": (t2 - t1) * 1000.0,
             "kernel_ms": out.kernel_ms,
             "launch": stats.tolist() if stats is not None
             and self.device.type == "cuda" else None})

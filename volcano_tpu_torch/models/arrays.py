@@ -16,9 +16,11 @@ arrays; the solver turns them into tensors on its device.
 * **Padding/bucketing**: node/task/group counts are padded to buckets, with
   validity masks.
 
-Topology-domain lowering (``task_slot``/``slot_rows`` and the spread slot
-entries) belongs to the constraints port: the batch's ``task_slot`` stays
-None.
+* **Topology domains**: the constraint compiler (ops/constraints.py)
+  lowers a task's assigned spread / anti-affinity domains either as
+  derived group sigs whose domains ride the selector feature pairs
+  (``derived_sig``, ``sig_override``, ``slot_entries``), or as the
+  kernel's per-task ``task_slot``/``slot_rows`` inputs.
 """
 
 from __future__ import annotations
@@ -265,6 +267,25 @@ def _constraint_key(t: TaskInfo) -> tuple:
 _TRIVIAL_CONSTRAINT = ((), (), "", ())
 
 
+def derived_sig(base_sig: int, tag) -> int:
+    """A stable intern id for a DERIVED group identity: the constraint
+    compiler splits a spread-constrained task group into per-topology-slot
+    subgroups (ops/constraints.py), and the subgroup sig must live in the
+    same id space as :func:`_group_sig` without ever colliding with a
+    pod-level sig. Same intern table, key namespaced by a marker."""
+    global _SIG_NEXT
+    key = ("__derived__", base_sig, tag)
+    with _SIG_LOCK:
+        sig = _SIG_INTERN.get(key)
+        if sig is None:
+            if len(_SIG_INTERN) >= _SIG_INTERN_MAX:
+                _SIG_INTERN.clear()
+            sig = _SIG_NEXT
+            _SIG_NEXT += 1
+            _SIG_INTERN[key] = sig
+    return sig
+
+
 def _req_key(t: TaskInfo) -> tuple:
     cached = t.req_key_cache
     if cached is not None:
@@ -315,8 +336,10 @@ class TaskBatch:
     pool_ns: np.ndarray              # [P] i32 namespace of each pool
     pool_job_start: np.ndarray       # [P] i32 jobs grouped by pool
     pool_njobs: np.ndarray           # [P] i32
-    # per-task topology-domain restriction: belongs to the constraints
-    # port, always None here (the kernels raise NotImplementedError on it)
+    # per-task topology-domain restriction (ops/constraints.py
+    # build_slot_tensors, set after the build by the solver's context
+    # build): task_slot[t] indexes a slot_rows row; row S is all-true and
+    # unconstrained tasks carry S. None = no batch task carries a slot.
     task_slot: Optional[np.ndarray] = None       # [T] i32
     slot_rows: Optional[np.ndarray] = None       # [S+1, n_pad] bool
 
@@ -328,7 +351,8 @@ class TaskBatch:
     def build(cls, ordered_jobs: Sequence[Tuple[JobInfo, Sequence[TaskInfo]]],
               rindex: ResourceIndex,
               task_bucket: int = TASK_BUCKET,
-              group_bucket: int = GROUP_BUCKET) -> "TaskBatch":
+              group_bucket: int = GROUP_BUCKET,
+              sig_override: Optional[Dict[str, int]] = None) -> "TaskBatch":
         # regroup jobs by (namespace, queue) pool, stable: namespace and
         # queue order = first appearance; zero-task jobs are excluded (each
         # job consumes scan steps equal to its task count, so empty jobs
@@ -385,9 +409,18 @@ class TaskBatch:
                 job_start.append(len(tasks))
                 job_queue.append(q_idx)
                 tasks.extend(jtasks)
-                task_sig.extend(t.group_sig_cache if t.group_sig_cache
-                                is not None else _group_sig(t)
-                                for t in jtasks)
+                if sig_override:
+                    # per-cycle derived sigs (spread slots) win over the
+                    # pod-level identity
+                    task_sig.extend(
+                        ov if (ov := sig_override.get(t.uid)) is not None
+                        else (t.group_sig_cache if t.group_sig_cache
+                              is not None else _group_sig(t))
+                        for t in jtasks)
+                else:
+                    task_sig.extend(t.group_sig_cache if t.group_sig_cache
+                                    is not None else _group_sig(t)
+                                    for t in jtasks)
                 task_job.extend([j_idx] * len(jtasks))
                 job_end.append(len(tasks))
 
@@ -530,11 +563,21 @@ class PredicateFeatures:
 
     @classmethod
     def build(cls, nodes: Dict[str, NodeInfo], node_arrays: NodeArrays,
-              batch: TaskBatch) -> "PredicateFeatures":
+              batch: TaskBatch,
+              slot_entries: Optional[Dict[str, tuple]] = None
+              ) -> "PredicateFeatures":
+        """``slot_entries`` ({task uid: ((key, values, hard), ...)}) are
+        the constraint compiler's spread/anti-affinity domain
+        assignments (ops/constraints.py): each lowers to a required
+        (key, value) label pair (or, for an unsatisfiable empty
+        assignment, a sentinel pair no node carries), so topology
+        constraints ride the same selector matmul as node selectors."""
         n_pad = node_arrays.n_pad
         g_pad = batch.g_pad
         # one representative task per group (tasks group on identical
-        # constraints, so the rep carries them for the whole group)
+        # constraints, so the rep carries them for the whole group;
+        # derived slot groups key on the entries, so the rep's slot
+        # assignment is the whole group's)
         reps = [batch.tasks[i] for i in batch.group_first]
 
         # taints (NoSchedule/NoExecute block scheduling): node-side, needed
@@ -559,7 +602,8 @@ class PredicateFeatures:
         # fast path: no group carries any scheduling constraint — the
         # common burst shape; skip every per-group sweep (the group-side
         # matrices are all-zero / trivially empty)
-        if all(t.constraint_key_cache is _TRIVIAL_CONSTRAINT or (
+        if not slot_entries and \
+                all(t.constraint_key_cache is _TRIVIAL_CONSTRAINT or (
                     not t.pod.spec.node_selector
                     and not t.pod.spec.tolerations
                     and t.pod.spec.affinity is None
@@ -573,12 +617,19 @@ class PredicateFeatures:
                 group_tolerates=np.zeros((g_pad, k_pad), np.float32),
                 group_affinity_ok=None)
 
-        # collect referenced selector pairs
+        # collect referenced selector pairs (and the compiler's assigned
+        # topology domains: required pairs with identical semantics)
         pair_ids: Dict[Tuple[str, str], int] = {}
         group_pairs: List[List[int]] = [[] for _ in range(g_pad)]
+        unsat = ("__constraint_unsat__", "__constraint_unsat__")
         for g, t in enumerate(reps):
             for k, v in sorted(t.pod.spec.node_selector.items()):
                 pid = pair_ids.setdefault((k, v), len(pair_ids))
+                group_pairs[g].append(pid)
+            entries = slot_entries.get(t.uid) if slot_entries else None
+            for key, values, _hard in entries or ():
+                pair = (key, values[0]) if values else unsat
+                pid = pair_ids.setdefault(pair, len(pair_ids))
                 group_pairs[g].append(pid)
 
         f_pad = bucket(max(1, len(pair_ids)), 8)

@@ -104,6 +104,14 @@ def make_pool_select(queue_deserved, pool_queue, pool_ns, pool_job_start,
     return select
 
 
+def slot_row(slot_ok: torch.Tensor, slot: int) -> torch.Tensor:
+    """Row ``slot`` of ``slot_ok`` [S+1, N]; a slot outside 0..S admits no
+    node, as in the kernel."""
+    if 0 <= slot < slot_ok.shape[0]:
+        return slot_ok[slot]
+    return torch.zeros_like(slot_ok[0])
+
+
 def gang_allocate(task_group: torch.Tensor,      # [T] i32
                   task_job: torch.Tensor,        # [T] i32 (padding -> sentinel)
                   task_valid: torch.Tensor,      # [T] bool
@@ -140,11 +148,11 @@ def gang_allocate(task_group: torch.Tensor,      # [T] i32
     """Returns (assign [T] node or -1, pipelined [T] bool, ready [J] bool,
     kept [J] bool, final AllocState), on the inputs' device.
 
-    ``task_slot``/``slot_ok`` (per-task topology-domain restriction) belong
-    to the constraints port and are not taken yet."""
-    if task_slot is not None or slot_ok is not None:
-        raise NotImplementedError(
-            "task_slot/slot_ok arrive with the constraints port")
+    ``task_slot`` [T] i32 and ``slot_ok`` [S+1, N] bool are the constraint
+    compiler's per-task topology-domain restriction (ops/constraints.py):
+    task t may only use the nodes where ``slot_ok[task_slot[t]]`` holds;
+    row S is all-true and unconstrained tasks carry S, and a slot outside
+    0..S admits no node."""
     T = task_group.shape[0]
     J = job_min_available.shape[0]
     dev = node_idle.device
@@ -156,6 +164,7 @@ def gang_allocate(task_group: torch.Tensor,      # [T] i32
     tg = task_group.tolist()
     tv = task_valid.tolist()
     tb = task_bucket.tolist()
+    ts = task_slot.tolist() if task_slot is not None else None
     j_start = job_task_start.tolist()
     j_n = job_n_tasks.tolist()
     j_min = job_min_available.tolist()
@@ -193,7 +202,10 @@ def gang_allocate(task_group: torch.Tensor,      # [T] i32
             pack.zero_()   # a new topology bucket starts with no mates
         if valid:
             req = group_req[g]
-            base_ok = group_mask[g] & (uncapped | (n_tasks < node_max_tasks))
+            static_ok = group_mask[g]
+            if ts is not None:
+                static_ok = static_ok & slot_row(slot_ok, ts[t_idx])
+            base_ok = static_ok & (uncapped | (n_tasks < node_max_tasks))
             fits_idle = torch.all(req[None, :] <= idle + eps[None, :],
                                   dim=-1) & base_ok
             fits_future = torch.all(req[None, :] <= future + eps[None, :],
@@ -310,7 +322,9 @@ def gang_allocate_chunked(task_group, task_job, task_valid, group_req,
                           node_idle, node_future, node_alloc, node_ntasks,
                           node_max_tasks, eps, weights: ScoreWeights,
                           allow_pipeline: bool = True, ns_live: bool = False,
-                          chunk: int = 16):
+                          chunk: int = 16,
+                          task_slot: Optional[torch.Tensor] = None,
+                          slot_ok: Optional[torch.Tensor] = None):
     """``gang_allocate`` by the CUDA kernel's decision procedure: the port
     of volcano_tpu/ops/sharded.py:_sharded_body_chunked on one device, a
     table of the top ``chunk`` nodes per fit class over all nodes (the
@@ -319,20 +333,23 @@ def gang_allocate_chunked(task_group, task_job, task_valid, group_req,
     plus a sixth output counting the table refreshes (the kernel counts
     its refreshes by the same rule): ``total``; ``forced``, those that only
     the force flag called for (after a rollback, or passed on by a padding
-    step), with the group and bucket unchanged and fewer than ``chunk``
-    steps served; ``in_job``, those after a job's first step; and
-    ``bucket_carried``, those at a job's first step in the bucket of the
-    job before, whose table takes that bucket's pack row.
+    step), with the group, bucket and slot unchanged and fewer than
+    ``chunk`` steps served; ``slot``, those that only a change of the
+    task's domain slot called for; ``in_job``, those after a job's first
+    step; and ``bucket_carried``, those at a job's first step in the
+    bucket of the job before, whose table takes that bucket's pack row.
 
     A refresh sweeps every node and keeps the top ``chunk`` per fit class;
     a step is then served from the table's rows alone. A valid step
     refreshes when the previous step rolled back a gang, when ``chunk``
-    steps have been served, or when the group or the topology bucket
-    changed; an invalid step (a job's padding) serves nothing and passes a
-    refresh it needed on to the next step. The table is exact, tie-breaks
-    included (sharded.py:277-293): only placed-on nodes change within a
-    chunk, they are in the table, and it kept ``chunk`` candidates a class
-    of which at most ``chunk - 1`` were touched."""
+    steps have been served, or when the group, the topology bucket or the
+    domain slot changed; an invalid step (a job's padding) serves nothing
+    and passes a refresh it needed on to the next step. The refresh masks
+    with the step's slot row, so every served step's table was built
+    under its own slot (sharded.py:287-293). The table is exact,
+    tie-breaks included (sharded.py:277-293): only placed-on nodes change
+    within a chunk, they are in the table, and it kept ``chunk``
+    candidates a class of which at most ``chunk - 1`` were touched."""
     T = task_group.shape[0]
     J = job_min_available.shape[0]
     N = node_ntasks.shape[0]
@@ -341,6 +358,7 @@ def gang_allocate_chunked(task_group, task_job, task_valid, group_req,
                               pool_job_start, pool_njobs, ns_weight,
                               ns_total, eps, ns_live)
     tg, tv, tb = task_group.tolist(), task_valid.tolist(), task_bucket.tolist()
+    ts = task_slot.tolist() if task_slot is not None else [-1] * T
     j_start, j_n = job_task_start.tolist(), job_n_tasks.tolist()
     j_min, j_base = job_min_available.tolist(), job_ready_base.tolist()
     p_queue, p_ns = pool_queue.tolist(), pool_ns.tolist()
@@ -359,32 +377,36 @@ def gang_allocate_chunked(task_group, task_job, task_valid, group_req,
     t_off = placed = placed_alloc = 0
     placed_res = torch.zeros_like(eps)
     table = None
-    since, prev_g, prev_b, force = chunk, -1, -1, True
-    refreshes = dict(total=0, forced=0, in_job=0, bucket_carried=0)
+    since, prev_g, prev_b, prev_s, force = chunk, -1, -1, -1, True
+    refreshes = dict(total=0, forced=0, slot=0, in_job=0, bucket_carried=0)
     for _ in range(T):
         if job < 0:
             break
         t_idx = min(max(j_start[job] + t_off, 0), T - 1)
-        g, b = tg[t_idx], tb[t_idx]
+        g, b, slot = tg[t_idx], tb[t_idx], ts[t_idx]
         valid = tv[t_idx] and t_off < j_n[job]
         sb = b >= 0 and b == cur_bucket
         if not sb:
             pack.zero_()
-        changed = since >= chunk or g != prev_g or b != prev_b
+        others = since >= chunk or g != prev_g or b != prev_b
+        changed = others or slot != prev_s
         need = force or changed
-        prev_g, prev_b = g, b
+        prev_g, prev_b, prev_s = g, b, slot
         if not valid:
             force = need
         else:
             req = group_req[g]
             bonus = group_pack_bonus[g]
             if need:
-                table = _refresh(chunk, req, group_mask[g],
+                mask_row = group_mask[g] if task_slot is None \
+                    else group_mask[g] & slot_row(slot_ok, slot)
+                table = _refresh(chunk, req, mask_row,
                                  group_static_score[g], bonus, pack, idle,
                                  future, n_tasks, node_alloc, node_max_tasks,
                                  eps, weights, allow_pipeline)
                 refreshes["total"] += 1
                 refreshes["forced"] += not changed
+                refreshes["slot"] += changed and not others and not force
                 refreshes["in_job"] += t_off > 0
                 refreshes["bucket_carried"] += t_off == 0 and sb
                 since, force = 1, False
@@ -457,3 +479,24 @@ def gang_allocate_chunked(task_group, task_job, task_valid, group_req,
             torch.tensor(ready, dtype=torch.bool, device=dev),
             torch.tensor(kept, dtype=torch.bool, device=dev), state,
             refreshes)
+
+
+def rule_refreshes(task_group, task_bucket, task_slot, job_task_start,
+                   job_n_tasks, chunk: int = 16) -> int:
+    """The table refreshes that ``gang_allocate_chunked``'s rule gives
+    when every job runs in encode order, none rolls back and no padding
+    step lies inside a span: a step refreshes when its group, bucket or
+    slot (``task_slot`` None: no slots) differs from the step before, or
+    after ``chunk`` served steps. Takes numpy arrays or tensors."""
+    tg, tb = task_group.tolist(), task_bucket.tolist()
+    ts = task_slot.tolist() if task_slot is not None else [-1] * len(tg)
+    total, since, prev = 0, chunk, None
+    for start, n in zip(job_task_start.tolist(), job_n_tasks.tolist()):
+        for t in range(start, start + n):
+            key = (tg[t], tb[t], ts[t])
+            if since >= chunk or key != prev:
+                total, since = total + 1, 1
+            else:
+                since += 1
+            prev = key
+    return total

@@ -3,7 +3,8 @@ signature (counterpart of volcano_tpu/ops/pallas_allocate.py:
 gang_allocate_pallas and its host preparation).
 
 ``gang_allocate_cuda`` takes the 28 positional inputs of
-ops.allocate.gang_allocate and returns the same outputs. Inputs on a CUDA
+ops.allocate.gang_allocate, and its optional per-task domain slots
+(``task_slot``, ``slot_ok``), and returns the same outputs. Inputs on a CUDA
 device go to the kernel in csrc/gang_allocate.cu (built on first use), one
 launch of one thread-block cluster per call on the current stream, without
 synchronising; inputs on the CPU go to the plain loop; any other device
@@ -25,15 +26,15 @@ from .score import ScoreWeights
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_N_POINTERS = 38
-_N_INTS = 12
+_N_POINTERS = 40
+_N_INTS = 13
 
 # the kernel's constants (csrc/gang_allocate.cu): candidates a block keeps
 # per fit class, warps a block, words of the step descriptor and of the
 # table's group request
 CHUNK = 16
 WARPS = 16
-DESC_WORDS = 4
+DESC_WORDS = 5
 REQ_WORDS = 22
 # shared memory a block may use on an H100 (227 KB), and the cluster sizes:
 # 8 is portable, 16 needs the non-portable attribute
@@ -110,10 +111,14 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype,
             f"(contiguous={x.is_contiguous()})")
 
 
-def check_inputs(args: List[torch.Tensor]):
-    """Validate the 28 positional inputs for the kernel: one device, the
-    kernel's dtypes, consistent shapes, contiguous, 2 <= R <= 8. Returns
-    (T, G, J, P, NS, N, R); raises ValueError on anything else."""
+def check_inputs(args: List[torch.Tensor],
+                 task_slot: Optional[torch.Tensor] = None,
+                 slot_ok: Optional[torch.Tensor] = None):
+    """Validate the 28 positional inputs for the kernel, and the slot
+    inputs when given (both or neither; ``slot_ok`` [S+1, N]): one device,
+    the kernel's dtypes, consistent shapes, contiguous, 2 <= R <= 8.
+    Returns (T, G, J, P, NS, N, R, S), S = -1 without slots; raises
+    ValueError on anything else."""
     (task_group, task_job, task_valid, group_req, group_mask,
      group_static_score, task_bucket, group_pack_bonus, job_min_available,
      job_ready_base, job_task_start, job_n_tasks, job_queue, pool_queue,
@@ -162,7 +167,16 @@ def check_inputs(args: List[torch.Tensor]):
             ("node_max_tasks", node_max_tasks, i32, (N,)),
             ("eps", eps, f32, (R,))):
         _check(name, x, dtype, shape, device)
-    return T, G, J, P, NS, N, R
+    if (task_slot is None) != (slot_ok is None):
+        raise ValueError("task_slot and slot_ok: give both or neither")
+    S = -1
+    if slot_ok is not None:
+        if slot_ok.dim() != 2 or slot_ok.shape[0] < 1:
+            raise ValueError("slot_ok: expected [S+1, N]")
+        S = slot_ok.shape[0] - 1
+        _check("task_slot", task_slot, i32, (T,), device)
+        _check("slot_ok", slot_ok, b8, (S + 1, N), device)
+    return T, G, J, P, NS, N, R, S
 
 
 def gang_allocate_cuda(task_group, task_job, task_valid, group_req,
@@ -177,7 +191,9 @@ def gang_allocate_cuda(task_group, task_job, task_valid, group_req,
                        task_slot: Optional[torch.Tensor] = None,
                        slot_ok: Optional[torch.Tensor] = None):
     """Returns (assign [T] node or -1, pipelined [T] bool, ready [J] bool,
-    kept [J] bool, final AllocState), as ops.allocate.gang_allocate does.
+    kept [J] bool, final AllocState), as ops.allocate.gang_allocate does;
+    ``task_slot`` [T] i32 and ``slot_ok`` [S+1, N] bool restrict task t to
+    the nodes of row ``task_slot[t]`` (a slot outside 0..S admits none).
 
     ``gang_allocate_cuda.launches`` counts the kernel launches;
     ``gang_allocate_cuda.last_stats`` is what the last launch reports of
@@ -197,11 +213,8 @@ def gang_allocate_cuda(task_group, task_job, task_valid, group_req,
             task_slot=task_slot, slot_ok=slot_ok)
     if device.type != "cuda":
         raise ValueError(f"gang_allocate_cuda: no kernel for device {device}")
-    if task_slot is not None or slot_ok is not None:
-        raise NotImplementedError(
-            "task_slot/slot_ok arrive with the constraints port")
 
-    T, G, J, P, NS, N, R = check_inputs(args)
+    T, G, J, P, NS, N, R, S = check_inputs(args, task_slot, slot_ok)
     Q = queue_deserved.shape[0]
     plan = cluster_plan(N, R, Q, NS, P)
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
@@ -222,9 +235,9 @@ def gang_allocate_cuda(task_group, task_job, task_valid, group_req,
     kept = torch.empty(J, dtype=b8, device=device)
     stats = torch.empty(3, dtype=i32, device=device)
 
-    pointers = [task_group, task_valid, task_bucket, task_job, group_req,
-                group_mask, group_static_score, group_pack_bonus,
-                job_min_available, job_ready_base, job_task_start,
+    pointers = [task_group, task_valid, task_bucket, task_job, task_slot,
+                slot_ok, group_req, group_mask, group_static_score,
+                group_pack_bonus, job_min_available, job_ready_base, job_task_start,
                 job_n_tasks, pool_queue, pool_ns, pool_job_start, pool_njobs,
                 ns_weight, ns_total, queue_deserved, node_idle, node_future,
                 node_alloc, node_ntasks, node_max_tasks, eps, w, idle, future,
@@ -233,8 +246,9 @@ def gang_allocate_cuda(task_group, task_job, task_valid, group_req,
     lib = _lib()
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.gang_allocate_launch(
-        *(x.data_ptr() for x in pointers),
-        T, J, P, NS, Q, N, R, int(bool(allow_pipeline)), int(bool(ns_live)),
+        *(None if x is None else x.data_ptr() for x in pointers),
+        T, J, P, NS, Q, N, S, R, int(bool(allow_pipeline)),
+        int(bool(ns_live)),
         *plan, stream)
     if rc != 0:
         raise RuntimeError("gang_allocate kernel launch failed: "

@@ -13,11 +13,11 @@ BalancedResourceAllocation, NodeAffinity (preferred terms), TaintToleration
     podaffinity.weight       (default 1)
 
 least/most/balanced run inside the gang-allocate kernel (dynamic state);
-nodeaffinity-preferred and PreferNoSchedule taints are encoded per group x
-node once and added as a static score term. Inter-pod preferred affinity
-(the reference's BatchNodeOrder scorer, nodeorder.go:271-295) arrives with
-the placement-constraint port: with ``podaffinity.weight`` set, a session
-holding a pod with pod (anti-)affinity raises NotImplementedError.
+nodeaffinity-preferred, PreferNoSchedule taints and inter-pod preferred
+affinity (the reference's BatchNodeOrder scorer, nodeorder.go:271-295,
+evaluated against the session-open snapshot there too; plugins/
+interpod.py) are encoded per group x node once and added as a static
+score term.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import numpy as np
 
 from ..framework.plugin import Plugin
 from ..framework.registry import register_plugin_builder
-from .predicates import refuse_pod_constraints
+from . import interpod
 
 NAME = "nodeorder"
 
@@ -79,8 +79,6 @@ class NodeOrderPlugin(Plugin):
         return NAME
 
     def on_session_open(self, ssn) -> None:
-        if self.pod_affinity_w:
-            refuse_pod_constraints(ssn, NAME)
         if ssn.solver is not None and ssn.plugin_enabled(NAME, "enabledNodeOrder"):
             ssn.solver.add_weight("least", float(self.least_w))
             ssn.solver.add_weight("most", float(self.most_w))
@@ -107,6 +105,23 @@ class NodeOrderPlugin(Plugin):
 
         ssn.add_node_order_fn(NAME, node_order_fn)
 
+        def batch_node_order_fn(task, nodes):
+            """Inter-pod preferred affinity over a node set (the
+            reference's BatchNodeOrderFn, nodeorder.go:278-300)."""
+            if not self.pod_affinity_w:
+                return {}
+            names = [n.name for n in ssn.node_list]
+            index = interpod.get_index(ssn, names)
+            raw = index.preference_score(task)
+            if raw is None:
+                return {}
+            norm = interpod.normalize(raw, float(self.pod_affinity_w))
+            by_name = dict(zip(names, norm))
+            return {node.name: float(by_name.get(node.name, 0.0))
+                    for node in nodes}
+
+        ssn.add_batch_node_order_fn(NAME, batch_node_order_fn)
+
     def _static_score(self, ssn):
         def fn(batch, narr, feats):
             # the [G, N] score materializes ONLY on first touch: the
@@ -114,12 +129,33 @@ class NodeOrderPlugin(Plugin):
             # context build at 50k x 10k before returning None
             score = None
             touched = False   # all-zero -> return None (no [G,N] transfer)
+            n = len(narr.names)
 
             def buf():
                 nonlocal score
                 if score is None:
                     score = np.zeros((batch.g_pad, narr.n_pad), np.float32)
                 return score
+            if self.pod_affinity_w:
+                # inter-pod preferred (anti-)affinity batch scorer
+                # (nodeorder.go:271-295); symmetry can score affinity-free
+                # groups, so gate on any affinity existing at all
+                own = {g for g, i in enumerate(batch.group_first)
+                       if interpod.task_has_pod_affinity(batch.tasks[i])}
+                existing = any(interpod.task_has_pod_affinity(t)
+                               for node in ssn.nodes.values()
+                               for t in node.tasks.values())
+                if own or existing:
+                    index = interpod.get_index(ssn, narr.names)
+                    groups = set(range(batch.n_groups)) \
+                        if index.pref_terms else own
+                    for g in groups:
+                        rep = batch.tasks[batch.group_first[g]]
+                        raw = index.preference_score(rep)
+                        if raw is not None:
+                            buf()[g, :n] += interpod.normalize(
+                                raw, float(self.pod_affinity_w))
+                            touched = True
             # PreferNoSchedule taints are rare: sweep only nodes that carry
             # one (taint-free nodes score a constant, which can't change the
             # per-task argmax and is omitted)

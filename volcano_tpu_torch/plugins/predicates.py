@@ -12,9 +12,9 @@ ports and GPU sharing. The same checks are also registered as a host-side
 PredicateFn for actions that probe single task x node pairs.
 
 Inter-pod (anti-)affinity and topology spread are lowered by the
-placement-constraint compiler, which this port does not have yet: a
-session holding a pod that carries either raises NotImplementedError when
-the plugin opens, so no pod is ever placed without its constraint.
+placement-constraint compiler (ops/constraints.py): a mask fn adds its
+required (anti-)affinity and spread-slot rows, a static score fn its soft
+spread score; the host predicate checks the same per pair.
 """
 
 from __future__ import annotations
@@ -28,7 +28,10 @@ from ..models.unschedule_info import (FitError, NODE_AFFINITY_FAILED,
                                       NODE_POD_NUMBER_EXCEEDED,
                                       NODE_PORT_FAILED, NODE_SELECTOR_FAILED,
                                       TAINT_FAILED)
+from ..ops import constraints
+from . import interpod
 
+POD_AFFINITY_FAILED = "node(s) didn't match pod affinity/anti-affinity"
 POD_TEMPLATE_KEY = "volcano.sh/template-uid"   # batch/v1alpha1/labels.go:37
 
 
@@ -95,39 +98,6 @@ def _proportional_ok(task, node, proportional: dict) -> bool:
     return True
 
 NAME = "predicates"
-
-
-def has_pod_constraints(pod) -> bool:
-    """Does the pod carry inter-pod (anti-)affinity or a topology spread
-    constraint?"""
-    spec = pod.spec
-    if spec.topology_spread:
-        return True
-    aff = spec.affinity
-    if aff is None:
-        return False
-    return any(a is not None and bool(a.required or a.preferred)
-               for a in (aff.pod_affinity, aff.pod_anti_affinity))
-
-
-def refuse_pod_constraints(ssn, plugin: str) -> None:
-    """Raise NotImplementedError when any pod of the session (a job's task
-    or a task already on a node) carries a constraint this port cannot
-    lower yet."""
-    for job in ssn.jobs.values():
-        for t in job.tasks.values():
-            if has_pod_constraints(t.pod):
-                raise NotImplementedError(
-                    f"{plugin}: pod {t.namespace}/{t.name} carries pod "
-                    "(anti-)affinity or topology spread, which arrive with "
-                    "the placement-constraint port")
-    for node in ssn.nodes.values():
-        for t in node.tasks.values():
-            if has_pod_constraints(t.pod):
-                raise NotImplementedError(
-                    f"{plugin}: pod {t.namespace}/{t.name} on node "
-                    f"{node.name} carries pod (anti-)affinity or topology "
-                    "spread, which arrive with the placement-constraint port")
 
 
 class FitException(Exception):
@@ -199,13 +169,13 @@ class PredicatesPlugin(Plugin):
         return NAME
 
     def on_session_open(self, ssn) -> None:
-        refuse_pod_constraints(ssn, NAME)
-
         # vectorized path: selector/taints/affinity matrices + extra masks
         if ssn.solver is not None and ssn.plugin_enabled(NAME, "enabledPredicate"):
             ssn.solver.enable_default_predicates = True
             ssn.solver.mark_vectorized(NAME)
             ssn.solver.add_mask_fn(self._ports_and_gpu_mask(ssn))
+            ssn.solver.add_mask_fn(self._constraint_mask(ssn))
+            ssn.solver.add_static_score_fn(self._constraint_score(ssn))
             if self.proportional:
                 ssn.solver.add_mask_fn(self._proportional_mask())
 
@@ -250,6 +220,27 @@ class PredicatesPlugin(Plugin):
                 raise FitException(FitError(
                     task=task, node=node,
                     reasons=["node(s) didn't have enough free gpu memory"]))
+            # InterPodAffinity filter (predicates.go:334-341)
+            names = [n.name for n in ssn.node_list]
+            index = interpod.get_index(ssn, names)
+            if index.anti_required or interpod.task_has_pod_affinity(task):
+                mask = index.required_mask(task)
+                if mask is not None:
+                    try:
+                        i = names.index(node.name)
+                    except ValueError:
+                        i = -1
+                    if i >= 0 and not mask[i]:
+                        raise FitException(FitError(
+                            task=task, node=node,
+                            reasons=[POD_AFFINITY_FAILED]))
+            # topology-spread / self-anti slot assignment (the per-pair
+            # twin of the compiled constraint mask)
+            if not constraints.node_satisfies_slots(ssn, task, node):
+                raise FitException(FitError(
+                    task=task, node=node,
+                    reasons=["node(s) didn't satisfy topology spread "
+                             "constraints"]))
             # proportional resource reserve (predicates.go:353-361)
             if self.proportional and \
                     not _proportional_ok(task, node, self.proportional):
@@ -289,6 +280,21 @@ class PredicatesPlugin(Plugin):
             return mask
         mask_fn.explain_label = "proportional"
         return mask_fn
+
+    def _constraint_mask(self, ssn):
+        """The constraint MASK (ops/constraints.py): inter-pod required
+        (anti-)affinity and the topology-spread / self-anti slot rows,
+        compiled, or per pair under ``constraints.compile: off``."""
+        def mask_fn(batch, narr, feats):
+            return constraints.constraint_mask(ssn, batch, narr)
+        return mask_fn
+
+    def _constraint_score(self, ssn):
+        """The constraint SCORE: soft (ScheduleAnyway) topology spread;
+        priority-tiered packing rides the priority plugin."""
+        def score_fn(batch, narr, feats):
+            return constraints.compile_score(ssn, batch, narr)
+        return score_fn
 
     def _ports_and_gpu_mask(self, ssn):
         def mask_fn(batch, narr, feats):

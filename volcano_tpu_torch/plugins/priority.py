@@ -2,10 +2,10 @@
 reference: pkg/scheduler/plugins/priority/priority.go).
 
 TaskOrder/JobOrder by priority; Preemptable admits only strictly
-lower-priority victims. The reference's ``tieredpack.weight`` score is
-lowered by the placement-constraint compiler, which this port does not
-have yet: setting it raises NotImplementedError rather than placing
-without the score.
+lower-priority victims. With ``tieredpack.weight`` set, the plugin also
+contributes the priority-tiered packing score (lowered by
+ops/constraints.py): groups pack toward nodes resident to their
+own-or-higher priority tier and away from lower-tier nodes.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 from ..framework.plugin import Plugin
 from ..framework.registry import register_plugin_builder
 from ..framework.session import PERMIT
+from ..ops import constraints
 
 NAME = "priority"
 
@@ -29,10 +30,12 @@ class PriorityPlugin(Plugin):
         return NAME
 
     def on_session_open(self, ssn) -> None:
-        if self.tieredpack_w:
-            raise NotImplementedError(
-                "priority tieredpack.weight: the priority-tiered packing "
-                "score arrives with the placement-constraint port")
+        if self.tieredpack_w and ssn.solver is not None:
+            def tiered_score(batch, narr, feats):
+                return constraints.compile_score(
+                    ssn, batch, narr, tiered_weight=self.tieredpack_w,
+                    spread_weight=0.0)   # spread rides the predicates plugin
+            ssn.solver.add_static_score_fn(tiered_score)
 
         def task_order_fn(l, r):
             if l.priority == r.priority:

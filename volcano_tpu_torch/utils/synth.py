@@ -210,6 +210,35 @@ def synth_arrays(n_tasks: int, n_nodes: int, *, gang_size: int = 8,
         node_ntasks=node_ntasks, node_max_tasks=node_max_tasks, eps=eps)
 
 
+def zone_slots(sa, zones: int, every: int = 2, unsat_every: int = 0,
+               seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-task domain slots over SynthArrays-shaped inputs (any object
+    with their numpy fields), the kernel's ``task_slot`` [T] i32 and
+    ``slot_ok`` [S+1, N] bool: real node i lies in zone i % zones, row z
+    < zones holds zone z's nodes, row ``zones`` none and row S = zones + 1
+    every node. The tasks of every ``every``-th job rotate over the zones
+    from a random first zone (one replica per zone, as the constraint
+    compiler assigns spread and anti-affinity gangs); with
+    ``unsat_every`` > 0 the last task of every ``unsat_every``-th such job
+    takes the empty row. Every other task, padding included, takes S."""
+    rng = np.random.default_rng(seed)
+    n = sa.node_idle.shape[0]
+    real = np.flatnonzero(sa.node_alloc.any(axis=1))
+    S = zones + 1
+    slot_ok = np.zeros((S + 1, n), bool)
+    slot_ok[real % zones, real] = True
+    slot_ok[S] = True
+    task_slot = np.full(sa.task_group.shape[0], S, np.int32)
+    jobs = np.flatnonzero(sa.job_n_tasks > 0)
+    for k, j in enumerate(jobs[::every]):
+        start, size = int(sa.job_task_start[j]), int(sa.job_n_tasks[j])
+        first = int(rng.integers(zones))
+        task_slot[start:start + size] = (first + np.arange(size)) % zones
+        if unsat_every and k % unsat_every == 0:
+            task_slot[start + size - 1] = zones
+    return task_slot, slot_ok
+
+
 def populate_store(store, *, n_nodes: int, n_jobs: int, gang_size: int,
                    queues: Optional[List[Tuple[str, int]]] = None,
                    cpu_req: str = "2", mem_req: str = "4Gi",
@@ -222,10 +251,10 @@ def populate_store(store, *, n_nodes: int, n_jobs: int, gang_size: int,
 
     ``zones`` > 0 labels node i with topology.kubernetes.io/zone =
     zone-<i % zones>; ``spread_every`` / ``anti_every`` give every Nth
-    job a hard zone topology-spread constraint / a required one-replica-
-    per-zone self-anti-affinity term (which this port's predicates refuse
-    with NotImplementedError until the constraint port). Deterministic by
-    job index, no rng."""
+    job a hard zone topology-spread constraint (max_skew 1) / a required
+    one-replica-per-zone self-anti-affinity term, which the constraint
+    compiler lowers to per-task zone slots (ops/constraints.py).
+    Deterministic by job index, no rng."""
     from ..models.objects import (Affinity, NodeSelectorRequirement,
                                   PodAffinity, PodAffinityTerm,
                                   TopologySpreadConstraint)
