@@ -56,7 +56,7 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
 8. cycle: the port's main path through the objects at the north star's
    size, volcano_tpu_torch.cmd.cycle.run_cycle: populate_store(10,000
    nodes, 6,250 gangs of 8), a fresh cache, one Scheduler.run_once with
-   the default conf plus binpack; one cold and two warm runs on fresh
+   the default conf plus binpack; one cold and one warm run on fresh
    stores, the launch count set to 0 just before each cycle and read just
    after. Each prints populate and sync seconds, the cycle's wall ms and
    its split, the kernel's CUDA-event ms and launch report, binds (all
@@ -66,19 +66,48 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
    that size (R = 2, the encode of the allocate action's phase-A batch),
    held exactly like phase 5;
 10. cycle_constrained: the slot path, the constrained mix of phase 7 at
-    the north star's size (50,000 pods, 10,000 nodes), one cold and two
-    warm runs, each with the launch count set to 0 just before and read
+    the north star's size (50,000 pods, 10,000 nodes), one cold and one
+    warm run, each with the launch count set to 0 just before and read
     just after; each prints the cycle's split with the constraint passes'
     ms, the kernel's CUDA-event ms and table refreshes, binds and
     committed gangs, and fails on an infeasible bind, a broken gang, or a
     spread or anti-affinity violation; then that cycle's own kernel
     inputs (with task_slot and slot_ok) against the plain loop once, and
     the kernel's refreshes against the count its rule gives;
-11. the kernels line (with the table refreshes, the cluster's blocks and
+11. victims_vs_plain: preempt and reclaim through the objects, the
+    reference harness's shapes (utils/synth.py:populate_preempt_store,
+    populate_reclaim_store) at 2,048 nodes, 256 victim gangs and 128
+    waiting gangs, in four confs: preempt by the walk (drf's tier
+    decides), preempt vectorized (the reference's A/B conf over the
+    elastic shape), reclaim vectorized and reclaim with
+    ``victims.kernel: off``. Two cycles on one store with
+    device="cuda" against the same two with device="cpu": evicted pods
+    (in order), pipelined task -> node, cycle-2 binds and PodGroup
+    phases must be equal, and each cycle must take its conf's path; a
+    pipelined task that does not fit its node's future idle once its
+    victims are released, a preempt victim not of strictly lower
+    priority, a reclaim victim not of another, reclaimable queue, or a
+    gang bound below minMember fails;
+12. preempt_cycle and 13. reclaim_cycle: the same paths at the
+    reference's full size (10,000 nodes, 1,250 victim gangs, 625 waiting
+    gangs of 8), each on fresh stores: one cold and one warm GPU cycle
+    and one CPU cycle held equal to the warm one as in phase 11; each
+    prints populate and sync seconds, the cycle's wall ms and split (the
+    kernel's CUDA-event ms and launches, preempt_ms or reclaim_ms, the
+    commit), evictions, pipelined tasks and peak device memory, and
+    fails if nothing is evicted or the kernel does not launch exactly
+    once a GPU cycle;
+14. victim_prefix: the batched torch prefix functions of
+    ops/preempt.py at 5,000 preemptors x 10,000 nodes, on the preempt
+    path's own tensors (V = 1) and on a seeded V = 8, R = 2 case, on the
+    card (three timed runs after a warm-up) and on the CPU: feasible,
+    n_evict, covered and pick_best_node must be equal; prints the card's
+    ms and the bound of the bytes the function must move;
+15. the kernels line (with the table refreshes, the cluster's blocks and
     each block's shared memory, as the main path's launch reported them,
-    and the kernel's launches per cycle; a second entry for the slot
-    path), then the card's nvidia-smi line, then {"ok": true, "device":
-    {...}} as the last line.
+    and the kernel's launches per cycle, per preempt and per reclaim
+    cycle; a second entry for the slot path), then the card's nvidia-smi
+    line, then {"ok": true, "device": {...}} as the last line.
 
 Any failed check exits non-zero before the last line. Without a CUDA
 device, or without the volcano_tpu_torch package beside it, it exits
@@ -116,7 +145,8 @@ from volcano_tpu_torch.ops.score import ScoreWeights  # noqa: E402
 from volcano_tpu_torch.scheduler import Scheduler  # noqa: E402
 from volcano_tpu_torch.utils import test_utils as tu  # noqa: E402
 from volcano_tpu_torch.utils.synth import (  # noqa: E402
-    populate_store, synth_arrays, zone_slots)
+    populate_preempt_store, populate_reclaim_store, populate_store,
+    synth_arrays, zone_slots)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s
 # and float32 operations/s outside the tensor cores. The float32 peak
@@ -613,12 +643,12 @@ def cycle_vs_plain() -> None:
 
 def cycle(dev):
     """Phase 8: the port's main path through the objects at the north
-    star's size, one cold cycle and two warm ones on fresh stores, the
+    star's size, one cold cycle and one warm one on fresh stores, the
     launch count set to 0 just before each cycle and read just after.
     Returns (launches per cycle, the cycles' lines)."""
     cycles = []
     cycle_launches = []
-    for i in range(3):          # one cold cycle, then warm ones
+    for i in range(2):          # one cold cycle, then a warm one
         gang_allocate_cuda.launches = 0
         r = cycle_cmd.run_cycle(FULL["n_tasks"], FULL["n_nodes"], 1, dev)
         cycle_launches.append(gang_allocate_cuda.launches)
@@ -642,11 +672,11 @@ def cycle(dev):
 
 def cycle_constrained(dev):
     """Phase 10: the slot path at the north star's size, populate_store
-    with the HEAVY mix, one cold cycle and two warm ones on fresh stores,
+    with the HEAVY mix, one cold cycle and one warm one on fresh stores,
     the launch count set to 0 just before each cycle and read just after.
     Returns (launches per cycle, the cycles' results)."""
     cycles, launches = [], []
-    for i in range(3):
+    for i in range(2):
         gang_allocate_cuda.launches = 0
         r = cycle_cmd.run_cycle(FULL["n_tasks"], FULL["n_nodes"], 1, dev,
                                 **HEAVY)
@@ -746,6 +776,379 @@ def cycle_inputs_vs_plain(dev, constraints=None) -> dict:
          shape={"T": sa.task_group.shape[0], "G": sa.group_req.shape[0],
                 "N": N, "R": R}, **res)
     return res
+
+
+# ---- the preempt and reclaim paths ----------------------------------------
+
+# the reference's victim-selection A/B conf (bench.py:538-547) over the
+# whole cycle: no drf, so the vectorized path selects the victims
+ELASTIC_PREEMPT_CONF = """
+actions: "enqueue, allocate, preempt, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: conformance
+  - name: gang
+- plugins:
+  - name: predicates
+  - name: nodeorder
+"""
+WALK_OFF = """
+configurations:
+- name: solver
+  arguments:
+    victims.kernel: "off"
+"""
+# (action, elastic shape, conf, the victim-selection path it must take)
+VICTIM_CASES = {
+    "preempt_walk": ("preempt", False, cycle_cmd.PREEMPT_CONF, "python"),
+    "preempt_vectorized": ("preempt", True, ELASTIC_PREEMPT_CONF, "kernel"),
+    "reclaim_vectorized": ("reclaim", False, cycle_cmd.RECLAIM_CONF,
+                           "kernel"),
+    "reclaim_walk": ("reclaim", False, cycle_cmd.RECLAIM_CONF + WALK_OFF,
+                     "python"),
+}
+# the reference harness's shapes (bench_suite.py config 4 and
+# config_reclaim): victim gangs fill the nodes, half as many gangs wait
+VICTIM_FULL = dict(n_nodes=10_000, n_victim=1_250, n_pending=625)
+VICTIM_MID = dict(n_nodes=2_048, n_victim=256, n_pending=128)
+
+
+def victim_store(action: str, elastic: bool, size: dict) -> ObjectStore:
+    store = ObjectStore()
+    if action == "preempt":
+        populate_preempt_store(store, n_nodes=size["n_nodes"],
+                               n_low=size["n_victim"],
+                               n_high=size["n_pending"], elastic=elastic)
+    else:
+        populate_reclaim_store(store, n_nodes=size["n_nodes"],
+                               n_running=size["n_victim"],
+                               n_pending=size["n_pending"])
+    return store
+
+
+def pod_facts(store: ObjectStore) -> dict:
+    """pod key -> (node, request, group key) as the store holds them."""
+    return {p.metadata.key(): (
+        p.spec.node_name, p.resource_request(),
+        f"{p.metadata.namespace}/"
+        f"{p.metadata.annotations.get(obj.GROUP_NAME_ANNOTATION, '')}")
+        for p in store.list("pods")}
+
+
+def check_victim_cycle(store: ObjectStore, before: dict, evicted, pipelined,
+                       action: str, ctx: str) -> None:
+    """One preempt or reclaim cycle's result against the store before it
+    (``before``: pod_facts) and after it. Fails on a pipelined task that
+    does not fit its node's future idle once the victims are released
+    (allocatable minus what stays bound there), on a preempt victim not of
+    strictly lower priority than every task pipelined onto its node, on a
+    reclaim victim not of another, reclaimable queue, and on a gang that
+    had nothing bound and now has fewer than minMember pods bound."""
+    pcs = {c.metadata.name: c.value for c in store.list("priorityclasses")}
+    pgs = {g.metadata.key(): g for g in store.list("podgroups")}
+    queues = {q.metadata.name: q for q in store.list("queues")}
+    after = pod_facts(store)
+    alloc = {n.metadata.name: Resource.from_resource_list(
+        n.status.allocatable) for n in store.list("nodes")}
+    bound = {name: Resource() for name in alloc}
+    for node, req, _ in after.values():
+        if node:
+            bound[node].add(req)
+    want = {}
+    for key, node in pipelined.items():
+        want.setdefault(node, Resource()).add(before[key][1])
+    for node, need in want.items():
+        free = alloc[node].clone().sub(bound[node])
+        if not need.less_equal(free):
+            fail(f"{ctx}: the tasks pipelined onto {node} do not fit its "
+                 f"future idle once its victims are released")
+
+    def prio(group):
+        return pcs.get(pgs[group].spec.priority_class_name, 0)
+
+    on_node = {}
+    for key, node in pipelined.items():
+        on_node.setdefault(node, []).append(before[key][2])
+    claimer_queues = {pgs[before[k][2]].spec.queue for k in pipelined}
+    for key in evicted:
+        node, _, group = before[key]
+        if key in after:
+            fail(f"{ctx}: evicted pod {key} is still in the store")
+        if action == "preempt":
+            mates = on_node.get(node, [])
+            if not mates or any(prio(group) >= prio(g) for g in mates):
+                fail(f"{ctx}: victim {key} is not of strictly lower "
+                     f"priority than the tasks pipelined onto {node}")
+        else:
+            q = pgs[group].spec.queue
+            if not queues[q].spec.reclaimable or q in claimer_queues:
+                fail(f"{ctx}: victim {key} of queue {q} is not of another, "
+                     f"reclaimable queue")
+    n_before, n_after = {}, {}
+    for facts, counts in ((before, n_before), (after, n_after)):
+        for node, _, group in facts.values():
+            if node:
+                counts[group] = counts.get(group, 0) + 1
+    for group, pg in pgs.items():
+        n = n_after.get(group, 0)
+        if not n_before.get(group) and 0 < n < pg.spec.min_member:
+            fail(f"{ctx}: gang {group} bound {n} of {pg.spec.min_member}")
+
+
+def victim_cycles(case: str, size: dict, device: str, cycles: int) -> dict:
+    """``cycles`` cycles of a VICTIM_CASES case on one fresh store with
+    ``device``, each checked by check_victim_cycle, with the launch count
+    set to 0 just before each cycle and read just after. Returns the
+    populate and sync seconds and, per cycle, the evicted keys, the
+    pipelined map, binds, phases, split, launches, wall ms and (on the
+    GPU) peak device memory."""
+    from volcano_tpu_torch.cache import SchedulerCache
+    action, elastic, conf, _ = VICTIM_CASES[case]
+    t0 = time.perf_counter()
+    store = victim_store(action, elastic, size)
+    t1 = time.perf_counter()
+    evictor = tu.FakeEvictor(store)
+    cache = SchedulerCache(store, evictor=evictor)
+    cache.run()
+    t2 = time.perf_counter()
+    sched = Scheduler(store, scheduler_conf=conf, cache=cache, device=device)
+    out = {"populate_s": t1 - t0, "sync_s": t2 - t1, "cycles": []}
+    on_gpu = device == "cuda"
+    for c in range(cycles):
+        before = pod_facts(store)
+        n0 = len(evictor.evicts)
+        if on_gpu:
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        gang_allocate_cuda.launches = 0
+        t = time.perf_counter()
+        sched.run_once()
+        if on_gpu:
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1000.0
+        launches = gang_allocate_cuda.launches
+        binds, phases, _ = cycle_outcome(store)
+        r = {"evicted": evictor.evicts[n0:],
+             "pipelined": dict(sched.last_pipelined), "binds": binds,
+             "phases": phases, "split": sched.last_cycle,
+             "launches": launches, "wall_ms": wall_ms}
+        if on_gpu:
+            r["peak_device_bytes"] = torch.cuda.max_memory_allocated() \
+                - resident
+        check_victim_cycle(store, before, r["evicted"], r["pipelined"],
+                           action, f"{case} cycle {c + 1} on {device}")
+        out["cycles"].append(r)
+    cache.stop()
+    return out
+
+
+def victim_mismatches(a: dict, b: dict) -> dict:
+    """Evictions (in order), pipelines, binds and phases that differ
+    between two cycles' results."""
+    return {
+        "eviction_mismatches": sum(
+            x != y for x, y in zip(a["evicted"], b["evicted"]))
+        + abs(len(a["evicted"]) - len(b["evicted"])),
+        "pipeline_mismatches": sum(
+            a["pipelined"].get(k) != b["pipelined"].get(k)
+            for k in set(a["pipelined"]) | set(b["pipelined"])),
+        "bind_mismatches": sum(a["binds"].get(k) != b["binds"].get(k)
+                               for k in set(a["binds"]) | set(b["binds"])),
+        "phase_mismatches": sum(a["phases"][k] != b["phases"].get(k)
+                                for k in a["phases"])}
+
+
+def victim_summary(r: dict) -> dict:
+    """What a victim cycle's line prints of its split."""
+    s = r["split"]
+    keep = ("cycle_ms", "snapshot_ms", "open_session_ms", "enqueue_ms",
+            "allocate_ms", "preempt_ms", "reclaim_ms", "backfill_ms",
+            "close_session_ms", "allocate.commit_ms", "pipelined",
+            "victim_runs")
+    return {"evictions": len(r["evicted"]), "wall_ms": r["wall_ms"],
+            "kernel_launches": r["launches"],
+            "kernel_ms": [pl["kernel_ms"] for pl in s["places"]],
+            "binds": len(r["binds"]),
+            **{k: s[k] for k in keep if k in s},
+            **({"peak_device_bytes": r["peak_device_bytes"]}
+               if "peak_device_bytes" in r else {})}
+
+
+def victims_vs_plain() -> None:
+    """Phase 11: the four VICTIM_CASES at VICTIM_MID's size, two cycles on
+    one store with device="cuda" against the same two with device="cpu"
+    (the plain loop); evictions, pipelines, cycle-2 binds and phases must
+    be equal, and the cycle must take its case's victim-selection path."""
+    for case, (action, _, _, path) in VICTIM_CASES.items():
+        gpu = victim_cycles(case, VICTIM_MID, "cuda", 2)
+        cpu = victim_cycles(case, VICTIM_MID, "cpu", 2)
+        diffs = [victim_mismatches(g, c)
+                 for g, c in zip(gpu["cycles"], cpu["cycles"])]
+        first = gpu["cycles"][0]
+        runs = first["split"]["victim_runs"]
+        if any(any(d.values()) for d in diffs):
+            fail(f"victims_vs_plain {case}: the GPU cycles and the plain "
+                 f"loop's differ: {diffs}")
+        if not first["evicted"] or not runs.get(path) or \
+                sum(runs.values()) != runs[path]:
+            fail(f"victims_vs_plain {case}: {len(first['evicted'])} "
+                 f"evictions, victim-selection runs {runs}")
+        if any(r["launches"] != len(r["split"]["places"])
+               or r["launches"] < 1 for r in gpu["cycles"]) or \
+                any(r["launches"] for r in cpu["cycles"]):
+            fail(f"victims_vs_plain {case}: kernel launches "
+                 f"{[r['launches'] for r in gpu['cycles']]} on the GPU, "
+                 f"{[r['launches'] for r in cpu['cycles']]} on the CPU")
+        line("victims_vs_plain", case=case, action=action, **VICTIM_MID,
+             mismatches=diffs,
+             evictions=[len(r["evicted"]) for r in gpu["cycles"]],
+             pipelined=[len(r["pipelined"]) for r in gpu["cycles"]],
+             cycle2_binds=len(gpu["cycles"][1]["binds"]),
+             victim_runs=[r["split"]["victim_runs"] for r in gpu["cycles"]],
+             cycle_ms=[r["wall_ms"] for r in gpu["cycles"]],
+             plain_cycle_ms=[r["wall_ms"] for r in cpu["cycles"]])
+
+
+def victim_cycle(action: str) -> dict:
+    """Phases 12 and 13: the preempt or reclaim path at the reference's
+    full size (VICTIM_FULL), on fresh stores one cold and one warm GPU
+    cycle and one CPU (plain loop) cycle, the last held equal to the warm
+    one. Returns the warm cycle's result."""
+    case = "preempt_walk" if action == "preempt" else "reclaim_vectorized"
+    runs = {}
+    for run, device in (("cold", "cuda"), ("warm", "cuda"), ("plain", "cpu")):
+        out = victim_cycles(case, VICTIM_FULL, device, 1)
+        r = out["cycles"][0]
+        runs[run] = r
+        if not r["evicted"]:
+            fail(f"{action}_cycle {run}: nothing was evicted")
+        if r["launches"] != (1 if device == "cuda" else 0):
+            fail(f"{action}_cycle {run}: {r['launches']} kernel launches")
+        extra = {}
+        if run == "plain":
+            extra = victim_mismatches(runs["warm"], r)
+            if any(extra.values()):
+                fail(f"{action}_cycle: the warm GPU cycle and the plain "
+                     f"loop's differ: {extra}")
+        line(f"{action}_cycle", run=run, device=device, case=case,
+             shape=VICTIM_FULL, populate_s=out["populate_s"],
+             sync_s=out["sync_s"], **victim_summary(r), **extra)
+    return runs["warm"]
+
+
+def prefix_inputs(dev) -> dict:
+    """The preempt path's own victim tensors at VICTIM_FULL's size: one
+    session on a fresh preemption store, enqueue and allocate, then the
+    preempt action's PreemptContext over every preemptor task: req [B, R]
+    and node_ok [B, N] per task, future idle, the candidates packed per
+    node (V = 1), eps, and the score row."""
+    from volcano_tpu_torch.cache import SchedulerCache
+    from volcano_tpu_torch.framework import (get_action, open_session,
+                                             parse_scheduler_conf)
+    from volcano_tpu_torch.framework.victims import PreemptContext
+    from volcano_tpu_torch.models.job_info import TaskStatus
+    from volcano_tpu_torch.ops.preempt import pack_node_major
+    from volcano_tpu_torch.ops.score import host_node_score
+    store = victim_store("preempt", False, VICTIM_FULL)
+    cache = SchedulerCache(store)
+    cache.run()
+    conf = parse_scheduler_conf(cycle_cmd.PREEMPT_CONF)
+    ssn = open_session(cache, conf.tiers, conf.configurations, device=dev)
+    for name in ("enqueue", "allocate"):
+        get_action(name).execute(ssn)
+    jobs = [(job, list(job.task_status_index.get(TaskStatus.Pending,
+                                                 {}).values()))
+            for job in ssn.jobs.values()]
+    ctx = PreemptContext(ssn, [(j, ts) for j, ts in jobs if ts])
+    n = len(ctx.narr.names)
+    g = ctx.batch.task_group[:len(ctx.batch.tasks)]
+    pods_ok = (ctx.max_tasks[:n] == 0) | (ctx.n_tasks[:n] < ctx.max_tasks[:n])
+    vres, vvalid, _ = pack_node_major(ctx.victims.node_of, ctx.victims.res, n)
+    req = ctx.batch.group_req[g]
+    score = host_node_score(req[0], ctx.idle, ctx.alloc, ctx.weights,
+                            ctx.static[g[0]])[:n]
+    cache.stop()
+    return {"req": req, "node_ok": ctx.gmask[g][:, :n] & pods_ok[None],
+            "base": ctx.future[:n], "vres": vres, "vvalid": vvalid,
+            "eps": ctx.eps, "score": score.astype(np.float32)}
+
+
+def seeded_prefix_inputs(b: int, n: int, v: int, r: int, seed: int) -> dict:
+    """Seeded integer-valued requests and victims (milli-cpu and MiB are
+    integers, so every sum is exact in float32 in any order)."""
+    rng = np.random.default_rng(seed)
+    return {"req": rng.integers(0, 9, (b, r)).astype(np.float32),
+            "node_ok": rng.uniform(size=(b, n)) < 0.8,
+            "base": rng.integers(0, 4, (n, r)).astype(np.float32),
+            "vres": rng.integers(0, 5, (n, v, r)).astype(np.float32),
+            "vvalid": rng.uniform(size=(n, v)) < 0.7,
+            "eps": np.full(r, 0.1, np.float32),
+            "score": rng.choice([1.0, 2.0, 3.0], n).astype(np.float32)}
+
+
+def prefix_bound(x: dict, out_bytes: int) -> tuple:
+    """(bytes_ms, ops_ms): the inputs read once and the [B, N] results
+    (``out_bytes`` a pair: feasible and covered 1, n_evict 4) written once
+    over HBM's rate; a compare and an AND for every (task, node, prefix,
+    resource) over the float32 peak."""
+    b, n = x["node_ok"].shape
+    _, v, r = x["vres"].shape
+    nbytes = sum(a.nbytes for k, a in x.items() if k != "score") \
+        + out_bytes * b * n
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            2 * b * n * (v + 1) * r / FP32_OPS_PER_S * 1e3)
+
+
+def victim_prefix_phase(dev) -> dict:
+    """Phase 14: the batched prefix functions of ops/preempt.py at 5,000
+    preemptors x 10,000 nodes on the preempt path's own tensors (V = 1)
+    and on a seeded V = 8, R = 2 case, on the card (a warm-up, then three
+    timed runs) and on the CPU; feasible, n_evict, covered and
+    pick_best_node must be equal."""
+    from volcano_tpu_torch.ops import preempt as pre
+    out = {}
+    for case, x in (("preempt_path", prefix_inputs(dev)),
+                    ("seeded_v8", seeded_prefix_inputs(
+                        5_000, 10_000, 8, 2, seed=7))):
+        args = [x[k] for k in ("req", "node_ok", "base", "vres", "vvalid",
+                               "eps")]
+        res = {}
+        for fn_name, fn, out_bytes in (("victim_prefix_batch",
+                                        pre.victim_prefix_batch, 5),
+                                       ("reclaim_prefix_batch",
+                                        pre.reclaim_prefix_batch, 6)):
+            targs = [torch.as_tensor(a).to(dev) for a in args]
+            fn(*targs, device=dev)                       # warm-up
+            runs = [timed(lambda: fn(*targs, device=dev)) for _ in range(3)]
+            got = runs[-1][0]
+            t0 = time.perf_counter()
+            want = fn(*args, device="cpu")
+            cpu_s = time.perf_counter() - t0
+            score = torch.as_tensor(x["score"])
+            best_g = pre.pick_best_node(got[0], score.to(dev))
+            best_w = pre.pick_best_node(want[0], score)
+            mism = {name: int((to_np(a) != b.numpy()).sum())
+                    for name, a, b in zip(("feasible", "n_evict", "covered"),
+                                          got, want)}
+            mism["pick_best_node"] = int((to_np(best_g)
+                                          != best_w.numpy()).sum())
+            if any(mism.values()):
+                fail(f"victim_prefix {case} {fn_name}: the card and the CPU "
+                     f"differ: {mism}")
+            bytes_ms, ops_ms = prefix_bound(x, out_bytes)
+            res[fn_name] = {
+                "ms": [ms for _, ms in runs], "cpu_ms": cpu_s * 1e3,
+                "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "feasible_pairs": int(want[0].sum()),
+                "mismatches": mism}
+        b, n = x["node_ok"].shape
+        line("victim_prefix", case=case, B=b, N=n, V=x["vres"].shape[1],
+             R=x["vres"].shape[2], **res)
+        out[case] = res
+    return out
 
 
 def model_refreshes(arrays: dict, ns_live: bool, allow_pipeline: bool):
@@ -972,6 +1375,11 @@ def main() -> None:
     cycle_kernel_ms = [sum(pl["kernel_ms"] for pl in r["places"])
                        for r in warm]
 
+    victims_vs_plain()
+    preempt = victim_cycle("preempt")
+    reclaim = victim_cycle("reclaim")
+    victim_prefix_phase(dev)
+
     kernels = [{
         "name": "gang_allocate", "route": "cuda",
         "source": "volcano_tpu_torch/csrc/gang_allocate.cu",
@@ -983,6 +1391,12 @@ def main() -> None:
         "library_ms": None,
         "no_fma_ops_ms": no_fma_ops_ms, **main_stats,
         "launches_per_cycle": cycle_launches[-1],
+        "launches_per_preempt_cycle": preempt["launches"],
+        "launches_per_reclaim_cycle": reclaim["launches"],
+        "preempt_cycle_kernel_ms": [pl["kernel_ms"]
+                                    for pl in preempt["split"]["places"]],
+        "reclaim_cycle_kernel_ms": [pl["kernel_ms"]
+                                    for pl in reclaim["split"]["places"]],
         "cycle_kernel_ms": cycle_kernel_ms,
         "cycle_ms": [r["cycle_ms"] for r in warm],
         "cycle_inputs": {"ms": min(cyc["kernel_ms"]),

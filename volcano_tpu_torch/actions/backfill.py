@@ -40,7 +40,7 @@ class BackfillAction(Action):
 
         # one host-side predicate context for ALL best-effort tasks
         # (previously one device context build per task)
-        narr, batch, gmask = ssn.solver.build_host_context(jobs_tasks)
+        narr, batch, gmask, _ = ssn.solver.build_host_context(jobs_tasks)
         n_real = len(narr.names)
         n_tasks = narr.n_tasks.copy()
         max_tasks = narr.max_tasks

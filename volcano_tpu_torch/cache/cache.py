@@ -1,17 +1,20 @@
 """SchedulerCache: watch-fed cluster state with a per-cycle snapshot
 (counterpart of volcano_tpu/cache/cache.py; reference:
 pkg/scheduler/cache/cache.go): watch ingestion (:84-96, Run:487), the
-full-rebuild deep-copy snapshot (:793-882), binds and PodGroup status
-writeback.
+full-rebuild deep-copy snapshot (:793-882), binds, evictions and
+PodGroup status writeback.
 
-Binds are synchronous: ``bind``/``bind_batch`` move the cache's tasks to
-Binding, add them to their nodes and write the store at commit; the
-store's watch echo then updates the cache before the call returns. So
+Binds and evictions are synchronous: ``bind``/``bind_batch`` move the
+cache's tasks to Binding, add them to their nodes and write the store at
+commit; ``evict``/``evict_batch`` move them to Releasing and delete their
+pods through the evictor. The store's watch echo then updates the cache
+(a deleted pod leaves its job and node) before the call returns; it
+edits the cache's own objects, never a session's snapshot clones. So
 ``flush_executors`` has nothing to wait for.
 
 Left out of this port: the incremental snapshot, the async bind/evict
-executors and write-behind applies, eviction, bind retry/backoff/
-quarantine, partial-gang healing, anti-entropy, lease fencing and NUMA.
+executors and write-behind applies, bind retry/backoff/quarantine,
+partial-gang healing, anti-entropy, lease fencing and NUMA.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from ..models.objects import (DEFAULT_QUEUE, DEFAULT_SCHEDULER_NAME,
                               PodGroupPhase)
 from ..models.queue_info import NamespaceCollection, QueueInfo
 from .event_handlers import EventHandlersMixin
-from .interface import NullVolumeBinder, StoreBinder, StoreStatusUpdater
+from .interface import (NullVolumeBinder, StoreBinder, StoreEvictor,
+                        StoreStatusUpdater)
 
 
 class SchedulerCache(EventHandlersMixin):
@@ -38,7 +42,8 @@ class SchedulerCache(EventHandlersMixin):
     def __init__(self, store: ObjectStore,
                  scheduler_name: str = DEFAULT_SCHEDULER_NAME,
                  default_queue: str = DEFAULT_QUEUE,
-                 binder=None, status_updater=None, volume_binder=None):
+                 binder=None, evictor=None, status_updater=None,
+                 volume_binder=None):
         self.store = store
         self.scheduler_name = scheduler_name
         self.default_queue = default_queue
@@ -53,6 +58,8 @@ class SchedulerCache(EventHandlersMixin):
         self.node_list: List[str] = []
 
         self.binder = binder if binder is not None else StoreBinder(store)
+        self.evictor = evictor if evictor is not None \
+            else StoreEvictor(store)
         self.status_updater = (status_updater if status_updater is not None
                                else StoreStatusUpdater(store))
         self.volume_binder = volume_binder if volume_binder is not None \
@@ -63,6 +70,8 @@ class SchedulerCache(EventHandlersMixin):
         self._running = False
         # wall ms of the last snapshot (read by the cycle's timing split)
         self.last_snapshot_ms = 0.0
+        # pods handed to the evictor since the cache was built
+        self.evictions = 0
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -235,6 +244,67 @@ class SchedulerCache(EventHandlersMixin):
                 "pods", pod, "Normal", "Scheduled",
                 f"Successfully assigned {task.namespace}/{task.name} "
                 f"to {hostname}")
+
+    # -- evictions ---------------------------------------------------------
+
+    def evict(self, task_info: TaskInfo, reason: str) -> None:
+        """Mark the cache's task Releasing, update its node's accounting,
+        then delete the pod through the evictor (cache.go:552-601)."""
+        with self.mutex:
+            job, task = self._find_job_and_task(task_info)
+            node = self.nodes.get(task.node_name)
+            if node is None:
+                raise KeyError(f"failed to evict Task {task.uid} on host "
+                               f"{task.node_name}, host does not exist")
+            original = task.status
+            job.update_task_status(task, TaskStatus.Releasing)
+            try:
+                node.update_task(task)
+            except RuntimeError:
+                job.update_task_status(task, original)
+                raise
+        self._evict_store_writes([(task, task.pod, job.pod_group, reason)])
+
+    def evict_batch(self, items) -> None:
+        """Evict ``[(task_info, reason)]`` in one mutex pass, in order (the
+        per-statement form of :meth:`evict`). A task whose job, task or
+        node lookup fails is skipped, as the per-task commit path skips
+        its KeyError; one whose node refuses the flip is rolled back and
+        resynced from the store."""
+        staged = []
+        with self.mutex:
+            for task_info, reason in items:
+                try:
+                    job, task = self._find_job_and_task(task_info)
+                except KeyError:
+                    continue
+                node = self.nodes.get(task.node_name)
+                if node is None:
+                    continue
+                original = task.status
+                job.move_task_status(task, TaskStatus.Releasing)
+                try:
+                    node.transition_task(task)
+                except RuntimeError:
+                    job.move_task_status(task, original)
+                    self.sync_task(task)
+                    continue
+                staged.append((task, task.pod, job.pod_group, reason))
+        self._evict_store_writes(staged)
+
+    def _evict_store_writes(self, staged) -> None:
+        """The evictor's pod deletes and the PodGroups' Evict events for
+        ``[(task, pod, pod_group, reason)]``; a failed delete resyncs the
+        task from the store."""
+        for task, pod, pod_group, reason in staged:
+            self.evictions += 1
+            try:
+                self.evictor.evict(pod, reason)
+            except Exception:
+                self.sync_task(task)
+            if pod_group is not None:
+                self.store.record_event("podgroups", pod_group, "Normal",
+                                        "Evict", reason)
 
     def sync_task(self, old_task: TaskInfo) -> None:
         """Rebuild one task from the store's pod (cache.go:768-791)."""

@@ -1,7 +1,8 @@
 """Cache-facing executor interfaces (counterpart of
 volcano_tpu/cache/interface.py; reference: pkg/scheduler/cache/
 interface.go:29-100): Binder, Evictor, StatusUpdater, plus the
-store-backed binder and status updater and the no-op volume binder.
+store-backed binder, evictor and status updater and the no-op volume
+binder.
 The PV/PVC volume binder is not ported: every pod's volumes count as
 ready."""
 
@@ -69,6 +70,18 @@ class StoreBinder:
         failed, _ = bind_pods_batch(self.store, items, self.bind,
                                     type(self).bind is StoreBinder.bind)
         return failed
+
+
+class StoreEvictor:
+    """Default evictor: records the Evict event and deletes the pod
+    through the store (cache.go:232-255)."""
+
+    def __init__(self, store):
+        self.store = store
+
+    def evict(self, pod: Pod, reason: str) -> None:
+        self.store.record_event("pods", pod, "Normal", "Evict", reason)
+        self.store.delete("pods", pod.metadata.name, pod.metadata.namespace)
 
 
 class StoreStatusUpdater:

@@ -6,7 +6,8 @@ snapshot of the cluster, 22 plugin extension-point registries with tiered
 dispatch (first-tier-with-an-opinion for order fns, AND/intersection for
 predicates and victim sets, Permit/Abstain/Reject voting for pipelined/
 enqueueable), and the Allocate/Pipeline/Evict primitives that mutate session
-state and dispatch to the cache when a gang becomes ready.
+state and dispatch to the cache (a bind when a gang becomes ready, an
+eviction at once).
 
 ``ssn.solver`` (framework/solver.py) is the batched task x node placement
 context that the builtin plugins feed masks and score terms into; it runs
@@ -140,6 +141,9 @@ class Session:
         # action's ordering, staging and commit; read by the cycle's
         # timing split)
         self.timings: Dict[str, float] = {}
+        # preempt/reclaim placements by victim-selection path ("kernel":
+        # ops/victims.py, "python": the walk of framework/victims.py)
+        self.victim_runs: Dict[str, int] = {}
 
     def add_timing(self, name: str, since: float) -> float:
         """Add the wall time since ``since`` (a perf_counter reading) to
@@ -466,6 +470,19 @@ class Session:
                 for t in tasks:
                     eh.deallocate_func(Event(t))
 
+    def pipeline(self, task: TaskInfo, hostname: str) -> None:
+        """Assign onto releasing resources; session-state only."""
+        job = self.jobs.get(task.job)
+        if job is None:
+            raise KeyError(f"failed to find job {task.job} when pipelining")
+        node = self.nodes.get(hostname)
+        if node is None:
+            raise KeyError(f"failed to find node {hostname}")
+        job.update_task_status(task, TaskStatus.Pipelined)
+        task.node_name = hostname
+        node.add_task(task)
+        self._fire_allocate(task)
+
     def allocate(self, task: TaskInfo, node_info: NodeInfo) -> None:
         """Assign onto idle resources; dispatches the whole gang to the cache
         binder once the job is ready (session.go:281-331)."""
@@ -500,6 +517,21 @@ class Session:
         job = self.jobs.get(task.job)
         if job is not None:
             job.update_task_status(task, TaskStatus.Binding)
+
+    def evict(self, reclaimee: TaskInfo, reason: str) -> None:
+        """Immediate eviction (used by reclaim): session state, then the
+        cache (session.go:593-608)."""
+        job = self.jobs.get(reclaimee.job)
+        if job is None:
+            raise KeyError(f"failed to find job {reclaimee.job}")
+        node = self.nodes.get(reclaimee.node_name)
+        if node is None:
+            raise KeyError(f"failed to find node {reclaimee.node_name}")
+        job.update_task_status(reclaimee, TaskStatus.Releasing)
+        node.update_task(reclaimee)
+        self._fire_deallocate(reclaimee)
+        if self.cache is not None:
+            self.cache.evict(reclaimee, reason)
 
     def __repr__(self):
         return (f"Session {self.uid}: jobs={len(self.jobs)} "

@@ -223,12 +223,19 @@ class BatchSolver:
     Conf (``configurations: [{name: solver, arguments: {...}}]``): the
     reference's keys that only choose among exact kernels or apply modes
     that give the same binds (``kernel``, ``mesh.*``, ``breaker.window``,
-    ``prune.*``, ``apply``) are accepted and ignored: this port runs one
-    kernel per device and stages placements eagerly. ``sampling.enable``
-    raises NotImplementedError, because a sampled node window changes
-    placements. ``constraints.compile: off`` evaluates the constraint
-    mask per pair and lowers domains by splitting groups
-    (ops/constraints.py)."""
+    ``apply``) are accepted and ignored: this port runs one kernel per
+    device and stages placements eagerly. ``prune.*`` is accepted and
+    ignored too, but it is not of that kind: the port always gives the
+    reference's answers under ``prune.enable: off``. The reference's
+    default ``prune.enable: auto`` engages at 4,096 ready nodes or more,
+    where its placements may differ (docs/design/pruning.md, the
+    documented-divergence regime); pruning is still to port.
+    ``sampling.enable`` raises NotImplementedError, because a sampled
+    node window changes placements. ``constraints.compile: off``
+    evaluates the constraint mask per pair and lowers domains by
+    splitting groups (ops/constraints.py). ``victims.kernel: off`` makes
+    preempt and reclaim select victims by the walk of
+    framework/victims.py instead of ops/victims.py; both are exact."""
 
     def __init__(self, ssn, device=None, rindex: Optional[ResourceIndex] = None):
         self.ssn = ssn
@@ -463,11 +470,14 @@ class BatchSolver:
         return narr, batch, dense
 
     def build_host_context(self, ordered_jobs):
-        """(narr, batch, gmask [G, N] numpy bool): the same static mask
-        the kernel would get, built on the CPU for host-driven actions
-        (backfill walks nodes in Python reading a few mask rows)."""
+        """(narr, batch, gmask [G, N] numpy bool, static_score [G, N]
+        numpy f32): the static mask and score the kernel would get, built
+        on the CPU for host-driven actions (backfill, preempt and reclaim
+        walk nodes in Python reading a few mask and score rows;
+        volcano_tpu/framework/solver.py:813-838)."""
         narr, batch, dense = self._context(ordered_jobs, torch.device("cpu"))
-        return narr, batch, dense.static_mask().numpy()
+        return (narr, batch, dense.static_mask().numpy(),
+                dense.arrays["group_static_score"].numpy())
 
     # -- placement ---------------------------------------------------------
 

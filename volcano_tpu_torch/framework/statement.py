@@ -2,10 +2,9 @@
 (counterpart of volcano_tpu/framework/statement.py; reference:
 pkg/scheduler/framework/statement.go).
 
-Pipeline/Allocate are staged against session state only; Commit replays
-them against the cache (real binds), Discard rolls them back in reverse
-order (statement.go:350-393). Evictions belong to preempt/reclaim, which
-this port does not have yet.
+Evict/Pipeline/Allocate are staged against session state only; Commit
+replays them against the cache (real binds and evictions), Discard rolls
+them back in reverse order (statement.go:350-393).
 """
 
 from __future__ import annotations
@@ -16,9 +15,10 @@ from ..models.job_info import TaskInfo, TaskStatus
 
 
 class _Operation:
-    def __init__(self, name: str, task: TaskInfo):
+    def __init__(self, name: str, task: TaskInfo, reason: str = ""):
         self.name = name
         self.task = task
+        self.reason = reason
 
 
 class _BatchOperation:
@@ -35,6 +35,31 @@ class Statement:
     def __init__(self, ssn):
         self.ssn = ssn
         self.operations: List = []
+
+    # -- evict (statement.go:61-134) --------------------------------------
+
+    def evict(self, reclaimee: TaskInfo, reason: str) -> None:
+        """Stage an eviction: session state flips to Releasing now; the pod
+        delete happens at Commit."""
+        job = self.ssn.jobs.get(reclaimee.job)
+        if job is None:
+            raise KeyError(f"failed to find job {reclaimee.job}")
+        node = self.ssn.nodes.get(reclaimee.node_name)
+        if node is None:
+            raise KeyError(f"failed to find node {reclaimee.node_name}")
+        job.move_task_status(reclaimee, TaskStatus.Releasing)
+        node.transition_task(reclaimee)
+        self.ssn._fire_deallocate(reclaimee)
+        self.operations.append(_Operation("evict", reclaimee, reason))
+
+    def _unevict(self, reclaimee: TaskInfo) -> None:
+        job = self.ssn.jobs.get(reclaimee.job)
+        node = self.ssn.nodes.get(reclaimee.node_name)
+        if job is not None:
+            job.move_task_status(reclaimee, TaskStatus.Running)
+        if node is not None:
+            node.transition_task(reclaimee)
+        self.ssn._fire_allocate(reclaimee)
 
     # -- pipeline (statement.go:136-230) ----------------------------------
 
@@ -226,7 +251,9 @@ class Statement:
     def discard(self) -> None:
         """Roll back all staged operations in reverse order."""
         for op in reversed(self.operations):
-            if op.name == "pipeline":
+            if op.name == "evict":
+                self._unevict(op.task)
+            elif op.name == "pipeline":
                 self._unpipeline(op.task)
             elif op.name == "allocate":
                 self._unallocate(op.task)
@@ -235,10 +262,27 @@ class Statement:
         self.operations = []
 
     def commit(self) -> None:
-        """Replay staged operations against the cache. Pipelined tasks
-        stay session-state only until resources actually release."""
+        """Replay staged operations against the cache, in order.
+        Consecutive evicts dispatch as one ``cache.evict_batch``; pipelined
+        tasks stay session-state only until resources actually release, so
+        they do not break a run of evicts."""
         ops, self.operations = self.operations, []
+        evicts: List[_Operation] = []
+
+        def flush_evicts() -> None:
+            if evicts:
+                self.ssn.cache.evict_batch([(e.task, e.reason)
+                                            for e in evicts])
+                evicts.clear()
+
         for op in ops:
+            if op.name == "evict":
+                if self.ssn.cache is not None:
+                    evicts.append(op)
+                continue
+            if op.name == "pipeline":
+                continue
+            flush_evicts()
             if op.name == "allocate":
                 try:
                     self.ssn.dispatch(op.task, op.task.pod_volumes)
@@ -246,3 +290,4 @@ class Statement:
                     pass
             elif op.name == "batch":
                 self._commit_batch(op)
+        flush_evicts()

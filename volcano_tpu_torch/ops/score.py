@@ -7,12 +7,19 @@ terms arrive per group x node as ``static_bonus``.
 Every sum is written out term by term in a fixed order, and no multiply is
 fused into an add, so that the CUDA kernel (csrc/gang_allocate.cu, built
 with -fmad=false) rounds exactly as this code does on the same card.
+
+``host_node_score`` is the numpy form the preempt and reclaim walks read
+(framework/victims.py): it is the reference's ``node_score(..., xp=np)``
+written out with numpy's own reductions, so that it rounds bit for bit as
+the reference does. Every node ties in the preempt and reclaim shapes, so
+one rounding difference would change which node loses its pods.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 
@@ -47,6 +54,13 @@ class ScoreWeights(NamedTuple):
 
     def to(self, device: Union[str, torch.device]) -> "ScoreWeights":
         return ScoreWeights(*(t.to(device) for t in self))
+
+    def host(self) -> "ScoreWeights":
+        """Host-value copy (a numpy array and Python floats) for
+        :func:`host_node_score`, converted once instead of per call."""
+        return ScoreWeights(self.binpack_res.cpu().numpy(),
+                            float(self.binpack), float(self.least),
+                            float(self.most), float(self.balanced))
 
 
 def _fsum(cols):
@@ -118,4 +132,54 @@ def node_score(req: torch.Tensor, idle: torch.Tensor, alloc: torch.Tensor,
     s = s + weights.least * least_requested_score(req, used, alloc)
     s = s + weights.most * most_requested_score(req, used, alloc)
     s = s + weights.balanced * balanced_allocation_score(req, used, alloc)
+    return s + static_bonus
+
+
+# -- the host (numpy) form -----------------------------------------------------
+
+
+def _host_binpack(req, used, alloc, w_res):
+    requested = (req > 0) & (w_res > 0)
+    frac = np.where(alloc > 0, (used + req[None, :]) / np.maximum(alloc, 1e-9),
+                    2.0)
+    per_res = np.where(frac <= 1.0, frac * 100.0, 0.0)
+    w = np.where(requested, w_res, 0.0)[None, :]
+    wsum = np.maximum(np.sum(np.where(requested, w_res, 0.0)), 1e-9)
+    return np.sum(per_res * w, axis=-1) / wsum
+
+
+def _host_least(req, used, alloc):
+    a = alloc[:, 0:2]
+    u = used[:, 0:2] + req[None, 0:2]
+    frac = np.where(a > 0, np.clip((a - u), 0.0, None) / np.maximum(a, 1e-9),
+                    0.0)
+    return np.mean(frac * 100.0, axis=-1)
+
+
+def _host_most(req, used, alloc):
+    a = alloc[:, 0:2]
+    u = used[:, 0:2] + req[None, 0:2]
+    frac = np.where(a > 0, np.clip(u, 0.0, a) / np.maximum(a, 1e-9), 0.0)
+    return np.mean(frac * 100.0, axis=-1)
+
+
+def _host_balanced(req, used, alloc):
+    a = alloc[:, 0:2]
+    u = used[:, 0:2] + req[None, 0:2]
+    frac = np.where(a > 0, u / np.maximum(a, 1e-9), 0.0)
+    return 100.0 - np.abs(frac[:, 0] - frac[:, 1]) * 100.0
+
+
+def host_node_score(req: np.ndarray, idle: np.ndarray, alloc: np.ndarray,
+                    weights: ScoreWeights,
+                    static_bonus: np.ndarray) -> np.ndarray:
+    """:func:`node_score` on numpy arrays, with ``weights`` from
+    :meth:`ScoreWeights.host`. req [R], idle [N,R], alloc [N,R],
+    static_bonus [N] -> [N]."""
+    used = alloc - idle
+    s = weights.binpack * _host_binpack(req, used, alloc,
+                                        weights.binpack_res)
+    s = s + weights.least * _host_least(req, used, alloc)
+    s = s + weights.most * _host_most(req, used, alloc)
+    s = s + weights.balanced * _host_balanced(req, used, alloc)
     return s + static_bonus

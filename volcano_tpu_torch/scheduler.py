@@ -15,12 +15,13 @@ import gc
 import logging
 import threading
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 from .apiserver.store import ObjectStore
 from .cache import SchedulerCache
 from .framework import (close_session, default_scheduler_conf, get_action,
                         open_session, parse_scheduler_conf)
+from .models.job_info import TaskStatus
 from .models.objects import DEFAULT_SCHEDULER_NAME
 from .utils.clock import Clock
 from .utils.platform import default_device
@@ -50,6 +51,10 @@ class Scheduler:
         self._mutex = threading.Lock()
         self._stop = threading.Event()
         self.last_cycle: dict = {}
+        # "namespace/name" -> node of the tasks the last cycle left
+        # Pipelined (preempt's and reclaim's placements onto releasing
+        # capacity live only in the session until a later cycle binds them)
+        self.last_pipelined: Dict[str, str] = {}
         if scheduler_conf is not None:
             self.conf = parse_scheduler_conf(scheduler_conf)
         elif scheduler_conf_path is not None:
@@ -90,7 +95,10 @@ class Scheduler:
         ``last_cycle`` keeps the cycle's timing split (wall ms): the
         snapshot, the rest of open_session, each action, the allocate
         action's own phases, close_session, and each placement solve's
-        encode, solve, kernel and decode."""
+        encode, solve, kernel and decode; ``pipelined`` counts the tasks
+        left Pipelined at close (``last_pipelined`` maps them to their
+        nodes) and ``victim_runs`` preempt's and reclaim's placements by
+        victim-selection path."""
         with self._mutex:
             conf = self.conf
         was_enabled = gc.isenabled()
@@ -111,6 +119,12 @@ class Scheduler:
                     now = time.perf_counter()
                     split[f"{name}_ms"] = (now - tick) * 1000.0
                     tick = now
+                self.last_pipelined = {
+                    t.key(): t.node_name for job in ssn.jobs.values()
+                    for t in job.task_status_index.get(
+                        TaskStatus.Pipelined, {}).values()}
+                split["pipelined"] = len(self.last_pipelined)
+                tick = time.perf_counter()
             finally:
                 close_session(ssn)
             end = time.perf_counter()
@@ -118,6 +132,7 @@ class Scheduler:
             split["cycle_ms"] = (end - t0) * 1000.0
             split.update({f"{k}_ms": v for k, v in ssn.timings.items()})
             split["places"] = list(ssn.solver.stats)
+            split["victim_runs"] = dict(ssn.victim_runs)
             self.last_cycle = split
         finally:
             if was_enabled:

@@ -10,6 +10,11 @@ port's own copy of volcano_tpu/utils/synth.py):
 * ``populate_store`` fills an ObjectStore with Nodes, Pods, PodGroups and
   Queues for the whole scheduling cycle; it is deterministic by index and
   builds the same objects as the JAX package's for the same arguments.
+* ``populate_preempt_store`` and ``populate_reclaim_store`` build the
+  reference harness's preemption and reclamation shapes
+  (volcano_tpu/bench_suite.py:203-250, config 4, and :478-520,
+  config_reclaim): full nodes of low-priority or over-share Running gangs
+  and pending gangs that must evict to run. Deterministic by index.
 """
 
 from __future__ import annotations
@@ -298,3 +303,80 @@ def populate_store(store, *, n_nodes: int, n_jobs: int, gang_size: int,
                         topology_key="topology.kubernetes.io/zone")]))
             store.create("pods", pod)
     return {"nodes": n_nodes, "jobs": n_jobs, "tasks": n_jobs * gang_size}
+
+
+def _populate_victim_shape(store, *, n_nodes: int, n_victim: int,
+                           n_pending: int, victim_queue: str,
+                           pending_queue: str, victim_pc: str = "",
+                           pending_pc: str = "", victim_prefix: str,
+                           pending_prefix: str, victim_min: int = 8,
+                           pending_request: Tuple[str, str] = ("8", "16Gi")
+                           ) -> Dict[str, int]:
+    """Nodes of 16 CPU and 32Gi; ``n_victim`` Running gangs of 8 pods of
+    14 CPU and 28Gi (minMember ``victim_min``), pod k of them all on node
+    k % n_nodes; ``n_pending`` Inqueue gangs of 8 pending pods of
+    ``pending_request`` (cpu, memory)."""
+    from .test_utils import build_node, build_pod, build_pod_group
+    for i in range(n_nodes):
+        store.create("nodes", build_node(f"node-{i}",
+                                         {"cpu": "16", "memory": "32Gi"}))
+    for j in range(n_victim):
+        name = f"{victim_prefix}-{j}"
+        store.create("podgroups", build_pod_group(
+            name, "ns1", victim_queue, victim_min, phase="Running",
+            priority_class=victim_pc))
+        for t in range(8):
+            store.create("pods", build_pod(
+                "ns1", f"{name}-{t}", f"node-{(j * 8 + t) % n_nodes}",
+                "Running", {"cpu": "14", "memory": "28Gi"}, name))
+    for j in range(n_pending):
+        name = f"{pending_prefix}-{j}"
+        store.create("podgroups", build_pod_group(
+            name, "ns1", pending_queue, 8, phase="Inqueue",
+            priority_class=pending_pc))
+        for t in range(8):
+            store.create("pods", build_pod(
+                "ns1", f"{name}-{t}", "", "Pending",
+                {"cpu": pending_request[0], "memory": pending_request[1]},
+                name))
+    return {"nodes": n_nodes, "victim_pods": n_victim * 8,
+            "pending_pods": n_pending * 8}
+
+
+def populate_preempt_store(store, *, n_nodes: int = 10_000,
+                           n_low: int = 1250, n_high: int = 625,
+                           elastic: bool = False) -> Dict[str, int]:
+    """The preemption shape (config 4): queue ``default``, priority
+    classes high (100) and low (1); ``n_low`` low-priority Running gangs
+    lo-<j> fill the nodes and ``n_high`` high-priority gangs hi-<j> wait.
+    ``elastic``: the shape of the reference's victim-selection A/B
+    (bench.py:556-584) instead, where the low gangs' minMember is 4, so
+    that the gang plugin admits victims, and the high pods ask 14 CPU and
+    28Gi."""
+    from ..models.objects import ObjectMeta, PriorityClass
+    from .test_utils import build_queue
+    store.create("queues", build_queue("default", weight=1))
+    for name, value in (("high", 100), ("low", 1)):
+        store.create("priorityclasses", PriorityClass(
+            metadata=ObjectMeta(name=name), value=value))
+    return _populate_victim_shape(
+        store, n_nodes=n_nodes, n_victim=n_low, n_pending=n_high,
+        victim_queue="default", pending_queue="default", victim_pc="low",
+        pending_pc="high", victim_prefix="lo", pending_prefix="hi",
+        victim_min=4 if elastic else 8,
+        pending_request=("14", "28Gi") if elastic else ("8", "16Gi"))
+
+
+def populate_reclaim_store(store, *, n_nodes: int = 10_000,
+                           n_running: int = 1250, n_pending: int = 625
+                           ) -> Dict[str, int]:
+    """The reclamation shape (config_reclaim): queues q-over and q-under
+    of weight 1; q-over's ``n_running`` Running gangs ov-<j> fill the
+    nodes and q-under's ``n_pending`` gangs un-<j> reclaim."""
+    from .test_utils import build_queue
+    store.create("queues", build_queue("q-over", weight=1))
+    store.create("queues", build_queue("q-under", weight=1))
+    return _populate_victim_shape(
+        store, n_nodes=n_nodes, n_victim=n_running, n_pending=n_pending,
+        victim_queue="q-over", pending_queue="q-under", victim_prefix="ov",
+        pending_prefix="un")

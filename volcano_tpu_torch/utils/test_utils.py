@@ -1,7 +1,8 @@
 """Test fakes and builders (the port's own copy of
 volcano_tpu/utils/test_utils.py; reference: pkg/scheduler/util/test_utils.go).
 
-FakeBinder records binds for assertions; build_pod/build_node/
+FakeBinder and FakeEvictor record binds and evictions for assertions;
+build_pod/build_node/
 build_resource_list construct objects tersely. Used by
 the action/plugin test harnesses and usable by downstream users for their
 own scheduler tests.
@@ -56,6 +57,24 @@ class FakeBinder:
                 self.binds[key] = hostname
                 self.channel.append(key)
         return failed
+
+
+class FakeEvictor:
+    """Records evicted pod keys (test_utils.go:119-141) and, given a
+    store, deletes the pods through it."""
+
+    def __init__(self, store=None):
+        self.evicts: List[str] = []
+        self.channel: List[str] = []
+        self.store = store
+
+    def evict(self, pod: Pod, reason: str) -> None:
+        key = f"{pod.metadata.namespace}/{pod.metadata.name}"
+        self.evicts.append(key)
+        self.channel.append(key)
+        if self.store is not None:
+            self.store.delete("pods", pod.metadata.name,
+                              pod.metadata.namespace)
 
 
 def build_resource_list(cpu: str, memory: str, pods: str = "100",
