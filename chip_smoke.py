@@ -53,28 +53,49 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
    replay within every node's allocatable, every gang be all-or-nothing,
    every spread gang keep max_skew 1 and every anti gang one replica a
    zone;
-8. cycle: the port's main path through the objects at the north star's
+8. prune_vs_plain: candidate pruning (ops/prune.py), GPU cycles against
+   CPU cycles of the port on the same seeded stores: the reference's probe
+   shape (populate_store, 4,096 nodes, 600 gangs of 8) under the default
+   conf, where auto mode engages; forced ``prune.enable: "true"`` at
+   2,048 nodes on populate_store's uniform fleet and on the constrained
+   mix; k = 1 over identical nodes that each hold one pod, which ends in
+   the exhaustion guard (``shortlist_exhausted``, two launches); k = 1
+   over nodes of varied sizes with a 0.99 coverage floor, which ends in
+   ``low_coverage``. Binds, phases and every field of each place's prune
+   summary must be equal (coverage within 1e-6) and each case must end
+   in its path;
+9. cycle: the port's main path through the objects at the north star's
    size, volcano_tpu_torch.cmd.cycle.run_cycle: populate_store(10,000
    nodes, 6,250 gangs of 8), a fresh cache, one Scheduler.run_once with
-   the default conf plus binpack; one cold and one warm run on fresh
-   stores, the launch count set to 0 just before each cycle and read just
-   after. Each prints populate and sync seconds, the cycle's wall ms and
-   its split, the kernel's CUDA-event ms and launch report, binds (all
-   50,000), committed gangs (all 6,250) and peak device memory; the binds
-   must replay within allocatable and be gang-atomic;
-9. the kernel against its plain version on the cycle's own inputs at
-   that size (R = 2, the encode of the allocate action's phase-A batch),
-   held exactly like phase 5;
-10. cycle_constrained: the slot path, the constrained mix of phase 7 at
+   the default conf plus binpack, so pruning engages where the reference's
+   does; one cold and one warm run on fresh stores, the launch count set
+   to 0 just before each cycle and read just after. Each prints populate
+   and sync seconds, the cycle's wall ms and its split, each place's prune
+   summary (whether the reduced run served, the fallback), the
+   distillation's ms, the union width and the kernel's CUDA-event ms per
+   launch and launch report, binds (all 50,000), committed gangs (all
+   6,250) and peak device memory; the binds must replay within
+   allocatable and be gang-atomic, and the launches must be what the
+   places' prune outcomes give (one a place, two where the exhaustion
+   guard discarded the reduced run);
+10. the kernel against its plain version on the cycle's own inputs at
+    that size (R = 2, the encode of the allocate action's phase-A batch),
+    held exactly like phase 5, and on the reduced inputs the warm cycle's
+    pruned place actually launched on; the distillation on the card and
+    on the CPU on the full-width inputs must give the same union,
+    feasible and kept counts and guard, coverage within 1e-6;
+11. cycle_constrained: the slot path, the constrained mix of phase 7 at
     the north star's size (50,000 pods, 10,000 nodes), one cold and one
     warm run, each with the launch count set to 0 just before and read
     just after; each prints the cycle's split with the constraint passes'
-    ms, the kernel's CUDA-event ms and table refreshes, binds and
-    committed gangs, and fails on an infeasible bind, a broken gang, or a
-    spread or anti-affinity violation; then that cycle's own kernel
+    ms, the prune fields of phase 9, the kernel's CUDA-event ms and table
+    refreshes, binds and committed gangs, and fails on an infeasible
+    bind, a broken gang, a spread or anti-affinity violation or launches
+    other than its prune outcomes give; then that cycle's own kernel
     inputs (with task_slot and slot_ok) against the plain loop once, and
-    the kernel's refreshes against the count its rule gives;
-11. victims_vs_plain: preempt and reclaim through the objects, the
+    on its reduced inputs when it pruned, and the kernel's refreshes
+    against the count its rule gives;
+12. victims_vs_plain: preempt and reclaim through the objects, the
     reference harness's shapes (utils/synth.py:populate_preempt_store,
     populate_reclaim_store) at 2,048 nodes, 256 victim gangs and 128
     waiting gangs, in four confs: preempt by the walk (drf's tier
@@ -88,26 +109,28 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
     victims are released, a preempt victim not of strictly lower
     priority, a reclaim victim not of another, reclaimable queue, or a
     gang bound below minMember fails;
-12. preempt_cycle and 13. reclaim_cycle: the same paths at the
+13. preempt_cycle and 14. reclaim_cycle: the same paths at the
     reference's full size (10,000 nodes, 1,250 victim gangs, 625 waiting
     gangs of 8), each on fresh stores: one cold and one warm GPU cycle
-    and one CPU cycle held equal to the warm one as in phase 11; each
+    and one CPU cycle held equal to the warm one as in phase 12; each
     prints populate and sync seconds, the cycle's wall ms and split (the
-    kernel's CUDA-event ms and launches, preempt_ms or reclaim_ms, the
-    commit), evictions, pipelined tasks and peak device memory, and
-    fails if nothing is evicted or the kernel does not launch exactly
-    once a GPU cycle;
-14. victim_prefix: the batched torch prefix functions of
+    kernel's CUDA-event ms and launches, the prune fields, preempt_ms or
+    reclaim_ms, the commit), evictions, pipelined tasks and peak device
+    memory, and fails if nothing is evicted or the kernel's launches are
+    not what the cycle's one place's prune outcome gives;
+15. victim_prefix: the batched torch prefix functions of
     ops/preempt.py at 5,000 preemptors x 10,000 nodes, on the preempt
     path's own tensors (V = 1) and on a seeded V = 8, R = 2 case, on the
     card (three timed runs after a warm-up) and on the CPU: feasible,
     n_evict, covered and pick_best_node must be equal; prints the card's
     ms and the bound of the bytes the function must move;
-15. the kernels line (with the table refreshes, the cluster's blocks and
+16. the kernels line (with the table refreshes, the cluster's blocks and
     each block's shared memory, as the main path's launch reported them,
-    and the kernel's launches per cycle, per preempt and per reclaim
-    cycle; a second entry for the slot path), then the card's nvidia-smi
-    line, then {"ok": true, "device": {...}} as the last line.
+    the kernel's launches per cycle, per preempt and per reclaim cycle,
+    and a ``prune`` entry for the north-star cycle's place: union, padded
+    width, launches, refreshes, whether the reduced run served; a second
+    entry for the slot path), then the card's nvidia-smi line, then
+    {"ok": true, "device": {...}} as the last line.
 
 Any failed check exits non-zero before the last line. Without a CUDA
 device, or without the volcano_tpu_torch package beside it, it exits
@@ -135,7 +158,7 @@ from volcano_tpu_torch import convert  # noqa: E402
 from volcano_tpu_torch.apiserver import ObjectStore  # noqa: E402
 from volcano_tpu_torch.cmd import cycle as cycle_cmd  # noqa: E402
 from volcano_tpu_torch.framework.solver import DenseSolver  # noqa: E402
-from volcano_tpu_torch.ops import allocate, build  # noqa: E402
+from volcano_tpu_torch.ops import allocate, build, prune  # noqa: E402
 from volcano_tpu_torch.ops.cuda_allocate import (  # noqa: E402
     gang_allocate_cuda)
 from volcano_tpu_torch.ops.fairshare import proportion_waterfill  # noqa: E402
@@ -582,6 +605,90 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
+def with_solver(conf: str, **args) -> str:
+    """``conf`` with a solver section of ``args``."""
+    lines = "\n".join(f'    {k}: "{v}"' for k, v in args.items())
+    return conf + f"configurations:\n- name: solver\n  arguments:\n{lines}\n"
+
+
+def expected_launches(places) -> list:
+    """The kernel launches each place must have made, by its recorded
+    prune outcome: two where the exhaustion guard discarded the reduced
+    run (it, then the full-width run), else one (unpruned, a pre-kernel
+    fallback, or the reduced run serving)."""
+    return [2 if (pl["prune"] or {}).get("fallback") == "shortlist_exhausted"
+            else 1 for pl in places]
+
+
+def check_launches(ctx: str, launches: int, places, on_gpu: bool) -> None:
+    """The launch count read around a cycle equals what its places'
+    prune outcomes add up to (0 on the CPU), and so does each place's own
+    count."""
+    want = expected_launches(places)
+    if [pl["launches"] for pl in places] != want or \
+            launches != (sum(want) if on_gpu else 0):
+        fail(f"{ctx}: {launches} kernel launches, places "
+             f"{[pl['launches'] for pl in places]}, their prune outcomes "
+             f"{[(pl['prune'] or {}).get('fallback') for pl in places]} "
+             f"give {want}")
+
+
+def prune_fields(places) -> dict:
+    """What a cycle line prints of its places' pruning: each place's
+    summary (``served``: the reduced run's placements were kept;
+    ``fallback``: why not), the distillation's ms, the union width and
+    the kernel's CUDA-event ms per launch."""
+    pruned = [pl["prune"] or {} for pl in places]
+    return {"prune": [pl["prune"] for pl in places],
+            "distill_ms": [p.get("distill_ms") for p in pruned],
+            "union": [p.get("union") for p in pruned],
+            "launch_ms": [pl["launch_ms"] for pl in places]}
+
+
+def place_prune(pl) -> dict:
+    """The kernels line's prune entry for one cycle place: the union and
+    its padded width, the launches the place made and the last one's
+    table refreshes and the kernel's ms per launch, whether the reduced
+    run served (else the fallback) and the distillation's ms."""
+    p = pl["prune"] or {}
+    return {"union": p.get("union"), "u_pad": p.get("u_pad"),
+            "nodes": p.get("nodes"), "k_max": p.get("k_max"),
+            "launches": pl["launches"], "refreshes": pl["launch"][0],
+            "launch_ms": pl["launch_ms"], "served": p.get("served", False),
+            "fallback": p.get("fallback"),
+            "distill_ms": p.get("distill_ms")}
+
+
+class ReducedTap:
+    """While installed, keeps the inputs of every reduced-width launch
+    DenseSolver.launch makes (a pruned place's gathered tensors, its
+    weights and budgets), so that the kernel can be held against its
+    plain loop on exactly those inputs after the cycle. It launches
+    nothing itself."""
+
+    def __init__(self):
+        self.inputs = []
+        self._launch = DenseSolver.launch
+
+    def __enter__(self):
+        launch, inputs = self._launch, self.inputs
+
+        def tapped(solver, gmask, allow_pipeline=True, ns_live=False,
+                   arrays=None):
+            if arrays is not None:
+                inputs.append({"arrays": arrays, "gmask": gmask,
+                               "weights": solver.weights,
+                               "deserved": solver.queue_deserved(),
+                               "allow_pipeline": allow_pipeline,
+                               "ns_live": ns_live})
+            return launch(solver, gmask, allow_pipeline, ns_live, arrays)
+        DenseSolver.launch = tapped
+        return self
+
+    def __exit__(self, *exc):
+        DenseSolver.launch = self._launch
+
+
 def cycle_vs_plain() -> None:
     """Phase 7: the cycle through the objects on the GPU against the same
     cycle with the plain loop on the CPU, at MID's size, in four cases;
@@ -610,9 +717,10 @@ def cycle_vs_plain() -> None:
         (k_binds, k_phases, k_unsched), k_ms, k_launches, k_split = \
             res["cuda"]
         (p_binds, p_phases, p_unsched), p_ms, p_launches, _ = res["cpu"]
-        if k_launches < 1 or p_launches != 0:
-            fail(f"cycle_vs_plain {case}: {k_launches} kernel launches on "
-                 f"the GPU cycle, {p_launches} on the CPU cycle")
+        check_launches(f"cycle_vs_plain {case} on the GPU", k_launches,
+                       k_split["places"], True)
+        check_launches(f"cycle_vs_plain {case} on the CPU", p_launches,
+                       res["cpu"][3]["places"], False)
         diff = sum(k_binds.get(k) != p_binds.get(k)
                    for k in set(k_binds) | set(p_binds))
         phase_diff = sum(k_phases[k] != p_phases.get(k) for k in k_phases)
@@ -642,45 +750,48 @@ def cycle_vs_plain() -> None:
 
 
 def cycle(dev):
-    """Phase 8: the port's main path through the objects at the north
+    """Phase 9: the port's main path through the objects at the north
     star's size, one cold cycle and one warm one on fresh stores, the
     launch count set to 0 just before each cycle and read just after.
-    Returns (launches per cycle, the cycles' lines)."""
+    Returns (launches per cycle, the cycles' lines, the inputs of the
+    warm cycle's reduced-width launches)."""
     cycles = []
     cycle_launches = []
     for i in range(2):          # one cold cycle, then a warm one
-        gang_allocate_cuda.launches = 0
-        r = cycle_cmd.run_cycle(FULL["n_tasks"], FULL["n_nodes"], 1, dev)
-        cycle_launches.append(gang_allocate_cuda.launches)
+        with ReducedTap() as tap:
+            gang_allocate_cuda.launches = 0
+            r = cycle_cmd.run_cycle(FULL["n_tasks"], FULL["n_nodes"], 1, dev)
+            cycle_launches.append(gang_allocate_cuda.launches)
         store = r.pop("store")
         if r["binds"] != FULL["n_tasks"] or \
                 r["committed_gangs"] != FULL["n_tasks"] // FULL["gang"]:
             fail(f"cycle: {r['binds']} binds and {r['committed_gangs']} "
                  f"committed gangs")
         check_binds(store, "cycle")
-        if cycle_launches[-1] != len(r["places"]):
-            fail(f"cycle: {cycle_launches[-1]} kernel launches for "
-                 f"{len(r['places'])} placements")
+        check_launches("cycle", cycle_launches[-1], r["places"], True)
         del store
         cycles.append(r)
         line("cycle", run="cold" if i == 0 else f"warm{i}",
              shape={"tasks": FULL["n_tasks"], "nodes": FULL["n_nodes"],
                     "gang": FULL["gang"]},
-             kernel_launches=cycle_launches[-1], **r)
-    return cycle_launches, cycles
+             kernel_launches=cycle_launches[-1], **prune_fields(r["places"]),
+             **r)
+    return cycle_launches, cycles, tap.inputs
 
 
 def cycle_constrained(dev):
-    """Phase 10: the slot path at the north star's size, populate_store
+    """Phase 11: the slot path at the north star's size, populate_store
     with the HEAVY mix, one cold cycle and one warm one on fresh stores,
     the launch count set to 0 just before each cycle and read just after.
-    Returns (launches per cycle, the cycles' results)."""
+    Returns (launches per cycle, the cycles' results, the inputs of the
+    warm cycle's reduced-width launches)."""
     cycles, launches = [], []
     for i in range(2):
-        gang_allocate_cuda.launches = 0
-        r = cycle_cmd.run_cycle(FULL["n_tasks"], FULL["n_nodes"], 1, dev,
-                                **HEAVY)
-        launches.append(gang_allocate_cuda.launches)
+        with ReducedTap() as tap:
+            gang_allocate_cuda.launches = 0
+            r = cycle_cmd.run_cycle(FULL["n_tasks"], FULL["n_nodes"], 1, dev,
+                                    **HEAVY)
+            launches.append(gang_allocate_cuda.launches)
         store = r.pop("store")
         if r["binds"] != FULL["n_tasks"] or \
                 r["committed_gangs"] != FULL["n_tasks"] // FULL["gang"]:
@@ -688,10 +799,9 @@ def cycle_constrained(dev):
                  f"{r['committed_gangs']} committed gangs")
         check_binds(store, "cycle_constrained")
         gangs = check_constraints(store, "cycle_constrained")
-        if launches[-1] != len(r["places"]) or launches[-1] < 1 or \
-                not r["places"][0]["slots"]:
-            fail(f"cycle_constrained: {launches[-1]} kernel launches for "
-                 f"{len(r['places'])} placements, slots "
+        check_launches("cycle_constrained", launches[-1], r["places"], True)
+        if not r["places"][0]["slots"]:
+            fail(f"cycle_constrained: slots "
                  f"{[pl['slots'] for pl in r['places']]}")
         del store
         cycles.append(r)
@@ -700,18 +810,87 @@ def cycle_constrained(dev):
                     "gang": FULL["gang"], **HEAVY},
              kernel_launches=launches[-1],
              refreshes=[pl["launch"][0] for pl in r["places"]],
-             **gangs, **r)
-    return launches, cycles
+             **gangs, **prune_fields(r["places"]), **r)
+    return launches, cycles, tap.inputs
 
 
-def cycle_inputs_vs_plain(dev, constraints=None) -> dict:
-    """Phases 9 and 10: the kernel against its plain version on the
-    cycle's own inputs at the north star's size: a fresh store as phase 8
-    (``constraints``: phase 10, with that mix) builds it, one session on
+def hold_inputs(arrays, gmask, weights, deserved, kw, ctx):
+    """The kernel (a warm-up, then three timed runs) against its plain
+    loop (one run) on one set of kernel inputs (``arrays`` with the mask
+    ``gmask`` and the budgets ``deserved``), held exactly by compare().
+    Returns (the comparison with the launch's report, the times and the
+    bound of the work; the inputs as numpy; the kernel's ready)."""
+    args = convert.args(arrays)
+    names = list(convert.FIELDS)
+    args[names.index("group_mask")] = gmask
+    args[names.index("queue_deserved")] = deserved
+    gang_allocate_cuda(*args, weights, **kw)                 # warm-up
+    runs = [timed(lambda: gang_allocate_cuda(*args, weights, **kw))
+            for _ in range(3)]
+    got = runs[-1][0]
+    stats = launch_stats()
+    want, plain_ms = timed(lambda: allocate.gang_allocate(
+        *args, weights, **kw))
+    sa = type("Inputs", (), {k: to_np(v) for k, v in arrays.items()})
+    res = compare(sa, got, want, ctx)
+    a1, a2 = to_np(got[0]), to_np(want[0])
+    res["max_abs_err"] = max(res["state_max_abs_err"],
+                             float(np.abs(a1.astype(np.float64) - a2).max()))
+    steps = int(sa.job_n_tasks.sum())
+    N, R = sa.node_idle.shape
+    slot_args = [kw[k] for k in ("task_slot", "slot_ok") if k in kw]
+    bytes_ms, ops_ms, _ = bound(args, slot_args, got[:4],
+                                stats["refreshes"], steps, N, R)
+    res.update(kernel_ms=[ms for _, ms in runs], plain_ms=plain_ms,
+               steps=steps, bytes_ms=bytes_ms, ops_ms=ops_ms, **stats)
+    if "task_slot" in kw:
+        if not in_slot_rows(a1, (sa.task_slot, sa.slot_ok)):
+            fail(f"{ctx}: a task was placed outside its slot row")
+        res["slots"] = int(sa.slot_ok.shape[0] - 1)
+    return res, sa, to_np(got[2])
+
+
+def distill_card_vs_cpu(narr, batch, dense, gmask, solver, ctx) -> dict:
+    """ops/prune.distill on the card and on the CPU on one place's own
+    inputs: the same union, feasible and kept counts and pre-kernel guard,
+    coverage within 1e-6. Returns the card's summary and both times."""
+    static = dense.arrays["group_static_score"]
+
+    def run(*tensors):
+        t0 = time.perf_counter()
+        ctx = prune.distill(batch, narr, *tensors, solver.prune,
+                            dedupe=solver._prune_dedupe_ok)
+        return ctx, (time.perf_counter() - t0) * 1000.0
+    run(gmask, static, dense.weights)                      # warm-up
+    card, card_ms = run(gmask, static, dense.weights)
+    host, host_ms = run(gmask.cpu(), static.cpu(), dense.weights.to("cpu"))
+    cov_err = float(np.abs(card.coverage.astype(np.float64)
+                           - host.coverage).max()) \
+        if card.coverage.size else 0.0
+    if not (np.array_equal(card.union, host.union)
+            and np.array_equal(card.feasible, host.feasible)
+            and np.array_equal(card.count, host.count)
+            and card.pre_guard() == host.pre_guard()
+            and card.k_max == host.k_max) or cov_err > 1e-6:
+        fail(f"{ctx}: the distillation on the card and on the CPU differ: "
+             f"{card.summary()} against {host.summary()}, coverage error "
+             f"{cov_err}")
+    return {"summary": card.summary(), "u_pad": card.u_pad,
+            "pre_guard": card.pre_guard(), "ms": card_ms, "cpu_ms": host_ms,
+            "coverage_max_abs_err": cov_err}
+
+
+def cycle_inputs_vs_plain(dev, constraints=None, reduced=None) -> dict:
+    """Phases 10 and 11: the kernel against its plain version on the
+    cycle's own inputs at the north star's size: a fresh store as phase 9
+    (``constraints``: phase 11, with that mix) builds it, one session on
     the GPU, enqueue, then the allocate action's phase-A batch encoded by
     the session's BatchSolver as place() encodes it; the kernel (three
-    timed runs) and the plain loop (one) on those tensors, held exactly.
-    With slots, the kernel's refreshes must equal the rule's count."""
+    timed runs) and the plain loop (one) on those full-width tensors, held
+    exactly, and on ``reduced`` (the inputs a warm cycle's pruned place
+    launched on, captured by ReducedTap) when given. The distillation runs
+    on those inputs on the card and on the CPU and must agree. With slots,
+    the kernel's refreshes must equal the rule's count."""
     from volcano_tpu_torch.actions.allocate import AllocateAction
     from volcano_tpu_torch.cache import SchedulerCache
     from volcano_tpu_torch.framework import (get_action, open_session,
@@ -732,50 +911,147 @@ def cycle_inputs_vs_plain(dev, constraints=None) -> dict:
         if tasks:
             need = max(0, job.min_available - job.ready_task_num())
             jobs.append((job, tasks[:need]))
-    _, _, dense = ssn.solver._context(jobs, dev, slot_tensors=True)
-    args = convert.args(dense.arrays)
-    args[list(convert.FIELDS).index("group_mask")] = dense.static_mask()
+    narr, batch, dense = ssn.solver._context(jobs, dev, slot_tensors=True)
+    gmask = dense.static_mask()
     slot_kw = convert.slot_kwargs(dense.arrays)
     if bool(constraints) != bool(slot_kw):
         fail(f"cycle inputs {constraints}: slot inputs {sorted(slot_kw)}")
-    kw = dict(ns_live=ssn.solver._ns_live, **slot_kw)
-    gang_allocate_cuda(*args, dense.weights, **kw)           # warm-up
-    runs = [timed(lambda: gang_allocate_cuda(*args, dense.weights, **kw))
-            for _ in range(3)]
-    got = runs[-1][0]
-    stats = launch_stats()
-    want, plain_ms = timed(lambda: allocate.gang_allocate(
-        *args, dense.weights, **kw))
-    sa = type("Inputs", (), {k: to_np(v) for k, v in dense.arrays.items()})
     ctx = "cycle constrained inputs" if constraints else "cycle inputs"
-    res = compare(sa, got, want, ctx)
-    a1, a2 = to_np(got[0]), to_np(want[0])
-    res["max_abs_err"] = max(res["state_max_abs_err"],
-                             float(np.abs(a1.astype(np.float64) - a2).max()))
-    steps = int(sa.job_n_tasks.sum())
-    N, R = sa.node_idle.shape
-    bytes_ms, ops_ms, _ = bound(args, slot_kw.values(), got[:4],
-                                stats["refreshes"], steps, N, R)
-    res.update(kernel_ms=[ms for _, ms in runs], plain_ms=plain_ms,
-               steps=steps, bytes_ms=bytes_ms, ops_ms=ops_ms, **stats)
+    kw = dict(ns_live=ssn.solver._ns_live, **slot_kw)
+    res, sa, ready = hold_inputs(dense.arrays, gmask, dense.weights,
+                                 dense.queue_deserved(), kw, ctx)
     if slot_kw:
-        slots = (sa.task_slot, sa.slot_ok)
-        if not in_slot_rows(a1, slots):
-            fail(f"{ctx}: a task was placed outside its slot row")
-        if not to_np(got[2])[:len(jobs)].all():
+        if not ready[:len(jobs)].all():
             fail(f"{ctx}: a gang was not committed")
-        res.update(slots=int(sa.slot_ok.shape[0] - 1),
-                   rule_refreshes=allocate.rule_refreshes(
-                       sa.task_group, sa.task_bucket, sa.task_slot,
-                       sa.job_task_start, sa.job_n_tasks))
-        if res["rule_refreshes"] != stats["refreshes"]:
-            fail(f"{ctx}: the kernel refreshed {stats['refreshes']} times, "
+        res["rule_refreshes"] = allocate.rule_refreshes(
+            sa.task_group, sa.task_bucket, sa.task_slot, sa.job_task_start,
+            sa.job_n_tasks)
+        if res["rule_refreshes"] != res["refreshes"]:
+            fail(f"{ctx}: the kernel refreshed {res['refreshes']} times, "
                  f"its rule gives {res['rule_refreshes']}")
+    res["distill"] = distill_card_vs_cpu(narr, batch, dense, gmask,
+                                         ssn.solver, ctx)
+    N, R = sa.node_idle.shape
     line("kernel_vs_plain", case="cycle_constrained_inputs" if constraints
          else "cycle_inputs",
          shape={"T": sa.task_group.shape[0], "G": sa.group_req.shape[0],
                 "N": N, "R": R}, **res)
+    if reduced:
+        cap = reduced[-1]
+        rkw = dict(allow_pipeline=cap["allow_pipeline"],
+                   ns_live=cap["ns_live"],
+                   **convert.slot_kwargs(cap["arrays"]))
+        rctx = ctx.replace("inputs", "reduced inputs")
+        red, rsa, _ = hold_inputs(cap["arrays"], cap["gmask"],
+                                  cap["weights"], cap["deserved"], rkw, rctx)
+        line("kernel_vs_plain", case=rctx.replace(" ", "_"),
+             shape={"T": rsa.task_group.shape[0],
+                    "G": rsa.group_req.shape[0],
+                    "N": rsa.node_idle.shape[0], "R": R}, **red)
+        res["reduced"] = red
     return res
+
+
+# ---- candidate pruning ------------------------------------------------------
+
+# the prune summary's fields that must be equal between the card and the CPU
+# (coverage to 1e-6)
+PRUNE_EXACT = ("level", "k", "k_max", "pairs", "union", "nodes",
+               "truncated_pairs", "fallback", "fallback_pairs", "served",
+               "u_pad")
+
+
+def synth_store(n_nodes: int, n_jobs: int, gang: int, **kw) -> ObjectStore:
+    store = ObjectStore()
+    populate_store(store, n_nodes=n_nodes, n_jobs=n_jobs, gang_size=gang,
+                   **kw)
+    return store
+
+
+def prune_cases() -> dict:
+    """name -> (store builder, scheduler conf or None for the default, the
+    fallback the first pruned place must end in). The reference's probe
+    shape under the default conf (auto mode: 4,096 nodes engage it);
+    forced pruning at MID's 2,048 nodes on populate_store's uniform fleet
+    and on the constrained mix; k = 1 over identical nodes that each hold
+    one pod (the reduced run places one gang and the exhaustion guard
+    discards it); k = 1 over cycle_store's nodes of varied sizes with a
+    0.99 coverage floor (the pre-kernel guard)."""
+    base = CYCLE_CONF.format(drf="")
+    k1 = {"prune.enable": "true", "prune.k": 1, "prune.demand_aware": "off"}
+    return {
+        "probe_default_conf": (lambda: synth_store(4096, 600, 8), None,
+                               None),
+        "uniform_forced": (
+            lambda: synth_store(MID["n_nodes"], MID["n_tasks"] // 8, 8),
+            with_solver(base, **{"prune.enable": "true"}), None),
+        "constrained_forced": (
+            lambda: cycle_store("constrained", 4),
+            with_solver(base, **{"prune.enable": "true"}), None),
+        "tight_exhausted": (
+            lambda: synth_store(MID["n_nodes"], 1024, 1, cpu_req="40"),
+            with_solver(base, **k1, **{"prune.coverage_floor": 0.0}),
+            "shortlist_exhausted"),
+        "skewed_low_coverage": (
+            lambda: cycle_store("one_queue", 5),
+            with_solver(base, **k1, **{"prune.coverage_floor": 0.99}),
+            "low_coverage"),
+    }
+
+
+def prune_vs_plain() -> None:
+    """Phase 8: pruned cycles on the GPU against the same cycles on the
+    CPU (the plain loop), each on a fresh store from one seeded builder:
+    binds, PodGroup phases and every field of each place's prune summary
+    must be equal (coverage within 1e-6), each case must end in the path
+    it is built for, and the launches must follow each place's outcome."""
+    for case, (build, conf, want) in prune_cases().items():
+        res = {}
+        for device in ("cuda", "cpu"):
+            store = build()
+            sched = Scheduler(store, scheduler_conf=conf, device=device)
+            sched.cache.run()
+            gang_allocate_cuda.launches = 0
+            t0 = time.perf_counter()
+            sched.run_once()
+            ms = (time.perf_counter() - t0) * 1000.0
+            places = sched.last_cycle["places"]
+            check_launches(f"prune_vs_plain {case} on {device}",
+                           gang_allocate_cuda.launches, places,
+                           device == "cuda")
+            check_binds(store, f"prune_vs_plain {case} on {device}")
+            res[device] = (cycle_outcome(store), places, ms)
+        (k_binds, k_phases, k_unsched), k_places, k_ms = res["cuda"]
+        (p_binds, p_phases, p_unsched), p_places, p_ms = res["cpu"]
+        diff = sum(k_binds.get(k) != p_binds.get(k)
+                   for k in set(k_binds) | set(p_binds))
+        phase_diff = sum(k_phases[k] != p_phases.get(k) for k in k_phases)
+        k_sum = [pl["prune"] for pl in k_places]
+        p_sum = [pl["prune"] for pl in p_places]
+        summary_diff = [
+            (a, b) for a, b in zip(k_sum, p_sum)
+            if (a is None) != (b is None) or a is not None and (
+                any(a[f] != b[f] for f in PRUNE_EXACT)
+                # coverage is rounded to 6 decimals in the summary
+                or round(abs(a["coverage_min"] - b["coverage_min"]), 9) > 1e-6
+                or round(abs(a["coverage_mean"] - b["coverage_mean"]), 9)
+                > 1e-6)]
+        if diff or phase_diff or k_unsched != p_unsched or summary_diff \
+                or len(k_sum) != len(p_sum):
+            fail(f"prune_vs_plain {case}: {diff} binds, {phase_diff} "
+                 f"phases, prune summaries {summary_diff or (k_sum, p_sum)} "
+                 f"differ between the GPU cycle and the CPU's")
+        pruned = [x for x in k_sum if x is not None]
+        if not k_binds or not pruned or pruned[0]["fallback"] != want:
+            fail(f"prune_vs_plain {case}: {len(k_binds)} binds, prune "
+                 f"{pruned}: the case did not end in fallback {want}")
+        line("prune_vs_plain", case=case, binds=len(k_binds),
+             bind_mismatches=diff, phase_mismatches=phase_diff,
+             rolled_back_gangs=k_unsched, cycle_ms=k_ms, plain_cycle_ms=p_ms,
+             kernel_launches=[pl["launches"] for pl in k_places],
+             plain_distill_ms=[(pl["prune"] or {}).get("distill_ms")
+                               for pl in p_places],
+             **prune_fields(k_places))
 
 
 # ---- the preempt and reclaim paths ----------------------------------------
@@ -969,6 +1245,7 @@ def victim_summary(r: dict) -> dict:
     return {"evictions": len(r["evicted"]), "wall_ms": r["wall_ms"],
             "kernel_launches": r["launches"],
             "kernel_ms": [pl["kernel_ms"] for pl in s["places"]],
+            **prune_fields(s["places"]),
             "binds": len(r["binds"]),
             **{k: s[k] for k in keep if k in s},
             **({"peak_device_bytes": r["peak_device_bytes"]}
@@ -976,7 +1253,7 @@ def victim_summary(r: dict) -> dict:
 
 
 def victims_vs_plain() -> None:
-    """Phase 11: the four VICTIM_CASES at VICTIM_MID's size, two cycles on
+    """Phase 12: the four VICTIM_CASES at VICTIM_MID's size, two cycles on
     one store with device="cuda" against the same two with device="cpu"
     (the plain loop); evictions, pipelines, cycle-2 binds and phases must
     be equal, and the cycle must take its case's victim-selection path."""
@@ -994,12 +1271,14 @@ def victims_vs_plain() -> None:
                 sum(runs.values()) != runs[path]:
             fail(f"victims_vs_plain {case}: {len(first['evicted'])} "
                  f"evictions, victim-selection runs {runs}")
-        if any(r["launches"] != len(r["split"]["places"])
-               or r["launches"] < 1 for r in gpu["cycles"]) or \
-                any(r["launches"] for r in cpu["cycles"]):
+        if any(r["launches"] < 1 for r in gpu["cycles"]):
             fail(f"victims_vs_plain {case}: kernel launches "
-                 f"{[r['launches'] for r in gpu['cycles']]} on the GPU, "
-                 f"{[r['launches'] for r in cpu['cycles']]} on the CPU")
+                 f"{[r['launches'] for r in gpu['cycles']]} on the GPU")
+        for device, out in (("GPU", gpu), ("CPU", cpu)):
+            for c, r in enumerate(out["cycles"]):
+                check_launches(f"victims_vs_plain {case} cycle {c + 1} on "
+                               f"the {device}", r["launches"],
+                               r["split"]["places"], device == "GPU")
         line("victims_vs_plain", case=case, action=action, **VICTIM_MID,
              mismatches=diffs,
              evictions=[len(r["evicted"]) for r in gpu["cycles"]],
@@ -1011,7 +1290,7 @@ def victims_vs_plain() -> None:
 
 
 def victim_cycle(action: str) -> dict:
-    """Phases 12 and 13: the preempt or reclaim path at the reference's
+    """Phases 13 and 14: the preempt or reclaim path at the reference's
     full size (VICTIM_FULL), on fresh stores one cold and one warm GPU
     cycle and one CPU (plain loop) cycle, the last held equal to the warm
     one. Returns the warm cycle's result."""
@@ -1023,8 +1302,11 @@ def victim_cycle(action: str) -> dict:
         runs[run] = r
         if not r["evicted"]:
             fail(f"{action}_cycle {run}: nothing was evicted")
-        if r["launches"] != (1 if device == "cuda" else 0):
-            fail(f"{action}_cycle {run}: {r['launches']} kernel launches")
+        if len(r["split"]["places"]) != 1:
+            fail(f"{action}_cycle {run}: {len(r['split']['places'])} "
+                 f"placements")
+        check_launches(f"{action}_cycle {run}", r["launches"],
+                       r["split"]["places"], device == "cuda")
         extra = {}
         if run == "plain":
             extra = victim_mismatches(runs["warm"], r)
@@ -1101,7 +1383,7 @@ def prefix_bound(x: dict, out_bytes: int) -> tuple:
 
 
 def victim_prefix_phase(dev) -> dict:
-    """Phase 14: the batched prefix functions of ops/preempt.py at 5,000
+    """Phase 15: the batched prefix functions of ops/preempt.py at 5,000
     preemptors x 10,000 nodes on the preempt path's own tensors (V = 1)
     and on a seeded V = 8, R = 2 case, on the card (a warm-up, then three
     timed runs) and on the CPU; feasible, n_evict, covered and
@@ -1362,16 +1644,37 @@ def main() -> None:
          gang8_refreshes=n_refresh, gang8_steps=steps)
 
     cycle_vs_plain()
-    cycle_launches, cycles = cycle(dev)
-    cyc = cycle_inputs_vs_plain(dev)
-    con_launches, con_cycles = cycle_constrained(dev)
-    con = cycle_inputs_vs_plain(dev, HEAVY)
-    for r in con_cycles:
-        if [pl["launch"][0] for pl in r["places"]] != [con["refreshes"]]:
-            fail("cycle_constrained: the cycle's launch and the kernel run "
-                 "on its inputs refreshed their tables a different number "
-                 "of times")
+    prune_vs_plain()
+    cycle_launches, cycles, reduced = cycle(dev)
+    cyc = cycle_inputs_vs_plain(dev, reduced=reduced)
+    con_launches, con_cycles, con_reduced = cycle_constrained(dev)
+    con = cycle_inputs_vs_plain(dev, HEAVY, reduced=con_reduced)
+    for phase, runs, held, taps in (("cycle", cycles, cyc, reduced),
+                                    ("cycle_constrained", con_cycles, con,
+                                     con_reduced)):
+        # the warm cycle made a reduced-width launch exactly when its
+        # place's prune outcome says so, and that launch's inputs are the
+        # ones held against the plain loop above
+        prunes = [pl["prune"] for pl in runs[-1]["places"]]
+        made = [p is not None and p["fallback"] in (None,
+                                                    "shortlist_exhausted")
+                for p in prunes]
+        if sum(made) != len(taps):
+            fail(f"{phase}: {len(taps)} reduced launches captured for "
+                 f"prune outcomes {prunes}")
+        # a place's launch report is its last launch's: the reduced run's
+        # where it served, else the full-width run's
+        for r in runs:
+            want = [held["reduced"]["refreshes"]
+                    if pl["prune"] is not None and pl["prune"]["served"]
+                    else held["refreshes"] for pl in r["places"]]
+            if [pl["launch"][0] for pl in r["places"]] != want:
+                fail(f"{phase}: the cycle's launches and the kernel run on "
+                     f"their inputs refreshed their tables a different "
+                     f"number of times")
     warm = cycles[1:]
+    north_prune, con_prune = (place_prune(runs[-1]["places"][0])
+                              for runs in (cycles, con_cycles))
     cycle_kernel_ms = [sum(pl["kernel_ms"] for pl in r["places"])
                        for r in warm]
 
@@ -1399,6 +1702,7 @@ def main() -> None:
                                     for pl in reclaim["split"]["places"]],
         "cycle_kernel_ms": cycle_kernel_ms,
         "cycle_ms": [r["cycle_ms"] for r in warm],
+        "prune": north_prune,
         "cycle_inputs": {"ms": min(cyc["kernel_ms"]),
                          "plain_ms": cyc["plain_ms"],
                          "max_abs_err": cyc["max_abs_err"],
@@ -1426,6 +1730,7 @@ def main() -> None:
         "cycle_ms": [r["cycle_ms"] for r in con_cycles[1:]],
         "constraint_ms": [sum(pl["constraint_ms"] for pl in r["places"])
                           for r in con_cycles[1:]],
+        "prune": con_prune,
         "shape": {"tasks": FULL["n_tasks"], "nodes": FULL["n_nodes"],
                   **HEAVY},
         "checked_against_plain": True,

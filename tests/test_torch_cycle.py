@@ -618,15 +618,10 @@ def _small_session(conf_text):
 
 
 def test_placement_changing_options_raise_not_implemented():
-    """Options that would change placements in ways this port cannot
-    reproduce raise instead of being ignored: node sampling. The priority
-    plugin's tiered packing score is ported: a session with it runs a
-    cycle and adds its score to the solver."""
+    """The priority plugin's tiered packing score is ported: a session
+    with it runs a cycle and adds its score to the solver (node sampling
+    is held by tests/test_torch_sampling.py)."""
     from volcano_tpu_torch.framework import get_action
-    sampling = conf().replace('mesh.enable: "false"}',
-                              'mesh.enable: "false", sampling.enable: on}')
-    with pytest.raises(NotImplementedError, match="sampling"):
-        _small_session(sampling)()
     ssn = _small_session(conf(tieredpack=2))()
     plain = _small_session(conf())()
     assert len(ssn.solver.static_score_fns) == \

@@ -28,7 +28,8 @@ print(' '.join(names))
 """
 
 # the packages of the scheduling cycle the walk must reach, the
-# placement-constraint layer and the preempt/reclaim path included
+# placement-constraint layer, the preempt/reclaim path and candidate
+# pruning included
 CYCLE_MODULES = ("volcano_tpu_torch.apiserver.store",
                  "volcano_tpu_torch.cache.cache",
                  "volcano_tpu_torch.actions.allocate",
@@ -42,6 +43,8 @@ CYCLE_MODULES = ("volcano_tpu_torch.apiserver.store",
                  "volcano_tpu_torch.plugins.interpod",
                  "volcano_tpu_torch.plugins.task_topology",
                  "volcano_tpu_torch.ops.constraints",
+                 "volcano_tpu_torch.ops.prune",
+                 "volcano_tpu_torch.trace.explain",
                  "volcano_tpu_torch.scheduler",
                  "volcano_tpu_torch.cmd.cycle")
 
@@ -57,7 +60,7 @@ def test_every_port_module_imports_without_jax_or_reference():
     assert out.returncode == 0, out.stderr
     first, walked = out.stdout.strip().split("\n")
     count, leaked = first.split(" ", 1)
-    assert int(count) >= 65, out.stdout
+    assert int(count) >= 68, out.stdout
     assert leaked == "[]", leaked
     assert set(CYCLE_MODULES) <= set(walked.split()), walked
 

@@ -17,8 +17,9 @@ fresh store. The line gives, per run, the populate and cache-sync seconds,
 the cycle's wall ms and its split (``Scheduler.last_cycle``: snapshot,
 open_session, each action, the allocate action's ordering, placement,
 staging and commit, close_session, and each placement's encode, solve,
-kernel and decode), the binds, the committed gangs and, on the GPU, the
-cycle's peak device memory above what the process already held.
+kernel and decode, its kernel launches and its prune summary), the binds,
+the committed gangs and, on the GPU, the cycle's peak device memory above
+what the process already held.
 
 ``--scenario preempt`` and ``--scenario reclaim`` build the reference
 harness's preemption and reclamation shapes instead

@@ -36,12 +36,18 @@ from ..models import arrays
 from ..models.arrays import NodeArrays, ResourceIndex, TaskBatch
 from ..models.job_info import JobInfo, TaskInfo
 from ..models.unschedule_info import FitErrors
-from ..ops import constraints
+from ..ops import constraints, prune
 from ..ops.cuda_allocate import gang_allocate_cuda
 from ..ops.fairshare import proportion_waterfill
 from ..ops.fit import group_fit_mask, selector_mask, taint_mask
+from ..ops.prune import PruneConf
 from ..ops.score import ScoreWeights
 from ..utils.platform import default_device
+
+# the start of the sampling window: a process-wide cursor, as the
+# reference's node cursor (scheduler_helper.go:95); it advances by the
+# window's width each sampled session
+_node_cursor = 0
 
 
 class PredicateFeatures(NamedTuple):
@@ -152,10 +158,19 @@ class DenseSolver:
 
     def place(self, allow_pipeline: bool = True,
               ns_live: bool = False) -> DensePlacement:
-        a = self.arrays
+        return self.launch(self.static_mask(), allow_pipeline, ns_live)
+
+    def launch(self, gmask: torch.Tensor, allow_pipeline: bool = True,
+               ns_live: bool = False,
+               arrays: Optional[Dict[str, torch.Tensor]] = None
+               ) -> DensePlacement:
+        """The gang-allocate kernel on the static mask ``gmask`` and the
+        decode. ``arrays`` (default: the snapshot's tensors) may be a
+        reduced copy of them whose node axis is a subset of the snapshot's
+        (the pruned place); the results then index that axis."""
+        a = self.arrays if arrays is None else arrays
         args = convert.args(a)
         names = list(convert.FIELDS)
-        gmask = self.static_mask()
         args[names.index("group_mask")] = gmask
         deserved = self.queue_deserved()
         args[names.index("queue_deserved")] = deserved
@@ -224,14 +239,13 @@ class BatchSolver:
     reference's keys that only choose among exact kernels or apply modes
     that give the same binds (``kernel``, ``mesh.*``, ``breaker.window``,
     ``apply``) are accepted and ignored: this port runs one kernel per
-    device and stages placements eagerly. ``prune.*`` is accepted and
-    ignored too, but it is not of that kind: the port always gives the
-    reference's answers under ``prune.enable: off``. The reference's
-    default ``prune.enable: auto`` engages at 4,096 ready nodes or more,
-    where its placements may differ (docs/design/pruning.md, the
-    documented-divergence regime); pruning is still to port.
-    ``sampling.enable`` raises NotImplementedError, because a sampled
-    node window changes placements. ``constraints.compile: off``
+    device and stages placements eagerly. ``prune.*`` is candidate pruning
+    (ops/prune.py): with the default ``prune.enable: auto`` a place over
+    4,096 ready nodes or more runs the kernel over the union of per-gang
+    shortlists, as the reference does; ``off`` keeps the full width.
+    ``sampling.enable`` (with ``sampling.percentage``, 0 = adaptive, and
+    ``sampling.minNodes``) builds each session's contexts over a rotating
+    window of the node list (``_node_order``). ``constraints.compile: off``
     evaluates the constraint mask per pair and lowers domains by
     splitting groups (ops/constraints.py). ``victims.kernel: off`` makes
     preempt and reclaim select victims by the walk of
@@ -254,15 +268,53 @@ class BatchSolver:
         self.enable_default_predicates = False
         # one entry per place(): host encode (of which the constraint
         # lowering and compile passes, constraint_ms), device solve,
-        # object decode and kernel times (ms), the batch's domain slots
-        # and the launch's own report
+        # object decode and kernel times (ms), the kernel launches and
+        # each one's ms, the batch's domain slots, the last launch's own
+        # report, and the prune summary (None when pruning did not engage)
         self.stats: List[Dict[str, Any]] = []
         solver_args = (ssn.configurations or {}).get("solver")
+        self.sampling = False
+        self.sampling_pct = 0.0
+        self.sampling_min = 100
         if solver_args is not None and \
                 solver_args.get_bool("sampling.enable", False):
-            raise NotImplementedError(
-                "solver sampling.enable: a sampled node window changes "
-                "placements; this port always evaluates every node")
+            self.sampling = True
+            self.sampling_pct = solver_args.get_float("sampling.percentage",
+                                                      0.0)
+            self.sampling_min = solver_args.get_int("sampling.minNodes", 100)
+        self.prune = PruneConf.from_args(solver_args)
+        self._sampled_names: Optional[List[str]] = None
+        # the exact-dedupe license of the shortlist distillation, set by
+        # each context build (_context)
+        self._prune_dedupe_ok = False
+
+    def _node_order(self) -> List[str]:
+        """The node names the contexts are built over: every ready node,
+        or with sampling a window of max(minNodes, pct% of N) names
+        (adaptive pct = 50 - N/125, at least 5), stable within the
+        session; the window's start advances by its width each sampled
+        session (volcano_tpu/framework/solver.py:392-419)."""
+        if self.sampling and self._sampled_names is not None:
+            return self._sampled_names
+        names = [n.name for n in self.ssn.node_list]
+        if not self.sampling:
+            return names
+        n = len(names)
+        k = n
+        if n > self.sampling_min:
+            pct = self.sampling_pct or max(5.0, 50.0 - n / 125.0)
+            k = min(n, max(self.sampling_min, int(n * pct / 100.0)))
+        if k >= n:
+            self._sampled_names = names
+            return names
+        global _node_cursor
+        start = _node_cursor % n
+        _node_cursor += k
+        window = names[start:start + k]
+        if len(window) < k:
+            window += names[:k - len(window)]
+        self._sampled_names = window
+        return window
 
     # -- plugin contribution API ------------------------------------------
 
@@ -382,8 +434,7 @@ class BatchSolver:
             raise NotImplementedError(
                 f"host predicate fns of plugins {sorted(extra)}: this port "
                 "places only through vectorized masks")
-        narr = NodeArrays.build(ssn.nodes, [n.name for n in ssn.node_list],
-                                self.rindex)
+        narr = NodeArrays.build(ssn.nodes, self._node_order(), self.rindex)
         batch, slot_entries = self._lower_constraints(ordered_jobs, narr,
                                                       slot_tensors)
         feats = arrays.PredicateFeatures.build(ssn.nodes, narr, batch,
@@ -403,6 +454,17 @@ class BatchSolver:
             if contrib is not None:
                 static_score = contrib if static_score is None \
                     else static_score + contrib
+        # the distillation's exact-dedupe license (ops/prune.py), as the
+        # reference grants it (volcano_tpu/framework/solver.py:720-804):
+        # no mask stage beyond the capability fit applied (the selector
+        # and taint masks DenseSolver.static_mask adds, node affinity, a
+        # plugin's mask) and no static score, so that identical request
+        # rows have identical mask and score rows
+        selector_or_taint = self.enable_default_predicates and (
+            bool(feats.group_require_counts.any())
+            or bool(feats.node_taints.any()))
+        self._prune_dedupe_ok = gmask is None and static_score is None \
+            and not selector_or_taint
         shape = (batch.g_pad, narr.n_pad)
         gmask = torch.ones(shape, dtype=torch.bool, device=device) \
             if gmask is None else torch.from_numpy(gmask).to(device)
@@ -490,22 +552,37 @@ class BatchSolver:
         narr, batch, dense = self._context(ordered_jobs, self.device,
                                            slot_tensors=True)
         t1 = time.perf_counter()
-        out = dense.place(allow_pipeline=allow_pipeline, ns_live=self._ns_live)
-        assign = out.assign.cpu().numpy()
+        gmask = dense.static_mask()
+        runs: List[DensePlacement] = []
+        ctx, distill_ms, assign = None, None, None
+        if self.prune.active(len(narr.names)):
+            ctx, distill_ms, assign = self._place_pruned(
+                narr, batch, dense, gmask, allow_pipeline, runs)
+        if assign is None:
+            runs.append(dense.launch(gmask, allow_pipeline, self._ns_live))
+            assign = runs[-1].assign.cpu().numpy()
+        out = runs[-1]
         pipelined = out.pipelined.cpu().numpy()
         ready_list = out.ready.cpu().tolist()
         kept_list = out.kept.cpu().tolist()
         t2 = time.perf_counter()
         stats = gang_allocate_cuda.last_stats
+        prune_record = None
+        if ctx is not None:
+            prune_record = dict(ctx.summary(), served=ctx.fallback is None,
+                                distill_ms=distill_ms, u_pad=ctx.u_pad)
         self.stats.append({
             "encode_ms": (t1 - t0) * 1000.0,
             "constraint_ms": self.ssn._constraint_ms,
             "slots": 0 if batch.slot_rows is None
             else batch.slot_rows.shape[0] - 1,
             "solve_ms": (t2 - t1) * 1000.0,
-            "kernel_ms": out.kernel_ms,
+            "kernel_ms": sum(r.kernel_ms for r in runs),
+            "launches": len(runs),
+            "launch_ms": [r.kernel_ms for r in runs],
             "launch": stats.tolist() if stats is not None
-            and self.device.type == "cuda" else None})
+            and self.device.type == "cuda" else None,
+            "prune": prune_record})
 
         # decode (volcano_tpu/framework/solver.py:1016-1106): one pass over
         # the assign vector; each job reads its window of the sorted
@@ -563,13 +640,72 @@ class BatchSolver:
         if unplaced_records:
             # fit errors read the mask rows of the unplaced groups only
             gs = sorted({g for _, _, g in unplaced_records})
-            rows = out.group_mask[torch.tensor(gs, device=out.group_mask.device)]
-            rows = rows.cpu().numpy()
+            rows = gmask[torch.tensor(gs, device=gmask.device)].cpu().numpy()
             row_of = {g: rows[i] for i, g in enumerate(gs)}
             for job, task, g in unplaced_records:
                 self._record_fit_errors(job, task, narr, row_of[g])
         self.stats[-1]["decode_ms"] = (time.perf_counter() - t2) * 1000.0
         return result
+
+    def _reduced_inputs(self, batch: TaskBatch, narr: NodeArrays,
+                        dense: DenseSolver, gmask: torch.Tensor,
+                        ctx: prune.PruneContext) -> Dict[str, torch.Tensor]:
+        """The kernel's inputs on the shortlist union's columns
+        (volcano_tpu/framework/solver.py:1322-1352): mask and static-score
+        columns gathered on the device, the slot rows' columns and the
+        five node arrays gathered on the host; padding columns are
+        infeasible, so the kernel selects only live union entries."""
+        dev = self.device
+        u = torch.from_numpy(ctx.union_padded).to(dev)
+        live = torch.from_numpy(ctx.live).to(dev)
+        a = dict(dense.arrays)
+        a["group_mask"] = gmask.index_select(1, u) & live[None, :]
+        a["group_static_score"] = \
+            a["group_static_score"].index_select(1, u)
+        if "slot_ok" in a:
+            rows = np.take(batch.slot_rows, ctx.union_padded, axis=1)
+            rows[:, ~ctx.live] = False
+            a["slot_ok"] = torch.from_numpy(rows).to(dev)
+        idx = ctx.union_padded
+        for name, host in (("node_idle", narr.idle),
+                           ("node_future", narr.future_idle),
+                           ("node_alloc", narr.allocatable),
+                           ("node_ntasks", narr.n_tasks),
+                           ("node_max_tasks", narr.max_tasks)):
+            a[name] = torch.from_numpy(host[idx]).to(
+                device=dev, dtype=convert.FIELDS[name])
+        return a
+
+    def _place_pruned(self, narr: NodeArrays, batch: TaskBatch,
+                      dense: DenseSolver, gmask: torch.Tensor,
+                      allow_pipeline: bool, runs: List[DensePlacement]):
+        """One pruned placement attempt (volcano_tpu/framework/solver.py:
+        1354-1426): distill the shortlists, run the kernel on the union's
+        columns, map its placements back. Returns (the PruneContext, the
+        distillation's ms, the global assign or None): None, with the
+        context's ``fallback`` set, when a pre-kernel guard (low coverage,
+        a wide or empty union) or the post-kernel exhaustion guard sends
+        the place to the full-width kernel. The reduced run's placement
+        is appended to ``runs``. No exception is caught: a failing
+        distillation or launch fails the place."""
+        t0 = time.perf_counter()
+        ctx = prune.distill(batch, narr, gmask,
+                            dense.arrays["group_static_score"],
+                            dense.weights, self.prune,
+                            dedupe=self._prune_dedupe_ok)
+        distill_ms = (time.perf_counter() - t0) * 1000.0
+        guard = ctx.pre_guard()
+        if guard is not None:
+            ctx.fallback, ctx.fallback_pairs = guard
+            return ctx, distill_ms, None
+        reduced = self._reduced_inputs(batch, narr, dense, gmask, ctx)
+        runs.append(dense.launch(reduced["group_mask"], allow_pipeline,
+                                 self._ns_live, arrays=reduced))
+        assign = ctx.map_assign(runs[-1].assign.cpu().numpy())
+        if ctx.post_guard(assign, batch):
+            ctx.fallback = "shortlist_exhausted"
+            return ctx, distill_ms, None
+        return ctx, distill_ms, assign
 
     @staticmethod
     def _record_fit_errors(job: JobInfo, task: TaskInfo,

@@ -78,45 +78,46 @@ def binpack_score(req: torch.Tensor, used: torch.Tensor, alloc: torch.Tensor,
     score_r = (used_r + req_r) * 100 / alloc_r for requested dims, weighted
     by w_res and normalized by the sum of participating weights. A node where
     a requested dim overflows alloc scores 0 in that dim.
-    req [R], used [N,R], alloc [N,R] -> [N]."""
+    req [..., R], used [N,R], alloc [N,R] -> [..., N]: leading dims of req
+    are rows scored independently, each rounding as a lone row does."""
     requested = (req > 0) & (w_res > 0)
-    frac = torch.where(alloc > 0,
-                       (used + req[None, :]) / torch.clamp(alloc, min=1e-9),
-                       2.0)
-    per_res = torch.where(frac <= 1.0, frac * 100.0, 0.0)          # [N, R]
-    w = torch.where(requested, w_res, 0.0)                           # [R]
-    wsum = torch.clamp(_fsum([w[r] for r in range(w.shape[0])]), min=1e-9)
-    num = _fsum([per_res[:, r] * w[r] for r in range(w.shape[0])])
-    return num / wsum
+    frac = torch.where(alloc > 0, (used + req[..., None, :])
+                       / torch.clamp(alloc, min=1e-9), 2.0)
+    per_res = torch.where(frac <= 1.0, frac * 100.0, 0.0)     # [..., N, R]
+    w = torch.where(requested, w_res, 0.0)                      # [..., R]
+    r = w.shape[-1]
+    wsum = torch.clamp(_fsum([w[..., i] for i in range(r)]), min=1e-9)
+    num = _fsum([per_res[..., i] * w[..., i, None] for i in range(r)])
+    return num / wsum[..., None]
 
 
 def least_requested_score(req: torch.Tensor, used: torch.Tensor,
                           alloc: torch.Tensor) -> torch.Tensor:
     """(capacity - requested) * 100 / capacity over cpu and memory, averaged."""
     a = alloc[:, 0:2]
-    u = used[:, 0:2] + req[None, 0:2]
+    u = used[:, 0:2] + req[..., None, 0:2]
     frac = torch.where(a > 0, torch.clamp(a - u, min=0.0)
                        / torch.clamp(a, min=1e-9), 0.0) * 100.0
-    return (frac[:, 0] + frac[:, 1]) / 2.0
+    return (frac[..., 0] + frac[..., 1]) / 2.0
 
 
 def most_requested_score(req: torch.Tensor, used: torch.Tensor,
                          alloc: torch.Tensor) -> torch.Tensor:
     """requested * 100 / capacity over cpu and memory, averaged."""
     a = alloc[:, 0:2]
-    u = used[:, 0:2] + req[None, 0:2]
+    u = used[:, 0:2] + req[..., None, 0:2]
     frac = torch.where(a > 0, torch.minimum(torch.clamp(u, min=0.0), a)
                        / torch.clamp(a, min=1e-9), 0.0) * 100.0
-    return (frac[:, 0] + frac[:, 1]) / 2.0
+    return (frac[..., 0] + frac[..., 1]) / 2.0
 
 
 def balanced_allocation_score(req: torch.Tensor, used: torch.Tensor,
                               alloc: torch.Tensor) -> torch.Tensor:
     """100 - |cpu_fraction - mem_fraction| * 100."""
     a = alloc[:, 0:2]
-    u = used[:, 0:2] + req[None, 0:2]
+    u = used[:, 0:2] + req[..., None, 0:2]
     frac = torch.where(a > 0, u / torch.clamp(a, min=1e-9), 0.0)
-    return 100.0 - torch.abs(frac[:, 0] - frac[:, 1]) * 100.0
+    return 100.0 - torch.abs(frac[..., 0] - frac[..., 1]) * 100.0
 
 
 def node_score(req: torch.Tensor, idle: torch.Tensor, alloc: torch.Tensor,
@@ -126,7 +127,8 @@ def node_score(req: torch.Tensor, idle: torch.Tensor, alloc: torch.Tensor,
 
     used = alloc - idle (the schedulable-accounting invariant), so the loop
     carries only idle. req [R], idle [N,R], alloc [N,R],
-    static_bonus [N] -> [N]."""
+    static_bonus [N] -> [N]; or B rows at once, req [B,R] and static_bonus
+    [B,N] -> [B,N], each row rounding exactly as it does alone."""
     used = alloc - idle
     s = weights.binpack * binpack_score(req, used, alloc, weights.binpack_res)
     s = s + weights.least * least_requested_score(req, used, alloc)

@@ -95,7 +95,8 @@ class Scheduler:
         ``last_cycle`` keeps the cycle's timing split (wall ms): the
         snapshot, the rest of open_session, each action, the allocate
         action's own phases, close_session, and each placement solve's
-        encode, solve, kernel and decode; ``pipelined`` counts the tasks
+        encode, solve, kernel and decode, its launches and its prune
+        summary (``BatchSolver.stats``); ``pipelined`` counts the tasks
         left Pipelined at close (``last_pipelined`` maps them to their
         nodes) and ``victim_runs`` preempt's and reclaim's placements by
         victim-selection path."""
