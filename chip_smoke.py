@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
 1. device: the card's name and capability (must be 9.0), and
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``;
 2. build: every kernel of volcano_tpu_torch/csrc, compiled with nvcc, and
-   ptxas's registers and spills of the R = 4 gang-allocate kernels;
+   ptxas's registers and spills of every gang-allocate instantiation;
 3. kernel against plain on the card at 4,096 tasks x 2,048 nodes, gang 8:
    one queue; four queues with budgets from the proportion water-fill;
    three namespaces with the live namespace order off and on; tight
@@ -33,13 +33,24 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
    one warm-up and three timed runs, with every launch count set to 0
    before and read after; the result must replay feasibly and be
    gang-atomic;
-5. the kernel against its plain version on the main path's own inputs,
-   each timed once, and the bound of the kernel's work; then the kernel's
-   time per step at 50,000 tasks over fewer nodes;
+5. the kernel on the main path's own inputs, three timed runs, and the
+   bound of its work, held exactly against its plain version, which runs
+   on the same inputs on the host's CPU in a worker process meanwhile
+   (it rounds as on the card; LatePlain) and is compared before the
+   kernels line; then the kernel's time per step at 50,000 tasks over
+   fewer nodes;
 6. the table's worst case: 50,000 tasks of gang 1 over 10,000 nodes, the
    kernel alone after a warm-up (no plain run: it would take minutes),
    feasible and gang-atomic; with the gang-8 main-path inputs it splits
    the kernel's time into microseconds per refresh and per served step;
+6b. shapes_vs_plain: the shapes the kernel used to refuse, each held
+   exactly against the plain loop with its refreshes against the plain
+   model's: R = 9, 12, 16 and 20 at 4,096 tasks x 2,048 nodes (the last
+   in the kernel's runtime-R form), and the global plan (node state in
+   device memory) over 60,000 and 100,000 nodes at R = 4 and 50,000 at
+   R = 16 (2,048 tasks); the main path's inputs under both plans,
+   alternated and timed, equal to each other; ptxas's registers and
+   spills at R = 16;
 7. cycle_vs_plain: the scheduling cycle through the objects,
    ``Scheduler(store, device="cuda").run_once()`` against the same cycle
    with ``device="cpu"`` (the plain loop), each on its own store built by
@@ -48,7 +59,9 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
    namespaces with drf's live namespace order; tight capacity with zone
    selectors and NoSchedule taints, where gangs roll back; and the
    constrained mix (populate_store over 8 zones, every 4th gang spread
-   with max_skew 1, every 8th one replica per zone). Binds must be
+   with max_skew 1, every 8th one replica per zone); and nine resource
+   kinds (populate_store's gangs with seven scalar kinds over 256 nodes,
+   R = 9, where some gangs roll back). Binds must be
    equal pod for pod and PodGroup phases gang for gang, the binds must
    replay within every node's allocatable, every gang be all-or-nothing,
    every spread gang keep max_skew 1 and every anti gang one replica a
@@ -78,10 +91,11 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
    allocatable and be gang-atomic, and the launches must be what the
    places' prune outcomes give (one a place, two where the exhaustion
    guard discarded the reduced run);
-10. the kernel against its plain version on the cycle's own inputs at
-    that size (R = 2, the encode of the allocate action's phase-A batch),
-    held exactly like phase 5, and on the reduced inputs the warm cycle's
-    pruned place actually launched on; the distillation on the card and
+10. the kernel on the cycle's own inputs at that size (R = 2, the
+    encode of the allocate action's phase-A batch), feasible and
+    gang-atomic, and held exactly against its plain version like phase
+    5 on the inputs the warm cycle launched on (the reduced ones where
+    its place pruned and served); the distillation on the card and
     on the CPU on the full-width inputs must give the same union,
     feasible and kept counts and guard, coverage within 1e-6;
 11. cycle_constrained: the slot path, the constrained mix of phase 7 at
@@ -92,9 +106,8 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
     refreshes, binds and committed gangs, and fails on an infeasible
     bind, a broken gang, a spread or anti-affinity violation or launches
     other than its prune outcomes give; then that cycle's own kernel
-    inputs (with task_slot and slot_ok) against the plain loop once, and
-    on its reduced inputs when it pruned, and the kernel's refreshes
-    against the count its rule gives;
+    inputs (with task_slot and slot_ok) as in phase 10, and the kernel's
+    refreshes against the count its rule gives;
 12. victims_vs_plain: preempt and reclaim through the objects, the
     reference harness's shapes (utils/synth.py:populate_preempt_store,
     populate_reclaim_store) at 2,048 nodes, 256 victim gangs and 128
@@ -124,8 +137,18 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
     card (three timed runs after a warm-up) and on the CPU: feasible,
     n_evict, covered and pick_best_node must be equal; prints the card's
     ms and the bound of the bytes the function must move;
+15b. traced_cycle: the north-star cycle of phase 9 with the flight
+    recorder (and ledger) off and on through volcano_tpu_torch/cmd/
+    trace_overhead.py: two warm runs of each on fresh stores in
+    off-on-on-off order, then sixteen steady cycles (nothing left to
+    place) on one of those stores, tracing off and on in the same order: the span split of the cycle and of its commit,
+    the overhead of tracing in percent, the kernel's device time from the
+    execute span's tag against the solver's own, /metrics fetched from
+    the metrics server on a local port (every line must parse), and the
+    ledger must have completed every bind;
 16. the kernels line (with the table refreshes, the cluster's blocks and
-    each block's shared memory, as the main path's launch reported them,
+    each block's shared memory, the plan and R, as the main path's launch
+    reported them, the shapes_vs_plain summary, traced_cycle's overhead,
     the kernel's launches per cycle, per preempt and per reclaim cycle,
     and a ``prune`` entry for the north-star cycle's place: union, padded
     width, launches, refreshes, whether the reduced run served; a second
@@ -139,13 +162,17 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import atexit
 import concurrent.futures
+import gc
 import json
 import multiprocessing
 import re
 import subprocess
 import sys
 import time
+import types
+import urllib.request
 
 import numpy as np
 import torch
@@ -169,7 +196,7 @@ from volcano_tpu_torch.scheduler import Scheduler  # noqa: E402
 from volcano_tpu_torch.utils import test_utils as tu  # noqa: E402
 from volcano_tpu_torch.utils.synth import (  # noqa: E402
     populate_preempt_store, populate_reclaim_store, populate_store,
-    synth_arrays, zone_slots)
+    scalar_kinds, synth_arrays, zone_slots)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s
 # and float32 operations/s outside the tensor cores. The float32 peak
@@ -187,9 +214,26 @@ MID = dict(n_tasks=4096, n_nodes=2048, gang=8)
 # worker processes that run the mid cases' plain refresh model on the
 # host's CPU while the card runs the kernel and the plain loop
 MODEL_WORKERS = 4
+# worker processes that run the plain loop on the full-size inputs on the
+# host's CPU while the card runs the later phases (LatePlain)
+LATE_WORKERS = 2
 FULL = dict(n_tasks=50_000, n_nodes=10_000, gang=8)
 # the reference's constraint benchmark mix (bench.py:455's "heavy")
 HEAVY = dict(zones=8, spread_every=4, anti_every=8)
+# shapes_vs_plain: the resource counts held against the plain loop at
+# MID's size (cpu, memory and 7, 10, 14 and 18 scalar kinds), and the
+# global plan's (nodes, R) at 2,048 tasks
+SHAPE_RS = (9, 12, 16, 20)
+GLOBAL_CASES = ((60_000, 4), (100_000, 4), (50_000, 16))
+GLOBAL_TASKS = 2048
+# traced_cycle: warm north-star cycles with tracing off and on, in
+# off-on-on-off order (even)
+TRACE_PAIRS = 2
+# one Prometheus exposition line: name{labels} value
+PROM_LINE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*'
+    r'(\{([a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\\n])*",?)*\})?'
+    r' -?[0-9.e+\-]+$')
 ZONE_KEY = "topology.kubernetes.io/zone"
 
 # the scheduler conf of the cycle phases: the default conf's plugins plus
@@ -273,8 +317,9 @@ def compare(sa, got, want, ctx: str) -> dict:
     if not gang_atomic(sa, a1, r1, k1):
         fail(f"{ctx}: the kernel's result is not gang-atomic")
     s1, s2 = got[4], want[4]
-    state_err = max(float((s1.idle - s2.idle).abs().max()),
-                    float((s1.future - s2.future).abs().max()))
+    state_err = max(float(np.abs(to_np(s1.idle) - to_np(s2.idle)).max()),
+                    float(np.abs(to_np(s1.future)
+                                 - to_np(s2.future)).max()))
     assign_mismatches = int((a1 != a2).sum())
     pipelined_mismatches = int((p1 != p2).sum())
     if assign_mismatches or pipelined_mismatches or state_err > 0:
@@ -420,16 +465,22 @@ AIMS = {"gang20": ("in_job",), "mixed_gangs": ("forced", "in_job"),
 
 def ptxas_usage(log: str) -> dict:
     """{kernel: {registers, spill_stores, spill_loads}} from the ptxas
-    report, for the R = 4 instantiations (the shapes chip_smoke runs)."""
+    report of every instantiation: key R<R>_B<blocks> for the shared
+    plan, with _global for the global plan; R "rt" is the runtime form
+    (R > 16)."""
     usage, name = {}, None
     for text in log.splitlines():
         m = re.search(r"Function properties for (\S+)", text)
         if m:
             name = m.group(1)
             continue
-        if name is None or "gang_allocate_kernelILi4E" not in name:
+        k = re.search(r"gang_allocate_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                      name or "")
+        if k is None:
             continue
-        key = "R4_B" + re.search(r"ILi4ELi(\d+)E", name).group(1)
+        r = k.group(1) if k.group(1) != "0" else "rt"
+        key = f"R{r}_B{k.group(2)}" + ("_global" if k.group(3) == "1"
+                                        else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       text)
         if m:
@@ -443,10 +494,12 @@ def ptxas_usage(log: str) -> dict:
 
 
 def launch_stats() -> dict:
-    """What the kernel's last launch reported of itself."""
+    """What the kernel's last launch reported of itself, with its plan."""
     n, blocks, shared = gang_allocate_cuda.last_stats.tolist()
+    plan = gang_allocate_cuda.last_plan
     return {"refreshes": n, "cluster_blocks": blocks,
-            "shared_bytes_per_block": shared}
+            "shared_bytes_per_block": shared, "plan": plan.kind,
+            "plan_flags": plan.flags}
 
 
 def refreshes() -> int:
@@ -462,13 +515,21 @@ def cycle_store(case: str, seed: int) -> ObjectStore:
     ``tight``: small nodes that cannot hold every gang, a zone selector on
     a quarter of the jobs, a NoSchedule taint on a fifth of the nodes that
     a third of the jobs tolerate. ``constrained``: populate_store's nodes
-    and gangs with the HEAVY constraint mix."""
+    and gangs with the HEAVY constraint mix. ``nine_kinds``:
+    populate_store's gangs with seven scalar resource kinds (R = 9) over
+    256 nodes."""
     rng = np.random.default_rng(seed)
     n_nodes, n_jobs, gang = MID["n_nodes"], MID["n_tasks"] // 8, MID["gang"]
     store = ObjectStore()
     if case == "constrained":
         populate_store(store, n_nodes=n_nodes, n_jobs=n_jobs, gang_size=gang,
                        **HEAVY)
+        return store
+    if case == "nine_kinds":
+        # cpu, memory and seven scalar kinds (R = 9), scarce enough on 256
+        # nodes that they decide which gangs fit
+        populate_store(store, n_nodes=256, n_jobs=n_jobs, gang_size=gang,
+                       scalars=scalar_kinds(7))
         return store
     queues, namespaces = [("default", 1, None)], ["default"]
     if case == "four_queues":
@@ -676,7 +737,9 @@ class ReducedTap:
         def tapped(solver, gmask, allow_pipeline=True, ns_live=False,
                    arrays=None):
             if arrays is not None:
-                inputs.append({"arrays": arrays, "gmask": gmask,
+                inputs.append({"arrays": convert.as_tensors(
+                                   arrays, solver.device),
+                               "gmask": gmask,
                                "weights": solver.weights,
                                "deserved": solver.queue_deserved(),
                                "allow_pipeline": allow_pipeline,
@@ -696,7 +759,8 @@ def cycle_vs_plain() -> None:
     for case, seed, drf in (("one_queue", 1, ""),
                             ("four_queues", 2,
                              "\n    enableNamespaceOrder: true"),
-                            ("tight", 3, ""), ("constrained", 4, "")):
+                            ("tight", 3, ""), ("constrained", 4, ""),
+                            ("nine_kinds", 5, "")):
         conf = CYCLE_CONF.format(drf=drf)
         res = {}
         for device in ("cuda", "cpu"):
@@ -733,15 +797,21 @@ def cycle_vs_plain() -> None:
             fail(f"cycle_vs_plain {case}: {len(k_binds)} binds, "
                  f"{k_unsched} rolled-back gangs")
         slots = [pl["slots"] for pl in k_split["places"]]
-        extra = {}
+        extra = {"R": [pl["R"] for pl in k_split["places"]],
+                 "plan": [pl["plan"] for pl in k_split["places"]]}
+        if case == "nine_kinds" and (set(extra["R"]) != {9}
+                                     or k_unsched == 0):
+            fail(f"cycle_vs_plain {case}: R {extra['R']}, {k_unsched} "
+                 f"rolled-back gangs")
         if case == "constrained":
             if not gangs["spread_gangs"] or not gangs["anti_gangs"] \
                     or not max(slots):
                 fail(f"cycle_vs_plain {case}: {gangs}, slots {slots}: the "
                      f"slot path was not taken")
-            extra = dict(gangs, slots=slots)
+            extra.update(gangs, slots=slots)
         line("cycle_vs_plain", case=case, pods=MID["n_tasks"],
-             nodes=MID["n_nodes"], binds=len(k_binds),
+             nodes=256 if case == "nine_kinds" else MID["n_nodes"],
+             binds=len(k_binds),
              committed_gangs=committed, rolled_back_gangs=k_unsched,
              bind_mismatches=diff, phase_mismatches=phase_diff,
              kernel_launches=k_launches, cycle_ms=k_ms, plain_cycle_ms=p_ms,
@@ -814,12 +884,15 @@ def cycle_constrained(dev):
     return launches, cycles, tap.inputs
 
 
-def hold_inputs(arrays, gmask, weights, deserved, kw, ctx):
-    """The kernel (a warm-up, then three timed runs) against its plain
-    loop (one run) on one set of kernel inputs (``arrays`` with the mask
-    ``gmask`` and the budgets ``deserved``), held exactly by compare().
-    Returns (the comparison with the launch's report, the times and the
-    bound of the work; the inputs as numpy; the kernel's ready)."""
+def hold_inputs(arrays, gmask, weights, deserved, kw, ctx, plain=None,
+                done=None):
+    """The kernel (a warm-up, then three timed runs) on one set of kernel
+    inputs (``arrays`` with the mask ``gmask`` and the budgets
+    ``deserved``), feasible and gang-atomic; with ``plain`` (a LatePlain)
+    held exactly against its plain loop by plain.finish(), which updates
+    the returned comparison and then calls ``done(res)``. Returns (the
+    launch's report, the times and the bound of the work; the inputs as
+    numpy; the kernel's ready)."""
     args = convert.args(arrays)
     names = list(convert.FIELDS)
     args[names.index("group_mask")] = gmask
@@ -829,20 +902,26 @@ def hold_inputs(arrays, gmask, weights, deserved, kw, ctx):
             for _ in range(3)]
     got = runs[-1][0]
     stats = launch_stats()
-    want, plain_ms = timed(lambda: allocate.gang_allocate(
-        *args, weights, **kw))
     sa = type("Inputs", (), {k: to_np(v) for k, v in arrays.items()})
-    res = compare(sa, got, want, ctx)
-    a1, a2 = to_np(got[0]), to_np(want[0])
-    res["max_abs_err"] = max(res["state_max_abs_err"],
-                             float(np.abs(a1.astype(np.float64) - a2).max()))
+    a1 = to_np(got[0])
+    if not replay_feasible(sa, a1, to_np(got[1])) or not gang_atomic(
+            sa, a1, to_np(got[2]), to_np(got[3])):
+        fail(f"{ctx}: the kernel's placements are infeasible or not "
+             f"gang-atomic")
+    res = {"placed": int((a1 >= 0).sum()), "plain_ms": None}
+    if plain is not None:
+        def held(cmp):
+            res.update(cmp)
+            if done is not None:
+                done(res)
+        plain.submit(ctx, sa, got, args, weights, kw, held)
     steps = int(sa.job_n_tasks.sum())
     N, R = sa.node_idle.shape
     slot_args = [kw[k] for k in ("task_slot", "slot_ok") if k in kw]
     bytes_ms, ops_ms, _ = bound(args, slot_args, got[:4],
                                 stats["refreshes"], steps, N, R)
-    res.update(kernel_ms=[ms for _, ms in runs], plain_ms=plain_ms,
-               steps=steps, bytes_ms=bytes_ms, ops_ms=ops_ms, **stats)
+    res.update(kernel_ms=[ms for _, ms in runs], steps=steps,
+               bytes_ms=bytes_ms, ops_ms=ops_ms, N=N, R=R, **stats)
     if "task_slot" in kw:
         if not in_slot_rows(a1, (sa.task_slot, sa.slot_ok)):
             fail(f"{ctx}: a task was placed outside its slot row")
@@ -880,7 +959,8 @@ def distill_card_vs_cpu(narr, batch, dense, gmask, solver, ctx) -> dict:
             "coverage_max_abs_err": cov_err}
 
 
-def cycle_inputs_vs_plain(dev, constraints=None, reduced=None) -> dict:
+def cycle_inputs_vs_plain(dev, late, constraints=None, reduced=None
+                          ) -> dict:
     """Phases 10 and 11: the kernel against its plain version on the
     cycle's own inputs at the north star's size: a fresh store as phase 9
     (``constraints``: phase 11, with that mix) builds it, one session on
@@ -888,7 +968,10 @@ def cycle_inputs_vs_plain(dev, constraints=None, reduced=None) -> dict:
     the session's BatchSolver as place() encodes it; the kernel (three
     timed runs) and the plain loop (one) on those full-width tensors, held
     exactly, and on ``reduced`` (the inputs a warm cycle's pruned place
-    launched on, captured by ReducedTap) when given. The distillation runs
+    launched on, captured by ReducedTap) when given; with ``reduced``
+    the full-width inputs, which the cycle did not launch on, get the
+    kernel alone (feasible and gang-atomic) and the plain loop runs on
+    the reduced inputs only. The distillation runs
     on those inputs on the card and on the CPU and must agree. With slots,
     the kernel's refreshes must equal the rule's count."""
     from volcano_tpu_torch.actions.allocate import AllocateAction
@@ -918,8 +1001,19 @@ def cycle_inputs_vs_plain(dev, constraints=None, reduced=None) -> dict:
         fail(f"cycle inputs {constraints}: slot inputs {sorted(slot_kw)}")
     ctx = "cycle constrained inputs" if constraints else "cycle inputs"
     kw = dict(ns_live=ssn.solver._ns_live, **slot_kw)
+    N, R = dense.arrays["node_idle"].shape
+    shape = {"T": dense.arrays["task_group"].shape[0],
+             "G": dense.arrays["group_req"].shape[0], "N": N, "R": R}
+    case = "cycle_constrained_inputs" if constraints else "cycle_inputs"
+
+    def print_line(r):
+        line("kernel_vs_plain", case=case, shape=shape, **r)
+    # the plain loop runs on the inputs the warm cycle launched on: the
+    # reduced ones where its place pruned and served, else these
     res, sa, ready = hold_inputs(dense.arrays, gmask, dense.weights,
-                                 dense.queue_deserved(), kw, ctx)
+                                 dense.queue_deserved(), kw, ctx,
+                                 plain=None if reduced else late,
+                                 done=print_line)
     if slot_kw:
         if not ready[:len(jobs)].all():
             fail(f"{ctx}: a gang was not committed")
@@ -931,23 +1025,23 @@ def cycle_inputs_vs_plain(dev, constraints=None, reduced=None) -> dict:
                  f"its rule gives {res['rule_refreshes']}")
     res["distill"] = distill_card_vs_cpu(narr, batch, dense, gmask,
                                          ssn.solver, ctx)
-    N, R = sa.node_idle.shape
-    line("kernel_vs_plain", case="cycle_constrained_inputs" if constraints
-         else "cycle_inputs",
-         shape={"T": sa.task_group.shape[0], "G": sa.group_req.shape[0],
-                "N": N, "R": R}, **res)
     if reduced:
+        print_line(res)
         cap = reduced[-1]
         rkw = dict(allow_pipeline=cap["allow_pipeline"],
                    ns_live=cap["ns_live"],
                    **convert.slot_kwargs(cap["arrays"]))
         rctx = ctx.replace("inputs", "reduced inputs")
-        red, rsa, _ = hold_inputs(cap["arrays"], cap["gmask"],
-                                  cap["weights"], cap["deserved"], rkw, rctx)
-        line("kernel_vs_plain", case=rctx.replace(" ", "_"),
-             shape={"T": rsa.task_group.shape[0],
-                    "G": rsa.group_req.shape[0],
-                    "N": rsa.node_idle.shape[0], "R": R}, **red)
+        rshape = {"T": cap["arrays"]["task_group"].shape[0],
+                  "G": cap["arrays"]["group_req"].shape[0],
+                  "N": cap["arrays"]["node_idle"].shape[0], "R": R}
+
+        def print_reduced(r):
+            line("kernel_vs_plain", case=rctx.replace(" ", "_"),
+                 shape=rshape, **r)
+        red, _, _ = hold_inputs(cap["arrays"], cap["gmask"], cap["weights"],
+                                cap["deserved"], rkw, rctx, plain=late,
+                                done=print_reduced)
         res["reduced"] = red
     return res
 
@@ -1446,6 +1540,78 @@ def model_refreshes(arrays: dict, ns_live: bool, allow_pipeline: bool):
         **convert.slot_kwargs(t))[5]
 
 
+def plain_on_cpu(arrays: dict, weights: dict, kw: dict) -> dict:
+    """The plain loop (ops/allocate.py:gang_allocate) on one set of kernel
+    inputs (``arrays``: field -> numpy, ``weights``: ScoreWeights field ->
+    numpy, ``kw``: its keyword options) on the host's CPU, in a worker
+    process, while the card runs the script's later phases. It rounds
+    alike on the CPU and on the card (IEEE float32, one rounding per
+    operation, its sums in a fixed order), as cycle_vs_plain and the
+    victim cells' CPU cycles hold the kernel against it. Returns its
+    outputs as numpy and its wall ms."""
+    torch.set_num_threads(2)
+    t, w = convert.from_reference(arrays, weights, "cpu")
+    t0 = time.perf_counter()
+    assign, pipelined, ready, kept, state = allocate.gang_allocate(
+        *convert.args(t), w, **kw, **convert.slot_kwargs(t))
+    return {"out": [x.numpy() for x in (assign, pipelined, ready, kept,
+                                        state.idle, state.future)],
+            "plain_ms": (time.perf_counter() - t0) * 1000.0}
+
+
+def plain_result(res: dict):
+    """plain_on_cpu's outputs in the shape compare() reads."""
+    assign, pipelined, ready, kept, idle, future = (
+        torch.from_numpy(x) for x in res["out"])
+    return (assign, pipelined, ready, kept,
+            types.SimpleNamespace(idle=idle, future=future))
+
+
+class LatePlain:
+    """The plain loop on the full-size inputs (the main path's, and those
+    the warm cycles launched on), run by LATE_WORKERS worker processes on
+    the host's CPU while the card runs the later phases; ``finish`` holds
+    each kernel result against its plain result exactly (compare()) and
+    hands the comparison to the submitter's callback. The workers are
+    stopped by ``finish`` or ``close``."""
+
+    def __init__(self):
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            LATE_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+        self.jobs = []
+
+    def submit(self, ctx, sa, got, args, weights, kw, done) -> None:
+        """Hold ``got`` (the kernel's outputs on ``args``, the 28 inputs,
+        with ``weights`` and keyword options ``kw``) later; ``done(res)``
+        gets compare()'s result with plain_ms and max_abs_err."""
+        arrays = {name: to_np(x) for name, x in zip(convert.FIELDS, args)}
+        kw = dict(kw)
+        for name in convert.SLOT_FIELDS:
+            if name in kw:
+                arrays[name] = to_np(kw.pop(name))
+        w = {f: to_np(getattr(weights, f)) for f in ScoreWeights._fields}
+        self.jobs.append((ctx, sa, got, done, self.pool.submit(
+            plain_on_cpu, arrays, w, kw)))
+
+    def finish(self) -> None:
+        try:
+            for ctx, sa, got, done, fut in self.jobs:
+                plain = fut.result()
+                want = plain_result(plain)
+                res = compare(sa, got, want, ctx)
+                res["plain_ms"] = plain["plain_ms"]
+                res["plain_device"] = "cpu"
+                res["max_abs_err"] = max(res["state_max_abs_err"], float(
+                    np.abs(to_np(got[0]).astype(np.float64)
+                           - to_np(want[0])).max()))
+                done(res)
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
 def kernel_vs_plain_mid(dev) -> dict:
     """Phase 3: the kernel against the plain loop and its refreshes
     against the plain model's, in every mid case. The model runs in
@@ -1500,6 +1666,178 @@ def kernel_vs_plain_case(dev, case, sa, arrays, ns_live, pipe, slots,
     return res
 
 
+def shape_case(dev, case, sa, plan, model) -> dict:
+    """One case of shapes_vs_plain: the kernel (a warm-up and one timed
+    run, ``plan`` forced or picked by shape) against the plain loop,
+    exactly, with its refreshes against the plain model's (``model``:
+    the future of its counts)."""
+    t, _ = convert.from_reference(sa.as_dict(), None, dev)
+    R = sa.group_req.shape[1]
+    w = ScoreWeights.make(R, binpack=1.0, device=dev)
+    args = convert.args(t)
+    gang_allocate_cuda(*args, w, plan=plan)                 # warm-up
+    got, ms = timed(lambda: gang_allocate_cuda(*args, w, plan=plan))
+    stats = launch_stats()
+    if stats["plan"] != (plan or "shared"):
+        fail(f"shapes_vs_plain {case}: plan {stats['plan']}")
+    want, plain_ms = timed(lambda: allocate.gang_allocate(*args, w))
+    res = compare(sa, got, want, f"shapes_vs_plain {case}")
+    causes = model.result()
+    if causes["total"] != stats["refreshes"]:
+        fail(f"shapes_vs_plain {case}: the kernel refreshed its table "
+             f"{stats['refreshes']} times, its plain model "
+             f"{causes['total']} times")
+    steps = int(sa.job_n_tasks.sum())
+    N = sa.node_idle.shape[0]
+    bytes_ms, ops_ms, _ = bound(args, [], got[:4], stats["refreshes"],
+                                steps, N, R)
+    res.update(ms=ms, plain_ms=plain_ms, R=R, steps=steps,
+               bytes_ms=bytes_ms, ops_ms=ops_ms, **stats)
+    line("shapes_vs_plain", case=case, shape=sa.shapes, **res)
+    return res
+
+
+def shapes_vs_plain(dev, main_args, main_weights, main_sa) -> dict:
+    """Phase 6b: the shapes the kernel used to refuse. At MID's size,
+    gang 8, with R = 9, 12, 16 and 20 (synth_arrays' scalar kinds, two
+    queues); then the global plan, node state in device memory, over
+    60,000 and 100,000 nodes at R = 4 and 50,000 at R = 16 (2,048 tasks):
+    each held exactly against the plain loop, refreshes equal to the plain
+    model's (run meanwhile on the host's CPU). Then the main path's own
+    inputs under both plans, alternated, equal to each other; and
+    ptxas's registers and spills at R = 16. Returns the summary for the
+    kernels line."""
+    cases = []
+    n, m_, g = MID["n_tasks"], MID["n_nodes"], MID["gang"]
+    for r in SHAPE_RS:
+        cases.append((f"R{r}", synth_arrays(n, m_, gang_size=g, seed=20 + r,
+                                            utilization=0.6, r=r,
+                                            n_queues=2), None))
+    for n_nodes, r in GLOBAL_CASES:
+        cases.append((f"global_{n_nodes}_R{r}",
+                      synth_arrays(GLOBAL_TASKS, n_nodes, gang_size=g,
+                                   seed=n_nodes + r, utilization=0.6, r=r),
+                      "global"))
+    pool = concurrent.futures.ProcessPoolExecutor(
+        MODEL_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        models = {case: pool.submit(model_refreshes, sa.as_dict(), False,
+                                    True)
+                  for case, sa, _ in cases}
+        out = {case: shape_case(dev, case, sa, plan, models[case])
+               for case, sa, plan in cases}
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    # the main path's inputs under both plans, alternated
+    plans = {}
+    outs = {}
+    for plan in ("shared", "global", "global", "shared"):
+        got, ms = timed(lambda: gang_allocate_cuda(*main_args, main_weights,
+                                                   plan=plan))
+        plans.setdefault(plan, []).append(ms)
+        outs[plan] = got
+        if launch_stats()["plan"] != plan:
+            fail(f"main path inputs: plan {launch_stats()['plan']}")
+    both = compare(main_sa, outs["global"], outs["shared"],
+                   "main path inputs, global plan against shared")
+    usage = ptxas_usage(build.report("gang_allocate"))
+    r16 = {k: v for k, v in usage.items() if k.startswith("R16_")}
+    line("shapes_vs_plain", case="main_path_inputs_plans",
+         shape=main_sa.shapes, shared_ms=plans["shared"],
+         global_ms=plans["global"], **both, ptxas_R16=r16)
+    return {"cases": {k: {f: v[f] for f in (
+                "ms", "plain_ms", "R", "plan", "refreshes", "bytes_ms",
+                "ops_ms", "assign_mismatches", "state_max_abs_err")}
+                      for k, v in out.items()},
+            "main_path_plans": plans, "ptxas_R16": r16}
+
+
+def find_spans(span, name):
+    """Every span called ``name`` in the tree under ``span``."""
+    found = [span] if span.name == name else []
+    for c in span.children or ():
+        found.extend(find_spans(c, name))
+    return found
+
+
+def traced_cycle(dev) -> dict:
+    """Phase 15b: the north-star cycle with the flight recorder (and the
+    lifecycle ledger tracer.enable turns on) off and on, through
+    volcano_tpu_torch/cmd/trace_overhead.py: TRACE_PAIRS placing cycles
+    each way on fresh stores in off-on-on-off order, then four rounds of
+    steady cycles on one bound store, each cycle's launch count set to 0
+    just before and read just after. Prints the span split of the cycle
+    and of its commit, the overhead of tracing in percent (by the minima
+    and the medians), the kernel's device time from the execute span's
+    tag beside the solver's own; checks that /metrics, fetched from the
+    metrics server on a local port, parses line by line, and that the
+    ledger completed every bind."""
+    from volcano_tpu_torch.cmd import trace_overhead
+    from volcano_tpu_torch.metrics.server import MetricsServer
+    from volcano_tpu_torch.trace import ledger
+    runs = trace_overhead.placing(FULL["n_tasks"], FULL["n_nodes"], dev,
+                                  TRACE_PAIRS)
+    for r in runs["off"] + runs["on"]:
+        if r["binds"] != FULL["n_tasks"]:
+            fail(f"traced_cycle: {r['binds']} binds")
+        check_launches("traced_cycle", r["kernel_launches"], r["places"],
+                       True)
+    if ledger.stats()["completed"] != FULL["n_tasks"]:
+        fail(f"traced_cycle: the ledger completed "
+             f"{ledger.stats()['completed']} binds")
+    steady = trace_overhead.steady(runs.pop("store"), dev, rounds=4)
+    if steady["launches"]:
+        fail("traced_cycle: a steady cycle launched the kernel")
+    record = runs["record"]
+    last = runs["on"][-1]
+    span_kernel_ms = [sp.tags["kernel_ms"]
+                      for sp in find_spans(record.root, "execute")]
+    solver_kernel_ms = [ms for pl in last["places"]
+                        for ms in pl["launch_ms"]]
+    if [round(x, 6) for x in span_kernel_ms] != \
+            [round(x, 6) for x in solver_kernel_ms]:
+        fail(f"traced_cycle: execute spans' kernel_ms {span_kernel_ms}, "
+             f"the solver's {solver_kernel_ms}")
+    server = MetricsServer(port=0)
+    server.start()
+    try:
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{server.port}/metrics",
+            timeout=30).read().decode()
+        cycles = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{server.port}/debug/cycles",
+            timeout=30).read().decode())
+    finally:
+        server.stop()
+    bad = [ln for ln in body.splitlines() if not PROM_LINE.match(ln)]
+    if bad or "volcano_e2e_scheduling_latency_milliseconds_count" not in body:
+        fail(f"traced_cycle: /metrics does not parse: {bad[:3]}")
+    on = [r["cycle_ms"] for r in runs["on"]]
+    off = [r["cycle_ms"] for r in runs["off"]]
+    placing_oh = trace_overhead.overhead(on, off)
+    steady_oh = trace_overhead.overhead(steady["on"], steady["off"])
+    split = last["trace"]
+    res = {"cycle_ms_on": on, "cycle_ms_off": off,
+           "overhead_pct": placing_oh["min_pct"],
+           "overhead_median_pct": placing_oh["median_pct"],
+           "steady_cycle_ms_on": steady["on"],
+           "steady_cycle_ms_off": steady["off"],
+           "steady_overhead_pct": steady_oh["min_pct"],
+           "steady_overhead_median_pct": steady_oh["median_pct"],
+           "phases": split["phases"], "commit": split["async"],
+           "coverage": split["coverage"], "tags": split["tags"],
+           "span_kernel_ms": span_kernel_ms,
+           "solver_kernel_ms": solver_kernel_ms,
+           "metrics_lines": len(body.splitlines()),
+           "debug_cycles": len(cycles["cycles"]),
+           "kernel_launches": [r["kernel_launches"]
+                               for r in runs["off"] + runs["on"]]}
+    line("traced_cycle", shape={"tasks": FULL["n_tasks"],
+                                "nodes": FULL["n_nodes"],
+                                "gang": FULL["gang"]}, **res)
+    return res
+
+
 def main() -> None:
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(dev)
@@ -1518,6 +1856,8 @@ def main() -> None:
     libs = build.build_all()
     line("build", seconds=time.perf_counter() - t0, libraries=sorted(libs),
          ptxas=ptxas_usage(build.report("gang_allocate")))
+    late = LatePlain()
+    atexit.register(late.close)
 
     # ---- 3. kernel against plain at the mid size
     mid = kernel_vs_plain_mid(dev)
@@ -1574,14 +1914,8 @@ def main() -> None:
     got, ms = timed(lambda: gang_allocate_cuda(*args, solver.weights))
     kernel_runs = [ms] + [timed(lambda: gang_allocate_cuda(
         *args, solver.weights))[1] for _ in range(2)]
-    want, plain_ms = timed(lambda: allocate.gang_allocate(
-        *args, solver.weights))
-    full = compare(sa, got, want, "full size")
     if not np.array_equal(to_np(got[0]), assign):
         fail("the kernel run alone differs from the main path's result")
-    a1, a2 = to_np(got[0]), to_np(want[0])
-    max_abs_err = max(full["state_max_abs_err"],
-                      float(np.abs(a1.astype(np.float64) - a2).max()))
     n_refresh = refreshes()
     main_stats = runs[-1][2]
     if main_stats["cluster_blocks"] < 2:
@@ -1593,10 +1927,15 @@ def main() -> None:
     N, R = sa.node_idle.shape
     bytes_ms, ops_ms, no_fma_ops_ms = bound(args, [], got[:4], n_refresh,
                                             steps, N, R)
-    line("kernel_vs_plain", case="main_path_inputs", shape=sa.shapes, **full,
-         kernel_ms=kernel_runs, refreshes=n_refresh, plain_ms=plain_ms,
-         bytes_ms=bytes_ms, ops_ms=ops_ms, no_fma_ops_ms=no_fma_ops_ms,
-         steps=steps)
+    full = {}
+
+    def print_full(res):
+        full.update(res)
+        line("kernel_vs_plain", case="main_path_inputs", shape=sa.shapes,
+             **res, kernel_ms=kernel_runs, refreshes=n_refresh,
+             bytes_ms=bytes_ms, ops_ms=ops_ms, no_fma_ops_ms=no_fma_ops_ms,
+             steps=steps)
+    late.submit("full size", sa, got, args, solver.weights, {}, print_full)
 
     # where the step's time goes: the same task count over fewer nodes
     # separates the per-step fixed cost from the per-node sweep
@@ -1643,12 +1982,14 @@ def main() -> None:
          us_per_refresh=per_refresh_us, us_per_served_step=per_step_us,
          gang8_refreshes=n_refresh, gang8_steps=steps)
 
+    shapes = shapes_vs_plain(dev, args, solver.weights, sa)
+
     cycle_vs_plain()
     prune_vs_plain()
     cycle_launches, cycles, reduced = cycle(dev)
-    cyc = cycle_inputs_vs_plain(dev, reduced=reduced)
+    cyc = cycle_inputs_vs_plain(dev, late, reduced=reduced)
     con_launches, con_cycles, con_reduced = cycle_constrained(dev)
-    con = cycle_inputs_vs_plain(dev, HEAVY, reduced=con_reduced)
+    con = cycle_inputs_vs_plain(dev, late, HEAVY, reduced=con_reduced)
     for phase, runs, held, taps in (("cycle", cycles, cyc, reduced),
                                     ("cycle_constrained", con_cycles, con,
                                      con_reduced)):
@@ -1682,17 +2023,30 @@ def main() -> None:
     preempt = victim_cycle("preempt")
     reclaim = victim_cycle("reclaim")
     victim_prefix_phase(dev)
+    traced = traced_cycle(dev)
+    # the plain loop's full-size runs, held against the kernel's results
+    late.finish()
 
+    # the kernel against the plain loop on the inputs the warm cycles
+    # launched on (pruned: the reduced ones)
+    held_cyc, held_con = (h.get("reduced", h) for h in (cyc, con))
     kernels = [{
         "name": "gang_allocate", "route": "cuda",
         "source": "volcano_tpu_torch/csrc/gang_allocate.cu",
         "replaces": "volcano_tpu/ops/pallas_allocate.py:55",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "ms": min(kernel_runs), "plain_ms": plain_ms,
+        "launches": launches, "max_abs_err": full["max_abs_err"],
+        "ms": min(kernel_runs), "plain_ms": full["plain_ms"],
+        "plain_device": "cpu",
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
-        "no_fma_ops_ms": no_fma_ops_ms, **main_stats,
+        "no_fma_ops_ms": no_fma_ops_ms, **main_stats, "R": R,
+        "shapes": shapes,
+        "traced_cycle": {k: traced[k] for k in (
+            "overhead_pct", "overhead_median_pct", "cycle_ms_on",
+            "cycle_ms_off", "steady_overhead_pct",
+            "steady_overhead_median_pct",
+            "span_kernel_ms", "solver_kernel_ms")},
         "launches_per_cycle": cycle_launches[-1],
         "launches_per_preempt_cycle": preempt["launches"],
         "launches_per_reclaim_cycle": reclaim["launches"],
@@ -1703,10 +2057,9 @@ def main() -> None:
         "cycle_kernel_ms": cycle_kernel_ms,
         "cycle_ms": [r["cycle_ms"] for r in warm],
         "prune": north_prune,
-        "cycle_inputs": {"ms": min(cyc["kernel_ms"]),
-                         "plain_ms": cyc["plain_ms"],
-                         "max_abs_err": cyc["max_abs_err"],
-                         "assign_mismatches": cyc["assign_mismatches"]},
+        "cycle_inputs": {k: held_cyc[k] for k in (
+            "plain_ms", "max_abs_err", "assign_mismatches")}
+        | {"ms": min(held_cyc["kernel_ms"]), "N": held_cyc["N"]},
         "worst_case_ms": w_ms, "worst_case_refreshes": w_refresh,
         "shape": sa.shapes, "checked_against_plain": True,
         "assign_mismatches": full["assign_mismatches"],
@@ -1717,12 +2070,15 @@ def main() -> None:
         "name": "gang_allocate_slots", "route": "cuda",
         "source": "volcano_tpu_torch/csrc/gang_allocate.cu",
         "replaces": "volcano_tpu/ops/pallas_allocate.py:55",
-        "launches": con_launches[-1], "max_abs_err": con["max_abs_err"],
-        "ms": min(con["kernel_ms"]), "plain_ms": con["plain_ms"],
-        "bound_ms": max(con["bytes_ms"], con["ops_ms"]),
-        "bound_by": "bytes" if con["bytes_ms"] >= con["ops_ms"]
+        "launches": con_launches[-1],
+        "max_abs_err": held_con["max_abs_err"],
+        "ms": min(held_con["kernel_ms"]), "plain_ms": held_con["plain_ms"],
+        "plain_device": "cpu",
+        "bound_ms": max(held_con["bytes_ms"], held_con["ops_ms"]),
+        "bound_by": "bytes" if held_con["bytes_ms"] >= held_con["ops_ms"]
         else "operations",
         "library_ms": None, "slots": con["slots"],
+        "plan": con["plan"], "R": con["R"],
         "refreshes": con["refreshes"],
         "rule_refreshes": con["rule_refreshes"], "steps": con["steps"],
         "cycle_kernel_ms": [sum(pl["kernel_ms"] for pl in r["places"])
@@ -1734,7 +2090,8 @@ def main() -> None:
         "shape": {"tasks": FULL["n_tasks"], "nodes": FULL["n_nodes"],
                   **HEAVY},
         "checked_against_plain": True,
-        "assign_mismatches": con["assign_mismatches"],
+        "assign_mismatches": held_con["assign_mismatches"],
+        "N": held_con["N"],
         "mid_cases": {k: {"ms": v["ms"], "plain_ms": v["plain_ms"],
                           "refreshes": v["refreshes"],
                           "assign_mismatches": v["assign_mismatches"]}

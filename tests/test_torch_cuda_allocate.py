@@ -80,6 +80,9 @@ def test_ctypes_declaration_matches_c_entry_point():
     assert params[-1] == "void* stream"
     assert len(pointers) - 1 == cuda_allocate._N_POINTERS
     assert len(ints) == cuda_allocate._N_INTS
+    # the wrapper passes the plan's flags and shared bytes last
+    assert [p.split()[-1] for p in ints[-4:]] == [
+        "blocks", "nodes_per_block", "flags", "shared_bytes"]
 
 
 def _c_expr(expr, names):
@@ -100,21 +103,39 @@ def _c_constants():
 
 def test_cluster_plan_mirrors_the_kernel_layout():
     """The plan's constants are the kernel's, and its shared size is the
-    kernel's shared_words for the same arguments."""
+    kernel's shared_words for the same arguments, under every plan flag."""
     src, c = _c_constants()
     assert c["kC"] == cuda_allocate.CHUNK
     assert c["kThreads"] == cuda_allocate.THREADS
     assert c["kWarps"] == cuda_allocate.WARPS
     assert c["kDescWords"] == cuda_allocate.DESC_WORDS
-    assert c["kReqWords"] == cuda_allocate.REQ_WORDS
-    body = re.search(r"inline int shared_words\(.*?\)\s*\{\s*return(.*?);",
+    assert c["kMaxStaticR"] == cuda_allocate.MAX_STATIC_R
+    assert (c["kNodeGlobal"], c["kFairGlobal"], c["kRowsGlobal"]) == (
+        cuda_allocate.NODE_GLOBAL, cuda_allocate.FAIR_GLOBAL,
+        cuda_allocate.ROWS_GLOBAL)
+    req = re.search(r"constexpr int req_words\(int R\)\s*\{\s*return"
+                    r"\s*R > kMaxStaticR \? (\d+) : 2 \* \(R < 8 \? 8 : R\)"
+                    r" \+ 6;", src)
+    assert req is not None
+    for r in (2, 4, 8, 9, 16, 17, 40):
+        want = int(req.group(1)) if r > 16 else 2 * max(r, 8) + 6
+        assert cuda_allocate.req_words(r) == want
+    body = re.search(r"inline long shared_words\(.*?\)\s*\{\s*return(.*?);",
                      src, re.S).group(1)
     for nb, blocks, r, q, ns, p in ((1280, 8, 4, 8, 1, 8),
-                                    (640, 16, 8, 3, 2, 6), (8, 8, 2, 1, 1, 1)):
-        words = _c_expr(body, dict(c, nb=nb, blocks=blocks, R=r, Q=q, NS=ns,
-                                   P=p))
-        assert cuda_allocate.shared_bytes(nb, blocks, r, q, ns, p) \
-            == 4 * words
+                                    (640, 16, 8, 3, 2, 6), (8, 8, 2, 1, 1, 1),
+                                    (3125, 16, 16, 8, 1, 8),
+                                    (128, 16, 40, 64, 64, 512)):
+        for flags in range(8):
+            g = {f"{k}_g": int(bool(flags & bit)) for k, bit in (
+                ("node", cuda_allocate.NODE_GLOBAL),
+                ("fs", cuda_allocate.FAIR_GLOBAL),
+                ("rows", cuda_allocate.ROWS_GLOBAL))}
+            words = _c_expr(body, dict(c, nb=nb, blocks=blocks, R=r, Q=q,
+                                       NS=ns, P=p,
+                                       req=cuda_allocate.req_words(r), **g))
+            assert cuda_allocate.shared_bytes(nb, blocks, r, q, ns, p,
+                                              flags) == 4 * words
 
 
 @pytest.mark.parametrize("r", range(2, 9))
@@ -122,6 +143,7 @@ def test_cluster_plan_per_resource_count(r):
     plan = cuda_allocate.cluster_plan(10_240, r, 8, 1, 8)
     assert plan.blocks == 16
     assert plan.nodes_per_block == 640
+    assert plan.kind == "shared" and plan.flags == 0
     assert plan.shared_bytes == cuda_allocate.shared_bytes(640, 16, r, 8, 1, 8)
     # 8 blocks while one holds a pass of 512 nodes, else 16
     small = cuda_allocate.cluster_plan(4096, r, 8, 1, 8)
@@ -131,15 +153,69 @@ def test_cluster_plan_per_resource_count(r):
     limit = cuda_allocate.node_limit(r, 8, 1, 8)
     assert cuda_allocate.cluster_plan(limit, r, 8, 1, 8).shared_bytes \
         <= cuda_allocate.MAX_SHARED_BYTES
+    assert cuda_allocate.cluster_plan(limit, r, 8, 1, 8).kind == "shared"
+    # above the shared plan's limit: the global plan, node state in device
+    # memory, 16 blocks, within the shared budget
+    above = cuda_allocate.cluster_plan(limit + 1, r, 8, 1, 8)
+    assert above.kind == "global" and above.blocks == 16
+    assert above.flags == cuda_allocate.NODE_GLOBAL
+    assert above.shared_bytes <= cuda_allocate.MAX_SHARED_BYTES
+    assert above.nodes_per_block == -(-(limit + 1) // 16)
     with pytest.raises(ValueError, match=f"limit of {limit} nodes"):
-        cuda_allocate.cluster_plan(limit + 1, r, 8, 1, 8)
+        cuda_allocate.cluster_plan(limit + 1, r, 8, 1, 8, kind="shared")
 
 
 def test_node_limit_covers_large_clusters():
-    """Kubernetes documents clusters of up to 5,000 nodes; the limit is far
-    above that and above the 10,240-node north star."""
+    """Kubernetes documents clusters of up to 5,000 nodes; the shared
+    plan's limit is far above that and above the 10,240-node north star,
+    so the north star keeps the shared plan."""
     assert cuda_allocate.node_limit(4, 8, 1, 8) >= 32_768
     assert cuda_allocate.node_limit(8, 8, 1, 8) >= 16_384
+    assert cuda_allocate.cluster_plan(10_240, 4, 8, 1, 8).kind == "shared"
+
+
+@pytest.mark.parametrize("r", [*range(2, 17), 20])
+@pytest.mark.parametrize("qns", [1, 64])
+def test_cluster_plan_shared_below_the_limit_global_above(r, qns):
+    """Every R and node count gets a plan: the shared plan up to its limit
+    (with 1 and 64 queues and namespaces), the global plan above it, both
+    within a block's shared memory; the scratch covers the plan's device
+    state."""
+    q = ns = qns
+    p = q * ns
+    limit = cuda_allocate.node_limit(r, q, ns, p)
+    for n in (1, 2048, limit, limit + 1, 100_000, 250_000):
+        plan = cuda_allocate.cluster_plan(n, r, q, ns, p)
+        assert plan.kind == ("shared" if n <= limit else "global")
+        assert plan.shared_bytes <= cuda_allocate.MAX_SHARED_BYTES
+        assert plan.blocks * plan.nodes_per_block >= n
+        words = cuda_allocate.scratch_words(plan, r)
+        if plan.kind == "global":
+            assert plan.blocks == 16
+            assert words >= 16 * (3 * r + 4) * plan.nodes_per_block
+        assert words >= (r if r > 16 else 1)
+    # the global plan can be forced on a shape that fits shared memory
+    forced = cuda_allocate.cluster_plan(2048, r, q, ns, p, kind="global")
+    assert forced.kind == "global" and forced.blocks == 16
+    with pytest.raises(ValueError, match="unknown plan"):
+        cuda_allocate.cluster_plan(2048, r, q, ns, p, kind="l2")
+
+
+def test_cluster_plan_moves_fair_share_and_table_rows_when_they_do_not_fit():
+    # fair-share state of (Q + NS) * R + P words beyond a block: device
+    plan = cuda_allocate.cluster_plan(10_000, 16, 2000, 2000, 4000)
+    assert plan.kind == "global"
+    assert plan.flags == cuda_allocate.NODE_GLOBAL | cuda_allocate.FAIR_GLOBAL
+    # above R = 16 the table's R-wide rows move out once they do not fit
+    wide = cuda_allocate.cluster_plan(2048, 40, 8, 1, 8)
+    assert wide.flags & cuda_allocate.ROWS_GLOBAL
+    assert wide.shared_bytes <= cuda_allocate.MAX_SHARED_BYTES
+    assert cuda_allocate.scratch_words(wide, 40) == (
+        16 * 124 * wide.nodes_per_block + 3 * 40 * 32 * 16 + 40)
+    # up to R = 16 the table stays in shared memory
+    for r in range(2, 17):
+        assert not cuda_allocate.cluster_plan(
+            500_000, r, 64, 64, 512).flags & cuda_allocate.ROWS_GLOBAL
 
 
 def test_check_inputs_accepts_the_snapshot_and_rejects_the_rest():
@@ -175,6 +251,13 @@ def test_check_inputs_accepts_the_snapshot_and_rejects_the_rest():
                for a in args]
     with pytest.raises(ValueError, match="R=1"):
         check_inputs(one_res)
+
+
+@pytest.mark.parametrize("r", range(9, 21))
+def test_check_inputs_accepts_every_resource_count_above_eight(r):
+    sa = synth_arrays(64, 40, gang_size=4, seed=r, r=r)
+    args = convert.args(convert.as_tensors(sa, "cpu"))
+    assert check_inputs(args)[6] == r
 
 
 @pytest.fixture

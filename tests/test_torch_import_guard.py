@@ -28,8 +28,9 @@ print(' '.join(names))
 """
 
 # the packages of the scheduling cycle the walk must reach, the
-# placement-constraint layer, the preempt/reclaim path and candidate
-# pruning included
+# placement-constraint layer, the preempt/reclaim path, candidate pruning
+# and the observability layer (tracer, ledger, why-pending, explainer,
+# metrics, their time series and server) included
 CYCLE_MODULES = ("volcano_tpu_torch.apiserver.store",
                  "volcano_tpu_torch.cache.cache",
                  "volcano_tpu_torch.actions.allocate",
@@ -45,6 +46,12 @@ CYCLE_MODULES = ("volcano_tpu_torch.apiserver.store",
                  "volcano_tpu_torch.ops.constraints",
                  "volcano_tpu_torch.ops.prune",
                  "volcano_tpu_torch.trace.explain",
+                 "volcano_tpu_torch.trace.tracer",
+                 "volcano_tpu_torch.trace.ledger",
+                 "volcano_tpu_torch.trace.pending",
+                 "volcano_tpu_torch.metrics.metrics",
+                 "volcano_tpu_torch.metrics.timeseries",
+                 "volcano_tpu_torch.metrics.server",
                  "volcano_tpu_torch.scheduler",
                  "volcano_tpu_torch.cmd.cycle")
 
@@ -60,7 +67,7 @@ def test_every_port_module_imports_without_jax_or_reference():
     assert out.returncode == 0, out.stderr
     first, walked = out.stdout.strip().split("\n")
     count, leaked = first.split(" ", 1)
-    assert int(count) >= 68, out.stdout
+    assert int(count) >= 75, out.stdout
     assert leaked == "[]", leaked
     assert set(CYCLE_MODULES) <= set(walked.split()), walked
 

@@ -27,9 +27,12 @@ from ..framework.plugin import Action
 from ..framework.registry import register_action
 from ..framework.solver import Placement
 from ..framework.statement import Statement
+from ..metrics import metrics as m
 from ..models.job_info import JobInfo, TaskInfo, TaskStatus
 from ..models.objects import PodGroupPhase
 from ..models.resource import ZERO, Resource
+from ..trace import ledger
+from ..trace import tracer as trace
 
 
 class AllocateAction(Action):
@@ -118,7 +121,8 @@ class AllocateAction(Action):
 
     def _execute_inner(self, ssn) -> None:
         tick = time.perf_counter()
-        ordered_jobs = self._ordered_jobs(ssn)
+        with trace.span("ordered_jobs"):
+            ordered_jobs = self._ordered_jobs(ssn)
         if not ordered_jobs:
             return
 
@@ -135,9 +139,19 @@ class AllocateAction(Action):
         tick = ssn.add_timing("allocate.order", tick)
         if not phase_a:
             return
+        trace.tag_cycle(tasks_considered=sum(len(t) for t in pending.values()))
+        if ledger.is_enabled():
+            # lifecycle ledger: every task entering this cycle's allocate
+            # batch is session-eligible (set once: a parked backlog stamps
+            # only its first eligible cycle); applied after the cycle
+            now = ssn.clock.now()
+            ledger.defer(lambda: ledger.stamp_bulk(
+                [t.key() for tasks in pending.values() for t in tasks],
+                "session_eligible", now))
 
         result_a = ssn.solver.place([(j, t) for j, t in phase_a],
                                     allow_pipeline=True)
+        self._stamp_placed(ssn, result_a)
         tick = ssn.add_timing("allocate.place", tick)
 
         # phase B: surplus tasks of jobs that survived phase A
@@ -152,17 +166,29 @@ class AllocateAction(Action):
 
         # phase A's claims must be visible to phase B's solver run;
         # stage them in session state first, then place surplus
-        staged = self._stage(ssn, phase_a, result_a)
+        with trace.span("stage", jobs=len(phase_a)):
+            staged = self._stage(ssn, phase_a, result_a)
         tick = ssn.add_timing("allocate.stage", tick)
         if phase_b:
             result_b = ssn.solver.place(
                 [(shadow, ts) for _, shadow, ts in phase_b],
                 allow_pipeline=True)
+            self._stamp_placed(ssn, result_b)
             tick = ssn.add_timing("allocate.place", tick)
-            self._apply_extra(ssn, staged, result_b, phase_b)
+            with trace.span("apply_extra", jobs=len(phase_b)):
+                self._apply_extra(ssn, staged, result_b, phase_b)
             tick = ssn.add_timing("allocate.stage", tick)
-        self._finalize(ssn, phase_a, result_a, staged)
+        with trace.span("finalize", jobs=len(staged)):
+            self._finalize(ssn, phase_a, result_a, staged)
         ssn.add_timing("allocate.commit", tick)
+
+    @staticmethod
+    def _stamp_placed(ssn, result) -> None:
+        if ledger.is_enabled():
+            now = ssn.clock.now()
+            ledger.defer(lambda: ledger.stamp_bulk(
+                [p.task.key() for pls in result.placements.values()
+                 for p in pls], "kernel_placed", now))
 
     # -- session application ----------------------------------------------
 
@@ -338,15 +364,26 @@ class AllocateAction(Action):
 
     def _finalize(self, ssn, phase_a, result_a, staged) -> None:
         """JobReady -> Commit; JobPipelined -> keep; else Discard."""
+        committed = pipelined = discarded = binds = 0
         for job, _ in phase_a:
             stmt = staged.get(job.uid)
             if stmt is None:
                 continue
             if ssn.job_ready(job):
+                binds += sum(len(getattr(op, "items", ())) or 1
+                             for op in stmt.operations)
                 stmt.commit()
-            elif not ssn.job_pipelined(job):
+                committed += 1
+                m.register_schedule_attempt("scheduled")
+            elif ssn.job_pipelined(job):
+                pipelined += 1   # keep the claims in session state
+            else:
                 stmt.discard()
-            # else JobPipelined: keep the claims in session state
+                discarded += 1
+                m.register_schedule_attempt("unschedulable")
+        trace.add_tags(committed=committed, pipelined=pipelined,
+                       discarded=discarded)
+        trace.tag_cycle(committed_tasks=binds)
 
 
 class _ZeroMinJob:

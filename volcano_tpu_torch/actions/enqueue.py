@@ -17,6 +17,8 @@ from ..framework.plugin import Action
 from ..framework.registry import register_action
 from ..models.job_info import JobInfo
 from ..models.objects import PodGroupPhase
+from ..trace import ledger
+from ..trace import tracer as trace
 
 
 class EnqueueAction(Action):
@@ -45,21 +47,32 @@ class EnqueueAction(Action):
         job_key = functools.cmp_to_key(
             lambda a, b: -1 if ssn.job_order_fn(a, b) else 1)
 
-        while queue_list:
-            queue_list.sort(key=queue_key)
-            queue = queue_list.pop(0)
-            jobs = jobs_map.get(queue.name)
-            if not jobs:
-                continue
-            jobs.sort(key=job_key)
-            job = jobs.pop(0)
+        inqueued = 0
+        with trace.span("enqueue.gate"):
+            while queue_list:
+                queue_list.sort(key=queue_key)
+                queue = queue_list.pop(0)
+                jobs = jobs_map.get(queue.name)
+                if not jobs:
+                    continue
+                jobs.sort(key=job_key)
+                job = jobs.pop(0)
 
-            if (job.pod_group.spec.min_resources is None
-                    or ssn.job_enqueueable(job)):
-                ssn.job_enqueued(job)
-                job.own_pod_group().status.phase = PodGroupPhase.INQUEUE
+                if (job.pod_group.spec.min_resources is None
+                        or ssn.job_enqueueable(job)):
+                    ssn.job_enqueued(job)
+                    job.own_pod_group().status.phase = PodGroupPhase.INQUEUE
+                    inqueued += 1
+                    if ledger.is_enabled() and job.tasks:
+                        # lifecycle ledger: pods whose group went Pending
+                        # -> Inqueue this cycle (a group created Inqueue
+                        # skips this hop)
+                        ledger.stamp_bulk(
+                            [t.key() for t in job.tasks.values()],
+                            "enqueued", ssn.clock.now())
 
-            queue_list.append(queue)
+                queue_list.append(queue)
+            trace.add_tags(inqueued=inqueued)
 
 
 register_action(EnqueueAction())

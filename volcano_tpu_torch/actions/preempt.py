@@ -27,8 +27,10 @@ from ..framework.plugin import Action
 from ..framework.registry import register_action
 from ..framework.statement import Statement
 from ..framework.victims import INTER_JOB, INTRA_JOB, PreemptContext
+from ..metrics import metrics as m
 from ..models.job_info import JobInfo, TaskInfo, TaskStatus
 from ..models.objects import PodGroupPhase
+from ..trace import tracer as trace
 
 
 class PreemptAction(Action):
@@ -36,6 +38,19 @@ class PreemptAction(Action):
         return "preempt"
 
     def execute(self, ssn) -> None:
+        # preemption metrics, flushed once: attempts (a counter) and the
+        # victims of the last successful placement (a gauge). Local state:
+        # the registered action is a process-wide singleton.
+        stats = {"attempts": 0, "last_victims": -1}
+        try:
+            self._execute(ssn, stats)
+        finally:
+            if stats["attempts"]:
+                m.inc(m.PREEMPTION_ATTEMPTS, float(stats["attempts"]))
+            if stats["last_victims"] >= 0:
+                m.set_gauge(m.PREEMPTION_VICTIMS, stats["last_victims"])
+
+    def _execute(self, ssn, stats) -> None:
         preemptors_map: Dict[str, List[JobInfo]] = {}   # queue -> jobs
         preemptor_tasks: Dict[str, List[TaskInfo]] = {}  # job uid -> tasks
         under_request: List[JobInfo] = []
@@ -61,9 +76,11 @@ class PreemptAction(Action):
             return
 
         # one batched encode for ALL preemptor tasks of the action
-        ctx = PreemptContext(
-            ssn, [(job, list(preemptor_tasks[job.uid]))
-                  for job in under_request if preemptor_tasks.get(job.uid)])
+        with trace.span("preempt.encode", preemptors=len(under_request)):
+            ctx = PreemptContext(
+                ssn, [(job, list(preemptor_tasks[job.uid]))
+                      for job in under_request
+                      if preemptor_tasks.get(job.uid)])
 
         job_key = functools.cmp_to_key(
             lambda a, b: -1 if ssn.job_order_fn(a, b) else 1)
@@ -89,7 +106,8 @@ class PreemptAction(Action):
                     if not tasks:
                         break
                     preemptor = tasks.pop(0)
-                    if self._preempt(ctx, stmt, preemptor, INTER_JOB):
+                    if self._preempt(ctx, stmt, preemptor, INTER_JOB,
+                                     stats):
                         assigned = True
 
                 if ssn.job_pipelined(preemptor_job):
@@ -109,7 +127,8 @@ class PreemptAction(Action):
                 preemptor = tasks.pop(0)
                 stmt = Statement(ssn)
                 ctx.checkpoint()
-                assigned = self._preempt(ctx, stmt, preemptor, INTRA_JOB)
+                assigned = self._preempt(ctx, stmt, preemptor, INTRA_JOB,
+                                         stats)
                 stmt.commit()
                 ctx.commit()
                 if not assigned:
@@ -118,6 +137,8 @@ class PreemptAction(Action):
         for path, n in ctx.runs.items():
             ssn.victim_runs[path] = ssn.victim_runs.get(path, 0) + n
         self._victim_tasks(ssn)
+        trace.add_tags(attempts=stats["attempts"],
+                       victims=max(0, stats["last_victims"]))
 
     # ------------------------------------------------------------------
 
@@ -129,12 +150,15 @@ class PreemptAction(Action):
         return tasks
 
     def _preempt(self, ctx: PreemptContext, stmt: Statement,
-                 preemptor: TaskInfo, mode: str) -> bool:
-        """One preemptor placement (preempt.go:192-271)."""
+                 preemptor: TaskInfo, mode: str, stats) -> bool:
+        """One preemptor placement (preempt.go:192-271); ``stats`` counts
+        the attempt and keeps the placement's victim count."""
         res = ctx.place(preemptor, mode)
+        stats["attempts"] += 1
         if res is None:
             return False
         node_name, victims, _covered = res
+        stats["last_victims"] = len(victims)
         for victim in victims:
             # clone: status flips must not touch the node's accounting copy
             # (preempt.go:215-218)

@@ -10,7 +10,17 @@ commit; ``evict``/``evict_batch`` move them to Releasing and delete their
 pods through the evictor. The store's watch echo then updates the cache
 (a deleted pod leaves its job and node) before the call returns; it
 edits the cache's own objects, never a session's snapshot clones. So
-``flush_executors`` has nothing to wait for.
+``flush_executors`` has nothing to wait for. While tracing is on the
+commit is split as the reference's bind flush is: the gangs' staging
+(``bind_flush.apply``), store writes with their events
+(``bind_flush.store``) and watch echoes (``bind_flush.echo``, inside the
+store write) are summed over the cycle and recorded once a cycle as the
+flight recorder's async spans (``emit_commit_spans``); and the pod
+lifecycle ledger (trace/ledger.py) is stamped: ``bind_staged`` at staging,
+``store_committed`` and ``echo_confirmed`` at the echo, all within the
+cycle's commit; the ledger completes the echoed entries after the cycle
+(``flush_executors`` and the scheduler), where the reference's flush
+executor does.
 
 Left out of this port: the incremental snapshot, the async bind/evict
 executors and write-behind applies, bind retry/backoff/quarantine,
@@ -19,11 +29,13 @@ partial-gang healing, anti-entropy, lease fencing and NUMA.
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from typing import Dict, List, Optional
 
 from ..apiserver.store import ObjectStore
+from ..metrics import metrics as m
 from ..models import objects as obj
 from ..models.cluster_info import ClusterInfo
 from ..models.job_info import JobInfo, TaskInfo, TaskStatus
@@ -31,6 +43,8 @@ from ..models.node_info import NodeInfo
 from ..models.objects import (DEFAULT_QUEUE, DEFAULT_SCHEDULER_NAME,
                               PodGroupPhase)
 from ..models.queue_info import NamespaceCollection, QueueInfo
+from ..trace import ledger
+from ..trace import tracer
 from .event_handlers import EventHandlersMixin
 from .interface import (NullVolumeBinder, StoreBinder, StoreEvictor,
                         StoreStatusUpdater)
@@ -72,6 +86,13 @@ class SchedulerCache(EventHandlersMixin):
         self.last_snapshot_ms = 0.0
         # pods handed to the evictor since the cache was built
         self.evictions = 0
+        # bind correlation ids ("bind-<n>"), one a store commit, joining
+        # the lifecycle ledger's entries to the commit that bound them
+        self._trace_ids = itertools.count(1)
+        # in a traced cycle: the commit's seconds of apply, store and echo,
+        # its binds and echoed pairs, and its first instant, summed over
+        # its gangs (begin_commit_trace, emit_commit_spans)
+        self._commit_acc: Optional[list] = None
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -128,7 +149,9 @@ class SchedulerCache(EventHandlersMixin):
         return self._running  # synchronous watches: synced once run
 
     def flush_executors(self, timeout: float = 30.0) -> bool:
-        """Every store write already happened inside its call."""
+        """Every store write already happened inside its call; the
+        lifecycle ledger's held echo confirmations complete here."""
+        ledger.complete_deferred()
         return True
 
     def submit_background(self, fn) -> None:
@@ -204,34 +227,70 @@ class SchedulerCache(EventHandlersMixin):
 
     def bind(self, task_info: TaskInfo, hostname: str) -> None:
         """Stage one task's bind in the cache, then write it to the store."""
-        with self.mutex:
-            task, pod = self._stage_bind(task_info, hostname)
-        self._bind_store_writes([(task, pod, hostname)])
+        self.bind_batch([(task_info, hostname)], strict=True)
 
-    def bind_batch(self, pairs) -> list:
+    def bind_batch(self, pairs, strict: bool = False) -> list:
         """Bind a gang: ``[(task_info, hostname)]`` staged in one mutex
         pass and written in one store commit. A task whose job, task or
-        node lookup fails, or whose node refuses it, is skipped. Returns
-        the accepted task infos."""
+        node lookup fails, or whose node refuses it, is skipped (with
+        ``strict``, its KeyError or RuntimeError propagates). Returns the
+        accepted task infos."""
         accepted, bound = [], []
+        corr = f"bind-{next(self._trace_ids)}" if ledger.is_enabled() \
+            else None
+        t0 = time.perf_counter()
         with self.mutex:
             for task_info, hostname in pairs:
                 try:
                     task, pod = self._stage_bind(task_info, hostname)
                 except (KeyError, RuntimeError):
+                    if strict:
+                        raise
                     continue
                 accepted.append(task_info)
                 bound.append((task, pod, hostname))
-        self._bind_store_writes(bound)
+        if corr is not None and bound:
+            now = self.store.clock.now()
+            ledger.defer(lambda: ledger.stamp_bulk(
+                [t.key() for t, _, _ in bound], "bind_staged", now,
+                trace=corr))
+        self._bind_store_writes(bound, t0)
         return accepted
 
-    def _bind_store_writes(self, bound) -> None:
-        """One binder pass + Scheduled events for [(task, pod, hostname)]."""
+    def begin_commit_trace(self) -> None:
+        """Start summing the commit's phases (the scheduler calls it at
+        the start of a traced cycle): seconds of apply, store and echo,
+        binds and echoed pairs, and the first instant."""
+        self._commit_acc = [0.0, 0.0, 0.0, 0, 0, None]
+
+    def emit_commit_spans(self) -> None:
+        """Record the commit's summed phases as the cycle's bind flush
+        spans (``bind_flush.apply``, then ``bind_flush.store`` with
+        ``bind_flush.echo`` inside it), laid end to end from the commit's
+        first instant, and stop summing; the scheduler calls it at the end
+        of each traced cycle."""
+        acc, self._commit_acc = self._commit_acc, None
+        if acc is None or acc[5] is None:
+            return
+        apply_s, store_s, echo_s, binds, pairs, t0 = acc
+        tracer.async_record("bind_flush.apply", t0, apply_s)
+        echo = tracer.Span("bind_flush.echo", t0 + apply_s)
+        echo.dur = echo_s
+        echo.tags = {"pairs": pairs}
+        tracer.async_record("bind_flush.store", t0 + apply_s, store_s,
+                            children=[echo], binds=binds)
+
+    def _bind_store_writes(self, bound, t0: float) -> None:
+        """One binder pass + Scheduled events for [(task, pod, hostname)]
+        staged since ``t0``; the store's synchronous echo confirms the
+        ledger entries inside it."""
         if not bound:
             return
+        t1 = time.perf_counter()
         failed = self.binder.bind_batch([(pod, hostname)
                                          for _, pod, hostname in bound])
         if failed:
+            m.inc(m.BIND_ERRORS, float(len(failed)), reason="rejected")
             # the cache staged these as Binding; the store does not have
             # them: reconcile each from the store
             gone = {id(pod) for pod, _ in failed}
@@ -244,6 +303,17 @@ class SchedulerCache(EventHandlersMixin):
                 "pods", pod, "Normal", "Scheduled",
                 f"Successfully assigned {task.namespace}/{task.name} "
                 f"to {hostname}")
+        n = len(bound) - len(failed)
+        t2 = time.perf_counter()
+        acc = self._commit_acc
+        if acc is not None:
+            acc[0] += t1 - t0
+            acc[1] += t2 - t1
+            acc[3] += n
+            if acc[5] is None:
+                acc[5] = t0
+        m.observe(m.BIND_FLUSH_LATENCY, (t2 - t1) * 1000.0)
+        m.inc(m.BIND_FLUSH_BINDS, float(n))
 
     # -- evictions ---------------------------------------------------------
 
@@ -328,7 +398,15 @@ class SchedulerCache(EventHandlersMixin):
     def update_job_statuses(self, updates) -> None:
         """The session's close writeback, ``[(job, update_pg)]``: events
         and Unschedulable pod conditions first, then one bulk PodGroup
-        status push."""
+        status push; its wall time is volcano_status_writeback_latency."""
+        t0 = time.perf_counter()
+        try:
+            self._update_job_statuses(updates)
+        finally:
+            m.observe(m.STATUS_WRITEBACK_LATENCY,
+                      (time.perf_counter() - t0) * 1000.0)
+
+    def _update_job_statuses(self, updates) -> None:
         push = []
         conditions: list = []
         for job, update_pg in updates:

@@ -11,6 +11,7 @@ dirty-set bookkeeping, the bind-retry records and the NUMA handlers.
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 from ..models import objects as obj
@@ -19,6 +20,7 @@ from ..models.job_info import (JobInfo, TaskInfo, allocated_status,
                                get_job_id, get_task_status, is_terminated)
 from ..models.node_info import NodeInfo
 from ..models.queue_info import NamespaceCollection, QueueInfo
+from ..trace import ledger
 from ..utils.fastclone import fast_clone
 
 
@@ -40,6 +42,11 @@ class EventHandlersMixin:
         # the encode-group fingerprint is derived at ingest, so cycles
         # inherit it through snapshot clones
         _group_sig(ti)
+        if ti.job and not ti.node_name and ledger.is_enabled():
+            # lifecycle ledger: a schedulable pod enters the pipeline here
+            # (set once: a relist keeps the first submission stamp)
+            ledger.stamp(ti.key(), "submitted", self.store.clock.now(),
+                         job=ti.job)
         if ti.node_name:
             if ti.node_name not in self.nodes:
                 raise KeyError(f"node <{ti.node_name}> does not exist")
@@ -86,6 +93,11 @@ class EventHandlersMixin:
                 and allocated_status(cached.status)
                 and allocated_status(nt.status)
                 and cached.resreq.equal(nt.resreq)):
+            if ledger.is_enabled():
+                # a bound pod's echo: the ledger's terminal stamp (set
+                # once, so a later Running-phase echo is a no-op)
+                ledger.confirm(cached.key(), self.store.clock.now(),
+                               queue=job.queue)
             _group_sig(nt)
             job.move_task_status(cached, nt.status)
             node = self.nodes.get(cached.node_name)
@@ -113,6 +125,9 @@ class EventHandlersMixin:
         status-index move plus a resource_version refresh on the pod the
         cache already holds; anything else goes through
         :meth:`update_pod` on a private copy."""
+        t0 = time.perf_counter()
+        now = self.store.clock.now() if ledger.is_enabled() else None
+        confirms: list = []
         with self.mutex:
             for old, new in pairs:
                 jid = get_job_id(new)
@@ -133,6 +148,11 @@ class EventHandlersMixin:
                     rr = new.__dict__.get("_rr")
                     if allocated_status(new_status) and rr is not None \
                             and cached.resreq.equal(rr):
+                        if now is not None:
+                            if confirms and confirms[-1][1] == job.queue:
+                                confirms[-1][0].append(cached)
+                            else:
+                                confirms.append(([cached], job.queue))
                         job.move_task_status(cached, new_status)
                         cached.pod.metadata.resource_version = \
                             nm.resource_version
@@ -149,8 +169,17 @@ class EventHandlersMixin:
                     self.update_pod(old, fast_clone(new))
                 except KeyError:
                     pass   # e.g. pod bound to a node we haven't seen yet
+            if confirms:
+                ledger.defer(lambda: ledger.confirm_runs(
+                    [([t.key() for t in tasks], q) for tasks, q in confirms],
+                    now))
+        acc = self._commit_acc
+        if acc is not None:
+            acc[2] += time.perf_counter() - t0
+            acc[4] += len(pairs)
 
     def delete_pod(self, pod: obj.Pod) -> None:
+        ledger.drop(pod.metadata.key())
         self._delete_task(TaskInfo(pod))
         # drop empty shell jobs with no podgroup (processCleanupJob analogue)
         jid = get_job_id(pod)

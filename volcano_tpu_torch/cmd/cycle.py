@@ -3,7 +3,7 @@
     python -m volcano_tpu_torch.cmd.cycle --tasks 50000 --nodes 10000 \\
         [--queues 1] [--warm 1] [--device cpu] \\
         [--zones 8 --spread-every 4 --anti-every 8] \\
-        [--scenario {default,preempt,reclaim}]
+        [--scenario {default,preempt,reclaim}] [--trace]
 
 With ``--scenario default`` (the default), each run builds a fresh store
 with ``populate_store(n_nodes, n_jobs=tasks // 8, gang_size=8)`` over
@@ -20,6 +20,12 @@ staging and commit, close_session, and each placement's encode, solve,
 kernel and decode, its kernel launches and its prune summary), the binds,
 the committed gangs and, on the GPU, the cycle's peak device memory above
 what the process already held.
+
+With ``--trace`` (or VOLCANO_TRACE=1 in the environment) the flight
+recorder (trace/tracer.py) records each cycle, and each run's entry gains
+``trace``: the span split of the cycle (``phases``: '/'-joined span paths
+to ms and count), of its commit (``async``: the bind flush's spans), the
+cycle's tags and the spans' coverage of its wall time.
 
 ``--scenario preempt`` and ``--scenario reclaim`` build the reference
 harness's preemption and reclamation shapes instead
@@ -45,6 +51,7 @@ import torch
 from ..apiserver.store import ObjectStore
 from ..cache import SchedulerCache
 from ..scheduler import Scheduler
+from ..trace import tracer
 from ..utils.platform import default_device
 from ..utils.synth import (populate_preempt_store, populate_reclaim_store,
                            populate_store)
@@ -135,6 +142,9 @@ def run_cycle(n_tasks: int, n_nodes: int, n_queues: int = 1,
     gc.freeze()
     try:
         if device.type == "cuda":
+            # the allocator's statistics exist once CUDA is initialised,
+            # which nothing before this point in a fresh process has done
+            torch.cuda.init()
             resident = torch.cuda.memory_allocated(device)
             torch.cuda.reset_peak_memory_stats(device)
         sched.run_once()
@@ -149,12 +159,25 @@ def run_cycle(n_tasks: int, n_nodes: int, n_queues: int = 1,
     out = {"populate_s": t1 - t0, "sync_s": t2 - t1,
            **sched.last_cycle, "binds": binds, "committed_gangs": committed,
            "evictions": cache.evictions, "store": store}
+    if tracer.is_enabled():
+        out["trace"] = trace_split(tracer.last_record())
     if device.type == "cuda":
         # the cycle's own peak, above what the process already held
         out["peak_device_bytes"] = \
             torch.cuda.max_memory_allocated(device) - resident
     cache.stop()
     return out
+
+
+def trace_split(rec) -> dict:
+    """The flight recorder's split of one cycle record: every span path's
+    ms and count, the commit's (the bind flush's) spans, the cycle's tags
+    and the spans' coverage of its wall time."""
+    summary = tracer.summary(rec)
+    return {"phases": tracer.flat_phases(rec),
+            "async": tracer.async_phases(rec),
+            "tags": summary["tags"], "coverage": summary["coverage"],
+            "cycle_ms": summary["cycle_ms"]}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -179,7 +202,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "plain loop)")
+    ap.add_argument("--trace", action="store_true",
+                    help="record each cycle with the flight recorder and "
+                         "print its span split")
     opts = ap.parse_args(argv)
+    if opts.trace:
+        tracer.enable()
+    else:
+        tracer.enable_from_env()
     device = default_device(opts.device)
     runs = []
     for _ in range(1 + opts.warm):

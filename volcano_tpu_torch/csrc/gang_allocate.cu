@@ -14,12 +14,41 @@
 //   namespace charge, and the next (namespace, queue) pool's job.
 //
 // Design: ONE thread-block cluster of B blocks of 512 threads, launched
-// once per placement; the task axis is a loop inside it. B is 8 while a
-// block holds at most 512 nodes, else 16 (ops/cuda_allocate.py:
-// cluster_plan). Block b owns the contiguous node range [b*nb, (b+1)*nb)
-// and keeps its node state (idle, future, alloc, pod count and cap, pack
-// row) in its shared memory for the whole launch; block 0 also keeps the
-// fair-share state (queue and namespace allocations, pool cursors).
+// once per placement; the task axis is a loop inside it. Block b owns the
+// contiguous node range [b*nb, (b+1)*nb); block 0 also keeps the
+// fair-share state (queue and namespace allocations, pool cursors). The
+// wrapper (ops/cuda_allocate.py:cluster_plan) picks one of two plans by
+// shape before the launch:
+//
+//   shared: each block keeps its nodes' state (idle, future, alloc, pod
+//     count and cap, pack row and its generation) in its shared memory for
+//     the whole launch; B is 8 while a block holds at most 512 nodes, else
+//     16. Taken wherever the state fits the 227 KB a block may use.
+//   global: the same per-block layout lives in a scratch buffer in device
+//     memory (G = true), with B = 16. At (3R + 4) x 4 bytes a node it stays
+//     resident in the 50 MB L2 up to hundreds of thousands of nodes, so a
+//     refresh reads L2. The candidate table, the warps' lists, the step
+//     descriptor and the group request stay in shared memory; the
+//     fair-share state moves to device memory too when it alone would not
+//     fit. A served step writes the placed node's new state to its owner's
+//     rows in device memory instead of over distributed shared memory; the
+//     cluster barrier (barrier.cluster.arrive.release / wait.acquire)
+//     orders those stores, and the rollback's, before the next refresh.
+//
+// The resource count R: R = 2..16 are compiled exactly (no padded
+// resource, whose fits and binpack terms would enter every score), the
+// node and table rows held in registers. Above 16 the kernel runs a form
+// where R is a runtime loop bound (template R = 0): a lane reads its node
+// and table rows from memory through strided views instead of holding
+// them in registers, the group's request is read from device memory, a
+// served step's divisions take ceil((R + 6) / 32) rounds of the warp, and
+// the running request sum of the job lives in device memory; the table's
+// R-wide rows move to device memory when they would not fit shared
+// memory. So no R >= 2 is refused.
+//
+// The build compiles this file in four parts in parallel (the nvcc-parts
+// line below; ops/build.py), each part the kernels of a quarter of the R
+// values, and links them into one library.
 //
 // Most steps do not sweep the nodes. The decision procedure is that of
 // volcano_tpu/ops/sharded.py:_sharded_body_chunked (ops/allocate.py:
@@ -65,7 +94,8 @@
 //
 // Rollback: each placement logs the node's previous state to an undo log
 // in device memory; a failed gang replays it backwards into the owner
-// blocks, and the next step refreshes. A commit costs nothing. The pack
+// blocks (their shared memory, or their rows in device memory under the
+// global plan), and the next step refreshes. A commit costs nothing. The pack
 // row is reset by bumping a generation number: a node's pack counts only
 // when its generation is the current one.
 //
@@ -75,7 +105,9 @@
 // loads); a refresh is a sweep of nb nodes (about 80 float operations
 // each, ten IEEE divisions) on each of B SMs, the top-kC merges and two
 // cluster barriers. The card-wide floors (each input read once over HBM,
-// the operations over the float32 peak) are far below both.
+// the operations over the float32 peak) are far below both. Under the
+// global plan a refresh's node reads come from L2 rather than shared
+// memory.
 //
 // Floating point: build with -fmad=false. Every score, in the sweep and in
 // a served step, is computed in the operation order of ops/score.py:
@@ -84,14 +116,27 @@
 // plain PyTorch version round alike on the card and break argmax ties
 // alike.
 
+
+// nvcc-parts: 4
+
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+// PART of PARTS: this compile instantiates the kernels of the R values
+// owner_part gives it; part 0 also holds the C entry point. A build that
+// does not split the file compiles everything in one part.
+#ifndef PART
+#define PART 0
+#define PARTS 1
+#endif
+
 namespace cg = cooperative_groups;
 
-namespace {
+namespace ga {
 
 constexpr int kC = 16;          // candidates a block keeps per fit class
 constexpr int kThreads = 512;
@@ -100,10 +145,21 @@ constexpr int kNone = 0x7fffffff;  // node index of "no candidate"
 constexpr float kBig = 1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kDescWords = 5;  // kind, group, same bucket, pack generation, slot
-constexpr int kReqWords = 2 * 8 + 6;  // a Req<R> at the largest R
+constexpr int kMaxStaticR = 16;  // R = 2..16 compiled; above, the runtime form
 constexpr int kRefresh = 0, kDone = 1;
+// the plan's flags: node state, fair-share state, the table's R-wide rows
+// in device memory
+constexpr int kNodeGlobal = 1;
+constexpr int kFairGlobal = 2;
+constexpr int kRowsGlobal = 4;
 
 static_assert(2 * kC == 32, "a block's table rows are one warp's lanes");
+
+// shared words of the group request: a Req<R> (at least the R = 8 size),
+// or the runtime form's Req<0> with room to align its pointers
+__host__ __device__ constexpr int req_words(int R) {
+  return R > kMaxStaticR ? 16 : 2 * (R < 8 ? 8 : R) + 6;
+}
 
 struct Args {
   // task axis [T]
@@ -158,15 +214,24 @@ struct Args {
   // what the launch did: table refreshes, the cluster's blocks and each
   // block's dynamic shared memory in bytes
   int32_t* stats;                 // [3]
-  int T, J, P, NS, Q, N, S;
+  // device-memory scratch of the plan: the blocks' node state (global
+  // plan, block_words a block), the table's R-wide rows (kRowsGlobal) and
+  // the job's running request sum (the runtime form)
+  float* nstate;
+  float* trows;
+  float* pres;
+  size_t block_words;
+  int T, J, P, NS, Q, N, S, R;
   int allow_pipeline, ns_live;
   int nb;                         // nodes a block owns
+  int flags;                      // kNodeGlobal | kFairGlobal | kRowsGlobal
 };
 
-// The request of one group and the score weights it takes.
+// The request of one group and the score weights it takes; R = 0 is the
+// runtime form, which reads the request from device memory.
 template <int R>
 struct Req {
-  static_assert(2 * R + 6 <= kReqWords, "Req must fit its shared words");
+  static_assert(2 * R + 6 <= req_words(R), "Req must fit its shared words");
   float req[R], w[R], wsum, bonus;
   float w_binpack, w_least, w_most, w_balanced;
 
@@ -185,124 +250,117 @@ struct Req {
     w_most = __ldg(a.weights + 2);
     w_balanced = __ldg(a.weights + 3);
   }
+  __device__ int n() const { return R; }
+  __device__ float rq(int r) const { return req[r]; }
+  __device__ float wt(int r) const { return w[r]; }
+};
 
-  // fits: req <= cap + eps in every resource
-  __device__ bool fits(const float (&cap)[R], const float (&eps)[R]) const {
-    bool ok = true;
-#pragma unroll
-    for (int r = 0; r < R; ++r) ok &= req[r] <= cap[r] + eps[r];
-    return ok;
+template <>
+struct Req<0> {
+  const float* req_row;
+  const float* w_res;
+  int nr;
+  float wsum, bonus;
+  float w_binpack, w_least, w_most, w_balanced;
+
+  __device__ Req(const Args& a, int g)
+      : req_row(a.group_req + (size_t)g * a.R), w_res(a.weights + 4),
+        nr(a.R) {
+    for (int r = 0; r < nr; ++r) wsum = (r == 0) ? wt(r) : wsum + wt(r);
+    wsum = fmaxf(wsum, 1e-9f);
+    bonus = __ldg(a.group_pack_bonus + g);
+    w_binpack = __ldg(a.weights + 0);
+    w_least = __ldg(a.weights + 1);
+    w_most = __ldg(a.weights + 2);
+    w_balanced = __ldg(a.weights + 3);
   }
-
-  // ops/score.py:node_score, operation for operation; stat_eff is the
-  // static score plus pack * bonus
-  __device__ float score_of(const float (&idle)[R], const float (&alloc)[R],
-                            float stat_eff) const {
-    float used[R];
-    float num = 0.0f;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      used[r] = alloc[r] - idle[r];
-      float frac = alloc[r] > 0.0f
-                       ? (used[r] + req[r]) / fmaxf(alloc[r], 1e-9f)
-                       : 2.0f;
-      float per = frac <= 1.0f ? frac * 100.0f : 0.0f;
-      num = (r == 0) ? per * w[r] : num + per * w[r];
-    }
-    float lr[2], mr[2], fr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float al = alloc[r];
-      float u = used[r] + req[r];
-      float den = fmaxf(al, 1e-9f);
-      lr[r] = (al > 0.0f ? fmaxf(al - u, 0.0f) / den : 0.0f) * 100.0f;
-      mr[r] = (al > 0.0f ? fminf(fmaxf(u, 0.0f), al) / den : 0.0f) * 100.0f;
-      fr[r] = al > 0.0f ? u / den : 0.0f;
-    }
-    float s = w_binpack * (num / wsum);
-    s = s + w_least * ((lr[0] + lr[1]) / 2.0f);
-    s = s + w_most * ((mr[0] + mr[1]) / 2.0f);
-    s = s + w_balanced * (100.0f - fabsf(fr[0] - fr[1]) * 100.0f);
-    return s + stat_eff;
-  }
-
-  // score_of for the node held by lane `src`, computed by the whole warp
-  // (every lane gets it): each of its R + 6 divisions runs on a lane of
-  // its own, then the terms are summed in score_of's order
-  __device__ float score_of_warp(const float (&idle_src)[R],
-                                 const float (&alloc_src)[R],
-                                 float stat_eff_src, int src, int lane) const {
-    float idle[R], alloc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      idle[r] = __shfl_sync(kFull, idle_src[r], src);
-      alloc[r] = __shfl_sync(kFull, alloc_src[r], src);
-    }
-    const float stat_eff = __shfl_sync(kFull, stat_eff_src, src);
-    float num = 1.0f, den = 1.0f;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float used = alloc[r] - idle[r];
-      const float u = used + req[r];
-      const float d = fmaxf(alloc[r], 1e-9f);
-      if (lane == r) {
-        num = u;
-        den = d;
-      }
-      if (r < 2) {
-        if (lane == R + r) {
-          num = fmaxf(alloc[r] - u, 0.0f);
-          den = d;
-        }
-        if (lane == R + 2 + r) {
-          num = fminf(fmaxf(u, 0.0f), alloc[r]);
-          den = d;
-        }
-        if (lane == R + 4 + r) {
-          num = u;
-          den = d;
-        }
-      }
-    }
-    const float quo = num / den;
-    float acc = 0.0f;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float qr = __shfl_sync(kFull, quo, r);
-      float frac = alloc[r] > 0.0f ? qr : 2.0f;
-      float per = frac <= 1.0f ? frac * 100.0f : 0.0f;
-      acc = (r == 0) ? per * w[r] : acc + per * w[r];
-    }
-    float lr[2], mr[2], fr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float ql = __shfl_sync(kFull, quo, R + r);
-      const float qm = __shfl_sync(kFull, quo, R + 2 + r);
-      const float qf = __shfl_sync(kFull, quo, R + 4 + r);
-      const bool pos = alloc[r] > 0.0f;
-      lr[r] = (pos ? ql : 0.0f) * 100.0f;
-      mr[r] = (pos ? qm : 0.0f) * 100.0f;
-      fr[r] = pos ? qf : 0.0f;
-    }
-    float s = w_binpack * (acc / wsum);
-    s = s + w_least * ((lr[0] + lr[1]) / 2.0f);
-    s = s + w_most * ((mr[0] + mr[1]) / 2.0f);
-    s = s + w_balanced * (100.0f - fabsf(fr[0] - fr[1]) * 100.0f);
-    return s + stat_eff;
+  __device__ int n() const { return nr; }
+  __device__ float rq(int r) const { return __ldg(req_row + r); }
+  __device__ float wt(int r) const {
+    const float wr = __ldg(w_res + r);
+    return (rq(r) > 0.0f && wr > 0.0f) ? wr : 0.0f;
   }
 };
 
-// Dynamic shared memory of a block, in 4-byte words; ops/cuda_allocate.py:
-// cluster_plan computes the same size.
-__host__ __device__ inline int shared_words(int nb, int blocks, int R, int Q,
-                                            int NS, int P) {
-  return (3 * R + 4) * nb + (3 * R + 7) * 2 * kC * blocks +
-         kWarps * 2 * kC * 2 + kDescWords + kReqWords + (Q + NS) * R + P;
+static_assert(sizeof(Req<0>) + 4 <= 4 * req_words(kMaxStaticR + 1),
+              "Req<0> must fit its shared words once aligned");
+
+// An R-vector: registers at a compiled R, a strided view of shared or
+// device memory in the runtime form.
+template <int R>
+struct Regs {
+  float v[R];
+  __device__ float& operator[](int r) { return v[r]; }
+  __device__ const float& operator[](int r) const { return v[r]; }
+};
+
+struct View {
+  float* p;
+  int s;
+  __device__ float& operator[](int r) const { return p[(size_t)r * s]; }
+};
+
+template <int R>
+using Vec =
+    typename std::conditional<(R > 0), Regs<(R > 0 ? R : 1)>, View>::type;
+
+// fits: req <= cap + eps in every resource
+template <class Q, class V, class E>
+__device__ __forceinline__ bool fits(const Q& q, const V& cap, const E& eps) {
+  bool ok = true;
+#pragma unroll
+  for (int r = 0; r < q.n(); ++r) ok &= q.rq(r) <= cap[r] + eps[r];
+  return ok;
+}
+
+// ops/score.py:node_score, operation for operation; stat_eff is the
+// static score plus pack * bonus
+template <class Q, class V1, class V2>
+__device__ __forceinline__ float score_of(const Q& q, const V1& idle,
+                                          const V2& alloc, float stat_eff) {
+  float num = 0.0f;
+#pragma unroll
+  for (int r = 0; r < q.n(); ++r) {
+    const float al = alloc[r];
+    const float used = al - idle[r];
+    float frac = al > 0.0f ? (used + q.rq(r)) / fmaxf(al, 1e-9f) : 2.0f;
+    float per = frac <= 1.0f ? frac * 100.0f : 0.0f;
+    num = (r == 0) ? per * q.wt(r) : num + per * q.wt(r);
+  }
+  float lr[2], mr[2], fr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float al = alloc[r];
+    float u = (al - idle[r]) + q.rq(r);
+    float den = fmaxf(al, 1e-9f);
+    lr[r] = (al > 0.0f ? fmaxf(al - u, 0.0f) / den : 0.0f) * 100.0f;
+    mr[r] = (al > 0.0f ? fminf(fmaxf(u, 0.0f), al) / den : 0.0f) * 100.0f;
+    fr[r] = al > 0.0f ? u / den : 0.0f;
+  }
+  float s = q.w_binpack * (num / q.wsum);
+  s = s + q.w_least * ((lr[0] + lr[1]) / 2.0f);
+  s = s + q.w_most * ((mr[0] + mr[1]) / 2.0f);
+  s = s + q.w_balanced * (100.0f - fabsf(fr[0] - fr[1]) * 100.0f);
+  return s + stat_eff;
+}
+
+// Dynamic shared memory of a block, in 4-byte words, for the plan's flags
+// as 0/1 (node_g, fs_g, rows_g) and req = req_words(R);
+// ops/cuda_allocate.py:shared_bytes computes the same size.
+__host__ __device__ inline long shared_words(long nb, long blocks, long R,
+                                             long Q, long NS, long P,
+                                             long node_g, long fs_g,
+                                             long rows_g, long req) {
+  return (1 - node_g) * (3 * R + 4) * nb +
+         (3 * R * (1 - rows_g) + 7) * 2 * kC * blocks +
+         kWarps * 2 * kC * 2 + kDescWords + req +
+         (1 - fs_g) * ((Q + NS) * R + P);
 }
 
 template <int R>
 struct Smem {
-  // this block's nodes: [R][nb] and [nb]
+  // this block's nodes: [R][nb] and [nb], in shared memory or (global
+  // plan) in the block's rows of device memory
   float* idle;
   float* fut;
   float* alloc;
@@ -331,34 +389,65 @@ struct Smem {
   float* ns_alloc; // [NS, R]
   int* p_cursor;   // [P]
 
-  __device__ Smem(float* f, const Args& a, int K) {
+  __device__ Smem(float* f, const Args& a, int K, int rank, bool node_g) {
     const int nb = a.nb;
-    idle = f; f += R * nb;
-    fut = f; f += R * nb;
-    alloc = f; f += R * nb;
-    ntasks = reinterpret_cast<int*>(f); f += nb;
-    maxt = reinterpret_cast<int*>(f); f += nb;
-    pack = f; f += nb;
-    pgen = reinterpret_cast<int*>(f); f += nb;
+    const int nr = R > 0 ? R : a.R;
+    const bool fs_g = node_g && (a.flags & kFairGlobal);
+    const bool rows_g = R == 0 && (a.flags & kRowsGlobal);
+    float* n = node_g ? a.nstate + (size_t)rank * a.block_words : f;
+    idle = n; n += nr * nb;
+    fut = n; n += nr * nb;
+    alloc = n; n += nr * nb;
+    ntasks = reinterpret_cast<int*>(n); n += nb;
+    maxt = reinterpret_cast<int*>(n); n += nb;
+    pack = n; n += nb;
+    pgen = reinterpret_cast<int*>(n); n += nb;
+    if (!node_g) f = n;
     t_gidx = reinterpret_cast<int*>(f); f += K;
     t_static = f; f += K;
     t_pack = f; f += K;
     t_nt = reinterpret_cast<int*>(f); f += K;
     t_maxt = reinterpret_cast<int*>(f); f += K;
-    t_idle = f; f += R * K;
-    t_fut = f; f += R * K;
-    t_alloc = f; f += R * K;
+    if (rows_g) {
+      t_idle = a.trows;
+      t_fut = a.trows + (size_t)nr * K;
+      t_alloc = a.trows + 2 * (size_t)nr * K;
+    } else {
+      t_idle = f; f += nr * K;
+      t_fut = f; f += nr * K;
+      t_alloc = f; f += nr * K;
+    }
     t_score = f; f += K;
     t_fit = reinterpret_cast<int*>(f); f += K;
     m_s = f; f += kWarps * 2 * kC;
     m_i = reinterpret_cast<int*>(f); f += kWarps * 2 * kC;
     desc = reinterpret_cast<int*>(f); f += kDescWords;
-    q = reinterpret_cast<Req<R>*>(f); f += kReqWords;
-    q_alloc = f; f += a.Q * R;
-    ns_alloc = f; f += a.NS * R;
-    p_cursor = reinterpret_cast<int*>(f);
+    // Req<0> holds pointers: 8-byte aligned inside its words
+    float* qf = f;
+    if (R == 0 && (reinterpret_cast<uintptr_t>(qf) & 7)) qf += 1;
+    q = reinterpret_cast<Req<R>*>(qf); f += req_words(nr);
+    if (fs_g) {
+      q_alloc = a.q_alloc;
+      ns_alloc = a.ns_alloc;
+      p_cursor = a.p_cursor;
+    } else {
+      q_alloc = f; f += a.Q * nr;
+      ns_alloc = f; f += a.NS * nr;
+      p_cursor = reinterpret_cast<int*>(f);
+    }
   }
 };
+
+// Block `owner`'s copy of block 0's node-state array p: its shared memory
+// over DSMEM, or its rows in device memory (global plan). Block 0 only.
+template <bool G, typename T>
+__device__ __forceinline__ T* peer(cg::cluster_group& cluster, const Args& a,
+                                   T* p, int owner) {
+  if constexpr (G)
+    return p + (size_t)owner * a.block_words;
+  else
+    return cluster.map_shared_rank(p, owner);
+}
 
 // ---- candidate order: score descending, then node index ascending
 
@@ -428,10 +517,11 @@ __device__ __forceinline__ void offer(float& as, int& ai, float ks, int ki,
 }
 
 template <int R>
-__device__ float queue_share(const float* alloc, const float* des) {
+__device__ float queue_share(const float* alloc, const float* des, int nr) {
+  const int n = R > 0 ? R : nr;
   float m = 0.0f;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
+  for (int r = 0; r < n; ++r) {
     float d = des[r], a = alloc[r];
     float f = isinf(d) ? 0.0f : (d == 0.0f ? (a == 0.0f ? 0.0f : 1.0f) : a / d);
     m = (r == 0) ? f : fmaxf(m, f);
@@ -441,10 +531,11 @@ __device__ float queue_share(const float* alloc, const float* des) {
 
 template <int R>
 __device__ bool queue_overused(const float* alloc, const float* des,
-                               const float* eps) {
+                               const float* eps, int nr) {
+  const int n = R > 0 ? R : nr;
   bool over = false;
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+  for (int r = 0; r < n; ++r)
     over |= !((alloc[r] <= des[r] + eps[r]) || isinf(des[r]));
   return over;
 }
@@ -455,10 +546,12 @@ __device__ bool queue_overused(const float* alloc, const float* des,
 template <int R>
 __device__ int select_pool(const Args& a, const Smem<R>& S, const float* eps,
                            int* job, int lane) {
+  const int nr = R > 0 ? R : a.R;
   auto pool_ok = [&](int p) {
     int q = __ldg(a.pool_queue + p);
     return S.p_cursor[p] < __ldg(a.pool_njobs + p) &&
-           !queue_overused<R>(S.q_alloc + q * R, a.queue_deserved + q * R, eps);
+           !queue_overused<R>(S.q_alloc + q * nr, a.queue_deserved + q * nr,
+                              eps, nr);
   };
   int ns_sel = 0;
   float best = INFINITY;
@@ -475,8 +568,8 @@ __device__ int select_pool(const Args& a, const Smem<R>& S, const float* eps,
       if (a.ns_live) {
         float m = 0.0f;
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          float t = __ldg(a.ns_total + r), al = S.ns_alloc[n * R + r];
+        for (int r = 0; r < nr; ++r) {
+          float t = __ldg(a.ns_total + r), al = S.ns_alloc[n * nr + r];
           float f = t > 0.0f ? al / t : (al == 0.0f ? 0.0f : 1.0f);
           m = (r == 0) ? f : fmaxf(m, f);
         }
@@ -504,7 +597,7 @@ __device__ int select_pool(const Args& a, const Smem<R>& S, const float* eps,
     float k = kBig;
     if (__ldg(a.pool_ns + p) == ns_sel && pool_ok(p)) {
       int q = __ldg(a.pool_queue + p);
-      k = queue_share<R>(S.q_alloc + q * R, a.queue_deserved + q * R);
+      k = queue_share<R>(S.q_alloc + q * nr, a.queue_deserved + q * nr, nr);
     }
     if (k < key) {
       key = k;
@@ -570,11 +663,13 @@ __device__ void merge_blocks(const Smem<R>& S, int tid, int warp, int lane) {
 // table (lanes 0..15 the idle class, 16..31 the future class).
 template <int R, int B>
 __device__ void refresh(const Args& a, const Smem<R>& S,
-                        cg::cluster_group& cluster, const float (&eps)[R],
+                        cg::cluster_group& cluster, const Vec<R>& eps,
                         int rank, int lo, int n_local) {
   constexpr int K = 2 * kC * B;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nb = a.nb;
+  const int nr = R > 0 ? R : a.R;
+  const bool rows_g = R == 0 && (a.flags & kRowsGlobal);
   const int g = S.desc[1], sb = S.desc[2], gen = S.desc[3];
   const int slot = S.desc[4];
   const Req<R> q(a, g);
@@ -607,17 +702,27 @@ __device__ void refresh(const Args& a, const Smem<R>& S,
     const float stat = __ldcg(static_row + lo + lc);
     const int nt = S.ntasks[lc], maxt = S.maxt[lc];
     const float pk = (sb && S.pgen[lc] == gen) ? S.pack[lc] : 0.0f;
-    float idle[R], fut[R], alloc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      idle[r] = S.idle[r * nb + lc];
-      fut[r] = S.fut[r * nb + lc];
-      alloc[r] = S.alloc[r * nb + lc];
-    }
     const bool ok = real & in_mask & ((maxt == 0) | (nt < maxt));
-    const bool fi = ok & q.fits(idle, eps);
-    const bool ff = ok & (a.allow_pipeline != 0) & q.fits(fut, eps);
-    const float s = q.score_of(idle, alloc, stat + pk * q.bonus);
+    bool fi, ff;
+    float s;
+    if constexpr (R > 0) {
+      Regs<R> idle, fut, alloc;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        idle[r] = S.idle[r * nb + lc];
+        fut[r] = S.fut[r * nb + lc];
+        alloc[r] = S.alloc[r * nb + lc];
+      }
+      fi = ok & fits(q, idle, eps);
+      ff = ok & (a.allow_pipeline != 0) & fits(q, fut, eps);
+      s = score_of(q, idle, alloc, stat + pk * q.bonus);
+    } else {
+      const View idle{S.idle + lc, nb}, fut{S.fut + lc, nb},
+          alloc{S.alloc + lc, nb};
+      fi = ok & fits(q, idle, eps);
+      ff = ok & (a.allow_pipeline != 0) & fits(q, fut, eps);
+      s = score_of(q, idle, alloc, stat + pk * q.bonus);
+    }
     ks_i = fi ? s : -INFINITY;
     ki_i = fi ? lo + li : kNone;
     ks_f = ff ? s : -INFINITY;
@@ -662,22 +767,35 @@ __device__ void refresh(const Args& a, const Smem<R>& S,
   }
   const int li = gi - lo;
   const int nt = S.ntasks[li], maxt = S.maxt[li];
-  float idle[R], fut[R];
-  float* t_idle = cluster.map_shared_rank(S.t_idle, 0);
-  float* t_fut = cluster.map_shared_rank(S.t_fut, 0);
-  float* t_alloc = cluster.map_shared_rank(S.t_alloc, 0);
+  float* t_idle = rows_g ? S.t_idle : cluster.map_shared_rank(S.t_idle, 0);
+  float* t_fut = rows_g ? S.t_fut : cluster.map_shared_rank(S.t_fut, 0);
+  float* t_alloc =
+      rows_g ? S.t_alloc : cluster.map_shared_rank(S.t_alloc, 0);
+  bool fi, ff;
+  if constexpr (R > 0) {
+    Regs<R> idle, fut;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    idle[r] = S.idle[r * nb + li];
-    fut[r] = S.fut[r * nb + li];
-    t_idle[r * K + row] = idle[r];
-    t_fut[r * K + row] = fut[r];
-    t_alloc[r * K + row] = S.alloc[r * nb + li];
+    for (int r = 0; r < R; ++r) {
+      idle[r] = S.idle[r * nb + li];
+      fut[r] = S.fut[r * nb + li];
+      t_idle[r * K + row] = idle[r];
+      t_fut[r * K + row] = fut[r];
+      t_alloc[r * K + row] = S.alloc[r * nb + li];
+    }
+    fi = fits(q, idle, eps);
+    ff = fits(q, fut, eps);
+  } else {
+    for (int r = 0; r < nr; ++r) {
+      t_idle[(size_t)r * K + row] = S.idle[r * nb + li];
+      t_fut[(size_t)r * K + row] = S.fut[r * nb + li];
+      t_alloc[(size_t)r * K + row] = S.alloc[r * nb + li];
+    }
+    fi = fits(q, View{S.idle + li, nb}, eps);
+    ff = fits(q, View{S.fut + li, nb}, eps);
   }
   // a candidate passed the mask, so its fits hang on the pod cap alone
   const bool ok = (maxt == 0) | (nt < maxt);
-  const int fit = (ok && q.fits(idle, eps) ? 1 : 0) |
-                  (ok && a.allow_pipeline && q.fits(fut, eps) ? 2 : 0);
+  const int fit = (ok && fi ? 1 : 0) | (ok && a.allow_pipeline && ff ? 2 : 0);
   t_gidx[row] = gi;
   t_fit[row] = fit;
   cluster.map_shared_rank(S.t_static, 0)[row] = __ldcg(static_row + gi);
@@ -688,20 +806,27 @@ __device__ void refresh(const Args& a, const Smem<R>& S,
   cluster.map_shared_rank(S.t_score, 0)[row] = s;
 }
 
-// One table row in the serving warp's registers: the node's changing state
-// (its capacity stays in the table, row k).
+// One table row in the serving warp: the node's changing state, in
+// registers at a compiled R, or the table's own row (a view) in the runtime
+// form, where a placement updates it in place. Its capacity stays in the
+// table, row k.
 template <int R>
 struct Row {
-  float idle[R], fut[R];
+  Vec<R> idle, fut;
   int k, nt, maxt;
   float stat, pack;
 
   __device__ void load(const Smem<R>& S, int K, int row) {
     k = row;
+    if constexpr (R > 0) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      idle[r] = S.t_idle[r * K + k];
-      fut[r] = S.t_fut[r * K + k];
+      for (int r = 0; r < R; ++r) {
+        idle[r] = S.t_idle[r * K + k];
+        fut[r] = S.t_fut[r * K + k];
+      }
+    } else {
+      idle = View{S.t_idle + k, K};
+      fut = View{S.t_fut + k, K};
     }
     nt = S.t_nt[k];
     maxt = S.t_maxt[k];
@@ -710,24 +835,145 @@ struct Row {
   }
 
   // fit bits (1 idle, 2 future) against the table's group
-  __device__ int fit_bits(const Req<R>& q, const float (&eps)[R],
+  template <class E>
+  __device__ int fit_bits(const Req<R>& q, const E& eps,
                           bool allow_pipeline) const {
     const bool ok = (maxt == 0) | (nt < maxt);
-    return (ok && q.fits(idle, eps) ? 1 : 0) |
-           (ok && allow_pipeline && q.fits(fut, eps) ? 2 : 0);
+    return (ok && fits(q, idle, eps) ? 1 : 0) |
+           (ok && allow_pipeline && fits(q, fut, eps) ? 2 : 0);
   }
 
   __device__ float stat_eff(const Req<R>& q, bool sb) const {
     return stat + (sb ? pack : 0.0f) * q.bonus;
   }
 
-  __device__ void alloc(const Smem<R>& S, int K, float (&out)[R]) const {
+  __device__ Vec<R> alloc(const Smem<R>& S, int K) const {
+    if constexpr (R > 0) {
+      Regs<R> out;
 #pragma unroll
-    for (int r = 0; r < R; ++r) out[r] = S.t_alloc[r * K + k];
+      for (int r = 0; r < R; ++r) out[r] = S.t_alloc[r * K + k];
+      return out;
+    } else {
+      return View{S.t_alloc + k, K};
+    }
   }
 };
 
-template <int R, int B>
+// score_of for the node of lane `src`'s row, computed by the whole warp
+// (every lane gets it): each of its R + 6 divisions runs on a lane of its
+// own (in rounds of 32 in the runtime form), then the terms are summed in
+// score_of's order
+template <int R>
+__device__ float score_of_warp(const Req<R>& q, const Smem<R>& S, int K,
+                               const Row<R>& x, float stat_eff_src, int src,
+                               int lane) {
+  const float stat_eff = __shfl_sync(kFull, stat_eff_src, src);
+  float acc = 0.0f;
+  float lr[2], mr[2], fr[2];
+  if constexpr (R > 0) {
+    Regs<R> alloc_src;
+    if (lane == src) alloc_src = x.alloc(S, K);
+    float idle[R], alloc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      idle[r] = __shfl_sync(kFull, x.idle[r], src);
+      alloc[r] = __shfl_sync(kFull, alloc_src[r], src);
+    }
+    float num = 1.0f, den = 1.0f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float used = alloc[r] - idle[r];
+      const float u = used + q.rq(r);
+      const float d = fmaxf(alloc[r], 1e-9f);
+      if (lane == r) {
+        num = u;
+        den = d;
+      }
+      if (r < 2) {
+        if (lane == R + r) {
+          num = fmaxf(alloc[r] - u, 0.0f);
+          den = d;
+        }
+        if (lane == R + 2 + r) {
+          num = fminf(fmaxf(u, 0.0f), alloc[r]);
+          den = d;
+        }
+        if (lane == R + 4 + r) {
+          num = u;
+          den = d;
+        }
+      }
+    }
+    const float quo = num / den;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float qr = __shfl_sync(kFull, quo, r);
+      float frac = alloc[r] > 0.0f ? qr : 2.0f;
+      float per = frac <= 1.0f ? frac * 100.0f : 0.0f;
+      acc = (r == 0) ? per * q.wt(r) : acc + per * q.wt(r);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float ql = __shfl_sync(kFull, quo, R + r);
+      const float qm = __shfl_sync(kFull, quo, R + 2 + r);
+      const float qf = __shfl_sync(kFull, quo, R + 4 + r);
+      const bool pos = alloc[r] > 0.0f;
+      lr[r] = (pos ? ql : 0.0f) * 100.0f;
+      mr[r] = (pos ? qm : 0.0f) * 100.0f;
+      fr[r] = pos ? qf : 0.0f;
+    }
+  } else {
+    // every lane reads the source row from the table
+    const int ks = __shfl_sync(kFull, x.k, src);
+    const View idle{S.t_idle + ks, K}, alloc{S.t_alloc + ks, K};
+    const int nr = q.n(), nd = nr + 6;
+    for (int base = 0; base < nd; base += 32) {
+      // division d: d < R binpack's, then least, most and the balanced
+      // fraction of resources 0 and 1
+      const int d = base + lane;
+      float num = 1.0f, den = 1.0f;
+      if (d < nr) {
+        num = (alloc[d] - idle[d]) + q.rq(d);
+        den = fmaxf(alloc[d], 1e-9f);
+      } else if (d < nd) {
+        const int j = d - nr, r = j & 1, kind = j >> 1;
+        const float al = alloc[r];
+        const float u = (al - idle[r]) + q.rq(r);
+        den = fmaxf(al, 1e-9f);
+        num = kind == 0 ? fmaxf(al - u, 0.0f)
+                        : (kind == 1 ? fminf(fmaxf(u, 0.0f), al) : u);
+      }
+      const float quo = num / den;
+      const int top = min(base + 32, nr);
+      for (int r = base; r < top; ++r) {
+        const float qr = __shfl_sync(kFull, quo, r - base);
+        float frac = alloc[r] > 0.0f ? qr : 2.0f;
+        float per = frac <= 1.0f ? frac * 100.0f : 0.0f;
+        acc = (r == 0) ? per * q.wt(r) : acc + per * q.wt(r);
+      }
+      for (int j = 0; j < 6; ++j) {
+        const int dj = nr + j;
+        if (dj < base || dj >= base + 32) continue;
+        const float v = __shfl_sync(kFull, quo, dj - base);
+        const int r = j & 1;
+        const bool pos = alloc[r] > 0.0f;
+        if (j < 2)
+          lr[r] = (pos ? v : 0.0f) * 100.0f;
+        else if (j < 4)
+          mr[r] = (pos ? v : 0.0f) * 100.0f;
+        else
+          fr[r] = pos ? v : 0.0f;
+      }
+    }
+  }
+  float s = q.w_binpack * (acc / q.wsum);
+  s = s + q.w_least * ((lr[0] + lr[1]) / 2.0f);
+  s = s + q.w_most * ((mr[0] + mr[1]) / 2.0f);
+  s = s + q.w_balanced * (100.0f - fabsf(fr[0] - fr[1]) * 100.0f);
+  return s + stat_eff;
+}
+
+template <int R, int B, bool G>
 __global__ void __launch_bounds__(kThreads, 1) gang_allocate_kernel(Args a) {
   constexpr int K = 2 * kC * B;
   extern __shared__ __align__(16) float smem[];
@@ -735,23 +981,30 @@ __global__ void __launch_bounds__(kThreads, 1) gang_allocate_kernel(Args a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rank = (int)cluster.block_rank();
   const int nb = a.nb, T = a.T;
+  const int nr = R > 0 ? R : a.R;
   const int lo = rank * nb;
   const int n_local = max(0, min(nb, a.N - lo));
-  const Smem<R> S(smem, a, K);
+  const Smem<R> S(smem, a, K, rank, G);
+  const bool fs_g = G && (a.flags & kFairGlobal);
   const bool leader = rank == 0 && warp == 0;
 
-  float eps[R];
+  Vec<R> eps;
+  if constexpr (R > 0) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) eps[r] = __ldg(a.eps + r);
+    for (int r = 0; r < R; ++r) eps[r] = __ldg(a.eps + r);
+  } else {
+    eps = View{const_cast<float*>(a.eps), 1};
+  }
 
-  // ---- this block's node state into shared memory; block 0 initialises
-  // the outputs and takes the fair-share state
+  // ---- this block's node state into shared memory (or its rows of
+  // device memory); block 0 initialises the outputs and takes the
+  // fair-share state
   for (int i = tid; i < n_local; i += kThreads) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      S.idle[r * nb + i] = __ldg(a.node_idle + (size_t)(lo + i) * R + r);
-      S.fut[r * nb + i] = __ldg(a.node_future + (size_t)(lo + i) * R + r);
-      S.alloc[r * nb + i] = __ldg(a.node_alloc + (size_t)(lo + i) * R + r);
+    for (int r = 0; r < nr; ++r) {
+      S.idle[r * nb + i] = __ldg(a.node_idle + (size_t)(lo + i) * nr + r);
+      S.fut[r * nb + i] = __ldg(a.node_future + (size_t)(lo + i) * nr + r);
+      S.alloc[r * nb + i] = __ldg(a.node_alloc + (size_t)(lo + i) * nr + r);
     }
     S.ntasks[i] = __ldg(a.node_ntasks + lo + i);
     S.maxt[i] = __ldg(a.node_max_tasks + lo + i);
@@ -767,10 +1020,15 @@ __global__ void __launch_bounds__(kThreads, 1) gang_allocate_kernel(Args a) {
       a.ready[j] = 0;
       a.kept[j] = 0;
     }
-    for (int i = tid; i < a.Q * R; i += kThreads) S.q_alloc[i] = a.q_alloc[i];
-    for (int i = tid; i < a.NS * R; i += kThreads)
-      S.ns_alloc[i] = a.ns_alloc[i];
+    if (!fs_g) {
+      for (int i = tid; i < a.Q * nr; i += kThreads)
+        S.q_alloc[i] = a.q_alloc[i];
+      for (int i = tid; i < a.NS * nr; i += kThreads)
+        S.ns_alloc[i] = a.ns_alloc[i];
+    }
     for (int p = tid; p < a.P; p += kThreads) S.p_cursor[p] = 0;
+    if (R == 0)
+      for (int r = tid; r < nr; r += kThreads) a.pres[r] = 0.0f;
   }
   cluster.sync();
 
@@ -785,11 +1043,15 @@ __global__ void __launch_bounds__(kThreads, 1) gang_allocate_kernel(Args a) {
   int gidx = -1, fit = 0;
   float score = -INFINITY;
   Row<R> mine_row;
+  // the runtime form's views must point into the table from the start
+  if (R == 0) mine_row.load(S, K, 0);
   bool dirty = false;   // the row holds the node placed last
   int dirty_src = -1;   // the lane that placed it: its state is the node's
-  float placed_res[R];
+  // the job's running request sum: every lane's registers, or (runtime
+  // form) device memory that lane 0 keeps
+  float placed_res[R > 0 ? R : 1];
 #pragma unroll
-  for (int r = 0; r < R; ++r) placed_res[r] = 0.0f;
+  for (int r = 0; r < (R > 0 ? R : 1); ++r) placed_res[r] = 0.0f;
   // the current job's span and gang numbers
   int j_start = 0, j_n = 0, j_base = 0, j_min = 0;
   auto take_job = [&]() {
@@ -800,7 +1062,7 @@ __global__ void __launch_bounds__(kThreads, 1) gang_allocate_kernel(Args a) {
     j_min = __ldg(a.job_min_available + job);
   };
   if (leader) {
-    pool = select_pool<R>(a, S, eps, &job, lane);
+    pool = select_pool<R>(a, S, &eps[0], &job, lane);
     take_job();
   }
 
@@ -862,21 +1124,17 @@ __global__ void __launch_bounds__(kThreads, 1) gang_allocate_kernel(Args a) {
             // every row's pack term changes
             cached_sb = sb;
             if (gidx >= 0) {
-              float alloc[R];
-              mine_row.alloc(S, K, alloc);
+              const Vec<R> alloc = mine_row.alloc(S, K);
               fit = mine_row.fit_bits(q, eps, a.allow_pipeline);
-              score = q.score_of(mine_row.idle, alloc,
-                                 mine_row.stat_eff(q, sb));
+              score = score_of(q, mine_row.idle, alloc,
+                               mine_row.stat_eff(q, sb));
             }
           } else if (dirty_src >= 0) {
             // the rows of the node placed last: the warp scores it once
-            float alloc[R];
-            if (lane == dirty_src) mine_row.alloc(S, K, alloc);
             const int f = __shfl_sync(
                 kFull, mine_row.fit_bits(q, eps, a.allow_pipeline), dirty_src);
-            const float sc = q.score_of_warp(mine_row.idle, alloc,
-                                             mine_row.stat_eff(q, sb),
-                                             dirty_src, lane);
+            const float sc = score_of_warp<R>(
+                q, S, K, mine_row, mine_row.stat_eff(q, sb), dirty_src, lane);
             if (dirty) {
               fit = f;
               score = sc;
@@ -904,20 +1162,20 @@ __global__ void __launch_bounds__(kThreads, 1) gang_allocate_kernel(Args a) {
             const int writer = __ffs(__ballot_sync(kFull, mine)) - 1;
             Row<R>& x = mine_row;
             if (lane == writer) {
-              float* e = a.undo + (size_t)placed * (2 + 2 * R);
+              float* e = a.undo + (size_t)placed * (2 + 2 * nr);
               e[0] = __int_as_float(sel);
               e[1] = __int_as_float(x.nt);
 #pragma unroll
-              for (int r = 0; r < R; ++r) {
+              for (int r = 0; r < nr; ++r) {
                 e[2 + r] = x.idle[r];
-                e[2 + R + r] = x.fut[r];
+                e[2 + nr + r] = x.fut[r];
               }
             }
             if (mine) {
 #pragma unroll
-              for (int r = 0; r < R; ++r) {
-                if (!pipe) x.idle[r] = x.idle[r] - q.req[r];
-                x.fut[r] = x.fut[r] - q.req[r];
+              for (int r = 0; r < nr; ++r) {
+                if (!pipe) x.idle[r] = x.idle[r] - q.rq(r);
+                x.fut[r] = x.fut[r] - q.rq(r);
               }
               x.nt += 1;
               x.pack = x.pack + 1.0f;
@@ -928,16 +1186,16 @@ __global__ void __launch_bounds__(kThreads, 1) gang_allocate_kernel(Args a) {
               // the node's new state into its owner block
               // block b's rows are b*32 .. b*32+31
               const int owner = x.k / (2 * kC), loc = sel - owner * nb;
-              float* o_idle = cluster.map_shared_rank(S.idle, owner);
-              float* o_fut = cluster.map_shared_rank(S.fut, owner);
+              float* o_idle = peer<G>(cluster, a, S.idle, owner);
+              float* o_fut = peer<G>(cluster, a, S.fut, owner);
 #pragma unroll
-              for (int r = 0; r < R; ++r) {
+              for (int r = 0; r < nr; ++r) {
                 o_idle[r * nb + loc] = x.idle[r];
                 o_fut[r * nb + loc] = x.fut[r];
               }
-              cluster.map_shared_rank(S.ntasks, owner)[loc] = x.nt;
-              cluster.map_shared_rank(S.pack, owner)[loc] = sb ? x.pack : 1.0f;
-              cluster.map_shared_rank(S.pgen, owner)[loc] = gen;
+              peer<G>(cluster, a, S.ntasks, owner)[loc] = x.nt;
+              peer<G>(cluster, a, S.pack, owner)[loc] = sb ? x.pack : 1.0f;
+              peer<G>(cluster, a, S.pgen, owner)[loc] = gen;
             }
             if (lane == 0) {
               a.assign[t_idx] = sel;
@@ -945,9 +1203,13 @@ __global__ void __launch_bounds__(kThreads, 1) gang_allocate_kernel(Args a) {
             }
             placed += 1;
             placed_alloc += pipe ? 0 : 1;
+            if constexpr (R > 0) {
 #pragma unroll
-            for (int r = 0; r < R; ++r)
-              placed_res[r] = placed_res[r] + q.req[r];
+              for (int r = 0; r < R; ++r)
+                placed_res[r] = placed_res[r] + q.rq(r);
+            } else if (lane == 0) {
+              for (int r = 0; r < nr; ++r) a.pres[r] = a.pres[r] + q.rq(r);
+            }
             __syncwarp();
           }
           cur_bucket = b;
@@ -964,39 +1226,44 @@ __global__ void __launch_bounds__(kThreads, 1) gang_allocate_kernel(Args a) {
             if (roll) {
               // replay the undo log backwards into the owner blocks
               for (int e = placed - 1; e >= 0; --e) {
-                const float* u = a.undo + (size_t)e * (2 + 2 * R);
+                const float* u = a.undo + (size_t)e * (2 + 2 * nr);
                 const int node = __float_as_int(u[0]);
                 const int owner = node / nb, loc = node - owner * nb;
-                float* o_idle = cluster.map_shared_rank(S.idle, owner);
-                float* o_fut = cluster.map_shared_rank(S.fut, owner);
+                float* o_idle = peer<G>(cluster, a, S.idle, owner);
+                float* o_fut = peer<G>(cluster, a, S.fut, owner);
 #pragma unroll
-                for (int r = 0; r < R; ++r) {
+                for (int r = 0; r < nr; ++r) {
                   o_idle[r * nb + loc] = u[2 + r];
-                  o_fut[r * nb + loc] = u[2 + R + r];
+                  o_fut[r * nb + loc] = u[2 + nr + r];
                 }
-                cluster.map_shared_rank(S.ntasks, owner)[loc] =
+                peer<G>(cluster, a, S.ntasks, owner)[loc] =
                     __float_as_int(u[1]);
               }
             } else {
               const int qi = __ldg(a.pool_queue + pool);
               const int ns = __ldg(a.pool_ns + pool);
 #pragma unroll
-              for (int r = 0; r < R; ++r) {
-                S.q_alloc[qi * R + r] = S.q_alloc[qi * R + r] + placed_res[r];
-                S.ns_alloc[ns * R + r] = S.ns_alloc[ns * R + r] + placed_res[r];
+              for (int r = 0; r < nr; ++r) {
+                float pr;
+                if constexpr (R > 0) pr = placed_res[r];
+                else pr = a.pres[r];
+                S.q_alloc[qi * nr + r] = S.q_alloc[qi * nr + r] + pr;
+                S.ns_alloc[ns * nr + r] = S.ns_alloc[ns * nr + r] + pr;
               }
             }
             S.p_cursor[pool] += 1;
             if (is_ready) a.ready[job] = 1;
             if (is_kept) a.kept[job] = 1;
+            if (R == 0)
+              for (int r = 0; r < nr; ++r) a.pres[r] = 0.0f;
           }
           __syncwarp();
           if (roll) force = true;
-          pool = select_pool<R>(a, S, eps, &job, lane);
+          pool = select_pool<R>(a, S, &eps[0], &job, lane);
           take_job();
           t_off = placed = placed_alloc = 0;
 #pragma unroll
-          for (int r = 0; r < R; ++r) placed_res[r] = 0.0f;
+          for (int r = 0; r < (R > 0 ? R : 1); ++r) placed_res[r] = 0.0f;
         }
       }
     }
@@ -1012,9 +1279,9 @@ __global__ void __launch_bounds__(kThreads, 1) gang_allocate_kernel(Args a) {
   // committed nor kept are not placed
   for (int i = tid; i < n_local; i += kThreads) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      a.out_idle[(size_t)(lo + i) * R + r] = S.idle[r * nb + i];
-      a.out_future[(size_t)(lo + i) * R + r] = S.fut[r * nb + i];
+    for (int r = 0; r < nr; ++r) {
+      a.out_idle[(size_t)(lo + i) * nr + r] = S.idle[r * nb + i];
+      a.out_future[(size_t)(lo + i) * nr + r] = S.fut[r * nb + i];
     }
     a.out_ntasks[lo + i] = S.ntasks[i];
   }
@@ -1026,9 +1293,12 @@ __global__ void __launch_bounds__(kThreads, 1) gang_allocate_kernel(Args a) {
     a.stats[1] = (int)cluster.num_blocks();
     a.stats[2] = (int)dyn_smem;
   }
-  for (int i = tid; i < a.Q * R; i += kThreads) a.q_alloc[i] = S.q_alloc[i];
-  for (int i = tid; i < a.NS * R; i += kThreads) a.ns_alloc[i] = S.ns_alloc[i];
-  for (int p = tid; p < a.P; p += kThreads) a.p_cursor[p] = S.p_cursor[p];
+  if (!fs_g) {
+    for (int i = tid; i < a.Q * nr; i += kThreads) a.q_alloc[i] = S.q_alloc[i];
+    for (int i = tid; i < a.NS * nr; i += kThreads)
+      a.ns_alloc[i] = S.ns_alloc[i];
+    for (int p = tid; p < a.P; p += kThreads) a.p_cursor[p] = S.p_cursor[p];
+  }
   __syncthreads();
   for (int t = tid; t < T; t += kThreads) {
     int j = min(max(a.task_job[t], 0), a.J - 1);
@@ -1039,9 +1309,9 @@ __global__ void __launch_bounds__(kThreads, 1) gang_allocate_kernel(Args a) {
   }
 }
 
-template <int R, int B>
+template <int R, int B, bool G>
 cudaError_t launch(const Args& a, int shared_bytes, cudaStream_t stream) {
-  auto kernel = gang_allocate_kernel<R, B>;
+  auto kernel = gang_allocate_kernel<R, B, G>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
   if (e != cudaSuccess) return e;
@@ -1071,25 +1341,91 @@ cudaError_t launch(const Args& a, int shared_bytes, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the global plan runs 16 blocks; the shared plan 8 or 16
 template <int R>
 cudaError_t launch_r(const Args& a, int blocks, int shared_bytes,
                      cudaStream_t stream) {
-  return blocks == 8 ? launch<R, 8>(a, shared_bytes, stream)
-                     : launch<R, 16>(a, shared_bytes, stream);
+  if (a.flags & kNodeGlobal) return launch<R, 16, true>(a, shared_bytes, stream);
+  return blocks == 8 ? launch<R, 8, false>(a, shared_bytes, stream)
+                     : launch<R, 16, false>(a, shared_bytes, stream);
 }
 
-}  // namespace
+// the part that compiles the kernels of resource count R (R = 0: the
+// runtime form); the sixteen forms are dealt round the parts
+__host__ __device__ constexpr int owner_part(int R) {
+  return ((R == 0 || R > kMaxStaticR ? kMaxStaticR + 1 : R) - 2) % PARTS;
+}
 
+template <int P>
+cudaError_t launch_part(const Args& a, int blocks, int shared_bytes,
+                        cudaStream_t stream);
+
+template <int R>
+cudaError_t launch_owned(const Args& a, int blocks, int shared_bytes,
+                         cudaStream_t stream) {
+  if constexpr (owner_part(R) == PART)
+    return launch_r<R>(a, blocks, shared_bytes, stream);
+  else
+    return cudaErrorInvalidValue;
+}
+
+template <>
+cudaError_t launch_part<PART>(const Args& a, int blocks, int shared_bytes,
+                              cudaStream_t s) {
+  switch (a.R) {
+    case 2: return launch_owned<2>(a, blocks, shared_bytes, s);
+    case 3: return launch_owned<3>(a, blocks, shared_bytes, s);
+    case 4: return launch_owned<4>(a, blocks, shared_bytes, s);
+    case 5: return launch_owned<5>(a, blocks, shared_bytes, s);
+    case 6: return launch_owned<6>(a, blocks, shared_bytes, s);
+    case 7: return launch_owned<7>(a, blocks, shared_bytes, s);
+    case 8: return launch_owned<8>(a, blocks, shared_bytes, s);
+    case 9: return launch_owned<9>(a, blocks, shared_bytes, s);
+    case 10: return launch_owned<10>(a, blocks, shared_bytes, s);
+    case 11: return launch_owned<11>(a, blocks, shared_bytes, s);
+    case 12: return launch_owned<12>(a, blocks, shared_bytes, s);
+    case 13: return launch_owned<13>(a, blocks, shared_bytes, s);
+    case 14: return launch_owned<14>(a, blocks, shared_bytes, s);
+    case 15: return launch_owned<15>(a, blocks, shared_bytes, s);
+    case 16: return launch_owned<16>(a, blocks, shared_bytes, s);
+    default: return launch_owned<0>(a, blocks, shared_bytes, s);
+  }
+}
+
+#if PART == 0
+// the other parts' launchers, defined in their own compiles
+#if PARTS > 1
+template <>
+cudaError_t launch_part<1>(const Args&, int, int, cudaStream_t);
+#endif
+#if PARTS > 2
+template <>
+cudaError_t launch_part<2>(const Args&, int, int, cudaStream_t);
+#endif
+#if PARTS > 3
+template <>
+cudaError_t launch_part<3>(const Args&, int, int, cudaStream_t);
+#endif
+#endif
+
+}  // namespace ga
+
+#if PART == 0
 extern "C" {
 
 // Launches the kernel as one cluster of `blocks` blocks on `stream`
-// without synchronising. Returns the cudaError_t of the launch (0 on
-// success): cudaErrorInvalidValue (1) for a resource count outside 2..8,
-// a cluster size other than 8 or 16, a task_slot without slot_ok rows, or
-// a shared-memory size that is not this file's layout (task_slot null
-// means no domain slots, else slot_ok holds S + 1 rows of N bytes);
-// cudaErrorInvalidClusterSize
-// when the card cannot host the cluster.
+// without synchronising. `flags` is the plan (kNodeGlobal: node state in
+// `scratch`, which then needs 16 blocks; kFairGlobal: the fair-share state
+// in q_alloc, ns_alloc and p_cursor, with kNodeGlobal only; kRowsGlobal:
+// the table's R-wide rows in `scratch`, above R = 16 only), laid out in
+// `scratch` as node state, table rows, then R words of the runtime form's
+// request sum. Returns the cudaError_t of the launch (0 on success):
+// cudaErrorInvalidValue (1) for R < 2, a cluster size other than 8 or 16,
+// flags outside these rules, a task_slot without slot_ok rows, a missing
+// scratch, or a shared-memory size that is not this file's layout
+// (task_slot null means no domain slots, else slot_ok holds S + 1 rows of
+// N bytes); cudaErrorInvalidClusterSize when the card cannot host the
+// cluster.
 int gang_allocate_launch(
     const void* task_group, const void* task_valid, const void* task_bucket,
     const void* task_job, const void* task_slot, const void* slot_ok,
@@ -1104,16 +1440,24 @@ int gang_allocate_launch(
     const void* node_max_tasks, const void* eps, const void* weights,
     void* out_idle, void* out_future, void* out_ntasks, void* undo,
     void* q_alloc, void* ns_alloc, void* p_cursor, void* assign,
-    void* pipelined, void* ready, void* kept, void* stats,
+    void* pipelined, void* ready, void* kept, void* stats, void* scratch,
     int T, int J, int P, int NS, int Q, int N, int S, int R,
     int allow_pipeline,
-    int ns_live, int blocks, int nodes_per_block, int shared_bytes,
-    void* stream) {
-  if (R < 2 || R > 8 || (blocks != 8 && blocks != 16) ||
+    int ns_live, int blocks, int nodes_per_block, int flags,
+    int shared_bytes, void* stream) {
+  using namespace ga;
+  const int node_g = (flags & kNodeGlobal) ? 1 : 0;
+  const int fs_g = (flags & kFairGlobal) ? 1 : 0;
+  const int rows_g = (flags & kRowsGlobal) ? 1 : 0;
+  const bool needs_scratch = node_g || rows_g || R > kMaxStaticR;
+  if (R < 2 || (blocks != 8 && blocks != 16) || (flags & ~7) ||
+      (node_g && blocks != 16) || (fs_g && !node_g) ||
+      (rows_g && R <= kMaxStaticR) || (needs_scratch && scratch == nullptr) ||
       (task_slot != nullptr && (slot_ok == nullptr || S < 0)) ||
       nodes_per_block < 1 || (long)blocks * nodes_per_block < N ||
-      shared_bytes !=
-          4 * shared_words(nodes_per_block, blocks, R, Q, NS, P))
+      (long)shared_bytes !=
+          4 * shared_words(nodes_per_block, blocks, R, Q, NS, P, node_g,
+                           fs_g, rows_g, req_words(R)))
     return cudaErrorInvalidValue;
   Args a;
   a.task_group = static_cast<const int32_t*>(task_group);
@@ -1156,6 +1500,13 @@ int gang_allocate_launch(
   a.ready = static_cast<uint8_t*>(ready);
   a.kept = static_cast<uint8_t*>(kept);
   a.stats = static_cast<int32_t*>(stats);
+  a.block_words = (size_t)(3 * R + 4) * nodes_per_block;
+  float* s = static_cast<float*>(scratch);
+  a.nstate = s;
+  if (node_g) s += (size_t)blocks * a.block_words;
+  a.trows = s;
+  if (rows_g) s += (size_t)3 * R * 2 * kC * blocks;
+  a.pres = s;
   a.T = T;
   a.J = J;
   a.P = P;
@@ -1163,18 +1514,23 @@ int gang_allocate_launch(
   a.Q = Q;
   a.N = N;
   a.S = S;
+  a.R = R;
   a.allow_pipeline = allow_pipeline;
   a.ns_live = ns_live;
   a.nb = nodes_per_block;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (R) {
-    case 2: return launch_r<2>(a, blocks, shared_bytes, s);
-    case 3: return launch_r<3>(a, blocks, shared_bytes, s);
-    case 4: return launch_r<4>(a, blocks, shared_bytes, s);
-    case 5: return launch_r<5>(a, blocks, shared_bytes, s);
-    case 6: return launch_r<6>(a, blocks, shared_bytes, s);
-    case 7: return launch_r<7>(a, blocks, shared_bytes, s);
-    default: return launch_r<8>(a, blocks, shared_bytes, s);
+  a.flags = flags;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (owner_part(R)) {
+#if PARTS > 1
+    case 1: return launch_part<1>(a, blocks, shared_bytes, st);
+#endif
+#if PARTS > 2
+    case 2: return launch_part<2>(a, blocks, shared_bytes, st);
+#endif
+#if PARTS > 3
+    case 3: return launch_part<3>(a, blocks, shared_bytes, st);
+#endif
+    default: return launch_part<0>(a, blocks, shared_bytes, st);
   }
 }
 
@@ -1183,3 +1539,4 @@ const char* gang_allocate_error_string(int code) {
 }
 
 }  // extern "C"
+#endif

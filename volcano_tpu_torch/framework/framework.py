@@ -26,53 +26,76 @@ def open_session(cache, tiers, configurations=None, clock=None,
                  device=None) -> Session:
     """Open one scheduling cycle's session: snapshot the cache, build the
     placement solver on ``device`` (default: the GPU), open the plugins,
-    then drop invalid gangs."""
-    snapshot = cache.snapshot()
-    ssn = Session(cache, snapshot, tiers, configurations, clock=clock)
-    ssn.solver = BatchSolver(ssn, device=device)
-    # pre-session PodGroup statuses for the close-time writeback dedup
-    for job in ssn.jobs.values():
-        if job.pod_group is not None:
-            ssn.pod_group_status[job.uid] = status_fingerprint(
-                job.pod_group.status)
-    ssn.total_resource = Resource()
-    for n in ssn.nodes.values():
-        ssn.total_resource.add(n.allocatable)
+    then drop invalid gangs. Traced as the reference's spans:
+    open_session > snapshot, plugin_open (one a plugin), job_valid."""
+    from ..metrics import metrics as m
+    from ..trace import tracer as tr
+    with tr.span("open_session"):
+        with tr.span("snapshot"):
+            snapshot = cache.snapshot()
+        ssn = Session(cache, snapshot, tiers, configurations, clock=clock)
+        ssn.solver = BatchSolver(ssn, device=device)
+        # pre-session PodGroup statuses for the close-time writeback dedup
+        for job in ssn.jobs.values():
+            if job.pod_group is not None:
+                ssn.pod_group_status[job.uid] = status_fingerprint(
+                    job.pod_group.status)
+        ssn.total_resource = Resource()
+        for n in ssn.nodes.values():
+            ssn.total_resource.add(n.allocatable)
 
-    for tier in tiers:
-        for opt in tier.plugins:
-            builder = get_plugin_builder(opt.name)
-            if builder is None:
-                continue
-            plugin = builder(opt.arguments)
-            ssn.plugins[plugin.name()] = plugin
-            plugin.on_session_open(ssn)
+        for tier in tiers:
+            for opt in tier.plugins:
+                builder = get_plugin_builder(opt.name)
+                if builder is None:
+                    continue
+                plugin = builder(opt.arguments)
+                ssn.plugins[plugin.name()] = plugin
+                with m.plugin_timer(plugin.name(), "OnSessionOpen"), \
+                        tr.span("plugin_open", plugin=plugin.name()):
+                    plugin.on_session_open(ssn)
 
-    # drop invalid gangs (JobValid), writing the Unschedulable
-    # condition. Pending PodGroups are exempt: their pods don't exist
-    # yet (the job controller gates pod creation on the enqueue action
-    # moving the group to Inqueue), so gang's valid-task-count check
-    # cannot apply to them.
-    for job in list(ssn.jobs.values()):
-        if job.pod_group is not None and \
-                job.pod_group.status.phase == PodGroupPhase.PENDING:
-            continue
-        vr = ssn.job_valid(job)
-        if vr is not None and not vr.passed:
-            update_pod_group_condition(ssn, job, PodGroupCondition(
-                type=PodGroupConditionType.UNSCHEDULABLE,
-                status="True", transition_id=ssn.uid,
-                reason=vr.reason, message=vr.message))
-            del ssn.jobs[job.uid]
+        # drop invalid gangs (JobValid), writing the Unschedulable
+        # condition. Pending PodGroups are exempt: their pods don't exist
+        # yet (the job controller gates pod creation on the enqueue action
+        # moving the group to Inqueue), so gang's valid-task-count check
+        # cannot apply to them.
+        with tr.span("job_valid"):
+            for job in list(ssn.jobs.values()):
+                if job.pod_group is not None and \
+                        job.pod_group.status.phase == PodGroupPhase.PENDING:
+                    continue
+                vr = ssn.job_valid(job)
+                if vr is not None and not vr.passed:
+                    update_pod_group_condition(ssn, job, PodGroupCondition(
+                        type=PodGroupConditionType.UNSCHEDULABLE,
+                        status="True", transition_id=ssn.uid,
+                        reason=vr.reason, message=vr.message))
+                    del ssn.jobs[job.uid]
     return ssn
 
 
 def close_session(ssn: Session) -> None:
-    for plugin in ssn.plugins.values():
-        plugin.on_session_close(ssn)
-    JobUpdater(ssn).update_all()
-    ssn.plugins = {}
-    ssn.event_handlers = []
+    """Close the plugins, publish the "why pending" report while tracing
+    is on, and push the changed PodGroup statuses (spans close_session >
+    plugin_close, pending_diagnosis, job_updater)."""
+    from ..metrics import metrics as m
+    from ..trace import tracer as tr
+    with tr.span("close_session"):
+        for plugin in ssn.plugins.values():
+            with m.plugin_timer(plugin.name(), "OnSessionClose"), \
+                    tr.span("plugin_close", plugin=plugin.name()):
+                plugin.on_session_close(ssn)
+        if tr.is_enabled():
+            # after the plugin closes: gang has just written fit errors
+            # and conditions
+            from ..trace import pending
+            with tr.span("pending_diagnosis"):
+                pending.publish(ssn)
+        with tr.span("job_updater"):
+            JobUpdater(ssn).update_all()
+        ssn.plugins = {}
+        ssn.event_handlers = []
 
 
 def update_pod_group_condition(ssn: Session, job: JobInfo,

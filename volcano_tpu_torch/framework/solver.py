@@ -19,7 +19,10 @@ kernel's assignment back into per-job placements. Placement constraints
 (topology spread, pod anti-affinity) reach the kernel through
 ops/constraints.py, as per-task domain slots on the place path and as
 split groups in host contexts. The conf keys of the reference that only
-choose among exact kernels are accepted and ignored.
+choose among exact kernels are accepted and ignored. Each launch counts
+on ``volcano_solver_kernel_runs_total{kernel}`` under its route, "cuda"
+(the hand kernel) or "plain" (the plain loop on the CPU), and is traced
+as the reference's ``kernel`` span (``DenseSolver.launch``).
 """
 
 from __future__ import annotations
@@ -36,18 +39,27 @@ from ..models import arrays
 from ..models.arrays import NodeArrays, ResourceIndex, TaskBatch
 from ..models.job_info import JobInfo, TaskInfo
 from ..models.unschedule_info import FitErrors
+from ..metrics import metrics as m
 from ..ops import constraints, prune
-from ..ops.cuda_allocate import gang_allocate_cuda
+from ..ops.cuda_allocate import cluster_plan, gang_allocate_cuda
 from ..ops.fairshare import proportion_waterfill
 from ..ops.fit import group_fit_mask, selector_mask, taint_mask
 from ..ops.prune import PruneConf
 from ..ops.score import ScoreWeights
+from ..trace import explain
+from ..trace import tracer as tr
 from ..utils.platform import default_device
 
 # the start of the sampling window: a process-wide cursor, as the
 # reference's node cursor (scheduler_helper.go:95); it advances by the
 # window's width each sampled session
 _node_cursor = 0
+
+# the fleet fragmentation gauge's cadence: every place() when the
+# explainer is on, else one place() in FRAG_EVERY (a process-wide count,
+# volcano_tpu/framework/solver.py:47-62)
+FRAG_EVERY = 16
+_place_counter = 0
 
 
 class PredicateFeatures(NamedTuple):
@@ -80,6 +92,9 @@ class DensePlacement:
     queue_deserved: torch.Tensor  # [Q, R] f32 the budgets the kernel used
     group_mask: torch.Tensor      # [G, N] bool the static mask the kernel used
     kernel_ms: float              # the gang-allocate call on the device
+    route: str = "plain"          # the kernel's route: "cuda" or "plain"
+    plan: str = "shared"          # its cluster plan (ops/cuda_allocate.py)
+    r: int = 0                    # its resource count R
 
     @property
     def n_placed(self) -> int:
@@ -125,24 +140,39 @@ class DenseSolver:
             *(torch.as_tensor(x, dtype=torch.float32).to(self.device)
               for x in queues))
 
-    def static_mask(self) -> torch.Tensor:
+    def static_mask(self, stages: Optional[list] = None,
+                    parts=()) -> torch.Tensor:
         """[G, N] bool: capability fit & the snapshot's group mask, AND the
-        selector and taint masks when features are given."""
+        selector and taint masks when features are given. ``stages`` (the
+        explainer's) collects the mask ladder in the reference's order as
+        ``(label, survivors [G])``: fit, selector, taint, then each of
+        ``parts`` ((label, [G, N] mask) that make up the group mask)."""
         a = self.arrays
         cap = a["node_alloc"] if self.capability is None else self.capability
         uniq_cap, inv = torch.unique(cap, dim=0, return_inverse=True)
         valid = torch.ones(inv.shape[0], dtype=torch.bool, device=self.device) \
             if self.valid is None else self.valid
         gmask = fused_static_mask(a["group_req"], uniq_cap, inv, valid,
-                                  a["eps"]) & a["group_mask"]
+                                  a["eps"])
+
+        def stage(label, mask):
+            nonlocal gmask
+            gmask = gmask & mask
+            if stages is not None:
+                stages.append((label, gmask.sum(dim=1)))
+
+        if stages is not None:
+            stages.append(("fit", gmask.sum(dim=1)))
         f = self.features
         if f is not None:
             if bool(f.group_require_counts.any()):
-                gmask &= selector_mask(f.node_pairs, f.group_requires,
-                                       f.group_require_counts)
+                stage("selector", selector_mask(f.node_pairs, f.group_requires,
+                                                f.group_require_counts))
             if bool(f.node_taints.any()):
-                gmask &= taint_mask(f.node_taints, f.group_tolerates)
-        return gmask
+                stage("taint", taint_mask(f.node_taints, f.group_tolerates))
+        for label, part in parts:
+            stage(label, torch.as_tensor(part).to(self.device))
+        return gmask & a["group_mask"]
 
     def queue_deserved(self) -> torch.Tensor:
         """[Q, R]: the snapshot's budgets, or the water-fill of the cluster
@@ -162,56 +192,86 @@ class DenseSolver:
 
     def launch(self, gmask: torch.Tensor, allow_pipeline: bool = True,
                ns_live: bool = False,
-               arrays: Optional[Dict[str, torch.Tensor]] = None
+               arrays: Optional[Dict[str, Any]] = None
                ) -> DensePlacement:
         """The gang-allocate kernel on the static mask ``gmask`` and the
         decode. ``arrays`` (default: the snapshot's tensors) may be a
         reduced copy of them whose node axis is a subset of the snapshot's
-        (the pruned place); the results then index that axis."""
-        a = self.arrays if arrays is None else arrays
-        args = convert.args(a)
-        names = list(convert.FIELDS)
-        args[names.index("group_mask")] = gmask
-        deserved = self.queue_deserved()
-        args[names.index("queue_deserved")] = deserved
+        (the pruned place); the results then index that axis. Entries of
+        ``arrays`` still on the host (numpy) are copied to the device
+        here.
 
+        Traced as the reference's ``kernel`` span (tags: the route,
+        ``cuda`` or ``plain``, the padded shapes, whether pruned, the
+        bytes copied), with ``tensor_build`` > ``transfer`` (the argument
+        list, and the host->device copy of host entries) and ``execute``
+        (the launch; asynchronous on the card, so the span times only the
+        launch, and its ``kernel_ms`` tag is the kernel's device time from
+        the CUDA events, read at the decode's existing sync)."""
         on_cuda = self.device.type == "cuda"
-        if on_cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-        else:
-            t0 = time.perf_counter()
-        assign, pipelined, ready, kept, _ = gang_allocate_cuda(
-            *args, self.weights, allow_pipeline=allow_pipeline,
-            ns_live=ns_live, **convert.slot_kwargs(a))
-        if on_cuda:
-            end.record()
-        else:
-            kernel_ms = (time.perf_counter() - t0) * 1000.0
+        route = "cuda" if on_cuda else "plain"
+        a = self.arrays if arrays is None else arrays
+        G, N = gmask.shape
+        T = a["task_group"].shape[0]
+        with tr.span("kernel", kernel=route, g_pad=int(G), n_pad=int(N),
+                     t_pad=int(T), pruned=arrays is not None):
+            with tr.span("tensor_build"):
+                with tr.span("transfer"):
+                    xfer = sum(int(np.asarray(v).nbytes) for v in a.values()
+                               if not isinstance(v, torch.Tensor))
+                    if xfer:
+                        a = convert.as_tensors(a, self.device)
+                args = convert.args(a)
+                names = list(convert.FIELDS)
+                args[names.index("group_mask")] = gmask
+                deserved = self.queue_deserved()
+                args[names.index("queue_deserved")] = deserved
+            m.inc(m.DEVICE_TRANSFER_BYTES, float(xfer))
+            tr.add_tags(transfer_bytes=xfer)
+            R = a["group_req"].shape[1]
+            plan = cluster_plan(int(N), int(R), int(deserved.shape[0]),
+                                int(a["ns_weight"].shape[0]),
+                                int(a["pool_queue"].shape[0])).kind
 
-        # decode (solver.py:1036-1048): per-job and per-node totals
-        J, R = a["job_min_available"].shape[0], a["group_req"].shape[1]
-        N = a["node_idle"].shape[0]
-        placed = assign >= 0
-        tj = a["task_job"].long()
-        rows = a["group_req"][a["task_group"].long()]               # [T, R]
-        job_placed = torch.zeros(J, dtype=torch.int32, device=self.device)
-        job_placed.index_add_(0, tj, placed.to(torch.int32))
-        job_total = torch.zeros((J, R), dtype=torch.float32,
-                                device=self.device)
-        job_total.index_add_(0, tj, rows * placed[:, None])
-        on_idle = placed & ~pipelined
-        node_alloc_vec = torch.zeros((N, R), dtype=torch.float32,
-                                     device=self.device)
-        node_alloc_vec.index_add_(0, assign.clamp(min=0).long(),
-                                  rows * on_idle[:, None])
-        if on_cuda:
-            end.synchronize()
-            kernel_ms = start.elapsed_time(end)
+            if on_cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+            with tr.span("execute") as execute:
+                if on_cuda:
+                    start.record()
+                else:
+                    t0 = time.perf_counter()
+                assign, pipelined, ready, kept, _ = gang_allocate_cuda(
+                    *args, self.weights, allow_pipeline=allow_pipeline,
+                    ns_live=ns_live, **convert.slot_kwargs(a))
+                if on_cuda:
+                    end.record()
+                else:
+                    kernel_ms = (time.perf_counter() - t0) * 1000.0
+            m.inc(m.SOLVER_KERNEL_RUNS, kernel=route)
+
+            # decode (solver.py:1036-1048): per-job and per-node totals
+            J = a["job_min_available"].shape[0]
+            placed = assign >= 0
+            tj = a["task_job"].long()
+            rows = a["group_req"][a["task_group"].long()]           # [T, R]
+            job_placed = torch.zeros(J, dtype=torch.int32, device=self.device)
+            job_placed.index_add_(0, tj, placed.to(torch.int32))
+            job_total = torch.zeros((J, R), dtype=torch.float32,
+                                    device=self.device)
+            job_total.index_add_(0, tj, rows * placed[:, None])
+            on_idle = placed & ~pipelined
+            node_alloc_vec = torch.zeros((N, R), dtype=torch.float32,
+                                         device=self.device)
+            node_alloc_vec.index_add_(0, assign.clamp(min=0).long(),
+                                      rows * on_idle[:, None])
+            if on_cuda:
+                end.synchronize()
+                kernel_ms = start.elapsed_time(end)
+            tr.tag_span(execute, kernel_ms=kernel_ms)
         return DensePlacement(assign, pipelined, ready, kept, job_placed,
                               job_total, node_alloc_vec, deserved, gmask,
-                              kernel_ms)
+                              kernel_ms, route, plan, int(R))
 
 
 class Placement(NamedTuple):
@@ -283,6 +343,15 @@ class BatchSolver:
                                                       0.0)
             self.sampling_min = solver_args.get_int("sampling.minNodes", 100)
         self.prune = PruneConf.from_args(solver_args)
+        # the placement explainer (trace/explain.py): the solver conf's
+        # ``explain.enable`` overrides the module switch; the operator's
+        # shortlist width joins its recorded coverage widths
+        self.explain = explain.session_enabled(solver_args)
+        if not self.prune.off:
+            explain.register_prune_k(self.prune.k)
+        # the group mask's parts for the explainer's ladder, set by each
+        # context build while the explainer is on
+        self._explain_parts: List[Tuple[str, np.ndarray]] = []
         self._sampled_names: Optional[List[str]] = None
         # the exact-dedupe license of the shortlist distillation, set by
         # each context build (_context)
@@ -441,13 +510,18 @@ class BatchSolver:
                                                slot_entries=slot_entries)
 
         gmask = None
+        parts: List[Tuple[str, np.ndarray]] = []
         if self.enable_default_predicates and \
                 feats.group_affinity_ok is not None:
             gmask = feats.group_affinity_ok
+            parts.append(("node_affinity", gmask))
         for fn in self.mask_fns:
             contrib = fn(batch, narr, feats)
             if contrib is not None:
                 gmask = contrib if gmask is None else gmask & contrib
+                parts.append((getattr(fn, "explain_label", "plugin"),
+                              contrib))
+        self._explain_parts = parts if self.explain else []
         static_score = None
         for fn in self.static_score_fns:
             contrib = fn(batch, narr, feats)
@@ -546,16 +620,42 @@ class BatchSolver:
     def place(self, ordered_jobs: List[Tuple[JobInfo, List[TaskInfo]]],
               allow_pipeline: bool = True) -> PlacementResult:
         """Run the gang-allocate kernel for the ordered job/task batch
-        against the session's *current* node state."""
+        against the session's *current* node state (span solver.place,
+        tagged with the placed tasks and committed jobs)."""
+        with tr.span("solver.place", jobs=len(ordered_jobs)):
+            result = self._place(ordered_jobs, allow_pipeline)
+            tr.add_tags(
+                placed=sum(len(p) for p in result.placements.values()),
+                committed=sum(1 for ok in result.committed.values() if ok))
+            return result
+
+    def _place(self, ordered_jobs, allow_pipeline: bool) -> PlacementResult:
+        global _place_counter
         t0 = time.perf_counter()
         self.ssn._constraint_ms = 0.0
-        narr, batch, dense = self._context(ordered_jobs, self.device,
-                                           slot_tensors=True)
-        t1 = time.perf_counter()
-        gmask = dense.static_mask()
+        with tr.span("build_context"):
+            narr, batch, dense = self._context(ordered_jobs, self.device,
+                                               slot_tensors=True)
+            t1 = time.perf_counter()
+            stages = [] if self.explain else None
+            gmask = dense.static_mask(stages, self._explain_parts)
+        # kernel cost attribution: padded against live rows of each
+        # kernel axis, and the fleet fragmentation gauge
+        _place_counter += 1
+        n_real_nodes = len(narr.names)
+        m.set_gauge(m.PADDED_WASTE, round(
+            1.0 - n_real_nodes / max(1, narr.n_pad), 4), axis="nodes")
+        m.set_gauge(m.PADDED_WASTE, round(
+            1.0 - batch.n_groups / max(1, batch.g_pad), 4), axis="groups")
+        m.set_gauge(m.PADDED_WASTE, round(
+            1.0 - len(batch.tasks) / max(1, int(batch.task_group.shape[0])),
+            4), axis="tasks")
+        if self.explain or _place_counter % FRAG_EVERY == 0:
+            explain.note_fragmentation(narr)
+        t_kernel = time.perf_counter()
         runs: List[DensePlacement] = []
         ctx, distill_ms, assign = None, None, None
-        if self.prune.active(len(narr.names)):
+        if self.prune.active(n_real_nodes):
             ctx, distill_ms, assign = self._place_pruned(
                 narr, batch, dense, gmask, allow_pipeline, runs)
         if assign is None:
@@ -566,6 +666,7 @@ class BatchSolver:
         ready_list = out.ready.cpu().tolist()
         kept_list = out.kept.cpu().tolist()
         t2 = time.perf_counter()
+        m.observe(m.SOLVER_KERNEL_LATENCY, (t2 - t_kernel) * 1000.0)
         stats = gang_allocate_cuda.last_stats
         prune_record = None
         if ctx is not None:
@@ -582,6 +683,8 @@ class BatchSolver:
             "launch_ms": [r.kernel_ms for r in runs],
             "launch": stats.tolist() if stats is not None
             and self.device.type == "cuda" else None,
+            "plan": out.plan,
+            "R": out.r,
             "prune": prune_record})
 
         # decode (volcano_tpu/framework/solver.py:1016-1106): one pass over
@@ -639,12 +742,22 @@ class BatchSolver:
             result.unplaced[job.uid] = unplaced
         if unplaced_records:
             # fit errors read the mask rows of the unplaced groups only
-            gs = sorted({g for _, _, g in unplaced_records})
-            rows = gmask[torch.tensor(gs, device=gmask.device)].cpu().numpy()
-            row_of = {g: rows[i] for i, g in enumerate(gs)}
-            for job, task, g in unplaced_records:
-                self._record_fit_errors(job, task, narr, row_of[g])
+            with tr.span("fit_errors", tasks=len(unplaced_records)):
+                gs = sorted({g for _, _, g in unplaced_records})
+                rows = gmask[torch.tensor(gs, device=gmask.device)] \
+                    .cpu().numpy()
+                row_of = {g: rows[i] for i, g in enumerate(gs)}
+                for job, task, g in unplaced_records:
+                    self._record_fit_errors(job, task, narr, row_of[g])
         self.stats[-1]["decode_ms"] = (time.perf_counter() - t2) * 1000.0
+        if self.explain:
+            # decision provenance from the mask and score this place
+            # compiled (trace/explain.py)
+            with tr.span("explain_capture"):
+                explain.record_place(
+                    self.ssn, batch, narr, stages, gmask,
+                    dense.arrays["group_static_score"], dense.weights,
+                    assign, result, out.route)
         return result
 
     def _reduced_inputs(self, batch: TaskBatch, narr: NodeArrays,
@@ -672,8 +785,7 @@ class BatchSolver:
                            ("node_alloc", narr.allocatable),
                            ("node_ntasks", narr.n_tasks),
                            ("node_max_tasks", narr.max_tasks)):
-            a[name] = torch.from_numpy(host[idx]).to(
-                device=dev, dtype=convert.FIELDS[name])
+            a[name] = host[idx]
         return a
 
     def _place_pruned(self, narr: NodeArrays, batch: TaskBatch,
@@ -685,26 +797,40 @@ class BatchSolver:
         distillation's ms, the global assign or None): None, with the
         context's ``fallback`` set, when a pre-kernel guard (low coverage,
         a wide or empty union) or the post-kernel exhaustion guard sends
-        the place to the full-width kernel. The reduced run's placement
+        the place to the full-width kernel; each fallback counts once on
+        volcano_prune_fallback_total{reason}. The reduced run's placement
         is appended to ``runs``. No exception is caught: a failing
-        distillation or launch fails the place."""
+        distillation or launch fails the place. Spans prune_distill and
+        pruned_kernel, the latter tagged with the reduced launch's
+        ``kernel_ms``."""
         t0 = time.perf_counter()
-        ctx = prune.distill(batch, narr, gmask,
-                            dense.arrays["group_static_score"],
-                            dense.weights, self.prune,
-                            dedupe=self._prune_dedupe_ok)
+        with tr.span("prune_distill", k=self.prune.k):
+            ctx = prune.distill(batch, narr, gmask,
+                                dense.arrays["group_static_score"],
+                                dense.weights, self.prune,
+                                dedupe=self._prune_dedupe_ok)
         distill_ms = (time.perf_counter() - t0) * 1000.0
         guard = ctx.pre_guard()
         if guard is not None:
             ctx.fallback, ctx.fallback_pairs = guard
+            m.inc(m.PRUNE_FALLBACK, reason=ctx.fallback)
+            explain.note_prune(ctx.summary())
             return ctx, distill_ms, None
-        reduced = self._reduced_inputs(batch, narr, dense, gmask, ctx)
-        runs.append(dense.launch(reduced["group_mask"], allow_pipeline,
-                                 self._ns_live, arrays=reduced))
-        assign = ctx.map_assign(runs[-1].assign.cpu().numpy())
+        with tr.span("pruned_kernel", union=ctx.m_real,
+                     level=ctx.level) as span:
+            reduced = self._reduced_inputs(batch, narr, dense, gmask, ctx)
+            runs.append(dense.launch(reduced["group_mask"], allow_pipeline,
+                                     self._ns_live, arrays=reduced))
+            assign = ctx.map_assign(runs[-1].assign.cpu().numpy())
+        tr.tag_span(span, kernel_ms=runs[-1].kernel_ms)
         if ctx.post_guard(assign, batch):
             ctx.fallback = "shortlist_exhausted"
+            m.inc(m.PRUNE_FALLBACK, reason=ctx.fallback)
+            explain.note_prune(ctx.summary())
             return ctx, distill_ms, None
+        m.inc(m.PRUNE_RUNS, level=ctx.level)
+        m.set_gauge(m.PRUNE_UNION_WIDTH, float(ctx.m_real))
+        explain.note_prune(ctx.summary())
         return ctx, distill_ms, assign
 
     @staticmethod

@@ -41,10 +41,12 @@ vectorized path (ops/victims.py) propagates: nothing gives way to the walk.
 from __future__ import annotations
 
 import functools
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..metrics import metrics as m
 from ..models.job_info import JobInfo, TaskInfo, TaskStatus
 from ..ops.score import host_node_score
 
@@ -512,8 +514,14 @@ class PreemptContext:
                 vk = self._victim_kernel = VictimKernel(self)
             if vk.supports(mode):
                 self.runs["kernel"] += 1
-                return vk.place(preemptor, mode, g, pj, pq, req, score)
+                t0 = time.perf_counter()
+                try:
+                    return vk.place(preemptor, mode, g, pj, pq, req, score)
+                finally:
+                    m.observe(m.VICTIM_SELECT_LATENCY,
+                              (time.perf_counter() - t0) * 1000.0)
         self.runs["python"] += 1
+        m.inc(m.VICTIM_SELECT_RUNS, mode="python")
 
         # walk resume key: content-keyed when persistence is sound (see
         # _gmask_hash) so identical consecutive jobs resume one walk; else

@@ -4,9 +4,13 @@ Each ``csrc/<name>.cu`` becomes a shared library with a plain C interface,
 ``_build/lib<name>-<key>.so``, loaded with ctypes, with the compiler's
 report (ptxas: registers, spills and shared memory of each kernel) beside
 it in ``.log``. The key hashes the source and the flags, so a changed
-source rebuilds and an unchanged one loads the library already built. Nothing is built when the package is
-imported: the first wrapper call with a CUDA tensor builds, or
-``build_all()`` builds every kernel ahead (chip_smoke.py times it).
+source rebuilds and an unchanged one loads the library already built.
+A source with a line ``// nvcc-parts: <n>`` is compiled n times at once,
+with ``-DPART=<k> -DPARTS=<n>`` (each compile instantiating its share of
+the kernels), and the n objects are linked into the one library.
+Nothing is built when the package is imported: the first wrapper call
+with a CUDA tensor builds, or ``build_all()`` builds every kernel ahead,
+each source's compiles all started together (chip_smoke.py times it).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -48,10 +53,42 @@ def sources() -> List[str]:
     return sorted(p.stem for p in SRC_DIR.glob("*.cu"))
 
 
+def parts(name: str) -> int:
+    """How many compiles the source asks for (its ``// nvcc-parts: n``
+    line; 1 without one)."""
+    m = re.search(r"^// nvcc-parts: (\d+)$",
+                  (SRC_DIR / f"{name}.cu").read_text(), re.M)
+    return int(m.group(1)) if m else 1
+
+
 def library_path(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
+
+
+def _commands(name: str, tmp: Path) -> List[List[str]]:
+    """The compiles of ``name`` (run together), then the link if any."""
+    src = str(SRC_DIR / f"{name}.cu")
+    n = parts(name)
+    if n == 1:
+        return [[nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), src]]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [f"{tmp}.part{k}.o" for k in range(n)]
+    compiles = [[nvcc(), *compile_flags, "-Xptxas", "-v", f"-DPART={k}",
+                 f"-DPARTS={n}", "-c", "-o", obj, src]
+                for k, obj in enumerate(objs)]
+    return compiles + [[nvcc(), *NVCC_FLAGS, "-o", str(tmp), *objs]]
+
+
+def _run_all(commands: List[List[str]]) -> List[subprocess.CompletedProcess]:
+    """Run the commands at once; their results, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in commands]
+    outs = [p.communicate()[0] for p in procs]
+    return [subprocess.CompletedProcess(c, p.returncode, out)
+            for c, p, out in zip(commands, procs, outs)]
 
 
 def build(name: str) -> Path:
@@ -62,14 +99,22 @@ def build(name: str) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-    proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-         str(SRC_DIR / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
+    commands = _commands(name, tmp)
+    compiles, link = (commands, []) if len(commands) == 1 \
+        else (commands[:-1], commands[-1:])
+    try:
+        done = _run_all(compiles)
+        if all(p.returncode == 0 for p in done):
+            done += _run_all(link)
+    finally:
+        for obj in tmp.parent.glob(f"{tmp.name}.part*.o"):
+            obj.unlink()
+    report_text = "".join(p.stdout for p in done)
+    failed = [p for p in done if p.returncode != 0]
+    if failed:
         raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
-                           f"{proc.returncode}\n{proc.stdout}")
-    out.with_suffix(".log").write_text(proc.stdout)
+                           f"{failed[0].returncode}\n{report_text}")
+    out.with_suffix(".log").write_text(report_text)
     os.replace(tmp, out)
     return out
 

@@ -52,6 +52,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..metrics import metrics as m
 from ..models.arrays import _group_sig, derived_sig
 from ..models.job_info import TaskStatus, allocated_status
 
@@ -529,6 +530,7 @@ def compile_score(ssn, batch, narr, tiered_weight: float = 0.0,
     """The compiled additive SCORE: soft topology spread (ScheduleAnyway,
     a penalty proportional to a domain's existing load above the least
     loaded) and priority-tiered packing. None = all-zero."""
+    t0 = time.perf_counter()
     names = narr.names
     n = len(names)
     score: Optional[np.ndarray] = None
@@ -577,7 +579,63 @@ def compile_score(ssn, batch, narr, tiered_weight: float = 0.0,
                 if span > 0.0:
                     buf()[g, :n] += (tiered_weight * 100.0 *
                                      raw / span).astype(np.float32)
+    m.observe(m.CONSTRAINT_BUILD_LATENCY,
+              (time.perf_counter() - t0) * 1000.0)
     return score
+
+
+def score_terms_for(ssn, task, node_names: List[str],
+                    tiered_weight: float = 0.0,
+                    spread_weight: float = 10.0) -> Dict[str, np.ndarray]:
+    """Per-term constraint score values for ONE task on the listed nodes
+    (volcano_tpu/ops/constraints.py:score_terms_for): the explainer's
+    decomposition of the additive static score into its constraint
+    components, :func:`compile_score`'s formulas for a handful of nodes;
+    ``{"soft_spread": [k], "tieredpack": [k]}`` with absent terms
+    omitted."""
+    out: Dict[str, np.ndarray] = {}
+    names = [n.name for n in ssn.node_list]
+    pos = {n: i for i, n in enumerate(names)}
+    idx = [pos.get(n, -1) for n in node_names]
+    soft = [c for c in task.pod.spec.topology_spread
+            if c.when_unsatisfiable != "DoNotSchedule"]
+    if soft and spread_weight:
+        vals = np.zeros(len(node_names), np.float32)
+        for c in soft:
+            row, vocab = _topo_row(ssn, names, c.topology_key)
+            if not vocab:
+                continue
+            job = ssn.jobs.get(task.job)
+            base = _job_domain_counts(ssn, job, c.topology_key, vocab,
+                                      c.label_selector)
+            rel = base - base.min()
+            for k, i in enumerate(idx):
+                if i < 0:
+                    continue
+                code = row[i]
+                per = rel[code] if code >= 0 else rel.max() + 1.0
+                vals[k] -= np.float32(spread_weight * per)
+        out["soft_spread"] = vals
+    if tiered_weight:
+        mass, vocab = _tier_mass(ssn, names)
+        if vocab:
+            prios = np.full(max(vocab.values()) + 1, 0, np.int64)
+            for prio, col in vocab.items():
+                prios[col] = prio
+            total = mass[:, :len(prios)]
+            p = _task_tier(ssn, task)
+            ge = total[:, prios >= p].sum(axis=1)
+            lt = total[:, prios < p].sum(axis=1)
+            raw = ge - lt
+            span = float(np.abs(raw).max())
+            vals = np.zeros(len(node_names), np.float32)
+            if span > 0.0:
+                for k, i in enumerate(idx):
+                    if i >= 0:
+                        vals[k] = np.float32(
+                            tiered_weight * 100.0 * raw[i] / span)
+            out["tieredpack"] = vals
+    return out
 
 
 def reference_mask(ssn, batch, narr) -> Optional[np.ndarray]:
@@ -629,5 +687,11 @@ def constraint_mask(ssn, batch, narr) -> Optional[np.ndarray]:
     """The mask the conf selects: ``compile_mask``, or ``reference_mask``
     under ``constraints.compile: off``."""
     if compile_conf(ssn) == "off":
+        m.inc(m.CONSTRAINT_BUILD_RUNS, mode="reference")
         return reference_mask(ssn, batch, narr)
-    return compile_mask(ssn, batch, narr)
+    t0 = time.perf_counter()
+    mask = compile_mask(ssn, batch, narr)
+    m.observe(m.CONSTRAINT_BUILD_LATENCY,
+              (time.perf_counter() - t0) * 1000.0)
+    m.inc(m.CONSTRAINT_BUILD_RUNS, mode="compiled")
+    return mask

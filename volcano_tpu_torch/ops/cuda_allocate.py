@@ -8,9 +8,14 @@ ops.allocate.gang_allocate, and its optional per-task domain slots
 device go to the kernel in csrc/gang_allocate.cu (built on first use), one
 launch of one thread-block cluster per call on the current stream, without
 synchronising; inputs on the CPU go to the plain loop; any other device
-raises. There is no fall-back: a failed build or launch raises, and so does
-a node count whose state does not fit the cluster's shared memory
-(``cluster_plan``).
+raises. There is no fall-back: a failed build or launch raises.
+
+Every shape the plain loop takes runs on the kernel: any R >= 2 resources
+(R = 2..16 compiled exactly, larger R in the kernel's runtime form) and
+any node count. ``cluster_plan`` picks, by shape and before the launch,
+the ``shared`` plan (the node state in the cluster's shared memory)
+wherever it fits and the ``global`` plan (the node state in a scratch
+buffer in device memory, read through L2) above that.
 """
 
 from __future__ import annotations
@@ -26,16 +31,19 @@ from .score import ScoreWeights
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_N_POINTERS = 40
-_N_INTS = 13
+_N_POINTERS = 41
+_N_INTS = 14
 
 # the kernel's constants (csrc/gang_allocate.cu): candidates a block keeps
-# per fit class, warps a block, words of the step descriptor and of the
-# table's group request
+# per fit class, warps a block, words of the step descriptor, and the
+# largest R compiled (above it the kernel's runtime form runs)
 CHUNK = 16
 WARPS = 16
 DESC_WORDS = 5
-REQ_WORDS = 22
+MAX_STATIC_R = 16
+# the plan's flags (the kernel's kNodeGlobal, kFairGlobal, kRowsGlobal):
+# node state, fair-share state, the table's R-wide rows in device memory
+NODE_GLOBAL, FAIR_GLOBAL, ROWS_GLOBAL = 1, 2, 4
 # shared memory a block may use on an H100 (227 KB), and the cluster sizes:
 # 8 is portable, 16 needs the non-portable attribute
 MAX_SHARED_BYTES = 232_448
@@ -43,50 +51,102 @@ CLUSTER_SIZES = (8, 16)
 # threads a block: a refresh scores one node a thread at a time, so 8
 # blocks serve up to 8 * THREADS nodes in one pass, and 16 beyond
 THREADS = 512
+PLANS = ("shared", "global")
 
 
 class ClusterPlan(NamedTuple):
-    """How the node axis is laid over the cluster."""
+    """How the node axis is laid over the cluster, and where its state
+    lives."""
     blocks: int             # blocks in the cluster
     nodes_per_block: int    # contiguous nodes each block owns
     shared_bytes: int       # dynamic shared memory of each block
+    kind: str = "shared"    # "shared": node state in shared memory;
+                            # "global": in device memory
+    flags: int = 0          # NODE_GLOBAL | FAIR_GLOBAL | ROWS_GLOBAL
+
+
+def req_words(r: int) -> int:
+    """Shared words of the group request (csrc/gang_allocate.cu:
+    req_words)."""
+    return 16 if r > MAX_STATIC_R else 2 * max(r, 8) + 6
 
 
 def shared_bytes(nodes_per_block: int, blocks: int, r: int, q: int,
-                 ns: int, p: int) -> int:
+                 ns: int, p: int, flags: int = 0) -> int:
     """A block's dynamic shared memory (csrc/gang_allocate.cu:shared_words):
     its nodes' state (idle, future, alloc, pod count and cap, pack and its
-    generation), the candidate table of 2 * CHUNK rows a block, the warps'
-    candidate lists, the step descriptor, the table's group request, and
-    the fair-share state of Q queues, NS namespaces and P pools."""
-    words = ((3 * r + 4) * nodes_per_block
-             + (3 * r + 7) * 2 * CHUNK * blocks
-             + WARPS * 2 * CHUNK * 2 + DESC_WORDS + REQ_WORDS
-             + (q + ns) * r + p)
+    generation) unless NODE_GLOBAL, the candidate table of 2 * CHUNK rows a
+    block (its R-wide rows unless ROWS_GLOBAL), the warps' candidate lists,
+    the step descriptor, the group request, and the fair-share state of Q
+    queues, NS namespaces and P pools unless FAIR_GLOBAL."""
+    node_g, fs_g, rows_g = (int(bool(flags & f)) for f in
+                            (NODE_GLOBAL, FAIR_GLOBAL, ROWS_GLOBAL))
+    words = ((1 - node_g) * (3 * r + 4) * nodes_per_block
+             + (3 * r * (1 - rows_g) + 7) * 2 * CHUNK * blocks
+             + WARPS * 2 * CHUNK * 2 + DESC_WORDS + req_words(r)
+             + (1 - fs_g) * ((q + ns) * r + p))
     return 4 * words
 
 
-def cluster_plan(n: int, r: int, q: int, ns: int, p: int) -> ClusterPlan:
+def scratch_words(plan: ClusterPlan, r: int) -> int:
+    """Words of the device-memory scratch the plan needs: the blocks' node
+    state (global plan), the table's R-wide rows (ROWS_GLOBAL) and R words
+    of the runtime form's request sum; at least 1."""
+    words = 0
+    if plan.flags & NODE_GLOBAL:
+        words += plan.blocks * (3 * r + 4) * plan.nodes_per_block
+    if plan.flags & ROWS_GLOBAL:
+        words += 3 * r * 2 * CHUNK * plan.blocks
+    if r > MAX_STATIC_R:
+        words += r
+    return max(words, 1)
+
+
+def cluster_plan(n: int, r: int, q: int, ns: int, p: int,
+                 kind: Optional[str] = None) -> ClusterPlan:
     """The cluster for N nodes at R resources (with Q queues, NS namespaces
-    and P pools): 8 blocks while each holds at most THREADS nodes, else 16;
-    ValueError above ``node_limit``."""
-    for blocks in CLUSTER_SIZES:
-        per_block = -(-n // blocks)
-        size = shared_bytes(per_block, blocks, r, q, ns, p)
-        if size <= MAX_SHARED_BYTES and (per_block <= THREADS
-                                         or blocks == CLUSTER_SIZES[-1]):
-            return ClusterPlan(blocks, per_block, size)
-    raise ValueError(
-        f"gang_allocate_cuda: {n} nodes at R={r} exceed the kernel's limit "
-        f"of {node_limit(r, q, ns, p)} nodes (their state must fit the "
-        f"shared memory of a {CLUSTER_SIZES[-1]}-block cluster)")
+    and P pools). The shared plan wherever its state fits a block's shared
+    memory: 8 blocks while each holds at most THREADS nodes, else 16. Above
+    that the global plan: 16 blocks, the node state in device memory, and
+    the fair-share state and (above R = 16) the table's R-wide rows there
+    too when they would not fit. ``kind`` forces a plan ("shared" raises
+    ValueError where it does not fit); every shape has a global plan."""
+    if kind not in (None, *PLANS):
+        raise ValueError(f"cluster_plan: unknown plan {kind!r}")
+    if kind != "global":
+        for blocks in CLUSTER_SIZES:
+            per_block = max(1, -(-n // blocks))
+            size = shared_bytes(per_block, blocks, r, q, ns, p)
+            if size <= MAX_SHARED_BYTES and (per_block <= THREADS
+                                             or blocks == CLUSTER_SIZES[-1]):
+                return ClusterPlan(blocks, per_block, size)
+        if kind == "shared":
+            raise ValueError(
+                f"cluster_plan: {n} nodes at R={r} exceed the shared plan's "
+                f"limit of {node_limit(r, q, ns, p)} nodes")
+    blocks = CLUSTER_SIZES[-1]
+    per_block = max(1, -(-n // blocks))
+    choices = [NODE_GLOBAL, NODE_GLOBAL | FAIR_GLOBAL]
+    if r > MAX_STATIC_R:
+        choices += [NODE_GLOBAL | ROWS_GLOBAL,
+                    NODE_GLOBAL | FAIR_GLOBAL | ROWS_GLOBAL]
+    for flags in choices:
+        size = shared_bytes(per_block, blocks, r, q, ns, p, flags)
+        if size <= MAX_SHARED_BYTES:
+            break
+    return ClusterPlan(blocks, per_block, size, "global", flags)
 
 
 def node_limit(r: int, q: int, ns: int, p: int) -> int:
-    """The most nodes the kernel takes at R resources."""
-    blocks = CLUSTER_SIZES[-1]
-    fixed = shared_bytes(0, blocks, r, q, ns, p)
-    return blocks * ((MAX_SHARED_BYTES - fixed) // (4 * (3 * r + 4)))
+    """The most nodes the shared plan takes at R resources: up to it
+    ``cluster_plan`` picks the shared plan, above it the global plan."""
+    def per_cluster(blocks: int) -> int:
+        fixed = shared_bytes(0, blocks, r, q, ns, p)
+        return max(0, blocks * ((MAX_SHARED_BYTES - fixed)
+                                // (4 * (3 * r + 4))))
+    small, large = CLUSTER_SIZES
+    return max(per_cluster(large),
+               min(small * THREADS, per_cluster(small)))
 
 
 def _lib() -> ctypes.CDLL:
@@ -116,7 +176,7 @@ def check_inputs(args: List[torch.Tensor],
                  slot_ok: Optional[torch.Tensor] = None):
     """Validate the 28 positional inputs for the kernel, and the slot
     inputs when given (both or neither; ``slot_ok`` [S+1, N]): one device,
-    the kernel's dtypes, consistent shapes, contiguous, 2 <= R <= 8.
+    the kernel's dtypes, consistent shapes, contiguous, R >= 2.
     Returns (T, G, J, P, NS, N, R, S), S = -1 without slots; raises
     ValueError on anything else."""
     (task_group, task_job, task_valid, group_req, group_mask,
@@ -135,8 +195,8 @@ def check_inputs(args: List[torch.Tensor],
     NS = ns_weight.shape[0]
     Q = queue_deserved.shape[0]
     N = node_idle.shape[0]
-    if not 2 <= R <= 8:
-        raise ValueError(f"gang_allocate_cuda: R={R} outside 2..8")
+    if R < 2:
+        raise ValueError(f"gang_allocate_cuda: R={R} below 2")
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
     for name, x, dtype, shape in (
             ("task_group", task_group, i32, (T,)),
@@ -189,16 +249,22 @@ def gang_allocate_cuda(task_group, task_job, task_valid, group_req,
                        node_max_tasks, eps, weights: ScoreWeights,
                        allow_pipeline: bool = True, ns_live: bool = False,
                        task_slot: Optional[torch.Tensor] = None,
-                       slot_ok: Optional[torch.Tensor] = None):
+                       slot_ok: Optional[torch.Tensor] = None,
+                       plan: Optional[str] = None):
     """Returns (assign [T] node or -1, pipelined [T] bool, ready [J] bool,
     kept [J] bool, final AllocState), as ops.allocate.gang_allocate does;
     ``task_slot`` [T] i32 and ``slot_ok`` [S+1, N] bool restrict task t to
     the nodes of row ``task_slot[t]`` (a slot outside 0..S admits none).
 
+    ``plan`` ("shared" or "global") forces the cluster plan on a CUDA
+    device, to time the two plans on one shape; by default
+    ``cluster_plan`` picks it.
+
     ``gang_allocate_cuda.launches`` counts the kernel launches;
     ``gang_allocate_cuda.last_stats`` is what the last launch reports of
     itself, an int32 tensor on the device: its table refreshes, the
-    cluster's blocks and each block's dynamic shared memory in bytes."""
+    cluster's blocks and each block's dynamic shared memory in bytes;
+    ``gang_allocate_cuda.last_plan`` is its ClusterPlan."""
     args: List[torch.Tensor] = [
         task_group, task_job, task_valid, group_req, group_mask,
         group_static_score, task_bucket, group_pack_bonus, job_min_available,
@@ -216,7 +282,7 @@ def gang_allocate_cuda(task_group, task_job, task_valid, group_req,
 
     T, G, J, P, NS, N, R, S = check_inputs(args, task_slot, slot_ok)
     Q = queue_deserved.shape[0]
-    plan = cluster_plan(N, R, Q, NS, P)
+    launch_plan = cluster_plan(N, R, Q, NS, P, plan)
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
     w = torch.cat([torch.stack([weights.binpack, weights.least, weights.most,
                                 weights.balanced]).reshape(4),
@@ -234,6 +300,8 @@ def gang_allocate_cuda(task_group, task_job, task_valid, group_req,
     ready = torch.empty(J, dtype=b8, device=device)
     kept = torch.empty(J, dtype=b8, device=device)
     stats = torch.empty(3, dtype=i32, device=device)
+    scratch = torch.empty(scratch_words(launch_plan, R), dtype=f32,
+                          device=device)
 
     pointers = [task_group, task_valid, task_bucket, task_job, task_slot,
                 slot_ok, group_req, group_mask, group_static_score,
@@ -242,22 +310,24 @@ def gang_allocate_cuda(task_group, task_job, task_valid, group_req,
                 ns_weight, ns_total, queue_deserved, node_idle, node_future,
                 node_alloc, node_ntasks, node_max_tasks, eps, w, idle, future,
                 ntasks, undo, q_alloc, ns_alloc, p_cursor, assign, pipelined,
-                ready, kept, stats]
+                ready, kept, stats, scratch]
     lib = _lib()
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.gang_allocate_launch(
         *(None if x is None else x.data_ptr() for x in pointers),
         T, J, P, NS, Q, N, S, R, int(bool(allow_pipeline)),
-        int(bool(ns_live)),
-        *plan, stream)
+        int(bool(ns_live)), launch_plan.blocks, launch_plan.nodes_per_block,
+        launch_plan.flags, launch_plan.shared_bytes, stream)
     if rc != 0:
         raise RuntimeError("gang_allocate kernel launch failed: "
                            + lib.gang_allocate_error_string(rc).decode())
     gang_allocate_cuda.launches += 1
     gang_allocate_cuda.last_stats = stats
+    gang_allocate_cuda.last_plan = launch_plan
     state = AllocState(idle, future, ntasks, q_alloc, ns_alloc, p_cursor)
     return assign, pipelined, ready, kept, state
 
 
 gang_allocate_cuda.launches = 0
 gang_allocate_cuda.last_stats = None
+gang_allocate_cuda.last_plan = None

@@ -36,9 +36,10 @@ closed per-victim form.
 The torch forms over a preemptor batch (``victim_prefix_batch`` /
 ``reclaim_prefix_batch``) live in ops/preempt.py; the in-action path uses
 this module's numpy forms — the action applies evictions between
-preemptors, so batching across preemptors would change its answers. The
-reference's decision capture (trace/explain.py) and metrics are not
-ported; PreemptContext.runs counts the placements by path.
+preemptors, so batching across preemptors would change its answers.
+While the explainer is on (the solver's ``explain``), each decision is
+recorded by trace/explain.py:record_victims (``_record_explain``); each
+selection counts on volcano_victim_select_runs_total{mode="kernel"}.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..metrics import metrics as m
 from ..plugins.conformance import is_critical
 from .preempt import pack_node_major
 
@@ -117,6 +119,7 @@ class VictimKernel:
         from ..framework.victims import CROSS_QUEUE
         self._CQ = CROSS_QUEUE
         self.ctx = ctx
+        self._explain_cached: Optional[bool] = None
         ssn = ctx.ssn
         vi = ctx.victims
         mv = len(vi.tasks)
@@ -189,6 +192,62 @@ class VictimKernel:
 
     def supports(self, mode: str) -> bool:
         return self.reclaim_ok if mode == self._CQ else self.preempt_ok
+
+    # -- decision provenance (trace/explain.py) -----------------------------
+
+    def _explain_on(self) -> bool:
+        """The session solver's explain switch, read once: place() runs
+        per preemptor on the action's hot path."""
+        if self._explain_cached is None:
+            solver = getattr(self.ctx.ssn, "solver", None)
+            self._explain_cached = bool(getattr(solver, "explain", False))
+        return self._explain_cached
+
+    _VERDICT_CAP = 64   # per-victim verdict rows kept per decision
+
+    def _record_explain(self, preemptor, mode: str, tiers, best: int,
+                        rows_all, per_name: Dict[str, np.ndarray],
+                        live, seg_rows, selected_rows, victims,
+                        covered: bool) -> None:
+        """One victim decision into the explain registry: the tier chain,
+        per-plugin admissible counts over the candidate set, and the
+        winning node's per-victim verdicts. ``seg_rows`` are the winning
+        node's candidate indices into ``rows_all``'s index space
+        (``per_name`` and ``live`` are indexed the same way)."""
+        from ..trace import explain
+        vi = self.ctx.victims
+        live_arr = live if live is not None else np.ones(len(rows_all),
+                                                         bool)
+        admissible = {nm: int((arr & live_arr).sum())
+                      for nm, arr in per_name.items()}
+        winning_tier = None
+        for tier_idx, names in tiers:
+            acc = live_arr[seg_rows].copy()
+            for nm in names:
+                arr = per_name.get(nm)
+                acc &= arr[seg_rows] if arr is not None else False
+            if acc.any():
+                winning_tier = int(tier_idx)
+                break
+        sel_set = set(int(r) for r in selected_rows)
+        verdicts = []
+        for off in seg_rows[:self._VERDICT_CAP]:
+            off = int(off)
+            row = int(rows_all[off])
+            t = vi.tasks[row]
+            verdicts.append({
+                "task": f"{t.namespace}/{t.name}",
+                "live": bool(live_arr[off]),
+                "verdicts": {nm: bool(arr[off])
+                             for nm, arr in per_name.items()},
+                "selected": row in sel_set,
+            })
+        explain.record_victims(
+            f"{preemptor.namespace}/{preemptor.name}", mode,
+            self.ctx.narr.names[best], tiers, admissible,
+            len(rows_all), winning_tier,
+            [f"{v.namespace}/{v.name}" for v in victims], verdicts,
+            covered)
 
     def reset_walk(self) -> None:
         """Reset the CROSS_QUEUE multi-step walk memory and the views'
@@ -777,6 +836,12 @@ class VictimKernel:
                     row = vi.res[sel[p]]
                     for r in range(rr):
                         run[r] += float(row[r])
+            m.inc(m.VICTIM_SELECT_RUNS, mode="kernel")
+            if self._explain_on():
+                self._record_explain(
+                    preemptor, mode, self.preempt_tiers, best, view.rows,
+                    view.per_name, view.live, np.arange(lo, hi), sel[:k],
+                    victims[:k], True)
             return ctx.narr.names[best], victims[:k], True
 
         # CROSS_QUEUE (reclaim): one-shot — proportion's acceptance
@@ -786,7 +851,13 @@ class VictimKernel:
         rows = self._structural_rows(mode, pj, pq)
         if not len(rows):
             return None
-        accept = self._accept(mode, rows, preemptor, req)
+        rows0 = rows
+        explain_parts: Optional[Dict[str, np.ndarray]] = None
+        if self._explain_on():
+            accept, explain_parts = self._accept(mode, rows, preemptor,
+                                                 req, want_parts=True)
+        else:
+            accept = self._accept(mode, rows, preemptor, req)
         rows = rows[accept]
         if not len(rows):
             return None
@@ -821,4 +892,11 @@ class VictimKernel:
 
         sel = rows[seg_lo[best]:seg_lo[best] + int(counts[best])]
         victims = [vi.tasks[v] for v in sel]
+        m.inc(m.VICTIM_SELECT_RUNS, mode="kernel")
+        if explain_parts is not None:
+            seg = np.flatnonzero(accept)[seg_lo[best]:
+                                         seg_lo[best] + int(counts[best])]
+            self._record_explain(
+                preemptor, mode, self.reclaim_tiers, best, rows0,
+                explain_parts, None, seg, sel[:k], victims[:k], covered)
         return ctx.narr.names[best], victims[:k], covered

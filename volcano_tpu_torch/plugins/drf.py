@@ -25,6 +25,7 @@ import torch
 from ..framework.plugin import Plugin
 from ..framework.registry import register_plugin_builder
 from ..framework.session import PERMIT, EventHandler
+from ..metrics import metrics as m
 from ..models.arrays import ResourceIndex
 from ..models.resource import Resource
 
@@ -108,6 +109,7 @@ class DrfPlugin(Plugin):
         self.job_attrs: Dict[str, _DrfAttr] = {}
         self.namespace_opts: Dict[str, _DrfAttr] = {}
         self.root = _HNode("root", 1.0)
+        self._touched_jobs: set = set()
 
     def name(self) -> str:
         return NAME
@@ -135,6 +137,7 @@ class DrfPlugin(Plugin):
         self._batch_update_shares(jobs)
         for job in jobs:
             attr = self.job_attrs[job.uid]
+            m.update_job_share(job.namespace, job.name, attr.share)
             if ns_enabled:
                 ns = self.namespace_opts.setdefault(job.namespace, _DrfAttr())
                 ns.allocated.add(attr.allocated)
@@ -148,6 +151,7 @@ class DrfPlugin(Plugin):
         if ns_enabled:
             for ns, opt in self.namespace_opts.items():
                 opt.dominant, opt.share = _share_of(opt.allocated, self.total)
+                m.update_namespace_share(ns, opt.share)
             if ssn.solver is not None:
                 def ns_budget(ns_name, rindex):
                     """Session-open namespace allocation + weight for the
@@ -295,6 +299,10 @@ class DrfPlugin(Plugin):
                 lw = li.get_weight() if li else 1
                 rw = ri.get_weight() if ri else 1
                 lws, rws = lo.share / lw, ro.share / rw
+                m.update_namespace_weight(l, lw)
+                m.update_namespace_weight(r, rw)
+                m.update_namespace_weighted_share(l, lws)
+                m.update_namespace_weighted_share(r, rws)
                 return 0 if lws == rws else (-1 if lws < rws else 1)
 
             ssn.add_namespace_order_fn(NAME, namespace_order_fn)
@@ -315,6 +323,9 @@ class DrfPlugin(Plugin):
                 attr.allocated.sub(total)
             attr.version += 1
             attr.dominant, attr.share = _share_of(attr.allocated, self.total)
+            # the job and namespace share gauges are swept once at
+            # session close, over the jobs an event touched
+            self._touched_jobs.add(job.uid)
             if ns_enabled:
                 ns = self.namespace_opts.setdefault(job.namespace, _DrfAttr())
                 if sign > 0:
@@ -457,6 +468,14 @@ class DrfPlugin(Plugin):
         self._update_tree(root, demanding)
 
     def on_session_close(self, ssn) -> None:
+        for uid in self._touched_jobs:
+            attr = self.job_attrs.get(uid)
+            job = ssn.jobs.get(uid)
+            if attr is not None and job is not None:
+                m.update_job_share(job.namespace, job.name, attr.share)
+        self._touched_jobs = set()
+        for ns, attr in self.namespace_opts.items():
+            m.update_namespace_share(ns, attr.share)
         self.total = Resource()
         self.total_allocated = Resource()
         self.job_attrs = {}

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from ..framework.plugin import Plugin
 from ..framework.registry import register_plugin_builder
+from ..metrics import metrics as m
 from ..framework.session import PERMIT, REJECT, ValidateResult
 from ..framework import framework as fw
 from ..models.job_info import TaskStatus
@@ -96,7 +97,9 @@ class GangPlugin(Plugin):
         ssn.add_job_starving_fns(NAME, job_starving_fn)
 
     def on_session_close(self, ssn) -> None:
-        """Write gang conditions (gang.go:160-219)."""
+        """Write gang conditions and the unschedulable metrics
+        (gang.go:160-219)."""
+        unschedulable_jobs = 0
         for job in ssn.jobs.values():
             if job.pod_group is None:
                 continue
@@ -105,6 +108,7 @@ class GangPlugin(Plugin):
                 msg = (f"{unready}/{len(job.tasks)} tasks in gang "
                        f"unschedulable: {job.fit_error()}")
                 job.job_fit_errors = msg
+                unschedulable_jobs += 1
                 fw.update_pod_group_condition(ssn, job, PodGroupCondition(
                     type=PodGroupConditionType.UNSCHEDULABLE, status="True",
                     transition_id=ssn.uid,
@@ -114,6 +118,7 @@ class GangPlugin(Plugin):
                         fe = FitErrors()
                         fe.set_error(msg)
                         job.nodes_fit_errors[task.uid] = fe
+                m.update_unschedulable_task_count(job.name, max(0, unready))
             else:
                 # refreshing an identical Scheduled condition would only
                 # bump transition_id (nothing reads it for Scheduled —
@@ -127,6 +132,8 @@ class GangPlugin(Plugin):
                     fw.update_pod_group_condition(ssn, job, PodGroupCondition(
                         type=PodGroupConditionType.SCHEDULED, status="True",
                         transition_id=ssn.uid, reason=POD_GROUP_READY))
+                m.update_unschedulable_task_count(job.name, 0)
+        m.set_gauge(m.UNSCHEDULE_JOB_COUNT, unschedulable_jobs)
 
 
 register_plugin_builder(NAME, GangPlugin)

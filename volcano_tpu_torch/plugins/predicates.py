@@ -287,6 +287,8 @@ class PredicatesPlugin(Plugin):
         compiled, or per pair under ``constraints.compile: off``."""
         def mask_fn(batch, narr, feats):
             return constraints.constraint_mask(ssn, batch, narr)
+        # the explainer's ladder stage for this mask
+        mask_fn.explain_label = "affinity"
         return mask_fn
 
     def _constraint_score(self, ssn):

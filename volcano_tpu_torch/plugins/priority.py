@@ -31,6 +31,9 @@ class PriorityPlugin(Plugin):
 
     def on_session_open(self, ssn) -> None:
         if self.tieredpack_w and ssn.solver is not None:
+            # the explainer (trace/explain.py) decomposes the tieredpack
+            # term of its top-k candidates and needs the weight
+            ssn._tieredpack_weight = self.tieredpack_w
             def tiered_score(batch, narr, feats):
                 return constraints.compile_score(
                     ssn, batch, narr, tiered_weight=self.tieredpack_w,

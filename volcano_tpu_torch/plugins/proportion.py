@@ -22,6 +22,7 @@ import torch
 from ..framework.plugin import Plugin
 from ..framework.registry import register_plugin_builder
 from ..framework.session import PERMIT, REJECT, EventHandler
+from ..metrics import metrics as m
 from ..models.arrays import ResourceIndex
 from ..models.objects import PodGroupPhase
 from ..models.resource import INFINITY, ZERO, Resource
@@ -88,6 +89,11 @@ class ProportionPlugin(Plugin):
             if job.pod_group.status.phase == PodGroupPhase.INQUEUE:
                 attr.inqueue.add(job.get_min_resources())
 
+        for attr in self.queue_opts.values():
+            m.update_queue_allocated(attr.name, attr.allocated.milli_cpu,
+                                     attr.allocated.memory)
+            m.update_queue_weight(attr.name, attr.weight)
+
         self._waterfill()
 
         if ssn.solver is not None:
@@ -137,7 +143,9 @@ class ProportionPlugin(Plugin):
             attr = self.queue_opts.get(queue.uid)
             if attr is None:
                 return False
-            return not attr.allocated.less_equal(attr.deserved, ZERO)
+            overused = not attr.allocated.less_equal(attr.deserved, ZERO)
+            m.update_queue_overused(attr.name, overused)
+            return overused
 
         ssn.add_overused_fn(NAME, overused_fn)
 
@@ -217,8 +225,15 @@ class ProportionPlugin(Plugin):
             for name in rindex.names[2:]:
                 a.deserved.set_scalar(name, float(deserved[i, rindex.index[name]]))
             a.share = _share(a.allocated, a.deserved)
+            m.update_queue_deserved(a.name, a.deserved.milli_cpu,
+                                    a.deserved.memory)
+            m.update_queue_share(a.name, a.share)
 
     def on_session_close(self, ssn) -> None:
+        for attr in self.queue_opts.values():
+            m.update_queue_allocated(attr.name, attr.allocated.milli_cpu,
+                                     attr.allocated.memory)
+            m.update_queue_share(attr.name, attr.share)
         self.queue_opts = {}
         self.total = Resource()
 

@@ -5,8 +5,11 @@ close the session.
 
 The placement kernel runs on ``device``: the GPU unless the caller passes
 ``device="cpu"`` (the plain loop), and the constructor raises when there
-is no GPU. Left out of this port: the cycle watchdog, leader election and
-fencing, anti-entropy, the conf file watcher, the tracer and the metrics.
+is no GPU. Each cycle is recorded by the flight recorder (trace/tracer.py)
+while tracing is on, feeds the metrics (metrics/metrics.py) always, and
+is watched by the cycle watchdog. Left out of this port: leader election
+and fencing, anti-entropy, the conf file watcher and the incremental
+snapshot.
 """
 
 from __future__ import annotations
@@ -21,8 +24,10 @@ from .apiserver.store import ObjectStore
 from .cache import SchedulerCache
 from .framework import (close_session, default_scheduler_conf, get_action,
                         open_session, parse_scheduler_conf)
+from .metrics import metrics as m
 from .models.job_info import TaskStatus
 from .models.objects import DEFAULT_SCHEDULER_NAME
+from .trace import ledger
 from .utils.clock import Clock
 from .utils.platform import default_device
 
@@ -30,6 +35,14 @@ log = logging.getLogger(__name__)
 
 
 class Scheduler:
+    # cycle watchdog (volcano_tpu/scheduler.py:26-33): a run_once over
+    # watchdog_multiple x schedule_period wall seconds logs the in-flight
+    # flight-recorder phase breakdown, bumps
+    # volcano_cycle_deadline_exceeded_total and marks the scheduler
+    # degraded on /debug/health until the next in-deadline cycle. It only
+    # observes: the cycle is never interrupted.
+    WATCHDOG_MULTIPLE = 4.0
+
     def __init__(self, store: ObjectStore,
                  scheduler_name: str = DEFAULT_SCHEDULER_NAME,
                  scheduler_conf: Optional[str] = None,
@@ -37,6 +50,7 @@ class Scheduler:
                  schedule_period: float = 1.0,
                  cache: Optional[SchedulerCache] = None,
                  clock: Optional[Clock] = None,
+                 watchdog_multiple: Optional[float] = None,
                  device=None):
         self.store = store
         self.device = default_device(device)
@@ -47,6 +61,11 @@ class Scheduler:
         self.cache = cache if cache is not None else SchedulerCache(
             store, scheduler_name)
         self.schedule_period = schedule_period
+        self.watchdog_multiple = (watchdog_multiple
+                                  if watchdog_multiple is not None
+                                  else self.WATCHDOG_MULTIPLE)
+        self.degraded = False
+        self.cycle_deadline_exceeded = 0
         self._conf_path = scheduler_conf_path
         self._mutex = threading.Lock()
         self._stop = threading.Event()
@@ -95,40 +114,63 @@ class Scheduler:
         ``last_cycle`` keeps the cycle's timing split (wall ms): the
         snapshot, the rest of open_session, each action, the allocate
         action's own phases, close_session, and each placement solve's
-        encode, solve, kernel and decode, its launches and its prune
-        summary (``BatchSolver.stats``); ``pipelined`` counts the tasks
-        left Pipelined at close (``last_pipelined`` maps them to their
-        nodes) and ``victim_runs`` preempt's and reclaim's placements by
-        victim-selection path."""
+        encode, solve, kernel and decode, its launches, its kernel plan
+        and R, and its prune summary (``BatchSolver.stats``);
+        ``pipelined`` counts the tasks left Pipelined at close
+        (``last_pipelined`` maps them to their nodes) and ``victim_runs``
+        preempt's and reclaim's placements by victim-selection path.
+
+        With tracing on (trace/tracer.py) the cycle is one flight-recorder
+        record: the root span ``cycle`` tagged with the session's jobs,
+        nodes and queues, one ``action:<name>`` span an action, and a
+        metrics time-series sample after it."""
+        from .trace import tracer as tr
         with self._mutex:
             conf = self.conf
+        start = time.perf_counter()
+        deadline = self.schedule_period * self.watchdog_multiple
+        timer: Optional[threading.Timer] = None
+        if deadline > 0:
+            timer = threading.Timer(deadline, self._watchdog_fire,
+                                    args=(deadline,))
+            timer.daemon = True
+            timer.start()
         was_enabled = gc.isenabled()
         gc.disable()
         try:
-            t0 = time.perf_counter()
-            ssn = open_session(self.cache, conf.tiers, conf.configurations,
-                               clock=self.clock, device=self.device)
-            tick = time.perf_counter()
-            split = {"open_session_ms": (tick - t0) * 1000.0
-                     - self.cache.last_snapshot_ms,
-                     "snapshot_ms": self.cache.last_snapshot_ms}
-            try:
-                for name in conf.actions:
-                    action = get_action(name)
-                    if action is not None:
-                        action.execute(ssn)
-                    now = time.perf_counter()
-                    split[f"{name}_ms"] = (now - tick) * 1000.0
-                    tick = now
-                self.last_pipelined = {
-                    t.key(): t.node_name for job in ssn.jobs.values()
-                    for t in job.task_status_index.get(
-                        TaskStatus.Pipelined, {}).values()}
-                split["pipelined"] = len(self.last_pipelined)
+            with tr.cycle():
+                if tr.is_enabled():
+                    self.cache.begin_commit_trace()
+                t0 = time.perf_counter()
+                ssn = open_session(self.cache, conf.tiers,
+                                   conf.configurations, clock=self.clock,
+                                   device=self.device)
+                tr.tag_cycle(jobs=len(ssn.jobs), nodes=len(ssn.nodes),
+                             queues=len(ssn.queues))
                 tick = time.perf_counter()
-            finally:
-                close_session(ssn)
-            end = time.perf_counter()
+                split = {"open_session_ms": (tick - t0) * 1000.0
+                         - self.cache.last_snapshot_ms,
+                         "snapshot_ms": self.cache.last_snapshot_ms}
+                try:
+                    for name in conf.actions:
+                        action = get_action(name)
+                        if action is not None:
+                            with m.action_timer(name), \
+                                    tr.span(f"action:{name}", action=name):
+                                action.execute(ssn)
+                        now = time.perf_counter()
+                        split[f"{name}_ms"] = (now - tick) * 1000.0
+                        tick = now
+                    self.last_pipelined = {
+                        t.key(): t.node_name for job in ssn.jobs.values()
+                        for t in job.task_status_index.get(
+                            TaskStatus.Pipelined, {}).values()}
+                    split["pipelined"] = len(self.last_pipelined)
+                    tick = time.perf_counter()
+                finally:
+                    close_session(ssn)
+                    self.cache.emit_commit_spans()
+                end = time.perf_counter()
             split["close_session_ms"] = (end - tick) * 1000.0
             split["cycle_ms"] = (end - t0) * 1000.0
             split.update({f"{k}_ms": v for k, v in ssn.timings.items()})
@@ -138,6 +180,43 @@ class Scheduler:
         finally:
             if was_enabled:
                 gc.enable()
+            elapsed = time.perf_counter() - start
+            if timer is not None:
+                timer.cancel()
+                if self.degraded and elapsed <= deadline:
+                    # recovered: this cycle came in under the deadline
+                    self.degraded = False
+                    m.set_health("scheduler", True,
+                                 "cycle time back under the watchdog "
+                                 "deadline")
+        m.update_e2e_duration(elapsed)
+        # the lifecycle ledger completes the cycle's echoed binds after
+        # the cycle, as the reference's flush executor does
+        ledger.complete_deferred()
+        if tr.is_enabled():
+            # /debug/timeseries: one sample of the key gauges and counters
+            # a cycle, on the flight recorder's switch
+            from .metrics import timeseries
+            timeseries.sample(self.clock.now(), extra={
+                "cycle_ms": round(elapsed * 1000.0, 3),
+                "seq": tr.current_seq()})
+
+    def _watchdog_fire(self, deadline: float) -> None:
+        """The cycle blew its watchdog deadline: record the breach and the
+        stuck cycle's flight-recorder phase breakdown. Observation only:
+        the cycle runs on, and the next in-deadline cycle clears the
+        degraded mark."""
+        from .trace import tracer as tr
+        self.degraded = True
+        self.cycle_deadline_exceeded += 1
+        m.inc(m.CYCLE_DEADLINE_EXCEEDED)
+        detail = (f"scheduling cycle exceeded its {deadline:.2f}s watchdog "
+                  f"deadline ({self.watchdog_multiple:g}x the "
+                  f"{self.schedule_period:g}s period)")
+        m.set_health("scheduler", False, detail)
+        phases = tr.live_phases()
+        log.error("cycle watchdog: %s; in-flight phases: %s", detail,
+                  phases if phases else "(tracing disabled)")
 
     def run(self) -> None:
         """Start cache ingestion, then run a cycle every period until

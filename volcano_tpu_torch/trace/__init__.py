@@ -1,2 +1,6 @@
-"""The placement explainer's device pass (``trace.explain``), imported by
-path. The rest of the reference's tracing layer is still to port."""
+"""The cycle flight recorder (tracer), the pod lifecycle ledger (ledger),
+the "why pending" diagnosis (pending) and the placement explainer
+(explain); this port's own copies of volcano_tpu/trace."""
+
+from . import ledger  # noqa: F401
+from . import tracer  # noqa: F401

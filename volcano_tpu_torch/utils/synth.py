@@ -20,7 +20,7 @@ port's own copy of volcano_tpu/utils/synth.py):
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -85,7 +85,9 @@ def synth_arrays(n_tasks: int, n_nodes: int, *, gang_size: int = 8,
 
     Nodes: 64-core/256GiB-shaped with uniform random pre-existing usage around
     ``utilization``; resource dims are [cpu(milli), memory(MiB), pods-slack,
-    accelerator]. Tasks: gangs of ``gang_size`` with per-gang resource shapes;
+    accelerator], and with ``r`` > 4 one more scalar kind a dim (16 units a
+    node, 0-2 a gang, drawn from a generator of their own so that the first
+    four dims stay those of ``r`` = 4). Tasks: gangs of ``gang_size`` with per-gang resource shapes;
     each gang is one group (homogeneous replicas). Rack-affinity static score
     prefers a random rack per gang. Jobs are striped round-robin over
     ``n_queues`` queues and drawn at random into ``n_namespaces`` namespaces,
@@ -107,6 +109,7 @@ def synth_arrays(n_tasks: int, n_nodes: int, *, gang_size: int = 8,
     cap[:n_nodes, 1] = 256 * 1024.0                       # 256 GiB in MiB
     cap[:n_nodes, 2] = 110.0                              # pods dimension
     cap[:n_nodes, 3] = 8.0                                # accelerators
+    cap[:n_nodes, 4:] = 16.0                              # scalar kinds
     used_frac = rng.uniform(0.0, 2 * utilization, (n_pad, 1)).astype(np.float32)
     used = (cap * used_frac).astype(np.float32)
     idle = cap - used
@@ -120,6 +123,10 @@ def synth_arrays(n_tasks: int, n_nodes: int, *, gang_size: int = 8,
     group_req[:n_groups, 1] = rng.choice([2048, 4096, 8192, 16384], n_groups)
     group_req[:n_groups, 2] = 1.0
     group_req[:n_groups, 3] = rng.choice([0, 0, 0, 1], n_groups)
+    if r > 4:
+        extra = np.random.default_rng([seed, r])
+        group_req[:n_groups, 4:] = extra.choice([0, 0, 1, 2],
+                                                (n_groups, r - 4))
 
     task_group = np.zeros(t_pad, np.int32)
     task_job = np.full(t_pad, n_jobs, np.int32)           # sentinel fill
@@ -197,7 +204,7 @@ def synth_arrays(n_tasks: int, n_nodes: int, *, gang_size: int = 8,
         group_static_score[:n_groups, :n_nodes] = (
             (gang_rack[:, None] == node_rack[None, :]) * 50.0)
 
-    eps = np.array([100.0, 0.1, 0.1, 0.1], np.float32)[:r]
+    eps = np.array([100.0] + [0.1] * (max(r, 4) - 1), np.float32)[:r]
 
     return SynthArrays(
         task_group=task_group, task_job=task_job, task_valid=task_valid,
@@ -244,6 +251,27 @@ def zone_slots(sa, zones: int, every: int = 2, unsat_every: int = 0,
     return task_slot, slot_ok
 
 
+# scalar resource kinds of GPU fleets, for populate_store's ``scalars``
+# (beyond them, numbered vendor devices)
+SCALAR_KINDS = ("nvidia.com/gpu", "rdma/hca", "hugepages-2Mi",
+                "hugepages-1Gi", "example.com/fpga", "example.com/npu",
+                "example.com/nic")
+SCALAR_CAPACITY = "16"
+
+
+def scalar_kinds(n: int) -> Tuple[str, ...]:
+    """The first ``n`` scalar kinds: SCALAR_KINDS, then
+    example.com/dev-<i>."""
+    extra = tuple(f"example.com/dev-{i}" for i in range(
+        max(0, n - len(SCALAR_KINDS))))
+    return (SCALAR_KINDS + extra)[:n]
+
+
+def scalar_request(job: int, k: int) -> int:
+    """Units of the k-th scalar kind each pod of job ``job`` requests."""
+    return (job + k) % 3
+
+
 def populate_store(store, *, n_nodes: int, n_jobs: int, gang_size: int,
                    queues: Optional[List[Tuple[str, int]]] = None,
                    cpu_req: str = "2", mem_req: str = "4Gi",
@@ -251,8 +279,14 @@ def populate_store(store, *, n_nodes: int, n_jobs: int, gang_size: int,
                    namespace: str = "default",
                    phase: str = "Inqueue", zones: int = 0,
                    spread_every: int = 0,
-                   anti_every: int = 0) -> Dict[str, int]:
+                   anti_every: int = 0,
+                   scalars: Sequence[str] = ()) -> Dict[str, int]:
     """Object-level synthetic cluster in an ObjectStore.
+
+    ``scalars`` names extra scalar resource kinds (each adds one to the
+    solver's resource count R): every node has SCALAR_CAPACITY of each,
+    and each pod of job j requests ``scalar_request(j, k)`` units of the
+    k-th (none when 0); the default adds none.
 
     ``zones`` > 0 labels node i with topology.kubernetes.io/zone =
     zone-<i % zones>; ``spread_every`` / ``anti_every`` give every Nth
@@ -273,9 +307,9 @@ def populate_store(store, *, n_nodes: int, n_jobs: int, gang_size: int,
         labels = {"rack": f"rack-{i % 32}"}
         if zones > 0:
             labels["topology.kubernetes.io/zone"] = f"zone-{i % zones}"
-        store.create("nodes", build_node(
-            f"node-{i}", {"cpu": node_cpu, "memory": node_mem, "pods": "110"},
-            labels=labels))
+        alloc = {"cpu": node_cpu, "memory": node_mem, "pods": "110"}
+        alloc.update({kind: SCALAR_CAPACITY for kind in scalars})
+        store.create("nodes", build_node(f"node-{i}", alloc, labels=labels))
     for j in range(n_jobs):
         qname = queues[j % len(queues)][0]
         pg = build_pod_group(f"pg-{j}", namespace, qname, gang_size,
@@ -284,10 +318,14 @@ def populate_store(store, *, n_nodes: int, n_jobs: int, gang_size: int,
         spread = zones > 0 and spread_every > 0 and j % spread_every == 0
         anti = zones > 0 and anti_every > 0 and not spread \
             and j % anti_every == 1 % max(1, anti_every)
+        req = {"cpu": cpu_req, "memory": mem_req}
+        req.update({kind: str(scalar_request(j, k))
+                    for k, kind in enumerate(scalars)
+                    if scalar_request(j, k)})
         for t in range(gang_size):
             pod = build_pod(
                 namespace, f"job{j}-task{t}", "", "Pending",
-                {"cpu": cpu_req, "memory": mem_req}, groupname=f"pg-{j}",
+                dict(req), groupname=f"pg-{j}",
                 labels={"synth-job": f"pg-{j}"} if anti else None)
             if spread:
                 pod.spec.topology_spread = [TopologySpreadConstraint(
