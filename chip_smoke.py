@@ -146,10 +146,31 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
     execute span's tag against the solver's own, /metrics fetched from
     the metrics server on a local port (every line must parse), and the
     ledger must have completed every bind;
+15c. incremental_cycle: the incremental steady-state cycle.
+    Full width: two north-star stores (phase 9's shape), one Scheduler
+    with ``incremental=True`` and one with ``False``, through one seeded
+    sequence: a placing cycle, three steady cycles (the last two quiet),
+    two cycles with a gang no node holds, eight churn cycles (each
+    deletes 62 bound gangs, 1 %, adds 62 pending gangs of 8 and
+    relabels 10 nodes) and a queue add (a full rebuild); after each
+    cycle the binds, evictions and PodGroup phases and conditions of
+    the two must be equal. Unpruned: the same sequence at 4,096 pods
+    over 2,048 nodes, below the pruning threshold, incremental on the
+    card against incremental with the plain loop on the CPU, equal the
+    same way; after every full-width launch on the card the five
+    resident node tensors must equal a fresh upload of the session's
+    NodeArrays.build; the second cycle with the unfit gang launches and
+    copies no node row, and every churn cycle copies some rows but not
+    all. Each cycle prints its mode, patched jobs and nodes, quiet,
+    snapshot, open_session, close_session and cycle ms, the node-tensor
+    bytes and rows copied and the kernel's launches, counted from 0 just
+    before the cycle (0 on a quiet cycle, what the prune outcomes give
+    otherwise);
 16. the kernels line (with the table refreshes, the cluster's blocks and
     each block's shared memory, the plan and R, as the main path's launch
     reported them, the shapes_vs_plain summary, traced_cycle's overhead,
     the kernel's launches per cycle, per preempt and per reclaim cycle,
+    per quiet and per churn incremental cycle,
     and a ``prune`` entry for the north-star cycle's place: union, padded
     width, launches, refreshes, whether the reduced run served; a second
     entry for the slot path), then the card's nvidia-smi line, then
@@ -995,6 +1016,7 @@ def cycle_inputs_vs_plain(dev, late, constraints=None, reduced=None
             need = max(0, job.min_available - job.ready_task_num())
             jobs.append((job, tasks[:need]))
     narr, batch, dense = ssn.solver._context(jobs, dev, slot_tensors=True)
+    dense.materialize_nodes()
     gmask = dense.static_mask()
     slot_kw = convert.slot_kwargs(dense.arrays)
     if bool(constraints) != bool(slot_kw):
@@ -1838,6 +1860,265 @@ def traced_cycle(dev) -> dict:
     return res
 
 
+# incremental_cycle: the cycles of the sequence after the placing one
+INCR_STEADY = 3
+INCR_CHURN = 8
+INCR_RELABEL = 10
+
+
+def incr_sequence() -> list:
+    """The phase's cycles in order: one placing cycle, steady cycles with
+    nothing changed, two cycles with a gang no node can hold (the second
+    patches no node: a launch that copies no node row), churn cycles
+    (the first also deletes that gang) and a queue add (structural)."""
+    return (["place"] + ["steady"] * INCR_STEADY + ["unfit"] * 2
+            + ["churn"] * INCR_CHURN + ["structural"])
+
+
+def incr_events(n_jobs: int, n_nodes: int, seed: int) -> list:
+    """The store events before each cycle of incr_sequence, drawn from
+    ``seed``: each churn cycle deletes 1 % of the gangs (bound ones:
+    chosen among those live before the cycle), adds as many pending
+    gangs of populate_store's shape and relabels INCR_RELABEL nodes."""
+    rng = np.random.default_rng(seed)
+    live = list(range(n_jobs))
+    next_job = n_jobs
+    n_churn = max(1, n_jobs // 100)
+    events = []
+    for c, kind in enumerate(incr_sequence()):
+        ev = []
+        if kind == "unfit" and not any(k == "unfit"
+                                       for k in incr_sequence()[:c]):
+            ev.append(("unfit",))
+        if kind == "churn":
+            if incr_sequence()[c - 1] == "unfit":
+                ev.append(("delete_unfit",))
+            gone = sorted(rng.choice(len(live), n_churn, replace=False),
+                          reverse=True)
+            ev += [("delete", live.pop(int(i))) for i in gone]
+            for _ in range(n_churn):
+                ev.append(("add", next_job))
+                live.append(next_job)
+                next_job += 1
+            ev += [("relabel", int(i), c) for i in
+                   rng.choice(n_nodes, INCR_RELABEL, replace=False)]
+        if kind == "structural":
+            ev.append(("queue",))
+        events.append(ev)
+    return events
+
+
+def apply_incr_events(store: ObjectStore, events, gang: int) -> None:
+    for ev in events:
+        if ev[0] in ("delete", "delete_unfit"):
+            name = f"pg-{ev[1]}" if ev[0] == "delete" else "unfit"
+            for pod in [f"job{ev[1]}-task{t}" for t in range(gang)] \
+                    if ev[0] == "delete" else ["unfit-0", "unfit-1"]:
+                store.delete("pods", pod, "default")
+            store.delete("podgroups", name, "default")
+        elif ev[0] in ("add", "unfit"):
+            name = f"pg-{ev[1]}" if ev[0] == "add" else "unfit"
+            store.create("podgroups", tu.build_pod_group(
+                name, "default", "default", gang if ev[0] == "add" else 2,
+                phase="Inqueue"))
+            pods = [(f"job{ev[1]}-task{t}", {"cpu": "2", "memory": "4Gi"})
+                    for t in range(gang)] if ev[0] == "add" else \
+                [(f"unfit-{t}", {"cpu": "512", "memory": "4Gi"})
+                 for t in range(2)]
+            for pod, req in pods:
+                store.create("pods", tu.build_pod(
+                    "default", pod, "", "Pending", req, groupname=name))
+        elif ev[0] == "relabel":
+            node = store.get("nodes", f"node-{ev[1]}")
+            node.metadata.labels["rack"] = f"rack-moved-{ev[2]}"
+            store.update("nodes", node)
+        elif ev[0] == "queue":
+            store.create("queues", tu.build_queue("q-extra", weight=1))
+
+
+def store_state(store: ObjectStore):
+    """(binds pod -> node, PodGroup -> (phase, sorted conditions)) as the
+    store holds them, read in place (store.list would clone 50,000
+    pods a call)."""
+    with store._lock:
+        binds = {k: p.spec.node_name
+                 for k, p in store._objects["pods"].items()
+                 if p.spec.node_name}
+        groups = {k: (g.status.phase, sorted(
+            (c.type, c.status, c.reason, c.message)
+            for c in g.status.conditions))
+            for k, g in store._objects["podgroups"].items()}
+    return binds, groups
+
+
+def fresh_node_upload(cache, dev):
+    """(node order, the five node tensors) of a full upload of
+    NodeArrays.build for the cache as it stands: the nodes the next
+    session encodes."""
+    from volcano_tpu_torch.models.arrays import NodeArrays, ResourceIndex
+    with cache.mutex:
+        full = cache._snapshot_locked()
+    order = [n for n in full.node_list if n in full.nodes]
+    narr = NodeArrays.build(full.nodes, order,
+                            ResourceIndex.from_cluster(full.nodes, full.jobs))
+    host = {"node_idle": narr.idle, "node_future": narr.future_idle,
+            "node_alloc": narr.allocatable, "node_ntasks": narr.n_tasks,
+            "node_max_tasks": narr.max_tasks}
+    return order, {f: torch.tensor(a, dtype=convert.FIELDS[f], device=dev)
+                   for f, a in host.items()}
+
+
+def incr_run(sched, store, kind, events, gang, dev, check_resident):
+    """One cycle of the phase: the events, then run_once with the launch
+    count set to 0 just before and read just after. With
+    ``check_resident`` (an unpruned run on the card), the resident node
+    tensors after a full-width launch must equal a fresh upload of the
+    session's nodes, taken before the cycle."""
+    apply_incr_events(store, events, gang)
+    cache = sched.cache
+    fresh = fresh_node_upload(cache, dev) if check_resident else None
+    gang_allocate_cuda.launches = 0
+    sched.run_once()
+    launches = gang_allocate_cuda.launches
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    lc = sched.last_cycle
+    full_width = [pl for pl in lc["places"]
+                  if pl["prune"] is None or not pl["prune"]["served"]]
+    resident = None
+    state = getattr(cache, "_incr_solver_state", None)
+    if check_resident and full_width:
+        order, want = fresh
+        if state is None or state.dev is None or order != state.names \
+                or any(not torch.equal(state.dev[f], want[f])
+                       for f in want):
+            fail(f"incremental_cycle: after the {kind} cycle the "
+                 f"resident node tensors differ from a fresh upload")
+        resident = True
+    row_bytes = None
+    if state is not None and state.dev is not None:
+        row_bytes = sum(int(t[0].numel() * t.element_size())
+                        for t in state.dev.values())
+    node_bytes = sum(pl["node_bytes"] for pl in lc["places"])
+    return {"kind": kind, "mode": lc["mode"],
+            "patched_jobs": lc["patched_jobs"],
+            "patched_nodes": lc["patched_nodes"], "quiet": lc["quiet"],
+            "snapshot_ms": lc["snapshot_ms"],
+            "open_session_ms": lc["open_session_ms"],
+            "close_session_ms": lc["close_session_ms"],
+            "cycle_ms": lc["cycle_ms"],
+            "actions_ms": {a: lc[f"{a}_ms"] for a in ("enqueue", "allocate",
+                                                      "backfill")},
+            "node_bytes": node_bytes,
+            "node_rows": node_bytes // row_bytes if row_bytes else None,
+            "kernel_launches": launches,
+            "places": [{"launches": pl["launches"],
+                        "prune": (pl["prune"] or {}).get("fallback", "off")
+                        if pl["prune"] is None or not pl["prune"]["served"]
+                        else "served", "kernel_ms": pl["kernel_ms"]}
+                       for pl in lc["places"]],
+            "resident_checked": resident}
+
+
+def incremental_cycle(dev) -> dict:
+    """Phase 15c: the incremental steady-state cycle. Full width: two
+    stores of the north star (populate_store(10,000 nodes, 6,250 gangs
+    of 8), default conf plus binpack) on the card, one Scheduler with
+    ``incremental=True`` and one with ``False``, driven through the same
+    seeded sequence (incr_sequence, incr_events); after every cycle the
+    binds, evictions and PodGroup phases and conditions of the two must
+    be equal. Unpruned: 4,096 pods over 2,048 nodes (no pruning below
+    4,096 nodes, so the resident node tensors and their dirty-row copies
+    run), incremental on the card against incremental with the plain
+    loop on the CPU, equal the same way; after each full-width launch on
+    the card the resident tensors must equal a fresh upload. Every
+    cycle's launches are counted from 0 and must be 0 on a quiet cycle
+    and what the places' prune outcomes give otherwise."""
+    out = {}
+    for case, size, runs in (
+            ("full_width", FULL,
+             (("incremental", dev, True), ("full", dev, False))),
+            ("unpruned", MID,
+             (("incremental", dev, True),
+              ("plain", torch.device("cpu"), True)))):
+        n_jobs = size["n_tasks"] // size["gang"]
+        events = incr_events(n_jobs, size["n_nodes"], seed=8)
+        conf = CYCLE_CONF.format(drf="")
+        sides = {}
+        for name, device, incremental in runs:
+            store = ObjectStore()
+            populate_store(store, n_nodes=size["n_nodes"], n_jobs=n_jobs,
+                           gang_size=size["gang"])
+            sched = Scheduler(store, scheduler_conf=conf, device=device,
+                              incremental=incremental)
+            sched.cache.run()
+            sides[name] = (store, sched)
+        rows = {name: [] for name in sides}
+        for c, kind in enumerate(incr_sequence()):
+            states = {}
+            # the two sides take turns at going first
+            order = list(sides.items())
+            if c % 2:
+                order.reverse()
+            for name, (store, sched) in order:
+                r = incr_run(sched, store, kind, events[c], size["gang"],
+                             sched.device, check_resident=(
+                                 case == "unpruned"
+                                 and name == "incremental"))
+                want = 0 if r["quiet"] else sum(
+                    expected_launches(sched.last_cycle["places"]))
+                got = r["kernel_launches"]
+                if sched.device.type != "cuda":
+                    want = 0
+                if got != want:
+                    fail(f"incremental_cycle {case} {name} cycle {c} "
+                         f"({kind}): {got} launches, {want} expected")
+                if kind == "steady" and c > 1 and incremental and \
+                        not r["quiet"]:
+                    fail(f"incremental_cycle {case} {name}: steady cycle "
+                         f"{c} was not quiet: {r}")
+                states[name] = (store_state(store), sched.cache.evictions)
+                rows[name].append(r)
+            (a_name, a), (b_name, b) = sorted(states.items())
+            if a != b:
+                (ab, ag), (bb, bg) = a[0], b[0]
+                fail(f"incremental_cycle {case} cycle {c} ({kind}): "
+                     f"{a_name} and {b_name} differ: "
+                     f"{sum(ab.get(k) != bb.get(k) for k in set(ab) | set(bb))}"
+                     f" binds, {sum(ag.get(k) != bg.get(k) for k in ag)} "
+                     f"PodGroups, evictions {a[1]} / {b[1]}")
+            line("incremental_cycle", case=case, cycle=c, kind=kind,
+                 binds=len(a[0][0]),
+                 **{name: rows[name][-1] for name in rows})
+        incr = rows["incremental"]
+        modes = [r["mode"] for r in incr]
+        if modes[0] != "full" or modes[-1] != "full" or \
+                set(modes[1:-1]) != {"incremental"} or \
+                not any(r["quiet"] for r in incr):
+            fail(f"incremental_cycle {case}: modes {modes}")
+        if case == "unpruned":
+            unfit = [r for r in incr if r["kind"] == "unfit"]
+            churn = [r for r in incr if r["kind"] == "churn"]
+            n = size["n_nodes"]
+            if [pl["launches"] for pl in unfit[-1]["places"]] != [1] or \
+                    unfit[-1]["node_rows"] != 0 or \
+                    not all(0 < r["node_rows"] < n for r in churn) or \
+                    not any(r["resident_checked"] for r in incr):
+                fail(f"incremental_cycle {case}: node rows copied "
+                     f"{[(r['kind'], r['node_rows']) for r in incr]}")
+        out[case] = {
+            name: {k: [r[k] for r in rs] for k in (
+                "kind", "mode", "quiet", "patched_jobs", "patched_nodes",
+                "snapshot_ms", "open_session_ms", "close_session_ms",
+                "cycle_ms", "node_bytes", "node_rows", "kernel_launches")}
+            for name, rs in rows.items()}
+        for store, sched in sides.values():
+            sched.cache.stop()
+        del sides
+        gc.collect()
+    return out
+
+
 def main() -> None:
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(dev)
@@ -2024,6 +2305,14 @@ def main() -> None:
     reclaim = victim_cycle("reclaim")
     victim_prefix_phase(dev)
     traced = traced_cycle(dev)
+    incr = incremental_cycle(dev)
+    incr_launches = {
+        case: {kind: sorted({n for k, q, n in zip(
+            r["incremental"]["kind"], r["incremental"]["quiet"],
+            r["incremental"]["kernel_launches"])
+            if (q if kind == "quiet" else k == kind and not q)})
+            for kind in ("quiet", "churn")}
+        for case, r in incr.items()}
     # the plain loop's full-size runs, held against the kernel's results
     late.finish()
 
@@ -2048,6 +2337,7 @@ def main() -> None:
             "steady_overhead_median_pct",
             "span_kernel_ms", "solver_kernel_ms")},
         "launches_per_cycle": cycle_launches[-1],
+        "launches_per_incremental_cycle": incr_launches,
         "launches_per_preempt_cycle": preempt["launches"],
         "launches_per_reclaim_cycle": reclaim["launches"],
         "preempt_cycle_kernel_ms": [pl["kernel_ms"]

@@ -6,12 +6,9 @@ metric names in ``render_prometheus`` and equal route-free values.
 
 What the comparison leaves out, and why: the kernel-route label values
 (``volcano_solver_kernel_runs_total{kernel}``: "cuda"/"plain" here, the
-JAX package's tiers there); wall-time values; the metrics of modules the
-port does not have yet (the incremental snapshot's
-``volcano_cycle_mode_total``, ``volcano_dirty_set_size`` and
-``volcano_solver_device_buffer_total``, its persistent constraint state's
-``volcano_constraint_rows_total``) and of the JAX package's compile cache
-(``volcano_solver_compile_cache_total``, which counts XLA compiles);
+JAX package's tiers there); wall-time values; the metrics of the JAX
+package's compile cache (``volcano_solver_compile_cache_total``, which
+counts XLA compiles);
 ``volcano_trace_phase_over_budget_total`` (set by a cycle's wall time
 against its budget).
 
@@ -200,12 +197,9 @@ configurations:
     mesh.enable: "false"
     explain.enable: "true"
 """
-# metrics of modules the port does not have yet, of the JAX package's
-# compile cache, and of cycle wall time against a budget (docstring)
-NOT_COMPARED = {"volcano_cycle_mode_total", "volcano_dirty_set_size",
-                "volcano_solver_device_buffer_total",
-                "volcano_constraint_rows_total",
-                "volcano_solver_compile_cache_total",
+# metrics of the JAX package's compile cache, and of cycle wall time
+# against a budget (docstring)
+NOT_COMPARED = {"volcano_solver_compile_cache_total",
                 "volcano_trace_phase_over_budget_total"}
 # route-free values: counters and gauges of binds, attempts, shares and
 # gang states, and the observation counts of the e2e histograms
@@ -218,7 +212,10 @@ COMPARED_VALUES = ("volcano_schedule_attempts_total",
                    "volcano_queue_allocated_memory_bytes",
                    "volcano_queue_share", "volcano_job_share",
                    "volcano_padded_waste_ratio",
-                   "volcano_fragmentation_ratio")
+                   "volcano_fragmentation_ratio",
+                   "volcano_cycle_mode_total", "volcano_dirty_set_size",
+                   "volcano_solver_device_buffer_total",
+                   "volcano_constraint_rows_total")
 COMPARED_COUNTS = ("volcano_e2e_scheduling_latency_milliseconds",
                    "volcano_pod_e2e_latency_milliseconds",
                    "volcano_action_scheduling_latency_microseconds",

@@ -57,8 +57,29 @@ class AllocateAction(Action):
                    for job in ssn.jobs.values()):
             return []
 
+        # the scoped working set (docs/design/incremental_cycle.md): on an
+        # incremental cycle where no node changed, a pending job outside
+        # the patched and touched jobs is in the state it was last
+        # evaluated in, against the same cluster, and would repeat last
+        # cycle's no-placement (a placement would have dirtied it), so it
+        # is skipped. A patched node (or a full rebuild) widens the set to
+        # every pending job: changed capacity can unlock any of them.
+        # (The reference also widens while a reservation lock is live or
+        # just changed; this port has no reservation lock.)
+        working = None
+        if ssn.incr_mode == "incremental" and not ssn.patched_nodes:
+            working = set(ssn.patched_jobs or ()) | ssn.touched_jobs
+        skipped_jobs = skipped_tasks = 0
+
         jobs_by_ns_queue: Dict[str, Dict[str, List[JobInfo]]] = {}
         for job in ssn.jobs.values():
+            if working is not None and job.uid not in working:
+                n_pending = len(job.task_status_index.get(
+                    TaskStatus.Pending, ()))
+                if n_pending:
+                    skipped_jobs += 1
+                    skipped_tasks += n_pending
+                continue
             if job.pod_group.status.phase == PodGroupPhase.PENDING:
                 continue
             vr = ssn.job_valid(job)
@@ -68,6 +89,9 @@ class AllocateAction(Action):
                 continue
             jobs_by_ns_queue.setdefault(job.namespace, {}) \
                 .setdefault(job.queue, []).append(job)
+        if skipped_jobs:
+            trace.tag_cycle(skipped_jobs=skipped_jobs,
+                            skipped_tasks=skipped_tasks)
 
         import functools
         ns_sorted = sorted(

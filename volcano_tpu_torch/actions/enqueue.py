@@ -62,6 +62,7 @@ class EnqueueAction(Action):
                         or ssn.job_enqueueable(job)):
                     ssn.job_enqueued(job)
                     job.own_pod_group().status.phase = PodGroupPhase.INQUEUE
+                    ssn.touched_jobs.add(job.uid)
                     inqueued += 1
                     if ledger.is_enabled() and job.tasks:
                         # lifecycle ledger: pods whose group went Pending

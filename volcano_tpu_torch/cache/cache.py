@@ -1,8 +1,17 @@
 """SchedulerCache: watch-fed cluster state with a per-cycle snapshot
 (counterpart of volcano_tpu/cache/cache.py; reference:
 pkg/scheduler/cache/cache.go): watch ingestion (:84-96, Run:487), the
-full-rebuild deep-copy snapshot (:793-882), binds, evictions and
-PodGroup status writeback.
+deep-copy snapshot (:793-882), binds, evictions and PodGroup status
+writeback.
+
+With ``incremental`` on (the Scheduler's default) the snapshot is the
+incremental steady-state cycle's (docs/design/incremental_cycle.md): one
+persistent ClusterInfo, patched in place by re-cloning only the jobs and
+nodes in the dirty sets. Every watch delta, bind and eviction marks the
+sets, and a closing session folds in what it mutated
+(``absorb_session_touches``). The first snapshot, every structural change
+(queue, priority class, resource quota) and every
+``INCR_FULL_RECOMPUTE_EVERY_CYCLES``-th snapshot rebuild in full.
 
 Binds and evictions are synchronous: ``bind``/``bind_batch`` move the
 cache's tasks to Binding, add them to their nodes and write the store at
@@ -22,9 +31,10 @@ cycle's commit; the ledger completes the echoed entries after the cycle
 (``flush_executors`` and the scheduler), where the reference's flush
 executor does.
 
-Left out of this port: the incremental snapshot, the async bind/evict
-executors and write-behind applies, bind retry/backoff/quarantine,
-partial-gang healing, anti-entropy, lease fencing and NUMA.
+Left out of this port: the async bind/evict executors and write-behind
+applies (the async flush), bind retry/backoff/quarantine and the retry
+records that re-dirty their jobs, partial-gang healing, anti-entropy,
+lease fencing and NUMA.
 """
 
 from __future__ import annotations
@@ -37,12 +47,14 @@ from typing import Dict, List, Optional
 from ..apiserver.store import ObjectStore
 from ..metrics import metrics as m
 from ..models import objects as obj
+from ..models.arrays import ResourceIndex
 from ..models.cluster_info import ClusterInfo
 from ..models.job_info import JobInfo, TaskInfo, TaskStatus
 from ..models.node_info import NodeInfo
 from ..models.objects import (DEFAULT_QUEUE, DEFAULT_SCHEDULER_NAME,
-                              PodGroupPhase)
+                              PodGroupPhase, status_fingerprint)
 from ..models.queue_info import NamespaceCollection, QueueInfo
+from ..models.resource import CPU, MEMORY, Resource
 from ..trace import ledger
 from ..trace import tracer
 from .event_handlers import EventHandlersMixin
@@ -52,6 +64,11 @@ from .interface import (NullVolumeBinder, StoreBinder, StoreEvictor,
 
 class SchedulerCache(EventHandlersMixin):
     """The scheduler's view of the cluster, fed by store watches."""
+
+    # every Nth incremental snapshot is a full rebuild even with nothing
+    # dirty, so a dirty-tracking bug lasts at most this many cycles
+    # (0 turns the cadence off)
+    INCR_FULL_RECOMPUTE_EVERY_CYCLES = 64
 
     def __init__(self, store: ObjectStore,
                  scheduler_name: str = DEFAULT_SCHEDULER_NAME,
@@ -93,6 +110,27 @@ class SchedulerCache(EventHandlersMixin):
         # its binds and echoed pairs, and its first instant, summed over
         # its gangs (begin_commit_trace, emit_commit_spans)
         self._commit_acc: Optional[list] = None
+        # the incremental steady-state cycle: with ``incremental`` on,
+        # snapshot() keeps one persistent ClusterInfo and re-clones only
+        # the jobs and nodes in the dirty sets
+        self.incremental = False
+        self._dirty_jobs: set = set()
+        self._dirty_nodes: set = set()
+        self._dirty_structural = True      # the first snapshot is full
+        self._incr_snap: Optional[ClusterInfo] = None
+        self._incr_seq = 0
+        self._incr_cycles_since_full = 0
+        # {("n", name) | ("j", uid): frozenset of scalar resource names}
+        # of the entities that bring scalar dimensions: the upkeep behind
+        # snapshot.rindex
+        self._incr_scalar_src: Dict[tuple, frozenset] = {}
+        # the last snapshot's mode and dirty-set sizes (the cycle's tags)
+        self.last_snapshot_stats: dict = {}
+        # while _bind_store_writes is in the store: (thread ident, {task
+        # uid: (cache task, hostname)}) of the binds being written, so
+        # update_pods_bulk knows their echoes (delivered on this thread)
+        # and does not dirty for them
+        self._expected_bind_echo: Optional[tuple] = None
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -167,34 +205,257 @@ class SchedulerCache(EventHandlersMixin):
     def snapshot(self) -> ClusterInfo:
         """Deep copy of the whole state (cache.go:793-882): only Ready
         nodes; only jobs with a PodGroup and an existing queue; job
-        priority resolved from PriorityClass here."""
+        priority resolved from PriorityClass here. With ``incremental``
+        on, the persistent snapshot patched by the dirty sets, equal in
+        content and order to this full rebuild."""
         t0 = time.perf_counter()
         with self.mutex:
-            snap = ClusterInfo()
-            snap.node_list = list(self.node_list)
-            for node in self.nodes.values():
-                if not node.ready():
-                    continue
-                cloned = node.clone()
-                snap.nodes[node.name] = cloned
-                if node.revocable_zone:
-                    snap.revocable_nodes[node.name] = cloned
-            for q in self.queues.values():
-                snap.queues[q.uid] = q.clone()
-            for coll in self.namespace_collection.values():
-                info = coll.snapshot()
-                snap.namespaces[info.name] = info
-            for job in self.jobs.values():
-                if job.pod_group is None or job.queue not in snap.queues:
-                    continue
-                job.priority = self.default_priority
-                pc = self.priority_classes.get(
-                    job.pod_group.spec.priority_class_name)
-                if pc is not None:
-                    job.priority = pc.value
-                snap.jobs[job.uid] = job.clone()
+            if self.incremental:
+                snap = self._incr_snapshot_locked()
+            else:
+                # the dirty sets are consumed (kept bounded) even though
+                # the rebuild does not read them
+                self._dirty_jobs.clear()
+                self._dirty_nodes.clear()
+                self._dirty_structural = False
+                self._incr_snap = None
+                snap = self._snapshot_locked()
         self.last_snapshot_ms = (time.perf_counter() - t0) * 1000.0
         return snap
+
+    def _snapshot_locked(self) -> ClusterInfo:
+        """The full rebuild; the caller holds the mutex."""
+        snap = ClusterInfo()
+        snap.node_list = list(self.node_list)
+        for node in self.nodes.values():
+            if not node.ready():
+                continue
+            cloned = node.clone()
+            snap.nodes[node.name] = cloned
+            if node.revocable_zone:
+                snap.revocable_nodes[node.name] = cloned
+        for q in self.queues.values():
+            snap.queues[q.uid] = q.clone()
+        for coll in self.namespace_collection.values():
+            info = coll.snapshot()
+            snap.namespaces[info.name] = info
+        for job in self.jobs.values():
+            if job.pod_group is None or job.queue not in snap.queues:
+                continue
+            self._resolve_priority(job)
+            snap.jobs[job.uid] = job.clone()
+        return snap
+
+    def _resolve_priority(self, job: JobInfo) -> None:
+        job.priority = self.default_priority
+        pc = self.priority_classes.get(job.pod_group.spec.priority_class_name)
+        if pc is not None:
+            job.priority = pc.value
+
+    # -- incremental snapshot (docs/design/incremental_cycle.md) -----------
+
+    def mark_structural_change(self) -> None:
+        """Make the next snapshot a full rebuild: a change that reaches
+        beyond one job or node (queue add/update/delete re-gates every
+        job's inclusion and fair share; priority-class and quota edits
+        re-resolve every job)."""
+        with self.mutex:
+            self._dirty_structural = True
+
+    def absorb_session_touches(self, jobs, nodes) -> None:
+        """Fold a closing session's own mutations (placements, pipelined
+        claims, condition and status writes) into the dirty sets: the
+        session mutates the persistent snapshot's objects in place, so
+        each touched job and node is re-cloned from the cache before it
+        is read again."""
+        if not (jobs or nodes):
+            return
+        with self.mutex:
+            self._dirty_jobs.update(jobs)
+            self._dirty_nodes.update(nodes)
+
+    @staticmethod
+    def _scalar_names_of(res) -> Optional[frozenset]:
+        return frozenset(res.scalars) if res.scalars else None
+
+    def _incr_scalar_update(self, key: tuple, names) -> bool:
+        """Track one entity's scalar resource names; True when they
+        changed (the caller then re-derives snapshot.rindex)."""
+        old = self._incr_scalar_src.pop(key, None)
+        if names:
+            self._incr_scalar_src[key] = names
+        return old != names
+
+    def _incr_refresh_rindex(self, snap: ClusterInfo) -> None:
+        """Re-derive the snapshot's ResourceIndex from the tracked scalar
+        names, keeping the same object while the names are unchanged
+        (the solver's persistent node state keys on its identity)."""
+        names: set = set()
+        for contributed in self._incr_scalar_src.values():
+            names |= contributed
+        if snap.rindex is not None and \
+                set(snap.rindex.names) == ({CPU, MEMORY} | names):
+            return
+        snap.rindex = ResourceIndex(names)
+
+    def _init_incr_aux(self, snap: ClusterInfo) -> None:
+        """The rollups of a full rebuild: the resource index, the
+        allocatable total (summed in snap.nodes order, as open_session's
+        loop sums it, so that the two agree to the bit), the PodGroup
+        status fingerprints and the pending-work sets of the quiet
+        cycle."""
+        self._incr_scalar_src = {}
+        for name, node in snap.nodes.items():
+            sn = self._scalar_names_of(node.allocatable)
+            if sn:
+                self._incr_scalar_src[("n", name)] = sn
+        for uid, job in snap.jobs.items():
+            sn = self._scalar_names_of(job.total_request)
+            if sn:
+                self._incr_scalar_src[("j", uid)] = sn
+        snap.rindex = None
+        self._incr_refresh_rindex(snap)
+        total = Resource()
+        for node in snap.nodes.values():
+            total.add(node.allocatable)
+        snap.total_resource = total
+        snap.pg_fprints = {uid: status_fingerprint(job.pod_group.status)
+                           for uid, job in snap.jobs.items()}
+        snap.pending_task_jobs = {
+            uid for uid, job in snap.jobs.items()
+            if job.task_status_index.get(TaskStatus.Pending)}
+        snap.pending_phase_jobs = {
+            uid for uid, job in snap.jobs.items()
+            if job.pod_group.status.phase == PodGroupPhase.PENDING}
+
+    @staticmethod
+    def _incr_job_aux(snap: ClusterInfo, uid: str, job) -> None:
+        """Refresh one patched job's rollup entries (``job`` None: gone)."""
+        if job is None:
+            snap.pg_fprints.pop(uid, None)
+            snap.pending_task_jobs.discard(uid)
+            snap.pending_phase_jobs.discard(uid)
+            return
+        snap.pg_fprints[uid] = status_fingerprint(job.pod_group.status)
+        if job.task_status_index.get(TaskStatus.Pending):
+            snap.pending_task_jobs.add(uid)
+        else:
+            snap.pending_task_jobs.discard(uid)
+        if job.pod_group.status.phase == PodGroupPhase.PENDING:
+            snap.pending_phase_jobs.add(uid)
+        else:
+            snap.pending_phase_jobs.discard(uid)
+
+    def _incr_snapshot_locked(self) -> ClusterInfo:
+        """The persistent snapshot: a full rebuild when due (first use, a
+        structural change, the periodic cadence), else patched in place.
+        The caller holds the mutex."""
+        every = self.INCR_FULL_RECOMPUTE_EVERY_CYCLES
+        full_due = (self._incr_snap is None or self._dirty_structural
+                    or (every > 0
+                        and self._incr_cycles_since_full >= every))
+        n_dirty_jobs = len(self._dirty_jobs)
+        n_dirty_nodes = len(self._dirty_nodes)
+        self._incr_seq += 1
+        if full_due:
+            snap = self._snapshot_locked()
+            self._init_incr_aux(snap)
+            self._incr_snap = snap
+            self._incr_cycles_since_full = 0
+            self._dirty_structural = False
+            self._dirty_jobs = set()
+            self._dirty_nodes = set()
+            snap.incr_mode = "full"
+            snap.patched_jobs = set(snap.jobs)
+            snap.patched_nodes = set(snap.nodes)
+        else:
+            snap = self._incr_snap
+            snap.incr_mode = "incremental"
+            self._patch_snapshot_locked(snap)
+        self._incr_cycles_since_full += 1
+        snap.incr_seq = self._incr_seq
+        snap.quiet = (snap.incr_mode == "incremental"
+                      and not snap.patched_jobs and not snap.patched_nodes
+                      and not snap.pending_task_jobs
+                      and not snap.pending_phase_jobs)
+        self.last_snapshot_stats = {
+            "mode": snap.incr_mode, "quiet": snap.quiet,
+            "dirty_jobs": n_dirty_jobs, "dirty_nodes": n_dirty_nodes,
+            "patched_jobs": len(snap.patched_jobs),
+            "patched_nodes": len(snap.patched_nodes),
+            "jobs": len(snap.jobs), "nodes": len(snap.nodes)}
+        m.inc(m.CYCLE_MODE, mode=snap.incr_mode)
+        m.set_gauge(m.DIRTY_SET_SIZE, float(n_dirty_jobs), kind="jobs")
+        m.set_gauge(m.DIRTY_SET_SIZE, float(n_dirty_nodes), kind="nodes")
+        return snap
+
+    def _patch_snapshot_locked(self, snap: ClusterInfo) -> None:
+        """Patch the persistent ClusterInfo: re-clone exactly the dirty
+        jobs and nodes, drop the gone or filtered ones, and rebuild the
+        small whole-cluster collections (queues, namespaces, node_list).
+
+        Order: the full rebuild iterates the cache's dicts, and float sums
+        downstream (the allocatable total, proportion's queue sums) follow
+        dict order, so whenever membership may have changed the dict
+        shells are rebuilt in the cache's order."""
+        dirty_jobs, self._dirty_jobs = self._dirty_jobs, set()
+        dirty_nodes, self._dirty_nodes = self._dirty_nodes, set()
+        rindex_stale = False
+
+        snap.queues = {q.uid: q.clone() for q in self.queues.values()}
+        snap.namespaces = {}
+        for coll in self.namespace_collection.values():
+            info = coll.snapshot()
+            snap.namespaces[info.name] = info
+
+        patched_nodes: set = set()
+        if dirty_nodes:
+            for name in dirty_nodes:
+                node = self.nodes.get(name)
+                patched_nodes.add(name)
+                if node is None or not node.ready():
+                    snap.nodes.pop(name, None)
+                    rindex_stale |= self._incr_scalar_update(("n", name),
+                                                             None)
+                    continue
+                snap.nodes[name] = node.clone()
+                rindex_stale |= self._incr_scalar_update(
+                    ("n", name), self._scalar_names_of(node.allocatable))
+            # a delete and re-add between cycles moves a key to the end
+            # of the cache's dict; the snapshot follows
+            snap.nodes = {n: snap.nodes[n] for n in self.nodes
+                          if n in snap.nodes}
+            snap.revocable_nodes = {n: c for n, c in snap.nodes.items()
+                                    if c.revocable_zone}
+            snap.node_list = list(self.node_list)
+            total = Resource()
+            for node in snap.nodes.values():
+                total.add(node.allocatable)
+            snap.total_resource = total
+
+        patched_jobs: set = set()
+        if dirty_jobs:
+            for uid in dirty_jobs:
+                job = self.jobs.get(uid)
+                patched_jobs.add(uid)
+                if job is None or job.pod_group is None \
+                        or job.queue not in snap.queues:
+                    snap.jobs.pop(uid, None)
+                    self._incr_job_aux(snap, uid, None)
+                    rindex_stale |= self._incr_scalar_update(("j", uid),
+                                                             None)
+                    continue
+                self._resolve_priority(job)
+                snap.jobs[uid] = job.clone()
+                self._incr_job_aux(snap, uid, job)
+                rindex_stale |= self._incr_scalar_update(
+                    ("j", uid), self._scalar_names_of(job.total_request))
+            snap.jobs = {u: snap.jobs[u] for u in self.jobs
+                         if u in snap.jobs}
+        if rindex_stale:
+            self._incr_refresh_rindex(snap)
+        snap.patched_jobs = patched_jobs
+        snap.patched_nodes = patched_nodes
 
     # -- binds -------------------------------------------------------------
 
@@ -223,6 +484,8 @@ class SchedulerCache(EventHandlersMixin):
         except RuntimeError:
             job.move_task_status(task, original)
             raise
+        self._dirty_jobs.add(task.job)
+        self._dirty_nodes.add(hostname)
         return task, task.pod
 
     def bind(self, task_info: TaskInfo, hostname: str) -> None:
@@ -287,8 +550,16 @@ class SchedulerCache(EventHandlersMixin):
         if not bound:
             return
         t1 = time.perf_counter()
-        failed = self.binder.bind_batch([(pod, hostname)
-                                         for _, pod, hostname in bound])
+        # the store delivers the echo of these writes on this thread,
+        # inside bind_batch: the hint lets update_pods_bulk tell them
+        # from another writer's patches
+        self._expected_bind_echo = (threading.get_ident(), {
+            task.uid: (task, hostname) for task, _, hostname in bound})
+        try:
+            failed = self.binder.bind_batch([(pod, hostname)
+                                             for _, pod, hostname in bound])
+        finally:
+            self._expected_bind_echo = None
         if failed:
             m.inc(m.BIND_ERRORS, float(len(failed)), reason="rejected")
             # the cache staged these as Binding; the store does not have
@@ -333,6 +604,8 @@ class SchedulerCache(EventHandlersMixin):
             except RuntimeError:
                 job.update_task_status(task, original)
                 raise
+            self._dirty_jobs.add(task.job)
+            self._dirty_nodes.add(task.node_name)
         self._evict_store_writes([(task, task.pod, job.pod_group, reason)])
 
     def evict_batch(self, items) -> None:
@@ -359,6 +632,8 @@ class SchedulerCache(EventHandlersMixin):
                     job.move_task_status(task, original)
                     self.sync_task(task)
                     continue
+                self._dirty_jobs.add(task.job)
+                self._dirty_nodes.add(task.node_name)
                 staged.append((task, task.pod, job.pod_group, reason))
         self._evict_store_writes(staged)
 

@@ -5,12 +5,17 @@ accounting (:47-260), node ingestion (:302-418), PodGroup/Queue ingestion
 (:420-560), PriorityClass and ResourceQuota handlers. All methods assume
 the cache lock is held by the caller (the watch fan-out is synchronous).
 
-Left out with the incremental snapshot and the commit-path resilience: the
-dirty-set bookkeeping, the bind-retry records and the NUMA handlers.
+Every handler records the job and node keys it changes in the cache's
+dirty sets, which the incremental snapshot re-clones
+(docs/design/incremental_cycle.md); queue, priority-class and
+resource-quota edits are structural and force a full rebuild. Left out:
+the bind-retry records (with the commit path's resilience) and the NUMA
+handlers.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Optional
 
@@ -25,7 +30,12 @@ from ..utils.fastclone import fast_clone
 
 
 class EventHandlersMixin:
-    """Mixed into SchedulerCache; operates on self.jobs/self.nodes/..."""
+    """Mixed into SchedulerCache; operates on self.jobs/self.nodes/...
+
+    The one delivery that does not dirty: the echo of the cache's own
+    bind write, which :meth:`update_pods_bulk` recognises by the
+    expected-bind-echo hint of the binding thread; the bind's staging
+    already dirtied its job and node with the same information."""
 
     # -- pods -------------------------------------------------------------
 
@@ -55,6 +65,9 @@ class EventHandlersMixin:
         job = self._get_or_create_job(ti)
         if job is not None:
             job.add_task_info(ti)
+            self._dirty_jobs.add(ti.job)
+        if ti.node_name:
+            self._dirty_nodes.add(ti.node_name)
 
     def add_pod(self, pod: obj.Pod) -> None:
         self._add_task(TaskInfo(pod))
@@ -75,10 +88,13 @@ class EventHandlersMixin:
         if job is not None:
             try:
                 job.delete_task_info(ti)
+                self._dirty_jobs.add(ti.job)
             except KeyError:
                 pass
-        if ti.node_name and ti.node_name in self.nodes:
-            self.nodes[ti.node_name].remove_task(ti)
+        if ti.node_name:
+            self._dirty_nodes.add(ti.node_name)
+            if ti.node_name in self.nodes:
+                self.nodes[ti.node_name].remove_task(ti)
 
     def update_pod(self, old: obj.Pod, new: obj.Pod) -> None:
         # bind/status echoes: when the cached task and the new view sit on
@@ -113,6 +129,10 @@ class EventHandlersMixin:
                 view.topology_policy = nt.topology_policy
                 view.constraint_key_cache = nt.constraint_key_cache
                 view.group_sig_cache = nt.group_sig_cache
+            # a status or annotation change from outside: the snapshot's
+            # job and node views of the task are both stale
+            self._dirty_jobs.add(nt.job)
+            self._dirty_nodes.add(cached.node_name)
             return
         self._delete_task(TaskInfo(old))
         self.add_pod(new)
@@ -124,19 +144,61 @@ class EventHandlersMixin:
         unchanged annotations, priority and deletion stamp) reduces to a
         status-index move plus a resource_version refresh on the pod the
         cache already holds; anything else goes through
-        :meth:`update_pod` on a private copy."""
+        :meth:`update_pod` on a private copy.
+
+        The echo of the cache's own bind write does not dirty: the store
+        delivers synchronously on the writing thread, so a delivery on
+        the thread that set the expected-bind-echo hint, of a pod the
+        hint names bound to the hinted node, is that write. Another
+        writer's patch of the same shape dirties its job and node like
+        any watch delta."""
         t0 = time.perf_counter()
         now = self.store.clock.now() if ledger.is_enabled() else None
         confirms: list = []
+        hint = self._expected_bind_echo
+        exp = hint[1] if hint is not None \
+            and hint[0] == threading.get_ident() else None
         with self.mutex:
+            def apply(job, cached, new_status, rv) -> None:
+                """The echo's status move and resource_version refresh."""
+                if now is not None:
+                    if confirms and confirms[-1][1] == job.queue:
+                        confirms[-1][0].append(cached)
+                    else:
+                        confirms.append(([cached], job.queue))
+                job.move_task_status(cached, new_status)
+                cached.pod.metadata.resource_version = rv
+                node = self.nodes.get(cached.node_name)
+                stored = node.tasks.get(cached.key()) \
+                    if node is not None else None
+                if stored is not None and stored is not cached:
+                    stored.status = new_status
+                    if stored.pod is not cached.pod:
+                        stored.pod.metadata.resource_version = rv
+
             for old, new in pairs:
+                nm = new.metadata
+                own = exp.get(nm.uid) if exp is not None else None
+                if own is not None:
+                    # our own bind write (delivered on the hinting
+                    # thread): it changed node_name and the
+                    # resource_version and nothing else, so the guards
+                    # below are moot and nothing is dirtied
+                    task, host = own
+                    new_status = get_task_status(new)
+                    job = self.jobs.get(task.job)
+                    if job is not None and new.spec.node_name == host \
+                            and task.node_name == host \
+                            and allocated_status(task.status) \
+                            and allocated_status(new_status):
+                        apply(job, task, new_status, nm.resource_version)
+                        continue
                 jid = get_job_id(new)
                 job = self.jobs.get(jid) if jid else None
                 cached = None
                 if job is not None:
-                    cached = job.tasks.get(new.metadata.uid
-                                           or new.metadata.key())
-                om, nm = old.metadata, new.metadata
+                    cached = job.tasks.get(nm.uid or nm.key())
+                om = old.metadata
                 if cached is not None and cached.node_name \
                         and cached.node_name == new.spec.node_name \
                         and allocated_status(cached.status) \
@@ -148,22 +210,11 @@ class EventHandlersMixin:
                     rr = new.__dict__.get("_rr")
                     if allocated_status(new_status) and rr is not None \
                             and cached.resreq.equal(rr):
-                        if now is not None:
-                            if confirms and confirms[-1][1] == job.queue:
-                                confirms[-1][0].append(cached)
-                            else:
-                                confirms.append(([cached], job.queue))
-                        job.move_task_status(cached, new_status)
-                        cached.pod.metadata.resource_version = \
-                            nm.resource_version
-                        node = self.nodes.get(cached.node_name)
-                        stored = node.tasks.get(cached.key()) \
-                            if node is not None else None
-                        if stored is not None and stored is not cached:
-                            stored.status = new_status
-                            if stored.pod is not cached.pod:
-                                stored.pod.metadata.resource_version = \
-                                    nm.resource_version
+                        # another writer's patch: it carries new state,
+                        # so it dirties like any watch delta
+                        self._dirty_jobs.add(jid)
+                        self._dirty_nodes.add(cached.node_name)
+                        apply(job, cached, new_status, nm.resource_version)
                         continue
                 try:
                     self.update_pod(old, fast_clone(new))
@@ -186,11 +237,13 @@ class EventHandlersMixin:
         job = self.jobs.get(jid)
         if job is not None and not job.tasks and job.pod_group is None:
             del self.jobs[jid]
+            self._dirty_jobs.add(jid)
 
     # -- nodes ------------------------------------------------------------
 
     def add_node(self, node: obj.Node) -> None:
         name = node.metadata.name
+        self._dirty_nodes.add(name)
         if name in self.nodes:
             self.nodes[name].set_node(node)
         else:
@@ -199,12 +252,14 @@ class EventHandlersMixin:
             self.node_list.append(name)
 
     def update_node(self, old: obj.Node, new: obj.Node) -> None:
+        self._dirty_nodes.add(new.metadata.name)
         if new.metadata.name in self.nodes:
             self.nodes[new.metadata.name].set_node(new)
         else:
             self.add_node(new)
 
     def delete_node(self, node: obj.Node) -> None:
+        self._dirty_nodes.add(node.metadata.name)
         self.nodes.pop(node.metadata.name, None)
         if node.metadata.name in self.node_list:
             self.node_list.remove(node.metadata.name)
@@ -213,6 +268,7 @@ class EventHandlersMixin:
 
     def add_pod_group(self, pg: obj.PodGroup) -> None:
         key = pg.metadata.key()
+        self._dirty_jobs.add(key)
         if key not in self.jobs:
             self.jobs[key] = JobInfo(key, clock=self.store.clock)
         self.jobs[key].set_pod_group(pg)
@@ -227,6 +283,7 @@ class EventHandlersMixin:
         anything else is cloned and fully re-ingested."""
         with self.mutex:
             for old, new in pairs:
+                self._dirty_jobs.add(new.metadata.key())
                 job = self.jobs.get(new.metadata.key())
                 if job is not None and job.pod_group is not None \
                         and new.spec is old.spec:
@@ -239,6 +296,7 @@ class EventHandlersMixin:
 
     def delete_pod_group(self, pg: obj.PodGroup) -> None:
         key = pg.metadata.key()
+        self._dirty_jobs.add(key)
         job = self.jobs.get(key)
         if job is None:
             return
@@ -247,19 +305,26 @@ class EventHandlersMixin:
             del self.jobs[key]
 
     # -- queues -----------------------------------------------------------
+    # Queue, priority-class and quota edits are structural for the
+    # incremental snapshot: they reach every job (inclusion, fair-share
+    # budgets, priority resolution, namespace weights), so the next
+    # snapshot rebuilds in full.
 
     def add_queue(self, queue: obj.Queue) -> None:
+        self.mark_structural_change()
         self.queues[queue.metadata.name] = QueueInfo(queue)
 
     def update_queue(self, old: obj.Queue, new: obj.Queue) -> None:
         self.add_queue(new)
 
     def delete_queue(self, queue: obj.Queue) -> None:
+        self.mark_structural_change()
         self.queues.pop(queue.metadata.name, None)
 
     # -- priority classes -------------------------------------------------
 
     def add_priority_class(self, pc: obj.PriorityClass) -> None:
+        self.mark_structural_change()
         if pc.global_default:
             self.default_priority_class = pc
             self.default_priority = pc.value
@@ -271,6 +336,7 @@ class EventHandlersMixin:
         self.add_priority_class(new)
 
     def delete_priority_class(self, pc: obj.PriorityClass) -> None:
+        self.mark_structural_change()
         if pc.global_default:
             self.default_priority_class = None
             self.default_priority = 0
@@ -279,6 +345,7 @@ class EventHandlersMixin:
     # -- resource quotas (namespace weights) ------------------------------
 
     def add_resource_quota(self, quota: obj.ResourceQuota) -> None:
+        self.mark_structural_change()
         ns = quota.metadata.namespace
         if ns not in self.namespace_collection:
             self.namespace_collection[ns] = NamespaceCollection(ns)
@@ -288,6 +355,7 @@ class EventHandlersMixin:
         self.add_resource_quota(new)
 
     def delete_resource_quota(self, quota: obj.ResourceQuota) -> None:
+        self.mark_structural_change()
         coll = self.namespace_collection.get(quota.metadata.namespace)
         if coll is not None:
             coll.delete(quota)

@@ -13,9 +13,9 @@ so that a drift of the host cancels:
   runs of each (even), tracing switched before the store is built, so the
   ledger's entries exist from ingest as they would in production;
 * steady cycles: one store those cycles bound, a cache and scheduler of
-  its own, nothing left to place: the snapshot, the plugins and the close
-  over the whole cluster, the same work each time; 4 x ``--steady-rounds``
-  cycles.
+  its own, nothing left to place: after a full snapshot and one patch,
+  the quiet incremental cycles of the steady state (no plugin opens, as
+  in the reference); 4 x ``--steady-rounds`` cycles.
 
 The line gives every run's cycle ms and kernel launches, the overhead in
 percent by the minima (the least traced cycle over the least untraced

@@ -10,7 +10,8 @@ function.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
+from typing import (Any, Dict, List, Mapping, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -55,16 +56,31 @@ def _optional(src: Any, name: str):
     return getattr(src, name, None)
 
 
-def as_tensors(arrays: Any, device: Device = None) -> Dict[str, torch.Tensor]:
-    """{field: tensor} on ``device`` (default: the GPU) from a mapping or an
-    object with the ``FIELDS`` attributes (numpy arrays or tensors), and
-    the ``SLOT_FIELDS`` when it carries them (not None)."""
-    dev = default_device(device)
-    out = {}
+def _fields(arrays: Any) -> Dict[str, torch.dtype]:
     fields = dict(FIELDS)
     if _optional(arrays, "task_slot") is not None:
         fields.update(SLOT_FIELDS)
-    for name, dtype in fields.items():
+    return fields
+
+
+def entries(arrays: Any) -> List[Tuple[str, Any]]:
+    """[(field, value)] of the ``FIELDS`` (and ``SLOT_FIELDS``) that
+    ``arrays`` carries, as :func:`as_tensors` reads them."""
+    return [(name, _optional(arrays, name)) for name in _fields(arrays)
+            if _optional(arrays, name) is not None]
+
+
+def as_tensors(arrays: Any, device: Device = None,
+               omit: Sequence[str] = ()) -> Dict[str, torch.Tensor]:
+    """{field: tensor} on ``device`` (default: the GPU) from a mapping or an
+    object with the ``FIELDS`` attributes (numpy arrays or tensors), and
+    the ``SLOT_FIELDS`` when it carries them (not None); the fields in
+    ``omit`` are left out."""
+    dev = default_device(device)
+    out = {}
+    for name, dtype in _fields(arrays).items():
+        if name in omit:
+            continue
         x = _field(arrays, name)
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.ascontiguousarray(x))

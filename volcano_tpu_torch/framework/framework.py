@@ -19,30 +19,62 @@ from ..models.objects import (PodGroupCondition, PodGroupConditionType,
 from ..models.resource import Resource
 from .registry import get_plugin_builder
 from .session import Session
-from .solver import BatchSolver
+from .solver import BatchSolver, note_incremental_snapshot
+
+# the actions that do nothing on a quiet cycle (nothing dirty, no pending
+# work): the quiet path may skip the plugin opens only when the conf runs
+# no action outside this set
+QUIET_SAFE_ACTIONS = frozenset(
+    ("enqueue", "allocate", "backfill", "preempt", "reclaim"))
 
 
 def open_session(cache, tiers, configurations=None, clock=None,
-                 device=None) -> Session:
+                 device=None, actions=None) -> Session:
     """Open one scheduling cycle's session: snapshot the cache, build the
     placement solver on ``device`` (default: the GPU), open the plugins,
     then drop invalid gangs. Traced as the reference's spans:
-    open_session > snapshot, plugin_open (one a plugin), job_valid."""
+    open_session > snapshot, plugin_open (one a plugin), job_valid.
+
+    On a quiet incremental snapshot (nothing patched, no Pending task, no
+    Pending-phase PodGroup) the plugin opens and the JobValid sweep decide
+    nothing and are skipped, but only when ``actions`` (the conf's action
+    names) are all quiet-safe; without ``actions`` they always run
+    (docs/design/incremental_cycle.md)."""
     from ..metrics import metrics as m
     from ..trace import tracer as tr
     with tr.span("open_session"):
         with tr.span("snapshot"):
             snapshot = cache.snapshot()
         ssn = Session(cache, snapshot, tiers, configurations, clock=clock)
-        ssn.solver = BatchSolver(ssn, device=device)
-        # pre-session PodGroup statuses for the close-time writeback dedup
-        for job in ssn.jobs.values():
-            if job.pod_group is not None:
-                ssn.pod_group_status[job.uid] = status_fingerprint(
-                    job.pod_group.status)
-        ssn.total_resource = Resource()
-        for n in ssn.nodes.values():
-            ssn.total_resource.add(n.allocatable)
+        ssn.solver = BatchSolver(ssn, device=device, rindex=snapshot.rindex)
+        # the incremental surface, read by the solver's persistent node
+        # state, allocate's working set and the close-time writeback
+        ssn.incr_mode = snapshot.incr_mode
+        ssn.incr_seq = snapshot.incr_seq
+        ssn.patched_jobs = snapshot.patched_jobs
+        ssn.patched_nodes = snapshot.patched_nodes
+        ssn.quiet_cycle = bool(snapshot.quiet and actions is not None
+                               and QUIET_SAFE_ACTIONS.issuperset(actions))
+        if snapshot.incr_mode is not None:
+            note_incremental_snapshot(cache, snapshot)
+        # pre-session PodGroup statuses for the close-time writeback
+        # dedup, and the cluster total: kept per patched entity by the
+        # incremental snapshot, else computed over every job and node
+        if snapshot.pg_fprints is not None:
+            ssn.pod_group_status = snapshot.pg_fprints
+        else:
+            for job in ssn.jobs.values():
+                if job.pod_group is not None:
+                    ssn.pod_group_status[job.uid] = status_fingerprint(
+                        job.pod_group.status)
+        if snapshot.total_resource is not None:
+            ssn.total_resource = snapshot.total_resource
+        else:
+            ssn.total_resource = Resource()
+            for n in ssn.nodes.values():
+                ssn.total_resource.add(n.allocatable)
+        if ssn.quiet_cycle:
+            return ssn
 
         for tier in tiers:
             for opt in tier.plugins:
@@ -96,6 +128,11 @@ def close_session(ssn: Session) -> None:
             JobUpdater(ssn).update_all()
         ssn.plugins = {}
         ssn.event_handlers = []
+        # the incremental cycle: what this session mutated is re-cloned
+        # from the cache before the persistent snapshot is read again
+        if ssn.cache is not None and ssn.cache.incremental:
+            ssn.cache.absorb_session_touches(ssn.touched_jobs,
+                                             ssn.touched_nodes)
 
 
 def update_pod_group_condition(ssn: Session, job: JobInfo,
@@ -106,6 +143,7 @@ def update_pod_group_condition(ssn: Session, job: JobInfo,
     if job.pod_group is None:
         return
     condition.last_transition_time = _time.time()
+    ssn.touched_jobs.add(job.uid)
     conditions = job.own_pod_group().status.conditions
     for i, c in enumerate(conditions):
         if c.type == condition.type:
@@ -142,6 +180,7 @@ def job_status(ssn: Session, job: JobInfo):
     succeeded = len(job.task_status_index.get(TaskStatus.Succeeded, {}))
     if (phase, running, failed, succeeded) != \
             (status.phase, status.running, status.failed, status.succeeded):
+        ssn.touched_jobs.add(job.uid)
         status = job.own_pod_group().status
         status.phase = phase
         status.running = running
@@ -163,8 +202,17 @@ class JobUpdater:
 
     def __init__(self, ssn: Session):
         self.ssn = ssn
+        # on an incremental cycle only patched (cache-side deltas) or
+        # touched (session-side mutations) jobs can roll up differently
+        # from last cycle's writeback: a job that needs a condition or
+        # FailedScheduling write this cycle wrote one last cycle too,
+        # whose echo dirtied it, so the sweep is scoped to them
+        scope = None
+        if ssn.incr_mode == "incremental":
+            scope = set(ssn.patched_jobs or ()) | ssn.touched_jobs
         self.job_queue = [j for j in ssn.jobs.values()
-                          if j.pod_group is not None]
+                          if j.pod_group is not None
+                          and (scope is None or j.uid in scope)]
 
     def update_all(self) -> None:
         """Compute every job's status, then push the store writes in one

@@ -144,6 +144,20 @@ class Session:
         # preempt/reclaim placements by victim-selection path ("kernel":
         # ops/victims.py, "python": the walk of framework/victims.py)
         self.victim_runs: Dict[str, int] = {}
+        # the incremental cycle (docs/design/incremental_cycle.md): the
+        # jobs and nodes this session mutated, marked by the session's
+        # and the statement's primitives and the PodGroup condition and
+        # status writers. The persistent snapshot hands the same objects
+        # to the next session, so close_session feeds these back into
+        # the cache's dirty sets.
+        self.touched_jobs: set = set()
+        self.touched_nodes: set = set()
+        # set by open_session (incr_mode None: the full rebuild)
+        self.incr_mode = None
+        self.incr_seq = 0
+        self.patched_jobs = None
+        self.patched_nodes = None
+        self.quiet_cycle = False
 
     def add_timing(self, name: str, since: float) -> float:
         """Add the wall time since ``since`` (a perf_counter reading) to
@@ -481,6 +495,8 @@ class Session:
         job.update_task_status(task, TaskStatus.Pipelined)
         task.node_name = hostname
         node.add_task(task)
+        self.touched_jobs.add(task.job)
+        self.touched_nodes.add(hostname)
         self._fire_allocate(task)
 
     def allocate(self, task: TaskInfo, node_info: NodeInfo) -> None:
@@ -502,6 +518,8 @@ class Session:
         job.update_task_status(task, TaskStatus.Allocated)
         task.node_name = hostname
         node.add_task(task)
+        self.touched_jobs.add(task.job)
+        self.touched_nodes.add(hostname)
         self._fire_allocate(task)
         if self.job_ready(job):
             for t in list(job.task_status_index.get(TaskStatus.Allocated, {}).values()):
@@ -517,6 +535,7 @@ class Session:
         job = self.jobs.get(task.job)
         if job is not None:
             job.update_task_status(task, TaskStatus.Binding)
+            self.touched_jobs.add(task.job)
 
     def evict(self, reclaimee: TaskInfo, reason: str) -> None:
         """Immediate eviction (used by reclaim): session state, then the
@@ -529,6 +548,8 @@ class Session:
             raise KeyError(f"failed to find node {reclaimee.node_name}")
         job.update_task_status(reclaimee, TaskStatus.Releasing)
         node.update_task(reclaimee)
+        self.touched_jobs.add(reclaimee.job)
+        self.touched_nodes.add(reclaimee.node_name)
         self._fire_deallocate(reclaimee)
         if self.cache is not None:
             self.cache.evict(reclaimee, reason)

@@ -19,7 +19,16 @@ kernel's assignment back into per-job placements. Placement constraints
 (topology spread, pod anti-affinity) reach the kernel through
 ops/constraints.py, as per-task domain slots on the place path and as
 split groups in host contexts. The conf keys of the reference that only
-choose among exact kernels are accepted and ignored. Each launch counts
+choose among exact kernels are accepted and ignored.
+
+On the incremental cycle (docs/design/incremental_cycle.md) the cache
+keeps an ``_IncrNodeState``: the host NodeArrays and the five node
+tensors the kernel reads (idle, future idle, allocatable, task counts,
+task limits), resident on the solver's device across sessions. A
+session's first context build re-encodes only the rows of the nodes
+patched since (``NodeArrays.update_rows``) and the unpruned launch copies
+only those rows into the resident tensors (``index_copy_``); the kernel
+only reads them. Each launch counts
 on ``volcano_solver_kernel_runs_total{kernel}`` under its route, "cuda"
 (the hand kernel) or "plain" (the plain loop on the CPU), and is traced
 as the reference's ``kernel`` span (``DenseSolver.launch``).
@@ -60,6 +69,63 @@ _node_cursor = 0
 # volcano_tpu/framework/solver.py:47-62)
 FRAG_EVERY = 16
 _place_counter = 0
+
+
+# the five node inputs of the kernel that can stay resident on the device
+NODE_FIELDS = ("node_idle", "node_future", "node_alloc", "node_ntasks",
+               "node_max_tasks")
+
+
+def node_inputs_of(narr: NodeArrays) -> Dict[str, np.ndarray]:
+    """The NODE_FIELDS of ``narr`` as host arrays."""
+    return {"node_idle": narr.idle, "node_future": narr.future_idle,
+            "node_alloc": narr.allocatable, "node_ntasks": narr.n_tasks,
+            "node_max_tasks": narr.max_tasks}
+
+
+class _IncrNodeState:
+    """The host NodeArrays and the resident node tensors reused across
+    the cycles of one cache (the BatchSolver lives one session). Each
+    incremental snapshot's patched nodes accumulate in ``pending``; the
+    next session's first context build re-encodes those host rows, and
+    its unpruned launch copies those rows into the resident tensors. A
+    full snapshot, or a change of node order or ResourceIndex, drops the
+    state; the resident tensors also belong to one device (``device``)
+    and are rebuilt for a solver on another."""
+
+    __slots__ = ("seq", "narr", "rindex", "names", "pending", "dev",
+                 "device", "dev_dirty_rows")
+
+    def __init__(self):
+        self.seq = -1
+        self.narr: Optional[NodeArrays] = None
+        self.rindex: Optional[ResourceIndex] = None
+        self.names: Optional[List[str]] = None   # the node order encoded
+        self.pending: set = set()      # node names to re-encode on the host
+        self.dev: Optional[Dict[str, torch.Tensor]] = None
+        self.device: Optional[torch.device] = None
+        self.dev_dirty_rows: set = set()   # rows to copy to the device
+
+
+def note_incremental_snapshot(cache, snap) -> None:
+    """Fold one snapshot's patched nodes into the cache's persistent node
+    state (called once a cycle by open_session)."""
+    state = getattr(cache, "_incr_solver_state", None)
+    if state is None:
+        state = cache._incr_solver_state = _IncrNodeState()
+    if snap.incr_seq == state.seq:
+        return
+    state.seq = snap.incr_seq
+    if snap.incr_mode != "incremental":
+        state.narr = None
+        state.dev = None
+        state.pending.clear()
+        state.dev_dirty_rows.clear()
+    else:
+        state.pending |= snap.patched_nodes
+    # the constraint compiler's persistent node rows ride the same
+    # patched sets
+    constraints.note_snapshot(cache, snap)
 
 
 class PredicateFeatures(NamedTuple):
@@ -125,9 +191,23 @@ class DenseSolver:
     def __init__(self, snapshot: Any, weights: ScoreWeights,
                  device=None, *, features: Optional[PredicateFeatures] = None,
                  queues: Optional[QueueBudgets] = None,
-                 capability: Any = None, valid: Any = None):
+                 capability: Any = None, valid: Any = None,
+                 node_inputs: Optional[Callable] = None):
         self.device = default_device(device)
-        self.arrays = convert.as_tensors(snapshot, self.device)
+        # ``node_inputs`` () -> ({field: tensor}, bytes copied) supplies
+        # the NODE_FIELDS at the first full-width launch (the resident
+        # tensors of the incremental cycle); the snapshot then lacks them
+        omit = NODE_FIELDS if node_inputs is not None else ()
+        self._node_inputs = node_inputs
+        # bytes copied host->device for the NODE_FIELDS by this solver's
+        # launches
+        self.node_bytes = 0
+        # host->device bytes of the snapshot's host entries, counted at
+        # the first launch
+        self._staged_bytes = sum(
+            int(np.asarray(v).nbytes) for k, v in convert.entries(snapshot)
+            if k not in omit and not isinstance(v, torch.Tensor))
+        self.arrays = convert.as_tensors(snapshot, self.device, omit=omit)
         self.weights = weights.to(self.device)
         self.capability = None if capability is None else torch.as_tensor(
             capability, dtype=torch.float32).to(self.device)
@@ -139,6 +219,16 @@ class DenseSolver:
         self.queues = None if queues is None else QueueBudgets(
             *(torch.as_tensor(x, dtype=torch.float32).to(self.device)
               for x in queues))
+
+    def materialize_nodes(self) -> None:
+        """Put the node tensors of ``node_inputs`` into ``arrays`` (done
+        by the first full-width launch; a no-op without them)."""
+        if self._node_inputs is not None:
+            nodes, node_xfer = self._node_inputs()
+            self._node_inputs = None
+            self.arrays.update(nodes)
+            self._staged_bytes += node_xfer
+            self.node_bytes += node_xfer
 
     def static_mask(self, stages: Optional[list] = None,
                     parts=()) -> torch.Tensor:
@@ -210,17 +300,24 @@ class DenseSolver:
         the CUDA events, read at the decode's existing sync)."""
         on_cuda = self.device.type == "cuda"
         route = "cuda" if on_cuda else "plain"
-        a = self.arrays if arrays is None else arrays
         G, N = gmask.shape
-        T = a["task_group"].shape[0]
         with tr.span("kernel", kernel=route, g_pad=int(G), n_pad=int(N),
-                     t_pad=int(T), pruned=arrays is not None):
+                     t_pad=int(self.arrays["task_group"].shape[0]),
+                     pruned=arrays is not None):
             with tr.span("tensor_build"):
                 with tr.span("transfer"):
-                    xfer = sum(int(np.asarray(v).nbytes) for v in a.values()
-                               if not isinstance(v, torch.Tensor))
-                    if xfer:
+                    if arrays is None:
+                        self.materialize_nodes()
+                    xfer, self._staged_bytes = self._staged_bytes, 0
+                    a = self.arrays if arrays is None else arrays
+                    host = {k: int(np.asarray(v).nbytes)
+                            for k, v in a.items()
+                            if not isinstance(v, torch.Tensor)}
+                    if host:
                         a = convert.as_tensors(a, self.device)
+                    xfer += sum(host.values())
+                    self.node_bytes += sum(host.get(k, 0)
+                                           for k in NODE_FIELDS)
                 args = convert.args(a)
                 names = list(convert.FIELDS)
                 args[names.index("group_mask")] = gmask
@@ -330,7 +427,9 @@ class BatchSolver:
         # lowering and compile passes, constraint_ms), device solve,
         # object decode and kernel times (ms), the kernel launches and
         # each one's ms, the batch's domain slots, the last launch's own
-        # report, and the prune summary (None when pruning did not engage)
+        # report, the bytes copied to the device for the node tensors
+        # (node_bytes) and the prune summary (None when pruning did not
+        # engage)
         self.stats: List[Dict[str, Any]] = []
         solver_args = (ssn.configurations or {}).get("solver")
         self.sampling = False
@@ -489,13 +588,102 @@ class BatchSolver:
                 pack_bonus[batch.task_group[t_idx]] = bonus
         return task_bucket, pack_bonus
 
+    # -- the incremental cycle's persistent node state --------------------
+
+    def _incr_state(self) -> Optional[_IncrNodeState]:
+        if self.ssn.cache is None:
+            return None
+        return getattr(self.ssn.cache, "_incr_solver_state", None)
+
+    def _incremental_node_arrays(self) -> Optional[NodeArrays]:
+        """The session's first node encode through the persistent host
+        arrays (volcano_tpu/framework/solver.py:624-659), re-encoding the
+        pending rows only; else a fresh build, installed as the new
+        persistent state. None (a plain fresh build) outside the
+        incremental cycle and with sampling."""
+        ssn = self.ssn
+        state = self._incr_state()
+        if state is None or ssn.incr_mode is None or self.sampling:
+            return None
+        order = self._node_order()
+        if ssn.incr_mode == "incremental" and state.narr is not None \
+                and state.rindex is self.rindex \
+                and state.names == order \
+                and not ssn.touched_nodes \
+                and len(state.pending) <= max(64, len(order) // 4):
+            rows = state.narr.update_rows(ssn.nodes, state.pending)
+            state.pending = set()
+            state.dev_dirty_rows.update(rows)
+            return state.narr
+        # membership, order or ResourceIndex changed, or too many rows
+        # are pending: the resident tensors go with the host arrays
+        narr = NodeArrays.build(ssn.nodes, order, self.rindex)
+        state.narr = narr
+        state.rindex = self.rindex
+        state.names = list(order)
+        state.pending = set()
+        state.dev = None
+        state.dev_dirty_rows = set()
+        return narr
+
+    def _device_node_inputs(self, narr: NodeArrays
+                            ) -> Tuple[Dict[str, torch.Tensor], int]:
+        """The kernel's five node tensors on the solver's device and the
+        bytes copied for them (volcano_tpu/framework/solver.py:661-703):
+        the resident tensors with only the dirty rows copied in
+        (``index_copy_``) when ``narr`` is the persistent host state,
+        else a full upload. A fresh resident set counts as
+        ``volcano_solver_device_buffer_total{event="rebuild"}``, a reused
+        one as ``{event="reuse"}``."""
+        dev = self.device
+        state = self._incr_state()
+
+        def upload(host):
+            # a copy, never a view of the host arrays (on the CPU
+            # from_numpy would share them with the persistent NodeArrays)
+            return {f: torch.tensor(a, dtype=convert.FIELDS[f], device=dev)
+                    for f, a in host.items()}
+
+        if state is None or state.narr is not narr:
+            host = node_inputs_of(narr)
+            return upload(host), sum(int(a.nbytes) for a in host.values())
+        if state.dev is None or state.device != dev:
+            host = node_inputs_of(narr)
+            state.dev = upload(host)
+            state.device = dev
+            state.dev_dirty_rows = set()
+            m.inc(m.SOLVER_DEVICE_BUFFER, event="rebuild")
+            return dict(state.dev), sum(int(a.nbytes) for a in host.values())
+        xfer = 0
+        rows = sorted(state.dev_dirty_rows)
+        if rows:
+            idx = torch.tensor(rows, dtype=torch.long, device=dev)
+            host_rows = {
+                "node_idle": narr.idle[rows],
+                "node_future": narr.idle[rows] + narr.releasing[rows]
+                - narr.pipelined[rows],
+                "node_alloc": narr.allocatable[rows],
+                "node_ntasks": narr.n_tasks[rows],
+                "node_max_tasks": narr.max_tasks[rows]}
+            for f, hr in host_rows.items():
+                state.dev[f].index_copy_(0, idx, torch.from_numpy(hr).to(
+                    device=dev, dtype=convert.FIELDS[f]))
+                xfer += int(hr.nbytes)
+            state.dev_dirty_rows = set()
+        m.inc(m.SOLVER_DEVICE_BUFFER, event="reuse")
+        return dict(state.dev), xfer
+
     def _context(self, ordered_jobs, device, slot_tensors: bool = False
                  ) -> Tuple[NodeArrays, TaskBatch, "DenseSolver"]:
         """Encode the batch against the session's current node state and
         compose the plugins' contributions into a DenseSolver on
         ``device`` (volcano_tpu/framework/solver.py:528-811);
         ``slot_tensors`` picks the topology-domain lowering
-        (``_lower_constraints``)."""
+        (``_lower_constraints``) and marks the place path, whose
+        DenseSolver takes the node tensors from ``_device_node_inputs``.
+        The session's first build goes through the persistent node state
+        (``_incremental_node_arrays``); later builds see the nodes the
+        session mutated and encode afresh."""
         ssn = self.ssn
         extra = {name for name in ssn.predicate_fns
                  if name not in self.vectorized_plugins}
@@ -503,7 +691,13 @@ class BatchSolver:
             raise NotImplementedError(
                 f"host predicate fns of plugins {sorted(extra)}: this port "
                 "places only through vectorized masks")
-        narr = NodeArrays.build(ssn.nodes, self._node_order(), self.rindex)
+        narr = None
+        if not getattr(ssn, "_narr_first_done", False):
+            ssn._narr_first_done = True
+            narr = self._incremental_node_arrays()
+        if narr is None:
+            narr = NodeArrays.build(ssn.nodes, self._node_order(),
+                                    self.rindex)
         batch, slot_entries = self._lower_constraints(ordered_jobs, narr,
                                                       slot_tensors)
         feats = arrays.PredicateFeatures.build(ssn.nodes, narr, batch,
@@ -588,9 +782,12 @@ class BatchSolver:
             "ns_alloc0": ns_alloc0,
             "ns_total": self.rindex.vec(ssn.total_resource),
             "queue_deserved": q_deserved, "queue_alloc0": q_alloc0,
-            "node_idle": narr.idle, "node_future": narr.future_idle,
-            "node_alloc": narr.allocatable, "node_ntasks": narr.n_tasks,
-            "node_max_tasks": narr.max_tasks, "eps": self.rindex.eps}
+            "eps": self.rindex.eps}
+        node_inputs = None
+        if slot_tensors:
+            node_inputs = lambda: self._device_node_inputs(narr)
+        else:
+            snapshot.update(node_inputs_of(narr))
         if batch.task_slot is not None:
             snapshot["task_slot"] = batch.task_slot
             snapshot["slot_ok"] = batch.slot_rows
@@ -602,7 +799,7 @@ class BatchSolver:
                 feats.group_tolerates)
         dense = DenseSolver(snapshot, self.score_weights(), device,
                             features=features, capability=narr.capability,
-                            valid=narr.valid)
+                            valid=narr.valid, node_inputs=node_inputs)
         return narr, batch, dense
 
     def build_host_context(self, ordered_jobs):
@@ -685,6 +882,7 @@ class BatchSolver:
             and self.device.type == "cuda" else None,
             "plan": out.plan,
             "R": out.r,
+            "node_bytes": dense.node_bytes,
             "prune": prune_record})
 
         # decode (volcano_tpu/framework/solver.py:1016-1106): one pass over
@@ -780,11 +978,7 @@ class BatchSolver:
             rows[:, ~ctx.live] = False
             a["slot_ok"] = torch.from_numpy(rows).to(dev)
         idx = ctx.union_padded
-        for name, host in (("node_idle", narr.idle),
-                           ("node_future", narr.future_idle),
-                           ("node_alloc", narr.allocatable),
-                           ("node_ntasks", narr.n_tasks),
-                           ("node_max_tasks", narr.max_tasks)):
+        for name, host in node_inputs_of(narr).items():
             a[name] = host[idx]
         return a
 

@@ -49,6 +49,8 @@ class Statement:
             raise KeyError(f"failed to find node {reclaimee.node_name}")
         job.move_task_status(reclaimee, TaskStatus.Releasing)
         node.transition_task(reclaimee)
+        self.ssn.touched_jobs.add(reclaimee.job)
+        self.ssn.touched_nodes.add(reclaimee.node_name)
         self.ssn._fire_deallocate(reclaimee)
         self.operations.append(_Operation("evict", reclaimee, reason))
 
@@ -73,6 +75,8 @@ class Statement:
         job.update_task_status(task, TaskStatus.Pipelined)
         task.node_name = hostname
         node.add_task(task)
+        self.ssn.touched_jobs.add(task.job)
+        self.ssn.touched_nodes.add(hostname)
         self.ssn._fire_allocate(task)
         self.operations.append(_Operation("pipeline", task))
 
@@ -105,6 +109,8 @@ class Statement:
         job.update_task_status(task, TaskStatus.Allocated)
         task.node_name = hostname
         node.add_task(task)
+        self.ssn.touched_jobs.add(task.job)
+        self.ssn.touched_nodes.add(hostname)
         self.ssn._fire_allocate(task)
         self.operations.append(_Operation("allocate", task))
 
@@ -154,8 +160,19 @@ class Statement:
 
         applied = self._stage_fast_seq(fast, keep_partial)
         if applied:
+            self._touch_items(job, applied)
             ssn._fire_allocate_batch(job, [t for t, _, _ in applied])
             self.operations.append(_BatchOperation(job, applied))
+
+    def _touch_items(self, job, items) -> None:
+        """Mark a staged gang in the session's touched sets: the job and
+        every node it landed on. A gang rolled back later stays marked (a
+        needless re-clone is always sound)."""
+        ssn = self.ssn
+        ssn.touched_jobs.add(job.uid)
+        touched_nodes = ssn.touched_nodes
+        for _, node, _ in items:
+            touched_nodes.add(node.name)
 
     def _stage_fast_seq(self, fast, keep_partial: bool) -> list:
         """Sequential per-task staging: all-or-nothing by default, prefix
@@ -207,6 +224,7 @@ class Statement:
         plugin events and appends the operation, exactly like
         :meth:`allocate_batch` does after its own staging. ``total`` may
         carry the gang's precomputed resource sum."""
+        self._touch_items(job, items)
         self.ssn._fire_allocate_batch(job, [t for t, _, _ in items], total)
         self.operations.append(_BatchOperation(job, items))
 

@@ -196,6 +196,42 @@ class NodeArrays:
             view *= rindex.scales[None, :]
         return arr
 
+    def update_rows(self, nodes: Dict[str, NodeInfo], names) -> List[int]:
+        """Re-encode the rows of ``names`` in place from the live
+        NodeInfos, with :meth:`build`'s field semantics: the incremental
+        cycle (docs/design/incremental_cycle.md) keeps one NodeArrays
+        across cycles and re-encodes only the dirty rows. Names outside
+        the encoded order are skipped (a membership or order change is
+        the caller's to rebuild). Returns the updated row indices."""
+        views = ("idle", "used", "releasing", "pipelined", "allocatable",
+                 "capability")
+        index = self.rindex.index
+        scales = self.rindex.scales
+        rows: List[int] = []
+        for name in names:
+            i = self.name_to_idx.get(name)
+            ni = nodes.get(name)
+            if i is None or ni is None:
+                continue
+            rows.append(i)
+            for attr in views:
+                res = getattr(ni, attr)
+                row = getattr(self, attr)[i]
+                row[:] = 0.0
+                row[0] = res.milli_cpu
+                row[1] = res.memory
+                if res.scalars:
+                    for sname, quant in res.scalars.items():
+                        si = index.get(sname)
+                        if si is not None:
+                            row[si] = quant
+                row *= scales
+            self.max_tasks[i] = ni.allocatable.max_task_num
+            self.n_tasks[i] = len(ni.tasks)
+            self.revocable[i] = bool(ni.revocable_zone)
+            self.oversubscription[i] = ni.oversubscription_node
+        return rows
+
     @property
     def future_idle(self) -> np.ndarray:
         return self.idle + self.releasing - self.pipelined

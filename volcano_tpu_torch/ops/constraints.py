@@ -38,8 +38,11 @@ domains ride the selector feature pairs (host contexts, ``constraints.
 compile: off``, and batches of more than ``SLOT_CAP`` distinct slots).
 Both give the same placements.
 
-The node rows (topology codes, per-tier resident counts) are rebuilt
-every session. ``reference_mask`` is the per-pair Python evaluation of
+The node rows (topology codes, per-tier resident counts) persist on the
+cache (``_ConstraintState``): a session rebuilds only the rows of the
+nodes patched since the last one, or whose Node object changed, and
+rebuilds them all after a full snapshot and on every cycle of the full
+rebuild. ``reference_mask`` is the per-pair Python evaluation of
 what ``compile_mask`` computes; ``constraints.compile: off`` selects it.
 A failure in any of these passes raises: no pass falls back to another.
 """
@@ -55,6 +58,7 @@ import numpy as np
 from ..metrics import metrics as m
 from ..models.arrays import _group_sig, derived_sig
 from ..models.job_info import TaskStatus, allocated_status
+from ..trace import tracer as tr
 
 ZONE_KEY = "topology.kubernetes.io/zone"
 RACK_KEY = "topology.kubernetes.io/rack"
@@ -85,6 +89,117 @@ def _charged(fn):
 # ---------------------------------------------------------------------------
 
 
+class _ConstraintState:
+    """The persistent node rows of one cache (the constraint twin of the
+    solver's _IncrNodeState): topology codes per key and the per-tier
+    resident-task counts, refreshed for the dirty rows only on
+    incremental cycles."""
+
+    __slots__ = ("names", "node_ids", "topo_rows", "topo_vocab",
+                 "tier_mass", "tier_vocab", "pending", "force_full",
+                 "cycle_token", "synced_token", "last_refreshed")
+
+    def __init__(self):
+        self.names: Optional[List[str]] = None   # the node order encoded
+        self.node_ids: Optional[list] = None     # id(NodeInfo.node) a row
+        self.topo_rows: Dict[str, Optional[np.ndarray]] = {}  # key -> [n]
+        self.topo_vocab: Dict[str, Dict[str, int]] = {}
+        self.tier_mass: Optional[np.ndarray] = None   # [n, T] f32
+        self.tier_vocab: Dict[int, int] = {}          # priority -> column
+        self.pending: set = set()     # node names whose rows to refresh
+        self.force_full = True
+        self.cycle_token = 0
+        self.synced_token = -1
+        self.last_refreshed = 0       # rows refreshed by the last sync
+
+
+def constraint_state(cache) -> Optional[_ConstraintState]:
+    if cache is None:
+        return None
+    state = getattr(cache, "_constraint_state", None)
+    if state is None:
+        state = cache._constraint_state = _ConstraintState()
+    return state
+
+
+def note_snapshot(cache, snap) -> None:
+    """Fold one incremental snapshot's patched nodes into the persistent
+    rows (called once a cycle by solver.note_incremental_snapshot)."""
+    state = constraint_state(cache)
+    if state is None:
+        return
+    state.cycle_token += 1
+    if snap.incr_mode == "incremental":
+        state.pending |= set(snap.patched_nodes)
+    else:
+        state.force_full = True
+
+
+def _sync_for_session(state: Optional[_ConstraintState], ssn,
+                      names: List[str]) -> None:
+    """Bring the rows up to date once a session (assign_spread_slots and
+    compile_mask both call it; the second call does nothing). A cycle of
+    the full rebuild calls no note_snapshot, so the tokens stay equal and
+    every row is rebuilt, as everything else is on that path."""
+    if state is None or getattr(ssn, "_constraint_synced", False):
+        return
+    if state.synced_token == state.cycle_token:
+        state.force_full = True
+    refreshed = _sync_state(state, ssn, names)
+    state.synced_token = state.cycle_token
+    state.last_refreshed = refreshed
+    ssn._constraint_synced = True
+    m.inc(m.CONSTRAINT_ROWS, float(refreshed), event="refresh")
+
+
+def _sync_state(state: _ConstraintState, ssn, names: List[str]) -> int:
+    """Refresh the rows for this session's node order; returns how many.
+    All rows on a full rebuild or an order change; else the rows of
+    pending names and of nodes whose Node object changed (a relabel
+    arrives as a new Node, so identity detects it)."""
+    n = len(names)
+    if state.force_full or state.names != names:
+        state.names = list(names)
+        state.topo_rows = {k: None for k in state.topo_rows}
+        state.tier_mass = None
+        state.node_ids = [None] * n
+        state.pending = set()
+        state.force_full = False
+        dirty = list(range(n))
+    else:
+        dirty = []
+        for i, name in enumerate(names):
+            ni = ssn.nodes.get(name)
+            oid = id(ni.node) if ni is not None and ni.node is not None \
+                else None
+            if name in state.pending or state.node_ids[i] != oid:
+                dirty.append(i)
+        state.pending = set()
+    if not dirty:
+        return 0
+    for i in dirty:
+        ni = ssn.nodes.get(names[i])
+        state.node_ids[i] = id(ni.node) \
+            if ni is not None and ni.node is not None else None
+    # topology rows refresh their dirty codes here; a row of the wrong
+    # length is rebuilt at its next use (_topo_row)
+    for key, row in list(state.topo_rows.items()):
+        if row is None or len(row) != n:
+            state.topo_rows[key] = None
+            continue
+        vocab = state.topo_vocab.setdefault(key, {})
+        for i in dirty:
+            ni = ssn.nodes.get(names[i])
+            v = ni.topology_value(key) if ni is not None else None
+            row[i] = -1 if v is None else vocab.setdefault(v, len(vocab))
+    if state.tier_mass is not None and state.tier_mass.shape[0] == n:
+        for i in dirty:
+            _encode_tier_row(state, ssn, names[i], i)
+    else:
+        state.tier_mass = None
+    return len(dirty)
+
+
 def _task_tier(ssn, t) -> int:
     """A task's priority TIER: its job's priority (the PodGroup priority
     class, what the priority plugin's Preemptable compares) when the job
@@ -93,23 +208,69 @@ def _task_tier(ssn, t) -> int:
     return job.priority if job is not None else t.priority
 
 
-def _topo_row(ssn, names: List[str],
-              key: str) -> Tuple[np.ndarray, Dict[str, int]]:
-    """[n_real] i32 topology code per node for ``key`` (-1 = label
-    absent) and the value -> code vocabulary."""
-    vocab: Dict[str, int] = {}
+def _encode_tier_row(state: _ConstraintState, ssn, name: str,
+                     i: int) -> None:
+    row = state.tier_mass[i]
+    row[:] = 0.0
+    ni = ssn.nodes.get(name)
+    if ni is None:
+        return
+    for t in ni.tasks.values():
+        tier = _task_tier(ssn, t)
+        col = state.tier_vocab.get(tier)
+        if col is None:
+            col = state.tier_vocab[tier] = len(state.tier_vocab)
+            if state.tier_mass.shape[1] <= col:
+                state.tier_mass = np.concatenate(
+                    [state.tier_mass,
+                     np.zeros((state.tier_mass.shape[0], 4), np.float32)],
+                    axis=1)
+                row = state.tier_mass[i]
+        row[col] += 1.0
+
+
+def _encode_topo(ssn, names: List[str], key: str,
+                 vocab: Dict[str, int]) -> np.ndarray:
     row = np.full(len(names), -1, np.int32)
     for i, name in enumerate(names):
         ni = ssn.nodes.get(name)
         v = ni.topology_value(key) if ni is not None else None
         if v is not None:
             row[i] = vocab.setdefault(v, len(vocab))
-    return row, vocab
+    return row
 
 
-def _tier_mass(ssn, names: List[str]) -> Tuple[np.ndarray, Dict[int, int]]:
-    """[n_real, T] resident-task count per priority tier per node."""
+def _topo_row(state: Optional[_ConstraintState], ssn, names: List[str],
+              key: str) -> Tuple[np.ndarray, Dict[str, int]]:
+    """[n_real] i32 topology code per node for ``key`` (-1 = label
+    absent) and the value -> code vocabulary, through the persistent
+    rows when they encode ``names``."""
+    if state is not None and state.names == names:
+        row = state.topo_rows.get(key)
+        if row is not None and len(row) == len(names):
+            return row, state.topo_vocab[key]
+        vocab = state.topo_vocab.setdefault(key, {})
+        row = state.topo_rows[key] = _encode_topo(ssn, names, key, vocab)
+        return row, vocab
+    vocab: Dict[str, int] = {}
+    return _encode_topo(ssn, names, key, vocab), vocab
+
+
+def _tier_mass(state: Optional[_ConstraintState], ssn,
+               names: List[str]) -> Tuple[np.ndarray, Dict[int, int]]:
+    """[n_real, T] resident-task count per priority tier per node,
+    through the persistent rows when they encode ``names``."""
+    if state is not None and state.names == names \
+            and state.tier_mass is not None \
+            and state.tier_mass.shape[0] == len(names):
+        return state.tier_mass, state.tier_vocab
     n = len(names)
+    if state is not None and state.names == names:
+        state.tier_mass = np.zeros((n, max(4, len(state.tier_vocab))),
+                                   np.float32)
+        for i, name in enumerate(names):
+            _encode_tier_row(state, ssn, name, i)
+        return state.tier_mass, state.tier_vocab
     vocab: Dict[int, int] = {}
     mass = np.zeros((n, 8), np.float32)
     for i, name in enumerate(names):
@@ -217,6 +378,10 @@ def assign_spread_slots(ssn, ordered_jobs, names: List[str],
     (the tensor lowering) groups keep their base sigs, the assignment
     lowers to ``task_slot``/``slot_rows`` through
     :func:`build_slot_tensors`, and the return is None."""
+    state = constraint_state(getattr(ssn, "cache", None))
+    # sync before the per-job loop, so that _topo_row reads the
+    # persistent rows (compile_mask's later sync does nothing)
+    _sync_for_session(state, ssn, names)
     rows_memo: Dict[str, tuple] = {}
     pairs_memo: Dict[str, list] = {}
     live_memo: Dict[str, frozenset] = {}
@@ -224,11 +389,14 @@ def assign_spread_slots(ssn, ordered_jobs, names: List[str],
     def topo(key: str):
         got = rows_memo.get(key)
         if got is None:
-            got = rows_memo[key] = _topo_row(ssn, names, key)
+            got = rows_memo[key] = _topo_row(state, ssn, names, key)
         return got
 
     def live_codes(key: str) -> frozenset:
-        """Domain codes with at least one current node."""
+        """Domain codes with at least one current node: the persistent
+        vocabulary only grows, so a vanished domain (a relabel, a removed
+        node) lingers there with a zero count and would otherwise win
+        the greedy balance."""
         got = live_memo.get(key)
         if got is None:
             row, _vocab = topo(key)
@@ -416,13 +584,11 @@ def build_slot_tensors(ssn, batch, narr):
     task_slot[task_slot < 0] = S
     rows = np.zeros((S + 1, narr.n_pad), bool)
     rows[S] = True
-    topo: Dict[str, tuple] = {}
+    state = constraint_state(getattr(ssn, "cache", None))
     for ent, sid in ids.items():
         row = np.ones(n, bool)
         for key, values, _hard in ent:
-            if key not in topo:
-                topo[key] = _topo_row(ssn, names, key)
-            trow, vocab = topo[key]
+            trow, vocab = _topo_row(state, ssn, names, key)
             codes = [vocab[v] for v in values if v in vocab]
             if codes:
                 row &= np.isin(trow, np.asarray(codes, np.int32))
@@ -473,7 +639,9 @@ def compile_mask(ssn, batch, narr) -> Optional[np.ndarray]:
     """The compiled constraint MASK for the batch: inter-pod required
     (anti-)affinity and the spread/anti slot rows. None = all-pass."""
     from ..plugins import interpod
+    state = constraint_state(getattr(ssn, "cache", None))
     names = narr.names
+    _sync_for_session(state, ssn, names)
     mask: Optional[np.ndarray] = None
     n = len(names)
 
@@ -507,20 +675,19 @@ def compile_mask(ssn, batch, narr) -> Optional[np.ndarray]:
     if slots and getattr(batch, "task_slot", None) is not None:
         slots = None
     if slots and not getattr(ssn, "_constraint_slots_lowered", False):
-        topo: Dict[str, tuple] = {}
         for g, ti in enumerate(batch.group_first):
             entries = slots.get(batch.tasks[ti].uid)
             if not entries:
                 continue
             for key, values, _hard in entries:
-                if key not in topo:
-                    topo[key] = _topo_row(ssn, names, key)
-                row, vocab = topo[key]
+                row, vocab = _topo_row(state, ssn, names, key)
                 codes = [vocab[v] for v in values if v in vocab]
                 if codes:
                     buf()[g, :n] &= np.isin(row, codes)
                 else:
                     buf()[g, :n] = False
+    tr.add_tags(constraint_rows_refreshed=state.last_refreshed
+                if state is not None else 0)
     return mask
 
 
@@ -531,6 +698,7 @@ def compile_score(ssn, batch, narr, tiered_weight: float = 0.0,
     a penalty proportional to a domain's existing load above the least
     loaded) and priority-tiered packing. None = all-zero."""
     t0 = time.perf_counter()
+    state = constraint_state(getattr(ssn, "cache", None))
     names = narr.names
     n = len(names)
     score: Optional[np.ndarray] = None
@@ -541,7 +709,6 @@ def compile_score(ssn, batch, narr, tiered_weight: float = 0.0,
             score = np.zeros((batch.g_pad, narr.n_pad), np.float32)
         return score
 
-    topo: Dict[str, tuple] = {}
     for g, ti in enumerate(batch.group_first):
         if not spread_weight:
             break
@@ -549,9 +716,7 @@ def compile_score(ssn, batch, narr, tiered_weight: float = 0.0,
         soft = [c for c in rep.pod.spec.topology_spread
                 if c.when_unsatisfiable != "DoNotSchedule"]
         for c in soft:
-            if c.topology_key not in topo:
-                topo[c.topology_key] = _topo_row(ssn, names, c.topology_key)
-            row, vocab = topo[c.topology_key]
+            row, vocab = _topo_row(state, ssn, names, c.topology_key)
             if not vocab:
                 continue
             job = ssn.jobs.get(rep.job)
@@ -564,7 +729,7 @@ def compile_score(ssn, batch, narr, tiered_weight: float = 0.0,
                              per_node).astype(np.float32)
 
     if tiered_weight:
-        mass, vocab = _tier_mass(ssn, names)
+        mass, vocab = _tier_mass(state, ssn, names)
         if vocab:
             prios = np.full(max(vocab.values()) + 1, 0, np.int64)
             for prio, col in vocab.items():
@@ -594,6 +759,7 @@ def score_terms_for(ssn, task, node_names: List[str],
     ``{"soft_spread": [k], "tieredpack": [k]}`` with absent terms
     omitted."""
     out: Dict[str, np.ndarray] = {}
+    state = constraint_state(getattr(ssn, "cache", None))
     names = [n.name for n in ssn.node_list]
     pos = {n: i for i, n in enumerate(names)}
     idx = [pos.get(n, -1) for n in node_names]
@@ -602,7 +768,7 @@ def score_terms_for(ssn, task, node_names: List[str],
     if soft and spread_weight:
         vals = np.zeros(len(node_names), np.float32)
         for c in soft:
-            row, vocab = _topo_row(ssn, names, c.topology_key)
+            row, vocab = _topo_row(state, ssn, names, c.topology_key)
             if not vocab:
                 continue
             job = ssn.jobs.get(task.job)
@@ -617,7 +783,7 @@ def score_terms_for(ssn, task, node_names: List[str],
                 vals[k] -= np.float32(spread_weight * per)
         out["soft_spread"] = vals
     if tiered_weight:
-        mass, vocab = _tier_mass(ssn, names)
+        mass, vocab = _tier_mass(state, ssn, names)
         if vocab:
             prios = np.full(max(vocab.values()) + 1, 0, np.int64)
             for prio, col in vocab.items():

@@ -7,9 +7,13 @@ The placement kernel runs on ``device``: the GPU unless the caller passes
 ``device="cpu"`` (the plain loop), and the constructor raises when there
 is no GPU. Each cycle is recorded by the flight recorder (trace/tracer.py)
 while tracing is on, feeds the metrics (metrics/metrics.py) always, and
-is watched by the cycle watchdog. Left out of this port: leader election
-and fencing, anti-entropy, the conf file watcher and the incremental
-snapshot.
+is watched by the cycle watchdog. The cache runs the incremental
+steady-state cycle by default (docs/design/incremental_cycle.md: a
+persistent snapshot patched by dirty job and node, the quiet cycle, the
+scoped allocate, resident node tensors); ``incremental=False`` forces the
+full rebuild of every cycle. Left out of this port: leader election and
+fencing, anti-entropy, the bind-retry records, the async bind flush and
+the conf file watcher.
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ class Scheduler:
                  cache: Optional[SchedulerCache] = None,
                  clock: Optional[Clock] = None,
                  watchdog_multiple: Optional[float] = None,
-                 device=None):
+                 device=None, incremental: Optional[bool] = None):
         self.store = store
         self.device = default_device(device)
         # time-dependent decisions read this clock via the session, so a
@@ -60,6 +64,10 @@ class Scheduler:
         self.clock = clock if clock is not None else store.clock
         self.cache = cache if cache is not None else SchedulerCache(
             store, scheduler_name)
+        # the incremental steady-state cycle is the default, as in the
+        # reference; incremental=False rebuilds the snapshot every cycle
+        self.incremental = incremental if incremental is not None else True
+        self.cache.incremental = self.incremental
         self.schedule_period = schedule_period
         self.watchdog_multiple = (watchdog_multiple
                                   if watchdog_multiple is not None
@@ -118,7 +126,11 @@ class Scheduler:
         and R, and its prune summary (``BatchSolver.stats``);
         ``pipelined`` counts the tasks left Pipelined at close
         (``last_pipelined`` maps them to their nodes) and ``victim_runs``
-        preempt's and reclaim's placements by victim-selection path.
+        preempt's and reclaim's placements by victim-selection path;
+        ``mode`` is the snapshot's ("full", "incremental", or "legacy" for
+        the full rebuild of ``incremental=False``), ``patched_jobs`` and
+        ``patched_nodes`` count what it re-cloned and ``quiet`` says
+        whether the session took the quiet path.
 
         With tracing on (trace/tracer.py) the cycle is one flight-recorder
         record: the root span ``cycle`` tagged with the session's jobs,
@@ -144,13 +156,26 @@ class Scheduler:
                 t0 = time.perf_counter()
                 ssn = open_session(self.cache, conf.tiers,
                                    conf.configurations, clock=self.clock,
-                                   device=self.device)
+                                   device=self.device, actions=conf.actions)
                 tr.tag_cycle(jobs=len(ssn.jobs), nodes=len(ssn.nodes),
                              queues=len(ssn.queues))
+                stats = self.cache.last_snapshot_stats \
+                    if self.incremental else {}
+                if stats:
+                    # the snapshot's mode and the dirty-set sizes it
+                    # consumed
+                    tr.tag_cycle(mode=stats["mode"],
+                                 dirty_jobs=stats["dirty_jobs"],
+                                 dirty_nodes=stats["dirty_nodes"],
+                                 quiet=stats["quiet"])
                 tick = time.perf_counter()
                 split = {"open_session_ms": (tick - t0) * 1000.0
                          - self.cache.last_snapshot_ms,
-                         "snapshot_ms": self.cache.last_snapshot_ms}
+                         "snapshot_ms": self.cache.last_snapshot_ms,
+                         "mode": stats.get("mode", "legacy"),
+                         "patched_jobs": stats.get("patched_jobs"),
+                         "patched_nodes": stats.get("patched_nodes"),
+                         "quiet": ssn.quiet_cycle}
                 try:
                     for name in conf.actions:
                         action = get_action(name)
