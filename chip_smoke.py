@@ -166,15 +166,35 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
     bytes and rows copied and the kernel's launches, counted from 0 just
     before the cycle (0 on a quiet cycle, what the prune outcomes give
     otherwise);
+15d. flush_cycle: the write-behind commit (the cache's executor).
+    (a) Full width: phase 9's north-star store with the executor live,
+    one cycle, its flush (``flush_ms``) and one timed anti-entropy pass
+    that must repair nothing, against fresh stores of the same shape
+    committed inline by a cache whose executor never starts
+    (InlineCache), in live, inline, inline, live order: binds and
+    PodGroups (phase and conditions) equal, every pod bound, every gang
+    Running. (b) Faults: 4,096 pods over
+    2,048 nodes on a FakeClock, a FlakyBinder failing a seeded 2 % of
+    the binds, six cycles one virtual second apart, the card against
+    the plain loop on the CPU, both live: binds, PodGroups, retry
+    records (attempts, not_before), quarantine and healed pods equal
+    after every flush. (c) Fenced: a cache whose fencing token is behind
+    the store's floor: no bind lands, and the store's fenced writes and
+    the cache's resync retries equal the binds attempted;
 16. the kernels line (with the table refreshes, the cluster's blocks and
     each block's shared memory, the plan and R, as the main path's launch
     reported them, the shapes_vs_plain summary, traced_cycle's overhead,
     the kernel's launches per cycle, per preempt and per reclaim cycle,
-    per quiet and per churn incremental cycle,
+    per quiet and per churn incremental cycle, per flush_cycle cycle
+    (``launches_per_flush_cycle``),
     and a ``prune`` entry for the north-star cycle's place: union, padded
     width, launches, refreshes, whether the reduced run served; a second
     entry for the slot path), then the card's nvidia-smi line, then
     {"ok": true, "device": {...}} as the last line.
+
+Every phase that runs a cache (``cache.run()`` starts its executor)
+waits for it with ``flush_executors()`` before it reads the store, and
+prints that wait as ``flush_ms`` beside the cycle's ``cycle_ms``.
 
 Any failed check exits non-zero before the last line. Without a CUDA
 device, or without the volcano_tpu_torch package beside it, it exits
@@ -187,6 +207,7 @@ import atexit
 import concurrent.futures
 import gc
 import json
+import logging
 import multiprocessing
 import re
 import subprocess
@@ -204,6 +225,7 @@ if not torch.cuda.is_available():
 
 from volcano_tpu_torch import convert  # noqa: E402
 from volcano_tpu_torch.apiserver import ObjectStore  # noqa: E402
+from volcano_tpu_torch.cache import SchedulerCache  # noqa: E402
 from volcano_tpu_torch.cmd import cycle as cycle_cmd  # noqa: E402
 from volcano_tpu_torch.framework.solver import DenseSolver  # noqa: E402
 from volcano_tpu_torch.ops import allocate, build, prune  # noqa: E402
@@ -214,7 +236,9 @@ from volcano_tpu_torch.models import objects as obj  # noqa: E402
 from volcano_tpu_torch.models.resource import Resource  # noqa: E402
 from volcano_tpu_torch.ops.score import ScoreWeights  # noqa: E402
 from volcano_tpu_torch.scheduler import Scheduler  # noqa: E402
+from volcano_tpu_torch.sim.faults import FlakyBinder  # noqa: E402
 from volcano_tpu_torch.utils import test_utils as tu  # noqa: E402
+from volcano_tpu_torch.utils.clock import FakeClock  # noqa: E402
 from volcano_tpu_torch.utils.synth import (  # noqa: E402
     populate_preempt_store, populate_reclaim_store, populate_store,
     scalar_kinds, synth_arrays, zone_slots)
@@ -687,6 +711,17 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
+def flush(cache, ctx: str) -> float:
+    """Wait until the cache's executor has written what the cycle
+    committed (binds, evictions, PodGroup statuses and their echoes);
+    returns the wait in ms and fails when it does not drain."""
+    t0 = time.perf_counter()
+    if not cache.flush_executors(timeout=cycle_cmd.FLUSH_TIMEOUT_S):
+        fail(f"{ctx}: the cache's executor did not drain in "
+             f"{cycle_cmd.FLUSH_TIMEOUT_S:g} s")
+    return (time.perf_counter() - t0) * 1000.0
+
+
 def with_solver(conf: str, **args) -> str:
     """``conf`` with a solver section of ``args``."""
     lines = "\n".join(f'    {k}: "{v}"' for k, v in args.items())
@@ -791,17 +826,20 @@ def cycle_vs_plain() -> None:
             launches0 = gang_allocate_cuda.launches
             t0 = time.perf_counter()
             sched.run_once()
-            res[device] = (cycle_outcome(store),
-                           (time.perf_counter() - t0) * 1000.0,
+            ms = (time.perf_counter() - t0) * 1000.0
+            flush_ms = flush(sched.cache, f"cycle_vs_plain {case}")
+            sched.cache.stop()
+            res[device] = (cycle_outcome(store), ms,
                            gang_allocate_cuda.launches - launches0,
-                           sched.last_cycle)
+                           sched.last_cycle, flush_ms)
             check_binds(store, f"cycle_vs_plain {case} on {device}")
             if case == "constrained":
                 gangs = check_constraints(
                     store, f"cycle_vs_plain {case} on {device}")
-        (k_binds, k_phases, k_unsched), k_ms, k_launches, k_split = \
-            res["cuda"]
-        (p_binds, p_phases, p_unsched), p_ms, p_launches, _ = res["cpu"]
+        (k_binds, k_phases, k_unsched), k_ms, k_launches, k_split, \
+            k_flush = res["cuda"]
+        (p_binds, p_phases, p_unsched), p_ms, p_launches, _, p_flush = \
+            res["cpu"]
         check_launches(f"cycle_vs_plain {case} on the GPU", k_launches,
                        k_split["places"], True)
         check_launches(f"cycle_vs_plain {case} on the CPU", p_launches,
@@ -836,6 +874,7 @@ def cycle_vs_plain() -> None:
              committed_gangs=committed, rolled_back_gangs=k_unsched,
              bind_mismatches=diff, phase_mismatches=phase_diff,
              kernel_launches=k_launches, cycle_ms=k_ms, plain_cycle_ms=p_ms,
+             flush_ms=k_flush, plain_flush_ms=p_flush,
              kernel_ms=[pl["kernel_ms"] for pl in k_split["places"]],
              **extra)
 
@@ -1065,6 +1104,7 @@ def cycle_inputs_vs_plain(dev, late, constraints=None, reduced=None
                                 cap["deserved"], rkw, rctx, plain=late,
                                 done=print_reduced)
         res["reduced"] = red
+    cache.stop()
     return res
 
 
@@ -1131,14 +1171,16 @@ def prune_vs_plain() -> None:
             t0 = time.perf_counter()
             sched.run_once()
             ms = (time.perf_counter() - t0) * 1000.0
+            flush_ms = flush(sched.cache, f"prune_vs_plain {case}")
+            sched.cache.stop()
             places = sched.last_cycle["places"]
             check_launches(f"prune_vs_plain {case} on {device}",
                            gang_allocate_cuda.launches, places,
                            device == "cuda")
             check_binds(store, f"prune_vs_plain {case} on {device}")
-            res[device] = (cycle_outcome(store), places, ms)
-        (k_binds, k_phases, k_unsched), k_places, k_ms = res["cuda"]
-        (p_binds, p_phases, p_unsched), p_places, p_ms = res["cpu"]
+            res[device] = (cycle_outcome(store), places, ms, flush_ms)
+        (k_binds, k_phases, k_unsched), k_places, k_ms, k_flush = res["cuda"]
+        (p_binds, p_phases, p_unsched), p_places, p_ms, p_flush = res["cpu"]
         diff = sum(k_binds.get(k) != p_binds.get(k)
                    for k in set(k_binds) | set(p_binds))
         phase_diff = sum(k_phases[k] != p_phases.get(k) for k in k_phases)
@@ -1164,6 +1206,7 @@ def prune_vs_plain() -> None:
         line("prune_vs_plain", case=case, binds=len(k_binds),
              bind_mismatches=diff, phase_mismatches=phase_diff,
              rolled_back_gangs=k_unsched, cycle_ms=k_ms, plain_cycle_ms=p_ms,
+             flush_ms=k_flush, plain_flush_ms=p_flush,
              kernel_launches=[pl["launches"] for pl in k_places],
              plain_distill_ms=[(pl["prune"] or {}).get("distill_ms")
                                for pl in p_places],
@@ -1320,11 +1363,12 @@ def victim_cycles(case: str, size: dict, device: str, cycles: int) -> dict:
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1000.0
         launches = gang_allocate_cuda.launches
+        flush_ms = flush(cache, f"{case} cycle {c + 1} on {device}")
         binds, phases, _ = cycle_outcome(store)
         r = {"evicted": evictor.evicts[n0:],
              "pipelined": dict(sched.last_pipelined), "binds": binds,
              "phases": phases, "split": sched.last_cycle,
-             "launches": launches, "wall_ms": wall_ms}
+             "launches": launches, "wall_ms": wall_ms, "flush_ms": flush_ms}
         if on_gpu:
             r["peak_device_bytes"] = torch.cuda.max_memory_allocated() \
                 - resident
@@ -1359,7 +1403,7 @@ def victim_summary(r: dict) -> dict:
             "close_session_ms", "allocate.commit_ms", "pipelined",
             "victim_runs")
     return {"evictions": len(r["evicted"]), "wall_ms": r["wall_ms"],
-            "kernel_launches": r["launches"],
+            "flush_ms": r["flush_ms"], "kernel_launches": r["launches"],
             "kernel_ms": [pl["kernel_ms"] for pl in s["places"]],
             **prune_fields(s["places"]),
             "binds": len(r["binds"]),
@@ -1466,6 +1510,7 @@ def prefix_inputs(dev) -> dict:
     req = ctx.batch.group_req[g]
     score = host_node_score(req[0], ctx.idle, ctx.alloc, ctx.weights,
                             ctx.static[g[0]])[:n]
+    flush(cache, "victim_prefix inputs")
     cache.stop()
     return {"req": req, "node_ok": ctx.gmask[g][:, :n] & pods_ok[None],
             "base": ctx.future[:n], "vres": vres, "vvalid": vvalid,
@@ -1982,6 +2027,7 @@ def incr_run(sched, store, kind, events, gang, dev, check_resident):
     launches = gang_allocate_cuda.launches
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    flush_ms = flush(cache, f"incremental_cycle {kind} cycle")
     lc = sched.last_cycle
     full_width = [pl for pl in lc["places"]
                   if pl["prune"] is None or not pl["prune"]["served"]]
@@ -2006,7 +2052,7 @@ def incr_run(sched, store, kind, events, gang, dev, check_resident):
             "snapshot_ms": lc["snapshot_ms"],
             "open_session_ms": lc["open_session_ms"],
             "close_session_ms": lc["close_session_ms"],
-            "cycle_ms": lc["cycle_ms"],
+            "cycle_ms": lc["cycle_ms"], "flush_ms": flush_ms,
             "actions_ms": {a: lc[f"{a}_ms"] for a in ("enqueue", "allocate",
                                                       "backfill")},
             "node_bytes": node_bytes,
@@ -2110,13 +2156,215 @@ def incremental_cycle(dev) -> dict:
             name: {k: [r[k] for r in rs] for k in (
                 "kind", "mode", "quiet", "patched_jobs", "patched_nodes",
                 "snapshot_ms", "open_session_ms", "close_session_ms",
-                "cycle_ms", "node_bytes", "node_rows", "kernel_launches")}
+                "cycle_ms", "flush_ms", "node_bytes", "node_rows",
+                "kernel_launches")}
             for name, rs in rows.items()}
         for store, sched in sides.values():
             sched.cache.stop()
         del sides
         gc.collect()
     return out
+
+
+# ---- the write-behind commit ----------------------------------------------
+
+# flush_cycle (b): the faults' shape, the FlakyBinder's failure rate and
+# seed, and the cycles on a FakeClock one virtual second apart
+FLUSH_FAULTS = dict(MID, fail_rate=0.02, seed=5, cycles=6)
+
+
+class InlineCache(SchedulerCache):
+    """A cache whose executor never starts: every bind, evict and status
+    write runs inline in the cycle, as it does before run() (the
+    synchronous commit the live executor is held against)."""
+
+    def start_executors(self) -> None:
+        pass
+
+
+def flush_full_width(dev) -> dict:
+    """flush_cycle (a): the north star's store (phase 9's shape), four
+    fresh stores in live, inline, inline, live order (a drift of the host
+    cancels): with the executor live, one cycle, its flush and one timed
+    anti-entropy pass (no repair expected); inline, the same committed by
+    InlineCache. Every run's binds and PodGroups (phase and conditions)
+    must equal the first's, every pod bound, every gang committed."""
+    out = {"live": [], "inline": []}
+    first = None
+    for mode in ("live", "inline", "inline", "live"):
+        store = ObjectStore()
+        populate_store(store, n_nodes=FULL["n_nodes"],
+                       n_jobs=FULL["n_tasks"] // FULL["gang"],
+                       gang_size=FULL["gang"])
+        cache = (SchedulerCache if mode == "live" else InlineCache)(store)
+        cache.run()
+        sched = Scheduler(store, scheduler_conf=cycle_cmd.CONF, cache=cache,
+                          device=dev)
+        gc.collect()
+        gc.freeze()
+        try:
+            gang_allocate_cuda.launches = 0
+            sched.run_once()
+            torch.cuda.synchronize(dev)
+            launches = gang_allocate_cuda.launches
+            flush_ms = flush(cache, f"flush_cycle {mode}")
+        finally:
+            gc.unfreeze()
+        check_launches(f"flush_cycle {mode}", launches,
+                       sched.last_cycle["places"], True)
+        check_binds(store, f"flush_cycle {mode}")
+        r = {"launches": launches, "cycle_ms": sched.last_cycle["cycle_ms"],
+             "flush_ms": flush_ms,
+             "commit_ms": sched.last_cycle.get("allocate.commit_ms"),
+             "close_session_ms": sched.last_cycle["close_session_ms"]}
+        if mode == "live":
+            t0 = time.perf_counter()
+            rep = cache.anti_entropy()
+            r["anti_entropy_ms"] = (time.perf_counter() - t0) * 1000.0
+            if rep["divergent"] or rep["repaired"]:
+                fail(f"flush_cycle: anti-entropy found {rep} after the "
+                     f"flush")
+        state = store_state(store)
+        cache.stop()
+        if first is None:
+            first = state
+        elif state != first:
+            (ab, ag), (bb, bg) = first, state
+            fail(f"flush_cycle {mode}: "
+                 f"{sum(ab.get(k) != bb.get(k) for k in set(ab) | set(bb))}"
+                 f" binds and {sum(ag.get(k) != bg.get(k) for k in ag)} "
+                 f"PodGroups differ from the first run's")
+        out[mode].append(r)
+        del store, cache, sched
+        gc.collect()
+    binds, groups = first
+    running = sum(g[0] == "Running" for g in groups.values())
+    if len(binds) != FULL["n_tasks"] or \
+            running != FULL["n_tasks"] // FULL["gang"]:
+        fail(f"flush_cycle: {len(binds)} binds, {running} running gangs")
+    out["binds"] = len(binds)
+    out["running_gangs"] = running
+    return out
+
+
+def flush_fault_run(device) -> list:
+    """flush_cycle (b) on one device: MID's populate_store cluster on a
+    FakeClock, a FlakyBinder failing FLUSH_FAULTS["fail_rate"] of the
+    binds from its seed, the executor live; per cycle (each flushed, then
+    the clock advanced one second): binds, retry records (attempts,
+    not_before), quarantine, the GangUnbound events of the heals, the
+    injected failures and the kernel's launches."""
+    f = FLUSH_FAULTS
+    clock = FakeClock(start=1.0)
+    store = ObjectStore(clock=clock)
+    populate_store(store, n_nodes=f["n_nodes"],
+                   n_jobs=f["n_tasks"] // f["gang"], gang_size=f["gang"])
+    binder = FlakyBinder(store, clock, fail_rate=f["fail_rate"],
+                         seed=f["seed"])
+    cache = SchedulerCache(store, binder=binder)
+    cache.run()
+    sched = Scheduler(store, scheduler_conf=CYCLE_CONF.format(drf=""),
+                      cache=cache, clock=clock, device=device)
+    rows = []
+    for c in range(f["cycles"]):
+        gang_allocate_cuda.launches = 0
+        sched.run_once()
+        launches = gang_allocate_cuda.launches
+        flush_ms = flush(cache, f"flush_cycle faults cycle {c}")
+        binds, groups = store_state(store)
+        rows.append({
+            "binds": binds, "groups": groups,
+            "retry": {k: (r.attempts, r.not_before)
+                      for k, r in cache.retry_records.items()},
+            "quarantined": sorted(cache.quarantined),
+            "healed": sorted(e[1] for e in store.events
+                             if e[3] == "GangUnbound"),
+            "failed": len(binder.failed_keys), "launches": launches,
+            "cycle_ms": sched.last_cycle["cycle_ms"], "flush_ms": flush_ms})
+        clock.advance(1.0)
+    cache.stop()
+    return rows
+
+
+def flush_fenced(dev) -> dict:
+    """flush_cycle (c): MID's populate_store cluster, a FlakyBinder that
+    fails nothing, and a cache whose fencing token (1) is behind the
+    store's floor (2); one cycle on the card, flushed: no bind may land,
+    and the store's fenced writes and the cache's resync retries must
+    equal the binds the cycle attempted."""
+    clock = FakeClock(start=1.0)
+    store = ObjectStore(clock=clock)
+    populate_store(store, n_nodes=MID["n_nodes"],
+                   n_jobs=MID["n_tasks"] // MID["gang"],
+                   gang_size=MID["gang"])
+    binder = FlakyBinder(store, clock)
+    cache = SchedulerCache(store, binder=binder, fence_source=lambda: 1)
+    cache.run()
+    store.advance_fence(2)
+    sched = Scheduler(store, scheduler_conf=CYCLE_CONF.format(drf=""),
+                      cache=cache, clock=clock, device=dev)
+    gang_allocate_cuda.launches = 0
+    sched.run_once()
+    launches = gang_allocate_cuda.launches
+    flush(cache, "flush_cycle fenced")
+    out = {"attempted": binder.attempts,
+           "fenced_writes": store.fenced_writes,
+           "bound": len(store_state(store)[0]),
+           "resync_retries": cache.resync_retry_total,
+           "kernel_launches": launches}
+    cache.stop()
+    if out["bound"] or not out["attempted"] or \
+            out["fenced_writes"] != out["attempted"] or \
+            out["resync_retries"] != out["attempted"]:
+        fail(f"flush_cycle fenced: {out}")
+    return out
+
+
+def flush_cycle(dev) -> dict:
+    """Phase 15d: the write-behind commit. (a) flush_full_width; (b) the
+    faults at MID's size over six cycles, the card against the plain loop
+    on the CPU, both with the executor live: binds, PodGroups, retry
+    records, quarantine and heals must be equal after every flush, and
+    faults must have been injected and healed; (c) a fenced run: a cache
+    whose fencing token (1) is behind the store's floor (2), one cycle on
+    the card: no bind lands and the store's fenced writes equal the binds
+    the cycle attempted."""
+    t_phase = time.perf_counter()
+    full = flush_full_width(dev)
+    line("flush_cycle", part="full_width",
+         shape={"tasks": FULL["n_tasks"], "nodes": FULL["n_nodes"],
+                "gang": FULL["gang"]}, **full)
+
+    # the injected failures log one warning a pod: kept off the output
+    # while parts (b) and (c) run
+    cache_log = logging.getLogger("volcano_tpu_torch.cache.cache")
+    level = cache_log.level
+    cache_log.setLevel(logging.ERROR)
+    try:
+        card = flush_fault_run(dev)
+        plain = flush_fault_run(torch.device("cpu"))
+        fenced = flush_fenced(dev)
+    finally:
+        cache_log.setLevel(level)
+    keys = ("binds", "groups", "retry", "quarantined", "healed", "failed")
+    for c, (a, b) in enumerate(zip(card, plain)):
+        diff = [k for k in keys if a[k] != b[k]]
+        if diff:
+            fail(f"flush_cycle faults cycle {c}: the card's and the plain "
+                 f"loop's {diff} differ")
+        line("flush_cycle", part="faults", cycle=c, binds=len(a["binds"]),
+             retry_records=len(a["retry"]), quarantined=len(a["quarantined"]),
+             healed=len(a["healed"]), failed=a["failed"],
+             kernel_launches=a["launches"], cycle_ms=a["cycle_ms"],
+             flush_ms=a["flush_ms"], plain_cycle_ms=b["cycle_ms"],
+             plain_flush_ms=b["flush_ms"])
+    if not card[-1]["failed"] or not card[-1]["healed"]:
+        fail(f"flush_cycle faults: {card[-1]['failed']} injected failures, "
+             f"{len(card[-1]['healed'])} healed pods")
+
+    line("flush_cycle", part="fenced", **fenced)
+    return {"full_width": full, "faults": card, "fenced": fenced,
+            "seconds": time.perf_counter() - t_phase}
 
 
 def main() -> None:
@@ -2306,6 +2554,7 @@ def main() -> None:
     victim_prefix_phase(dev)
     traced = traced_cycle(dev)
     incr = incremental_cycle(dev)
+    flushed = flush_cycle(dev)
     incr_launches = {
         case: {kind: sorted({n for k, q, n in zip(
             r["incremental"]["kind"], r["incremental"]["quiet"],
@@ -2338,6 +2587,8 @@ def main() -> None:
             "span_kernel_ms", "solver_kernel_ms")},
         "launches_per_cycle": cycle_launches[-1],
         "launches_per_incremental_cycle": incr_launches,
+        "launches_per_flush_cycle": flushed["full_width"]["live"][-1][
+            "launches"],
         "launches_per_preempt_cycle": preempt["launches"],
         "launches_per_reclaim_cycle": reclaim["launches"],
         "preempt_cycle_kernel_ms": [pl["kernel_ms"]

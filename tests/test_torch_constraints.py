@@ -62,6 +62,7 @@ class Side:
                                **self.kw)
         sched.run_once()
         cache.flush_executors()
+        cache.stop()
         return sched
 
 
@@ -100,6 +101,9 @@ configurations:
 def open_session(side, store, conf_text):
     cache = side.cache.SchedulerCache(store)
     cache.run()
+    # the session reads only its snapshot: no watch or executor after the
+    # list (its close writes inline)
+    cache.stop()
     c = side.framework.parse_scheduler_conf(conf_text)
     return side.framework.open_session(cache, c.tiers, c.configurations,
                                        **side.kw)

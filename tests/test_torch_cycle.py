@@ -335,6 +335,7 @@ def run(pkg, spec, conf_text, cycles=1, more=None, **kw):
         sched.run_once()
         cache.flush_executors()
         out.append(outcome(store))
+    cache.stop()
     return out
 
 
@@ -458,6 +459,7 @@ def test_populate_store_cycle_matches_reference():
         pkg.Scheduler(store, scheduler_conf=conf(binpack=True), cache=cache,
                       **kw).run_once()
         cache.flush_executors()
+        cache.stop()
         return outcome(store)
     ref = run_synth(REF)
     assert run_synth(PORT, device="cpu") == ref
@@ -474,6 +476,8 @@ def test_scheduler_default_conf_and_device():
     assert s.conf.actions == ["enqueue", "allocate", "backfill"]
     s.cache.run()
     s.run_once()
+    s.cache.flush_executors()
+    s.cache.stop()
     assert sum(bool(p.spec.node_name) for p in store.list("pods")) == 4
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -599,6 +603,8 @@ def test_constrained_cycle_takes_the_slot_path():
                               device="cpu")
         sched.cache.run()
         sched.run_once()
+        sched.cache.flush_executors()
+        sched.cache.stop()
         out[off] = outcome(store)[0]
         split[off] = sched.last_cycle["places"]
     assert out[False] == out[True] and out[False]
@@ -612,6 +618,9 @@ def _small_session(conf_text):
     port_synth.populate_store(store, n_nodes=4, n_jobs=2, gang_size=2)
     cache = PortCache(store)
     cache.run()
+    # the session reads only its snapshot: no watch or executor after the
+    # list (its binds write inline)
+    cache.stop()
     c = parse_scheduler_conf(conf_text)
     return lambda: open_session(cache, c.tiers, c.configurations,
                                 device="cpu")

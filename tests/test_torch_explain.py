@@ -92,6 +92,10 @@ PORT = types.SimpleNamespace(api=port_api, cache=port_cache,
                              explain=explain, kw={"device": "cpu"})
 
 
+# the caches built by _env and _victim_env, stopped after each test
+_CACHES: list = []
+
+
 @pytest.fixture(autouse=True)
 def _clean():
     tracer.reset()
@@ -100,6 +104,9 @@ def _clean():
         pkg.explain.disable()
         pkg.explain.reset()
     yield
+    # the caches the test built stop with it (their executor threads)
+    while _CACHES:
+        _CACHES.pop().stop()
     for pkg in (REF, PORT):
         pkg.explain.disable()
         pkg.explain.reset()
@@ -115,6 +122,7 @@ def _env(n_nodes=4, n_gangs=2, gang=3, conf=CONF, node_cpu="8", pkg=PORT,
     cache = pkg.cache.SchedulerCache(store, binder=binder,
                                      evictor=pkg.tu.FakeEvictor(store))
     cache.run()
+    _CACHES.append(cache)
     if pin:
         conf = conf + """
 configurations:
@@ -303,6 +311,7 @@ def _victim_env(pkg=PORT, conf=CONF_PREEMPT, reclaim=False):
     cache = pkg.cache.SchedulerCache(store, binder=binder,
                                      evictor=pkg.tu.FakeEvictor(store))
     cache.run()
+    _CACHES.append(cache)
     sched = pkg.sched.Scheduler(store, scheduler_conf=conf, cache=cache,
                                 **pkg.kw)
     queues = ("over", "under") if reclaim else ("default", "default")

@@ -15,9 +15,8 @@ Tolerance: exact. Binds (pod -> node, read back from the store), evicted
 pod keys in eviction order, PodGroup phases and conditions (type,
 status, reason, message).
 
-Left out, with the layers they wait on: the anti-entropy repair
-(test_fingerprint_repair_invalidates_snapshot) and the bind-retry records
-(test_retry_backoff_jobs_stay_in_working_set).
+Every Env runs its cache, so the executor is live: binds are written
+behind the cycle, and each cycle ends with ``flush_executors()``.
 """
 
 import threading
@@ -252,6 +251,69 @@ def test_periodic_full_recompute_cadence():
     assert port == ref
     assert port[0] == port[3] == port[6] == "full"
     assert {port[i] for i in (1, 2, 4, 5)} == {"incremental"}
+
+
+def test_fingerprint_repair_invalidates_snapshot():
+    """An anti-entropy pass that repaired divergence means the watch
+    stream, and so the dirty sets, lied: the persistent snapshot is
+    rebuilt. A clean pass leaves it incremental."""
+    def run(side):
+        env = Env(side)
+        env.gang("gang-d")
+        env.cycle()
+        env.cycle()
+        modes = [env.cache.snapshot().incr_mode]
+        clean = env.cache.anti_entropy()
+        modes.append(env.cache.snapshot().incr_mode)
+        # diverge the cache behind the watch's back, then repair
+        with env.cache.mutex:
+            env.cache.nodes.pop("node-05")
+            env.cache.node_list.remove("node-05")
+        repaired = env.cache.anti_entropy()
+        modes.append(env.cache.snapshot().incr_mode)
+        modes.append(env.cache.snapshot().incr_mode)
+        nodes = sorted(env.cache.nodes)
+        env.cache.stop()
+        return clean, repaired, modes, nodes
+
+    ref, port = both(run)
+    assert port == ref
+    clean, repaired, modes, nodes = port
+    assert clean["repaired"] == 0 and clean["divergent"] == []
+    assert repaired["divergent"] == ["nodes"] and repaired["repaired"] >= 1
+    assert modes == ["incremental", "incremental", "full", "incremental"]
+    assert "node-05" in nodes
+
+
+def test_retry_backoff_jobs_stay_in_working_set():
+    """A bind backoff ends with no watch delta: the job of a live retry
+    record is patched by every snapshot, and no longer once the record is
+    gone."""
+    def run(side):
+        from volcano_tpu.cache.cache import _RetryRecord as RefRecord
+        from volcano_tpu_torch.cache.cache import _RetryRecord as PortRecord
+        env = Env(side)
+        env.gang("gang-f")
+        env.cycle()
+        env.cycle()
+        env.cache.snapshot()
+        rec = (RefRecord if side is REF else PortRecord)(
+            "default/gang-f-0", "default/gang-f")
+        rec.attempts = 1
+        rec.not_before = env.store.clock.now() + 60.0
+        env.cache.retry_records[rec.key] = rec
+        seen = ["default/gang-f" in env.cache.snapshot().patched_jobs
+                for _ in range(2)]
+        ineligible = env.cache.bind_ineligible()
+        del env.cache.retry_records[rec.key]
+        seen.append("default/gang-f" in env.cache.snapshot().patched_jobs)
+        env.cache.stop()
+        return seen, ineligible
+
+    ref, port = both(run)
+    assert port == ref
+    assert port[0] == [True, True, False]
+    assert list(port[1]) == ["default/gang-f-0"]
 
 
 # ---------------------------------------------------------------------------

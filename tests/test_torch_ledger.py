@@ -3,12 +3,12 @@ metrics time series: the cases of tests/test_lifecycle.py that need no
 async bind flush, through the port's Scheduler(device="cpu"), then one
 store through both packages with equal ledger aggregates.
 
-The port's binds are synchronous: ``bind_staged`` is stamped at the
-cache's staging, ``store_committed`` and ``echo_confirmed`` at the store's
-synchronous echo, all inside the cycle's commit, and each gang's store
-commit carries its own correlation id (``bind-<n>``). Not carried over:
-the correlation cases that join the store's journal, a remote store or a
-restarted scheduler (the port has no journal or remote store yet), the
+The port's binds are written behind the cycle by the cache's executor:
+``bind_staged`` carries the gang's staging instant, ``store_committed``
+and ``echo_confirmed`` are stamped at the store commit and its echo, and
+each flush carries its own correlation id (``bind-<n>``). Not carried
+over: the correlation cases that join the store's journal to a remote
+store or a restarted scheduler (the port has no remote store yet), the
 compile-cache and backend-probe counters (JAX's), and `vcctl debug`.
 
 Tolerance: exact (a virtual clock makes every hop exact).
@@ -56,6 +56,10 @@ tiers:
 """
 
 
+# the caches built by _env, stopped after each test
+_CACHES: list = []
+
+
 @pytest.fixture(autouse=True)
 def _clean():
     tracer.reset()
@@ -64,6 +68,9 @@ def _clean():
     timeseries.reset()
     m.reset()
     yield
+    # the caches the test built stop with it (their executor threads)
+    while _CACHES:
+        _CACHES.pop().stop()
     tracer.disable()
     tracer.reset()
     tracer.set_budgets({})
@@ -79,6 +86,7 @@ def _env(clock=None, n_nodes=4, n_gangs=2, gang=3, tu=port_tu,
     binder = tu.FakeBinder(store)
     cache = cache_cls(store, binder=binder, evictor=tu.FakeEvictor(store))
     cache.run()
+    _CACHES.append(cache)
     sched = sched_cls(store, scheduler_conf=CONF, cache=cache, clock=clock,
                       **(kw or {"device": "cpu"}))
     store.create("queues", tu.build_queue("default", weight=1))

@@ -101,6 +101,8 @@ def _cache(pkg, spec):
     populate(pkg, store, spec)
     cache = pkg.Cache(store, binder=pkg.tu.FakeBinder(store))
     cache.run()
+    # snapshots and sessions only: no watch or executor after the list
+    cache.stop()
     return cache
 
 

@@ -268,6 +268,7 @@ def run_cycles(sched_mod, store, cache_cls, tu, conf_text, monkeypatch,
         out.append((evictor.evicts[n0:], seen["pipelined"], binds, phases,
                     getattr(sched, "last_cycle", None)))
     monkeypatch.setattr(sched_mod, "close_session", real_close)
+    cache.stop()
     return out
 
 

@@ -167,6 +167,7 @@ def run(pkg, build, conf_text, **kw):
         ref_explain.reset()
     sched.run_once()
     cache.flush_executors()
+    cache.stop()
     if pkg is REF:
         return outcome(store), ref_explain.prune_report()["recent"], None
     places = sched.last_cycle["places"]

@@ -85,6 +85,8 @@ def sessions(pkg, conf_text, build, n):
     build(pkg, store)
     cache = pkg.Cache(store)
     cache.run()
+    # sessions only: no watch or executor after the list
+    cache.stop()
     if pkg is REF:
         c = ref_parse(conf_text)
         open_one = lambda: ref_open_session(cache, c.tiers, c.configurations)
@@ -153,6 +155,7 @@ def _cycles(pkg, builds, conf_text, **kw):
         sched.run_once()
         cache.flush_executors()
         out.append(outcome(store))
+    cache.stop()
     return out
 
 

@@ -97,6 +97,7 @@ def run(store, cache_cls, sched_cls, tu, conf, **kw):
     sched = sched_cls(store, scheduler_conf=conf, cache=cache, **kw)
     sched.run_once()
     cache.flush_executors()
+    cache.stop()
     return outcome(store), sched
 
 
@@ -152,6 +153,7 @@ def test_resource_index_counts_every_scalar_kind():
     store = port_store(kinds, **SHAPE)
     cache = PortCache(store)
     cache.run()
+    cache.stop()
     snap = cache.snapshot()
     rindex = ResourceIndex.from_cluster(snap.nodes, snap.jobs)
     assert rindex.r == 20

@@ -4,10 +4,9 @@ port's Scheduler(device="cpu"), then the same seeded store through both
 packages: the same span-name tree (names, nesting, order), the same count
 tags, and the same /debug/pending report.
 
-The bind flush's spans: the port's binds are synchronous, so
-``bind_flush.apply``, ``bind_flush.store`` and ``bind_flush.echo`` are
-recorded inside the cycle's commit, as async spans of the cycle (the
-chrome export's tid 2), as the reference's executor records them after it.
+The bind flush's spans: the cache's executor records ``bind_flush.apply``,
+``bind_flush.store`` and ``bind_flush.echo`` after the cycle, as async
+spans of the cycle (the chrome export's tid 2), as the reference's does.
 
 Tolerance: exact for names, order and counts. The overhead test is the
 reference's interleaved min-of-N with its flake shield.
@@ -61,12 +60,19 @@ PORT = types.SimpleNamespace(api=port_api, cache=port_cache,
                              m=m, pending=pending, kw={"device": "cpu"})
 
 
+# the caches built by _env, stopped after each test
+_CACHES: list = []
+
+
 @pytest.fixture(autouse=True)
 def _clean_tracer():
     for pkg in (REF, PORT):
         pkg.tracer.reset()
         pkg.tracer.set_budgets({})
     yield
+    # the caches the test built stop with it (their executor threads)
+    while _CACHES:
+        _CACHES.pop().stop()
     for pkg in (REF, PORT):
         pkg.tracer.disable()
         pkg.tracer.reset()
@@ -79,6 +85,7 @@ def _env(n_nodes=4, n_gangs=2, gang=3, pkg=PORT, conf=CONF):
     cache = pkg.cache.SchedulerCache(store, binder=binder,
                                      evictor=pkg.tu.FakeEvictor(store))
     cache.run()
+    _CACHES.append(cache)
     sched = pkg.sched.Scheduler(store, scheduler_conf=conf, cache=cache,
                                 **pkg.kw)
     store.create("queues", pkg.tu.build_queue("default", weight=1))
@@ -304,8 +311,8 @@ def test_awaiting_enqueue_counts_unready_not_zero():
 
 
 def test_bind_flush_async_spans_recorded():
-    """The synchronous commit records the bind flush's spans on the
-    cycle's async track: bind_flush.store carries the binds, and
+    """The executor records the bind flush's spans on the cycle's async
+    track: bind_flush.store carries the binds, and
     bind_flush.echo (the watch echo) nests inside it."""
     tracer.enable()
     _, cache, _, sched = _env()

@@ -81,12 +81,16 @@ class PortHarness:
             self.open_session()
         for name in names:
             get_action(name).execute(self.ssn)
+        # the cache's store writes run on its executor: wait for them, as
+        # the reference's Harness does
+        self.cache.flush_executors()
         return self
 
     def close_session(self):
         if self.ssn is not None:
             close_session(self.ssn)
             self.ssn = None
+        self.cache.flush_executors()
         return self
 
     @property
@@ -148,6 +152,7 @@ def outcome_of(pkg: Pkg, h, actions):
                  for t in job.task_status_index.get(pkg.Status.Pipelined,
                                                     {}).values()}
     h.close_session()
+    h.cache.stop()
     phases = {f"{g.metadata.namespace}/{g.metadata.name}": g.status.phase
               for g in h.store.list("podgroups")}
     return list(h.evicts), pipelined, phases, ssn

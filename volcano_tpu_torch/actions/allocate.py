@@ -124,9 +124,12 @@ class AllocateAction(Action):
         return ordered
 
     def _pending_tasks(self, ssn, job: JobInfo) -> List[TaskInfo]:
-        """Pending, non-best-effort, task-order sorted (allocate.go:183-196)."""
+        """Pending, non-best-effort, task-order sorted (allocate.go:183-196).
+        Pods the cache made bind-ineligible (quarantine, bind-failure
+        backoff) are skipped this cycle."""
+        ineligible = ssn.ineligible_binds
         tasks = [t for t in job.task_status_index.get(TaskStatus.Pending, {}).values()
-                 if not t.resreq.is_empty()]
+                 if not t.resreq.is_empty() and t.key() not in ineligible]
         fns = ssn._enabled_fns("task_order_fns")
         if all(getattr(fn, "standard_priority_order", False)
                for _, _, fn in fns):

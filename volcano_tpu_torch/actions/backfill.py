@@ -23,6 +23,7 @@ class BackfillAction(Action):
         return "backfill"
 
     def execute(self, ssn) -> None:
+        ineligible = ssn.ineligible_binds
         jobs_tasks = []
         for job in list(ssn.jobs.values()):
             if job.pod_group.status.phase == PodGroupPhase.PENDING:
@@ -32,7 +33,8 @@ class BackfillAction(Action):
                 continue
             tasks = [t for t in job.task_status_index.get(
                          TaskStatus.Pending, {}).values()
-                     if t.init_resreq.is_empty()]
+                     if t.init_resreq.is_empty()
+                     and t.key() not in ineligible]
             if tasks:
                 jobs_tasks.append((job, tasks))
         if not jobs_tasks:

@@ -14,8 +14,9 @@ flat incremental index, and each preemptor costs one vectorized
 all-nodes feasibility pass plus plugin filtering for the few nodes actually
 visited in score order — instead of the reference's per-preemptor
 full-cluster sweeps. The context's placements by victim-selection path
-add into ``ssn.victim_runs``. The reference's metrics, trace spans and
-bind-quarantine filter are not ported.
+add into ``ssn.victim_runs``. Bind-ineligible pods (quarantine, backoff;
+``ssn.ineligible_binds``) trigger no preemption. The reference's metrics
+and trace spans are not ported.
 """
 
 from __future__ import annotations
@@ -143,8 +144,13 @@ class PreemptAction(Action):
     # ------------------------------------------------------------------
 
     def _pending_tasks(self, ssn, job: JobInfo) -> List[TaskInfo]:
-        tasks = list(job.task_status_index.get(TaskStatus.Pending,
-                                               {}).values())
+        # bind-ineligible pods (quarantine, backoff) trigger no preemption:
+        # evicting victims for a pod whose bind keeps failing churns the
+        # cluster for nothing
+        ineligible = ssn.ineligible_binds
+        tasks = [t for t in job.task_status_index.get(TaskStatus.Pending,
+                                                      {}).values()
+                 if t.key() not in ineligible]
         tasks.sort(key=functools.cmp_to_key(
             lambda a, b: -1 if ssn.task_order_fn(a, b) else 1))
         return tasks

@@ -13,8 +13,8 @@ Uses the batched PreemptContext (framework/victims.py): one snapshot encode
 for every reclaimer, flat incremental victim index, per-reclaimer
 vectorized feasibility + lazy exact node descent — the reclaim_prefix
 semantics without per-task re-encoding. The context's placements by
-victim-selection path add into ``ssn.victim_runs``. The reference's
-bind-quarantine filter is not ported.
+victim-selection path add into ``ssn.victim_runs``. Bind-ineligible
+pods (quarantine, backoff; ``ssn.ineligible_binds``) reclaim nothing.
 """
 
 from __future__ import annotations
@@ -58,8 +58,9 @@ class ReclaimAction(Action):
             if queue.uid not in queue_seen:
                 queue_seen.add(queue.uid)
                 queue_list.append(queue)
-            pending = list(job.task_status_index.get(TaskStatus.Pending,
-                                                     {}).values())
+            pending = [t for t in job.task_status_index.get(
+                           TaskStatus.Pending, {}).values()
+                       if t.key() not in ssn.ineligible_binds]
             if pending:
                 preemptors_map.setdefault(job.queue, []).append(job)
                 pending.sort(key=task_key)

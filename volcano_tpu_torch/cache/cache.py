@@ -1,47 +1,64 @@
 """SchedulerCache: watch-fed cluster state with a per-cycle snapshot
 (counterpart of volcano_tpu/cache/cache.py; reference:
 pkg/scheduler/cache/cache.go): watch ingestion (:84-96, Run:487), the
-deep-copy snapshot (:793-882), binds, evictions and PodGroup status
+deep-copy snapshot (:793-882), the bind and evict executors with resync
+on failure (:552-660, processResyncTask:772) and PodGroup status
 writeback.
+
+Executor model (cache.go:647-654): bind and evict change the cache's
+state (task to Binding or Releasing, node accounting) and the store write
+runs on one background executor thread once ``run()`` has started it,
+off the scheduling cycle, with failures reconciled through the resync
+queue. ``bind_batch`` and ``evict_batch`` are write-behind: the cycle
+only records the gang, and the executor (or the next ``snapshot()``,
+whichever comes first) applies it to the cache before the store writes
+it. Consecutive gangs coalesce into one store commit (the store's
+sharded ``bind_pods``), whose watch echo comes back through
+``update_pods_bulk``. The executor yields to a live cycle once a cycle
+(``begin_cycle``/``end_cycle``) and pauses cyclic GC for a drain burst.
+Before ``run()`` the same writes run inline. Readers of the store call
+``flush_executors()`` first: it waits until every submitted write ran.
+
+Resilience (docs/design/resilience.md): a failed bind reconciles at once
+through the resync queue, while a retry record holds the pod out of
+placement for a seeded-jitter backoff on the store's clock
+(``bind_ineligible``, read at session open); past the retry budget the
+pod is quarantined until its pod object changes. A gang left below
+minAvailable by failed binds has its bound siblings unbound (the heal).
+With ``fence_source`` set, bind and heal writes carry the leader's
+fencing token, so a deposed incarnation's writes raise FencedError in the
+store. ``anti_entropy()`` fingerprints cache against store by kind and
+relists what diverged (docs/design/failover.md).
 
 With ``incremental`` on (the Scheduler's default) the snapshot is the
 incremental steady-state cycle's (docs/design/incremental_cycle.md): one
 persistent ClusterInfo, patched in place by re-cloning only the jobs and
 nodes in the dirty sets. Every watch delta, bind and eviction marks the
-sets, and a closing session folds in what it mutated
-(``absorb_session_touches``). The first snapshot, every structural change
-(queue, priority class, resource quota) and every
+sets, a closing session folds in what it mutated
+(``absorb_session_touches``), and the jobs of live retry records are
+re-dirtied every snapshot (their backoff ends without a watch delta).
+The first snapshot, every structural change (queue, priority class,
+resource quota, an anti-entropy repair) and every
 ``INCR_FULL_RECOMPUTE_EVERY_CYCLES``-th snapshot rebuild in full.
 
-Binds and evictions are synchronous: ``bind``/``bind_batch`` move the
-cache's tasks to Binding, add them to their nodes and write the store at
-commit; ``evict``/``evict_batch`` move them to Releasing and delete their
-pods through the evictor. The store's watch echo then updates the cache
-(a deleted pod leaves its job and node) before the call returns; it
-edits the cache's own objects, never a session's snapshot clones. So
-``flush_executors`` has nothing to wait for. While tracing is on the
-commit is split as the reference's bind flush is: the gangs' staging
-(``bind_flush.apply``), store writes with their events
-(``bind_flush.store``) and watch echoes (``bind_flush.echo``, inside the
-store write) are summed over the cycle and recorded once a cycle as the
-flight recorder's async spans (``emit_commit_spans``); and the pod
-lifecycle ledger (trace/ledger.py) is stamped: ``bind_staged`` at staging,
-``store_committed`` and ``echo_confirmed`` at the echo, all within the
-cycle's commit; the ledger completes the echoed entries after the cycle
-(``flush_executors`` and the scheduler), where the reference's flush
-executor does.
+While tracing is on the executor records the flush as the flight
+recorder's async spans (``bind_flush.apply``, ``bind_flush.store`` with
+the echo's ``bind_flush.echo`` inside it) and stamps the pod lifecycle
+ledger (``bind_staged`` at the gang's staging instant, then
+``store_committed`` at the shard's publish and ``echo_confirmed`` at the
+echo); the ledger's stamps held during the cycle complete on the
+executor before its own.
 
-Left out of this port: the async bind/evict executors and write-behind
-applies (the async flush), bind retry/backoff/quarantine and the retry
-records that re-dirty their jobs, partial-gang healing, anti-entropy,
-lease fencing and NUMA.
+Left out of this port: NUMA and the volume binder.
 """
 
 from __future__ import annotations
 
-import itertools
+import logging
 import threading
 import time
+import zlib
+from collections import deque
 from typing import Dict, List, Optional
 
 from ..apiserver.store import ObjectStore
@@ -49,17 +66,63 @@ from ..metrics import metrics as m
 from ..models import objects as obj
 from ..models.arrays import ResourceIndex
 from ..models.cluster_info import ClusterInfo
-from ..models.job_info import JobInfo, TaskInfo, TaskStatus
+from ..models.job_info import (JobInfo, TaskInfo, TaskStatus,
+                               allocated_status, get_job_id)
 from ..models.node_info import NodeInfo
 from ..models.objects import (DEFAULT_QUEUE, DEFAULT_SCHEDULER_NAME,
                               PodGroupPhase, status_fingerprint)
 from ..models.queue_info import NamespaceCollection, QueueInfo
 from ..models.resource import CPU, MEMORY, Resource
-from ..trace import ledger
+from ..trace import ledger, pending
 from ..trace import tracer
+from ..utils import gcguard
+from ..utils.backoff import seeded_backoff
+from ..utils.fastclone import fast_clone
 from .event_handlers import EventHandlersMixin
 from .interface import (NullVolumeBinder, StoreBinder, StoreEvictor,
                         StoreStatusUpdater)
+
+log = logging.getLogger(__name__)
+
+
+class _RetryRecord:
+    """One pod's bind-failure history: the attempts and the store-clock
+    instant before which the pod may not be placed again. Attempts reset
+    only on a bind success or a pod update or delete that may change the
+    outcome."""
+
+    __slots__ = ("key", "attempts", "not_before", "job")
+
+    def __init__(self, key: str, job: str = ""):
+        self.key = key
+        self.attempts = 0
+        self.not_before = 0.0
+        # the owning job's uid: the backoff ends with no watch delta, so
+        # the incremental snapshot re-dirties the job of every live record
+        self.job = job
+
+
+class _BindBurst:
+    """One gang's recorded bind: the write-behind apply's ``pairs`` of
+    (task_info, hostname), and the accepted and bound lists filled when
+    it is applied. Callable, so the apply queue runs it like any queued
+    mutation; the drain coalesces consecutive bursts into one cross-gang
+    pass (``_apply_bind_bursts``)."""
+
+    __slots__ = ("cache", "pairs", "accepted", "bound", "t_staged")
+
+    def __init__(self, cache, pairs):
+        self.cache = cache
+        self.pairs = pairs
+        self.accepted: list = []
+        self.bound: list = []
+        # the ledger's staging instant (store clock): the drain stamps
+        # bind_staged with it, so the staged->committed hop includes the
+        # executor's queue wait
+        self.t_staged = 0.0
+
+    def __call__(self):
+        self.cache._apply_bind_bursts([self])
 
 
 class SchedulerCache(EventHandlersMixin):
@@ -70,14 +133,42 @@ class SchedulerCache(EventHandlersMixin):
     # (0 turns the cadence off)
     INCR_FULL_RECOMPUTE_EVERY_CYCLES = 64
 
+    # how often the idle executor retries pending reconciliations (the
+    # reference's processResyncTask wait.Until period)
+    RESYNC_RETRY_SECONDS = 1.0
+
+    # resync: a bind failure's re-placement backoff is base * 2^(attempt-1)
+    # seconds, jittered into [0.5, 1.0) of itself by a seeded hash of
+    # (pod, attempt), capped; a pod that fails RESYNC_RETRY_BUDGET times is
+    # quarantined until its pod object changes or is deleted. Times come
+    # from the store's clock, so a virtual clock repeats exactly.
+    RESYNC_BACKOFF_BASE_SECONDS = 0.5
+    RESYNC_BACKOFF_CAP_SECONDS = 30.0
+    RESYNC_RETRY_BUDGET = 5
+    RESYNC_JITTER_SEED = 0
+
+    # how long the executor holds a drain back for a live cycle, once a
+    # cycle: under the GIL a drain in the middle of a cycle time-slices it
+    # and stretches both, so the executor waits for the cycle's end, for
+    # at most this long, and then drains regardless
+    CYCLE_YIELD_SECONDS = 5.0
+
+    # the kinds the anti-entropy pass fingerprints, in repair order (pods
+    # reference nodes, so nodes repair first)
+    ANTI_ENTROPY_KINDS = ("nodes", "queues", "podgroups", "pods")
+
     def __init__(self, store: ObjectStore,
                  scheduler_name: str = DEFAULT_SCHEDULER_NAME,
                  default_queue: str = DEFAULT_QUEUE,
                  binder=None, evictor=None, status_updater=None,
-                 volume_binder=None):
+                 volume_binder=None, fence_source=None):
         self.store = store
         self.scheduler_name = scheduler_name
         self.default_queue = default_queue
+        # lease fencing: a callable returning the leader's fencing token
+        # (or None); bind and heal writes carry it, so the store refuses a
+        # deposed incarnation's writes. None leaves every write unstamped.
+        self.fence_source = fence_source
 
         self.jobs: Dict[str, JobInfo] = {}
         self.nodes: Dict[str, NodeInfo] = {}
@@ -97,19 +188,55 @@ class SchedulerCache(EventHandlersMixin):
             else NullVolumeBinder()
 
         self.mutex = threading.RLock()
+        self.err_tasks: deque = deque()      # resync queue (cache.go:116)
+        # bind failures reconcile at once through err_tasks, while these
+        # records, keyed by pod key, gate when the pod may be placed again
+        self.retry_records: Dict[str, _RetryRecord] = {}
+        self.quarantined: Dict[str, str] = {}    # key -> reason
+        self.resync_retry_total = 0              # bind failures, lifetime
+        # per-task bind commits in flight, by job uid: {"gen": cycle
+        # generation, "ok": [(task, pod, hostname)] committed, "failed":
+        # count}. A heal reads it after a partial failure; it is dropped
+        # once enough commits landed and discarded after one generation,
+        # so a later failure never unbinds an earlier dispatch's pods.
+        self._single_bind_state: Dict[str, dict] = {}
+        # per-task heals held for the flush barrier in inline mode: a heal
+        # in the middle of a dispatch would unbind siblings whose gang
+        # mates have not even staged
+        self._deferred_heals: list = []
         self._watches: list = []
         self._running = False
+        # the executor: a FIFO of store writes, so a bind and a later
+        # evict of one pod run in order
+        self._exec_queue: deque = deque()
+        self._exec_lock = threading.Lock()
+        self._exec_event = threading.Event()
+        self._exec_idle = threading.Event()
+        self._exec_idle.set()
+        self._exec_thread: Optional[threading.Thread] = None
+        self._exec_stop = False
+        # write-behind cache mutations, run once each in submission order
+        # under self.mutex, on the executor or at the next snapshot()
+        self._pending_apply: deque = deque()
+        self._apply_lock = threading.Lock()
+        # recorded gangs waiting for one drain: a single store commit and
+        # one bulk echo for every gang recorded by the drain's run time
+        self._pending_binds: list = []
+        self._bind_drain_queued = False
+        # the flush correlation sequence ("bind-N", per cache)
+        self._flush_seq = 0
+        # cleared while a cycle is in flight (see CYCLE_YIELD_SECONDS)
+        self._cycle_idle = threading.Event()
+        self._cycle_idle.set()
+        self._cycle_gen = 0
+        # the full snapshot's clone, built by the executor between cycles
+        # and used when nothing changed since (_state_version)
+        self._state_version = 0
+        self._prebuilt: Optional[tuple] = None
         # wall ms of the last snapshot (read by the cycle's timing split)
         self.last_snapshot_ms = 0.0
         # pods handed to the evictor since the cache was built
         self.evictions = 0
-        # bind correlation ids ("bind-<n>"), one a store commit, joining
-        # the lifecycle ledger's entries to the commit that bound them
-        self._trace_ids = itertools.count(1)
-        # in a traced cycle: the commit's seconds of apply, store and echo,
-        # its binds and echoed pairs, and its first instant, summed over
-        # its gangs (begin_commit_trace, emit_commit_spans)
-        self._commit_acc: Optional[list] = None
         # the incremental steady-state cycle: with ``incremental`` on,
         # snapshot() keeps one persistent ClusterInfo and re-clones only
         # the jobs and nodes in the dirty sets
@@ -128,9 +255,11 @@ class SchedulerCache(EventHandlersMixin):
         self.last_snapshot_stats: dict = {}
         # while _bind_store_writes is in the store: (thread ident, {task
         # uid: (cache task, hostname)}) of the binds being written, so
-        # update_pods_bulk knows their echoes (delivered on this thread)
-        # and does not dirty for them
+        # update_pods_bulk knows their echoes and does not dirty for them.
+        # The echo worker delivers on the writer's behalf
+        # (store.delivery_origin), so the key is the writing thread.
         self._expected_bind_echo: Optional[tuple] = None
+        self.anti_entropy_state: Optional[dict] = None
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -139,16 +268,18 @@ class SchedulerCache(EventHandlersMixin):
         return pod.spec.scheduler_name == self.scheduler_name
 
     def run(self) -> None:
-        """Subscribe all watches, replaying existing objects (informer
-        list+watch; cache.go:487-507)."""
+        """Start the executor and subscribe all watches, replaying
+        existing objects (informer list+watch; cache.go:487-507)."""
         if self._running:
             return
         self._running = True
+        self.start_executors()
         s = self.store
 
         def locked(fn):
             def wrapper(*args):
                 with self.mutex:
+                    self._state_version += 1
                     try:
                         fn(*args)
                     except KeyError:
@@ -178,38 +309,222 @@ class SchedulerCache(EventHandlersMixin):
         ]
 
     def stop(self) -> None:
+        """Unsubscribe the watches and stop the executor: it runs what was
+        already submitted, then exits (waited for up to 5 s); later
+        writes run inline."""
         for w in self._watches:
             self.store.unwatch(w)
         self._watches = []
         self._running = False
+        self._exec_stop = True
+        self._exec_event.set()
+        if self._exec_thread is not None:
+            self._exec_thread.join(timeout=5.0)
+            self._exec_thread = None
 
     def wait_for_cache_sync(self) -> bool:
         return self._running  # synchronous watches: synced once run
 
-    def flush_executors(self, timeout: float = 30.0) -> bool:
-        """Every store write already happened inside its call; the
-        lifecycle ledger's held echo confirmations complete here."""
-        ledger.complete_deferred()
-        return True
-
-    def submit_background(self, fn) -> None:
-        """Run ``fn`` now: there is no background executor."""
-        fn()
-
     def client(self) -> ObjectStore:
         """The plugins'/actions' handle to the API (Cache.Client analogue)."""
         return self.store
+
+    # -- the executor (cache.go:647-654's goroutines) ------------------------
+
+    def _submit(self, fn) -> None:
+        with self._exec_lock:
+            if self._exec_thread is not None:
+                self._exec_queue.append(fn)
+                self._exec_idle.clear()
+                self._exec_event.set()
+                return
+        fn()   # inline mode (no worker started): run now
+
+    def submit_background(self, fn) -> None:
+        """Run fn on the executor (inline before run()), in FIFO order
+        with the binds it follows: the session's PodGroup status
+        writeback goes this way, off the cycle."""
+        self._submit(fn)
+
+    def _exec_loop(self) -> None:
+        last_yield_gen = -1
+        gc_paused = False
+        while True:
+            # while reconciliations or parked heals are pending, wake
+            # periodically without a new submission (cache.go:772-791
+            # runs resync on its own loop)
+            self._exec_event.wait(
+                timeout=self.RESYNC_RETRY_SECONDS
+                if (self.err_tasks or self._deferred_heals) else None)
+            try:
+                while True:
+                    with self._exec_lock:
+                        fn = self._exec_queue.popleft() if self._exec_queue \
+                            else None
+                    if fn is None:
+                        # drained: run the heals parked by per-task bind
+                        # failures, but only with no cycle in flight (a
+                        # dispatch cannot straddle the cycle's end, so
+                        # this is the first point its gang's outcome is
+                        # complete)
+                        if self._deferred_heals and \
+                                self._cycle_idle.is_set():
+                            self._run_deferred_heals()
+                        # then reconcile failed binds and evicts, while
+                        # the passes make progress
+                        before = len(self.err_tasks)
+                        if before:
+                            self.process_resync_tasks()
+                        if self.err_tasks and len(self.err_tasks) < before:
+                            continue
+                        with self._exec_lock:
+                            if not self._exec_queue:
+                                self._exec_event.clear()
+                                self._exec_idle.set()
+                                break
+                        continue
+                    if not gc_paused:
+                        # pause cyclic GC for the drain burst, as run_once
+                        # does for the cycle: the burst's garbage is
+                        # acyclic
+                        gc_paused = True
+                        gcguard.pause()
+                    # yield to a live cycle, once a cycle generation
+                    if not self._cycle_idle.is_set():
+                        gen = self._cycle_gen
+                        if gen != last_yield_gen:
+                            self._cycle_idle.wait(
+                                timeout=self.CYCLE_YIELD_SECONDS)
+                            last_yield_gen = gen
+                    try:
+                        fn()   # submitted fns resync their own errors
+                    except Exception:
+                        # an escaped error must not kill the worker: every
+                        # later bind and evict would queue forever
+                        log.exception("cache executor task failed")
+            finally:
+                # any exit from the drain releases the GC pause
+                if gc_paused:
+                    gc_paused = False
+                    gcguard.resume()
+            if self._exec_stop:
+                return
+
+    def start_executors(self) -> None:
+        """Start the bind/evict executor thread (live mode)."""
+        with self._exec_lock:
+            if self._exec_thread is not None:
+                return
+            self._exec_stop = False
+            self._exec_thread = threading.Thread(
+                target=self._exec_loop, daemon=True, name="cache-executor")
+            self._exec_thread.start()
+
+    def begin_cycle(self) -> None:
+        """Mark a scheduling cycle in flight: the executor holds its drain
+        back (see CYCLE_YIELD_SECONDS)."""
+        self._cycle_gen += 1
+        self._cycle_idle.clear()
+        if self._single_bind_state:
+            # retire per-task dispatch records no heal will read (their
+            # dispatch ended more than a generation ago)
+            with self.mutex:
+                stale = [k for k, st in self._single_bind_state.items()
+                         if st["gen"] < self._cycle_gen - 1]
+                for k in stale:
+                    del self._single_bind_state[k]
+
+    def end_cycle(self) -> None:
+        self._cycle_idle.set()
+        # rebuild the full snapshot's clone between cycles, after the
+        # executor drains this cycle's binds; the incremental snapshot
+        # patches on the cycle's thread instead
+        if self._exec_thread is not None and not self.incremental:
+            self._submit(self._prebuild_snapshot)
+
+    def _prebuild_snapshot(self) -> None:
+        if self.incremental or not self._cycle_idle.is_set():
+            # a cycle already in flight would invalidate the clone; the
+            # next end_cycle submits again
+            return
+        t0 = time.perf_counter()
+        with self.mutex:
+            self._drain_applies_locked()
+            self._prebuilt = (self._state_version, self._snapshot_locked())
+        m.observe(m.SNAPSHOT_PREBUILD_LATENCY,
+                  (time.perf_counter() - t0) * 1000.0)
+
+    def flush_executors(self, timeout: float = 30.0) -> bool:
+        """Wait until every submitted bind, evict and status write has run
+        (False on timeout); then complete the ledger's held stamps. In
+        inline mode this is also where the heals parked by per-task bind
+        failures run: in the middle of a dispatch the gang's outcome is
+        not known yet."""
+        with self._exec_lock:
+            worker_live = self._exec_thread is not None
+        if not worker_live:
+            self._run_deferred_heals()
+            ledger.complete_deferred()
+            return True
+        done = self._exec_idle.wait(timeout)
+        ledger.complete_deferred()
+        return done
+
+    def _run_deferred_heals(self) -> None:
+        while True:
+            with self.mutex:
+                if not self._deferred_heals:
+                    return
+                task = self._deferred_heals.pop(0)
+            self._heal_gang_of(task)
+
+    # -- write-behind applies ----------------------------------------------
+
+    def _queue_apply(self, fn) -> bool:
+        """Queue a cache mutation for write-behind; False in inline mode
+        (the caller then runs it at once)."""
+        with self._exec_lock:
+            if self._exec_thread is None:
+                return False
+        with self._apply_lock:
+            self._pending_apply.append(fn)
+        return True
+
+    def _drain_applies_locked(self) -> None:
+        """Run every pending write-behind mutation; the caller holds
+        ``self.mutex``, so a drain that finds the queue empty knows every
+        earlier apply has completed. A run of consecutive bind bursts
+        applies as one cross-gang pass; any other entry (an evict) ends
+        the run, so no bind moves across a later evict."""
+        while True:
+            bursts = None
+            with self._apply_lock:
+                if not self._pending_apply:
+                    return
+                fn = self._pending_apply.popleft()
+                if isinstance(fn, _BindBurst):
+                    bursts = [fn]
+                    while self._pending_apply and isinstance(
+                            self._pending_apply[0], _BindBurst):
+                        bursts.append(self._pending_apply.popleft())
+            self._state_version += 1
+            if bursts is not None:
+                self._apply_bind_bursts(bursts)
+            else:
+                fn()
 
     # -- snapshot ----------------------------------------------------------
 
     def snapshot(self) -> ClusterInfo:
         """Deep copy of the whole state (cache.go:793-882): only Ready
         nodes; only jobs with a PodGroup and an existing queue; job
-        priority resolved from PriorityClass here. With ``incremental``
-        on, the persistent snapshot patched by the dirty sets, equal in
-        content and order to this full rebuild."""
+        priority resolved from PriorityClass here. Pending write-behind
+        applies run first. With ``incremental`` on, the persistent
+        snapshot patched by the dirty sets, equal in content and order to
+        this full rebuild."""
         t0 = time.perf_counter()
         with self.mutex:
+            self._drain_applies_locked()
             if self.incremental:
                 snap = self._incr_snapshot_locked()
             else:
@@ -219,7 +534,11 @@ class SchedulerCache(EventHandlersMixin):
                 self._dirty_nodes.clear()
                 self._dirty_structural = False
                 self._incr_snap = None
-                snap = self._snapshot_locked()
+                pre, self._prebuilt = self._prebuilt, None
+                if pre is not None and pre[0] == self._state_version:
+                    snap = pre[1]
+                else:
+                    snap = self._snapshot_locked()
         self.last_snapshot_ms = (time.perf_counter() - t0) * 1000.0
         return snap
 
@@ -350,6 +669,13 @@ class SchedulerCache(EventHandlersMixin):
         """The persistent snapshot: a full rebuild when due (first use, a
         structural change, the periodic cadence), else patched in place.
         The caller holds the mutex."""
+        # a bind backoff ends with no watch delta: the jobs of live retry
+        # records re-enter the working set every cycle, so their
+        # eligibility is read again on time
+        for rec in self.retry_records.values():
+            if rec.job:
+                self._dirty_jobs.add(rec.job)
+        self._prebuilt = None
         every = self.INCR_FULL_RECOMPUTE_EVERY_CYCLES
         full_due = (self._incr_snap is None or self._dirty_structural
                     or (every > 0
@@ -459,6 +785,31 @@ class SchedulerCache(EventHandlersMixin):
 
     # -- binds -------------------------------------------------------------
 
+    def _current_fence(self):
+        """The fencing token for leader-scoped writes (None without
+        fencing), read for each write batch: a token that went stale in
+        flight is just what the store must see."""
+        if self.fence_source is None:
+            return None
+        try:
+            return self.fence_source()
+        except Exception:
+            return None
+
+    def _next_trace(self) -> str:
+        """The next flush correlation ID (a plain per-cache counter)."""
+        with self._apply_lock:
+            self._flush_seq += 1
+            return f"bind-{self._flush_seq}"
+
+    def _stamp_binder(self, trace) -> None:
+        """Give the binder this batch's fencing token and correlation ID
+        (attributes, so a binder subclass keeps its own signatures)."""
+        fence = self._current_fence()
+        if fence is not None:
+            self.binder.fence = fence
+        self.binder.trace = trace
+
     def _find_job_and_task(self, task_info: TaskInfo):
         job = self.jobs.get(task_info.job)
         if job is None:
@@ -468,130 +819,378 @@ class SchedulerCache(EventHandlersMixin):
             raise KeyError(f"failed to find task <{task_info.uid}>")
         return job, task
 
-    def _stage_bind(self, task_info: TaskInfo, hostname: str):
-        """Mark one task Binding in the cache and add it to its node
-        (cache.go:605-645); caller holds the mutex. Returns (task, pod) or
-        raises KeyError/RuntimeError with nothing changed."""
-        job, task = self._find_job_and_task(task_info)
+    def bind(self, task_info: TaskInfo, hostname: str) -> None:
+        """Mark the task Binding in the cache and add it to its node, then
+        write the bind on the executor (cache.go:605-655); a failed write
+        reconciles through the resync queue."""
+        with self.mutex:
+            self._state_version += 1
+            job, task = self._find_job_and_task(task_info)
+            node = self.nodes.get(hostname)
+            if node is None:
+                raise KeyError(f"failed to bind Task {task.uid} to host "
+                               f"{hostname}, host does not exist")
+            original = task.status
+            job.update_task_status(task, TaskStatus.Binding)
+            try:
+                node.add_task(task)
+            except RuntimeError:
+                job.update_task_status(task, original)
+                raise
+            self._dirty_jobs.add(task.job)
+            self._dirty_nodes.add(hostname)
+            pod = task.pod
+        corr = None
+        if ledger.is_enabled():
+            corr = self._next_trace()
+            now = self.store.clock.now()
+            ledger.defer(lambda: ledger.stamp(task.key(), "bind_staged", now,
+                                              job=task.job, trace=corr))
+
+        def do_bind():
+            if corr is not None:
+                # the cycle's held stamps land first, then this pod's
+                ledger.complete_deferred()
+            try:
+                self._stamp_binder(corr)
+                self.binder.bind(pod, hostname)
+                self.store.record_event(
+                    "pods", pod, "Normal", "Scheduled",
+                    f"Successfully assigned {task.namespace}/{task.name} "
+                    f"to {hostname}")
+            except Exception as e:
+                log.warning("bind of pod %s to %s failed: %s; scheduling "
+                            "resync", pod.metadata.key(), hostname, e)
+                m.inc(m.BIND_ERRORS, reason=type(e).__name__)
+                self._record_bind_failure(task, str(e))
+                self.resync_task(task)
+                # the session dispatches a ready gang as one bind() a
+                # task, so the heal waits for a point where the dispatch
+                # has ended (the drained executor with no cycle in flight,
+                # or flush_executors() in inline mode)
+                with self.mutex:
+                    st = self._single_bind_record(task.job)
+                    st["failed"] += 1
+                    self._deferred_heals.append(task)
+                return
+            if corr is not None:
+                # a no-op when the synchronous echo already confirmed it
+                ledger.stamp(task.key(), "store_committed",
+                             self.store.clock.now(), trace=corr)
+            self._clear_bind_successes([(task, pod, hostname)])
+            with self.mutex:
+                st = self._single_bind_record(task.job)
+                st["ok"].append((task, pod, hostname))
+                j = self.jobs.get(task.job)
+                if j is not None and \
+                        len(st["ok"]) >= max(1, j.min_available):
+                    # the gang committed on its own: nothing to heal
+                    self._single_bind_state.pop(task.job, None)
+        self._submit(do_bind)
+
+    def _single_bind_record(self, job_uid: str) -> dict:
+        """The job's per-task dispatch record, fenced by generation (the
+        caller holds ``self.mutex``): a record older than one generation
+        belongs to another commit and starts over. Its birth generation is
+        not refreshed on use, so a job topped up every cycle cannot gather
+        commits for one late failure to unbind."""
+        st = self._single_bind_state.get(job_uid)
+        if st is None or st["gen"] < self._cycle_gen - 1:
+            st = self._single_bind_state[job_uid] = {
+                "gen": self._cycle_gen, "ok": [], "failed": 0}
+        return st
+
+    def bind_batch(self, pairs) -> list:
+        """Bind a gang, ``[(task_info, hostname)]``, with one executor
+        submission (the per-gang form of :meth:`bind`).
+
+        Write-behind: with a live executor the call only records the
+        pairs; the cache's task moves and node accounting run on the
+        executor before the store writes, or at the next ``snapshot()``.
+        The return is then every task (optimistic): a task whose pod went
+        away in the meantime is skipped at apply time and reconverges from
+        the store. In inline mode (no worker) it applies and writes at
+        once and returns the accepted tasks."""
+        pairs = list(pairs)
+        if not pairs:
+            return []
+        burst = _BindBurst(self, pairs)
+        if ledger.is_enabled():
+            burst.t_staged = self.store.clock.now()
+        with self._exec_lock:
+            worker_live = self._exec_thread is not None
+        if worker_live:
+            # one lock pass records both the apply and the gang, so the
+            # drain's apply drain covers every gang it pops
+            with self._apply_lock:
+                self._pending_apply.append(burst)
+                self._pending_binds.append(burst)
+                need_drain = not self._bind_drain_queued
+                self._bind_drain_queued = True
+            if need_drain:
+                self._submit(self._drain_binds)
+            return [t for t, _ in pairs]
+        with self.mutex:
+            self._state_version += 1
+            burst()
+        corr = None
+        if ledger.is_enabled():
+            ledger.complete_deferred()
+            corr = self._next_trace()
+            ledger.stamp_bulk([t.key() for t, _, _ in burst.bound],
+                              "bind_staged", burst.t_staged, trace=corr)
+        self._bind_store_writes(burst.bound, trace=corr)
+        return list(burst.accepted)
+
+    def _apply_bind_one(self, burst: _BindBurst, task_info, hostname) -> None:
+        """The per-task bind apply, where a burst item's job, task or node
+        lookup failed: skips or rolls back exactly the affected task."""
+        try:
+            job, task = self._find_job_and_task(task_info)
+        except KeyError:
+            return
         node = self.nodes.get(hostname)
         if node is None:
-            raise KeyError(f"failed to bind Task {task.uid} to host "
-                           f"{hostname}, host does not exist")
+            return
         original = task.status
         job.move_task_status(task, TaskStatus.Binding)
         try:
             node.add_task(task)
         except RuntimeError:
             job.move_task_status(task, original)
-            raise
+            return
         self._dirty_jobs.add(task.job)
         self._dirty_nodes.add(hostname)
-        return task, task.pod
+        burst.accepted.append(task_info)
+        burst.bound.append((task, task.pod, hostname))
 
-    def bind(self, task_info: TaskInfo, hostname: str) -> None:
-        """Stage one task's bind in the cache, then write it to the store."""
-        self.bind_batch([(task_info, hostname)], strict=True)
+    def _apply_bind_bursts(self, bursts) -> None:
+        """The cross-gang bind apply (the caller holds ``self.mutex``): one
+        status move a job and one accounting pass a node over a run of
+        bursts (a 50,000-bind flush lands about 5 tasks a node across
+        6,250 gangs). A lookup miss or a refused fit falls back to the
+        per-task path for exactly the items affected. Each burst's
+        accepted and bound lists fill in (job group, node group) order,
+        both in input order."""
+        by_job: Dict[str, list] = {}
+        for burst in bursts:
+            for task_info, hostname in burst.pairs:
+                by_job.setdefault(task_info.job, []).append(
+                    (burst, task_info, hostname))
+        self._dirty_jobs.update(by_job)
+        by_node: Dict[str, list] = {}
+        for jid, items in by_job.items():
+            job = self.jobs.get(jid)
+            stored = None
+            if job is not None:
+                stored = [job.tasks.get(t.uid) for _, t, _ in items]
+            if job is None or any(s is None for s in stored) or \
+                    any(self.nodes.get(h) is None for _, _, h in items):
+                for burst, task_info, hostname in items:
+                    self._apply_bind_one(burst, task_info, hostname)
+                continue
+            originals = [s.status for s in stored]
+            job.move_tasks_status_bulk(stored, TaskStatus.Binding)
+            for (burst, task_info, hostname), s, orig in zip(items, stored,
+                                                             originals):
+                by_node.setdefault(hostname, []).append(
+                    (burst, task_info, s, orig, job))
+        self._dirty_nodes.update(by_node)
+        for hostname, node_items in by_node.items():
+            node = self.nodes[hostname]
+            try:
+                node.add_tasks_bulk([s for _, _, s, _, _ in node_items],
+                                    pipelined=False)
+            except RuntimeError:
+                # the combined fit was refused (drifted accounting):
+                # replay per task so the fitting prefix still lands
+                for burst, task_info, s, orig, job in node_items:
+                    try:
+                        node.add_task(s)
+                    except RuntimeError:
+                        job.move_task_status(s, orig)
+                        continue
+                    burst.accepted.append(task_info)
+                    burst.bound.append((s, s.pod, hostname))
+                continue
+            for burst, task_info, s, orig, job in node_items:
+                burst.accepted.append(task_info)
+                burst.bound.append((s, s.pod, hostname))
 
-    def bind_batch(self, pairs, strict: bool = False) -> list:
-        """Bind a gang: ``[(task_info, hostname)]`` staged in one mutex
-        pass and written in one store commit. A task whose job, task or
-        node lookup fails, or whose node refuses it, is skipped (with
-        ``strict``, its KeyError or RuntimeError propagates). Returns the
-        accepted task infos."""
-        accepted, bound = [], []
-        corr = f"bind-{next(self._trace_ids)}" if ledger.is_enabled() \
-            else None
+    def _drain_binds(self) -> None:
+        """The executor's half of the coalesced bind flush: pop the
+        recorded gangs, drain the pending applies (they order before the
+        store writes), then write every gang in one store commit (the
+        store's sharded pipeline; its per-shard echoes come back through
+        ``update_pods_bulk``)."""
+        with self._apply_lock:
+            bursts, self._pending_binds = self._pending_binds, []
+            self._bind_drain_queued = False
         t0 = time.perf_counter()
-        with self.mutex:
-            for task_info, hostname in pairs:
-                try:
-                    task, pod = self._stage_bind(task_info, hostname)
-                except (KeyError, RuntimeError):
-                    if strict:
-                        raise
-                    continue
-                accepted.append(task_info)
-                bound.append((task, pod, hostname))
-        if corr is not None and bound:
-            now = self.store.clock.now()
-            ledger.defer(lambda: ledger.stamp_bulk(
-                [t.key() for t, _, _ in bound], "bind_staged", now,
-                trace=corr))
-        self._bind_store_writes(bound, t0)
-        return accepted
-
-    def begin_commit_trace(self) -> None:
-        """Start summing the commit's phases (the scheduler calls it at
-        the start of a traced cycle): seconds of apply, store and echo,
-        binds and echoed pairs, and the first instant."""
-        self._commit_acc = [0.0, 0.0, 0.0, 0, 0, None]
-
-    def emit_commit_spans(self) -> None:
-        """Record the commit's summed phases as the cycle's bind flush
-        spans (``bind_flush.apply``, then ``bind_flush.store`` with
-        ``bind_flush.echo`` inside it), laid end to end from the commit's
-        first instant, and stop summing; the scheduler calls it at the end
-        of each traced cycle."""
-        acc, self._commit_acc = self._commit_acc, None
-        if acc is None or acc[5] is None:
-            return
-        apply_s, store_s, echo_s, binds, pairs, t0 = acc
-        tracer.async_record("bind_flush.apply", t0, apply_s)
-        echo = tracer.Span("bind_flush.echo", t0 + apply_s)
-        echo.dur = echo_s
-        echo.tags = {"pairs": pairs}
-        tracer.async_record("bind_flush.store", t0 + apply_s, store_s,
-                            children=[echo], binds=binds)
-
-    def _bind_store_writes(self, bound, t0: float) -> None:
-        """One binder pass + Scheduled events for [(task, pod, hostname)]
-        staged since ``t0``; the store's synchronous echo confirms the
-        ledger entries inside it."""
+        with tracer.async_span("bind_flush.apply"):
+            with self.mutex:
+                self._drain_applies_locked()
+        bound = [x for b in bursts for x in b.bound]
         if not bound:
             return
-        t1 = time.perf_counter()
-        # the store delivers the echo of these writes on this thread,
-        # inside bind_batch: the hint lets update_pods_bulk tell them
-        # from another writer's patches
+        corr = None
+        if ledger.is_enabled():
+            # the cycle's held stamps land before this flush's; one
+            # correlation ID a flush, each burst stamped at its own
+            # staging instant
+            ledger.complete_deferred()
+            corr = self._next_trace()
+            ledger.stamp_runs(
+                [([t.key() for t, _, _ in b.bound], b.t_staged)
+                 for b in bursts], "bind_staged", trace=corr)
+        with tracer.async_span("bind_flush.store", binds=len(bound)):
+            self._bind_store_writes(bound, trace=corr)
+        m.observe(m.BIND_FLUSH_LATENCY, (time.perf_counter() - t0) * 1000.0)
+        m.inc(m.BIND_FLUSH_BINDS, float(len(bound)))
+
+    def _bind_store_writes(self, bound, trace=None) -> None:
+        """One binder pass and the Scheduled events for [(task, pod,
+        hostname)]; failures go to the resync queue with retry
+        accounting, and a gang they leave partly bound is healed (its
+        bound siblings unbound) before anything else sees the commit
+        (cache.go:605-655). ``trace`` stamps the store writes and the
+        pods' ledger entries."""
+        if not bound:
+            return
+        self._stamp_binder(trace)
+        # deliveries of this commit, on this thread or on the echo worker
+        # for it, are our own writes: update_pods_bulk skips its change
+        # checks for them
         self._expected_bind_echo = (threading.get_ident(), {
             task.uid: (task, hostname) for task, _, hostname in bound})
         try:
-            failed = self.binder.bind_batch([(pod, hostname)
-                                             for _, pod, hostname in bound])
+            missing = self.binder.bind_batch([(pod, hostname)
+                                              for _, pod, hostname in bound])
+        except Exception as e:
+            log.warning("batch bind of %d pods failed: %s; scheduling "
+                        "resync", len(bound), e)
+            m.inc(m.BIND_ERRORS, float(len(bound)), reason=type(e).__name__)
+            for task, _, _ in bound:
+                self._record_bind_failure(task, str(e))
+                self.resync_task(task)
+            return
         finally:
             self._expected_bind_echo = None
-        if failed:
+        gone = {id(pod) for pod, _ in missing}
+        ok = bound
+        if gone:
+            failed = [b for b in bound if id(b[1]) in gone]
+            ok = [b for b in bound if id(b[1]) not in gone]
             m.inc(m.BIND_ERRORS, float(len(failed)), reason="rejected")
-            # the cache staged these as Binding; the store does not have
-            # them: reconcile each from the store
-            gone = {id(pod) for pod, _ in failed}
-            for task, pod, _ in bound:
-                if id(pod) in gone:
-                    self.sync_task(task)
-        cap = self.store.EVENTS_CAPACITY
-        for task, pod, hostname in bound[-cap:]:
+            for task, pod, hostname in failed:
+                log.warning("bind of pod %s to %s failed (binder rejected "
+                            "or pod gone); scheduling resync",
+                            pod.metadata.key(), hostname)
+                self._record_bind_failure(task, "bind rejected")
+                self.resync_task(task)
+            ok = self._heal_partial_gangs(ok, failed)
+        if trace is not None and ok:
+            ledger.stamp_bulk([t.key() for t, _, _ in ok], "store_committed",
+                              self.store.clock.now(), trace=trace)
+        self._clear_bind_successes(ok)
+        # the store's event deque is bounded: skip the messages its append
+        # would evict at once
+        for task, pod, hostname in ok[-self.store.EVENTS_CAPACITY:]:
             self.store.record_event(
                 "pods", pod, "Normal", "Scheduled",
                 f"Successfully assigned {task.namespace}/{task.name} "
                 f"to {hostname}")
-        n = len(bound) - len(failed)
-        t2 = time.perf_counter()
-        acc = self._commit_acc
-        if acc is not None:
-            acc[0] += t1 - t0
-            acc[1] += t2 - t1
-            acc[3] += n
-            if acc[5] is None:
-                acc[5] = t0
-        m.observe(m.BIND_FLUSH_LATENCY, (t2 - t1) * 1000.0)
-        m.inc(m.BIND_FLUSH_BINDS, float(n))
+
+    # -- gang-atomic healing -------------------------------------------------
+
+    def _heal_partial_gangs(self, bound_ok, failed) -> list:
+        """When this flush's failures leave a gang bound below
+        ``min_available``, unbind its bound siblings (a store patch
+        clearing ``node_name``, whose echo rolls back the node accounting)
+        and resync the gang as a unit. Returns the bound entries that
+        survive (an elastic job still at or above min_available without
+        the failed pods keeps them)."""
+        fail_count: Dict[str, int] = {}
+        for task, _, _ in failed:
+            fail_count[task.job] = fail_count.get(task.job, 0) + 1
+        heal_jobs = set()
+        with self.mutex:
+            for jid, f in fail_count.items():
+                job = self.jobs.get(jid)
+                if job is None or job.min_available <= 0:
+                    continue
+                alloc = sum(len(tasks) for st, tasks
+                            in job.task_status_index.items()
+                            if allocated_status(st))
+                # the failed tasks still sit in Binding (their reconcile
+                # is queued behind this call): without them the job keeps
+                # alloc - f allocated tasks
+                if 0 < alloc - f < job.min_available:
+                    heal_jobs.add(jid)
+        if not heal_jobs:
+            return bound_ok
+        unbind = [b for b in bound_ok if b[0].job in heal_jobs]
+        if not unbind:
+            return bound_ok
+        log.warning("gang-atomic heal: unbinding %d bound sibling(s) of %d "
+                    "partially bound gang(s)", len(unbind), len(heal_jobs))
+        m.inc(m.GANG_HEALS, float(len(heal_jobs)))
+        self._unbind_bound(unbind)
+        return [b for b in bound_ok if b[0].job not in heal_jobs]
+
+    def _unbind_bound(self, unbind) -> None:
+        """Unbind [(task, pod, hostname)]: one store patch clearing
+        ``node_name``, a GangUnbound event a pod, and a resync so the gang
+        reconciles as a unit; no retry attempt is charged to these pods
+        (their binds succeeded)."""
+        def clear_node(p):
+            p.spec.node_name = ""
+
+        self.store.patch_batch(
+            "pods", [(pod.metadata.name, pod.metadata.namespace, clear_node)
+                     for _, pod, _ in unbind], fence=self._current_fence())
+        for task, pod, hostname in unbind:
+            self.store.record_event(
+                "pods", pod, "Warning", "GangUnbound",
+                f"unbound from {hostname}: a sibling bind failure broke "
+                f"gang atomicity; the gang will be re-placed as a unit")
+            # the bind's echo already confirmed the pod's entry: its
+            # lifecycle restarts so the re-placement is tracked
+            ledger.reopen(task.key(), "healed", self.store.clock.now())
+            self.resync_task(task)
+
+    def _heal_gang_of(self, task_info: TaskInfo) -> None:
+        """The heal of the per-task bind path, once the gang's commit
+        outcome is known: unbind the dispatch's recorded sibling successes
+        when the job is left bound below ``min_available``."""
+        with self.mutex:
+            st = self._single_bind_state.pop(task_info.job, None)
+            if st is None or st["gen"] < self._cycle_gen - 1:
+                return   # another, long-gone dispatch's record
+            unbind, f = st["ok"], st["failed"]
+            job = self.jobs.get(task_info.job)
+            if job is None or job.min_available <= 0:
+                return
+            alloc = sum(len(tasks) for s, tasks
+                        in job.task_status_index.items()
+                        if allocated_status(s))
+            if not (0 < alloc - f < job.min_available):
+                return
+        if not unbind:
+            return
+        log.warning("gang-atomic heal: unbinding %d bound sibling(s) of "
+                    "partially bound gang %s", len(unbind), task_info.job)
+        m.inc(m.GANG_HEALS)
+        self._unbind_bound(unbind)
 
     # -- evictions ---------------------------------------------------------
 
     def evict(self, task_info: TaskInfo, reason: str) -> None:
-        """Mark the cache's task Releasing, update its node's accounting,
-        then delete the pod through the evictor (cache.go:552-601)."""
+        """Mark the cache's task Releasing and update its node's
+        accounting, then delete the pod through the evictor on the
+        executor (cache.go:552-601)."""
         with self.mutex:
+            self._state_version += 1
             job, task = self._find_job_and_task(task_info)
             node = self.nodes.get(task.node_name)
             if node is None:
@@ -606,16 +1205,21 @@ class SchedulerCache(EventHandlersMixin):
                 raise
             self._dirty_jobs.add(task.job)
             self._dirty_nodes.add(task.node_name)
-        self._evict_store_writes([(task, task.pod, job.pod_group, reason)])
+        staged = [(task, task.pod, job.pod_group, reason)]
+        self._submit(lambda: self._evict_store_writes(staged))
 
     def evict_batch(self, items) -> None:
-        """Evict ``[(task_info, reason)]`` in one mutex pass, in order (the
-        per-statement form of :meth:`evict`). A task whose job, task or
-        node lookup fails is skipped, as the per-task commit path skips
-        its KeyError; one whose node refuses the flip is rolled back and
-        resynced from the store."""
-        staged = []
-        with self.mutex:
+        """Evict ``[(task_info, reason)]`` in order with one executor
+        submission (the per-statement form of :meth:`evict`). A task whose
+        job, task or node lookup fails is skipped, as the per-task path
+        skips its KeyError; one whose node refuses the flip is rolled back
+        and resynced. Write-behind like :meth:`bind_batch`."""
+        items = list(items)
+        if not items:
+            return
+        staged: list = []
+
+        def apply():
             for task_info, reason in items:
                 try:
                     job, task = self._find_job_and_task(task_info)
@@ -629,38 +1233,306 @@ class SchedulerCache(EventHandlersMixin):
                 try:
                     node.transition_task(task)
                 except RuntimeError:
+                    # the node refused the flip (drifted accounting): the
+                    # session already assumes this eviction, so reconcile
+                    # from the store rather than skip it silently
                     job.move_task_status(task, original)
-                    self.sync_task(task)
+                    log.exception("evict_batch: node accounting rejected "
+                                  "%s; scheduling resync", task.uid)
+                    self.resync_task(task)
                     continue
                 self._dirty_jobs.add(task.job)
                 self._dirty_nodes.add(task.node_name)
                 staged.append((task, task.pod, job.pod_group, reason))
+
+        def do_evict_all():
+            with self.mutex:
+                self._drain_applies_locked()
+            self._evict_store_writes(staged)
+
+        if self._queue_apply(apply):
+            self._submit(do_evict_all)
+            return
+        with self.mutex:
+            self._state_version += 1
+            apply()
         self._evict_store_writes(staged)
 
     def _evict_store_writes(self, staged) -> None:
         """The evictor's pod deletes and the PodGroups' Evict events for
         ``[(task, pod, pod_group, reason)]``; a failed delete resyncs the
-        task from the store."""
+        task."""
         for task, pod, pod_group, reason in staged:
             self.evictions += 1
             try:
                 self.evictor.evict(pod, reason)
             except Exception:
-                self.sync_task(task)
+                self.resync_task(task)
             if pod_group is not None:
                 self.store.record_event("podgroups", pod_group, "Normal",
                                         "Evict", reason)
 
+    # -- resync (cache.go:768-791) ----------------------------------------
+
+    def resync_task(self, task: TaskInfo) -> None:
+        self.err_tasks.append(task)
+
+    def _backoff_seconds(self, key: str, attempts: int) -> float:
+        """The re-placement backoff after the Nth bind failure of a pod,
+        fixed for a given (key, attempt, seed)."""
+        return seeded_backoff(key, attempts, self.RESYNC_BACKOFF_BASE_SECONDS,
+                              self.RESYNC_BACKOFF_CAP_SECONDS,
+                              seed=self.RESYNC_JITTER_SEED)
+
+    def _record_bind_failure(self, task: TaskInfo, reason: str) -> None:
+        """Bump the pod's retry record: set its re-placement backoff or,
+        past the retry budget, quarantine it (a store event and
+        ``volcano_quarantined_tasks``). The caller still queues the
+        immediate reconcile (resync_task): backoff gates placement, never
+        the cache's convergence with the store."""
+        key = task.key()
+        quarantine_msg = None
+        with self.mutex:
+            self.resync_retry_total += 1
+            if key in self.quarantined:
+                return
+            rec = self.retry_records.get(key)
+            if rec is None:
+                rec = self.retry_records[key] = _RetryRecord(key, task.job)
+            rec.attempts += 1
+            if rec.attempts >= self.RESYNC_RETRY_BUDGET:
+                del self.retry_records[key]
+                quarantine_msg = (
+                    f"bind retry budget ({self.RESYNC_RETRY_BUDGET}) "
+                    f"exhausted after {rec.attempts} attempts; last "
+                    f"failure: {reason}")
+                self.quarantined[key] = quarantine_msg
+                n_quarantined = len(self.quarantined)
+            else:
+                rec.not_before = self.store.clock.now() + \
+                    self._backoff_seconds(key, rec.attempts)
+        m.inc(m.RESYNC_RETRIES)
+        ledger.detour(key, "quarantined" if quarantine_msg is not None
+                      else "retry")
+        if quarantine_msg is not None:
+            m.set_gauge(m.QUARANTINED_TASKS, float(n_quarantined))
+            self.store.record_event("pods", task.pod, "Warning",
+                                    "BindQuarantined", quarantine_msg)
+            log.warning("quarantining pod %s: %s", key, quarantine_msg)
+
+    def _clear_bind_retry_state(self, key: str) -> None:
+        """Forget a pod's failure history (a bind success, or a pod update
+        or delete that may change the outcome); the caller holds
+        ``self.mutex``."""
+        self.retry_records.pop(key, None)
+        if self.quarantined.pop(key, None) is not None:
+            m.set_gauge(m.QUARANTINED_TASKS, float(len(self.quarantined)))
+
+    def _clear_bind_successes(self, bound_ok) -> None:
+        """Successful binds reset their pods' retry records."""
+        if not self.retry_records:
+            return
+        with self.mutex:
+            for task, _, _ in bound_ok:
+                self.retry_records.pop(task.key(), None)
+
+    def bind_ineligible(self) -> Dict[str, str]:
+        """Pod keys that may not be placed now, each with its reason:
+        quarantined pods and pods inside their backoff window. Read into
+        the session at open (``ssn.ineligible_binds``): the placing
+        actions skip them and the why-pending report shows why."""
+        if not self.retry_records and not self.quarantined:
+            return {}
+        now = self.store.clock.now()
+        out: Dict[str, str] = {}
+        with self.mutex:
+            for key in self.quarantined:
+                out[key] = pending.REASON_QUARANTINED
+            for key, rec in self.retry_records.items():
+                if rec.not_before > now:
+                    out.setdefault(key, f"{pending.REASON_BIND_BACKOFF} "
+                                        f"(attempt {rec.attempts})")
+        return out
+
+    def process_resync_tasks(self) -> None:
+        """Refetch each errored pod from the store and reconcile the
+        cache; a task whose reconcile fails goes back on the queue
+        (cache.go:781-787)."""
+        for _ in range(len(self.err_tasks)):
+            task = self.err_tasks.popleft()
+            try:
+                self.sync_task(task)
+            except Exception:
+                log.exception("resync of task %s failed; requeued", task.uid)
+                self.err_tasks.append(task)
+
     def sync_task(self, old_task: TaskInfo) -> None:
-        """Rebuild one task from the store's pod (cache.go:768-791)."""
+        """Rebuild one task from the store's pod."""
         pod = self.store.get("pods", old_task.name, old_task.namespace)
         with self.mutex:
+            self._state_version += 1
+            if pod is None:
+                # a failure recorded after the pod's delete echo must not
+                # leak its retry record
+                self._clear_bind_retry_state(old_task.key())
+                ledger.drop(old_task.key())
+                self._delete_task(old_task)
+                return
+            new_task = TaskInfo(pod)
             self._delete_task(old_task)
-            if pod is not None:
-                try:
-                    self._add_task(TaskInfo(pod))
-                except KeyError:
-                    pass
+            try:
+                self._add_task(new_task)
+            except KeyError:
+                self.err_tasks.append(new_task)
+
+    # -- anti-entropy (docs/design/failover.md) ----------------------------
+
+    def _anti_entropy_views(self, kind: str):
+        """(store view, cache view) as {key: (rv, obj)} for one kind: the
+        store's own objects (no clones) against the cache's maps. Pods are
+        this scheduler's pods with a PodGroup link, what the watch puts in
+        ``jobs``. The caller holds ``self.mutex`` with applies drained."""
+        store_view: Dict[str, tuple] = {}
+        cache_view: Dict[str, tuple] = {}
+        refs = self.store.list_refs(kind)
+        if kind == "pods":
+            for p in refs:
+                if self._responsible_for(p) and get_job_id(p):
+                    store_view[p.metadata.key()] = (
+                        p.metadata.resource_version, p)
+            for job in self.jobs.values():
+                for t in job.tasks.values():
+                    cache_view[t.key()] = (t.pod.metadata.resource_version,
+                                           t.pod)
+        elif kind == "nodes":
+            for n in refs:
+                store_view[n.metadata.name] = (n.metadata.resource_version,
+                                               n)
+            for name, node in self.nodes.items():
+                cache_view[name] = (node.node.metadata.resource_version,
+                                    node.node)
+        elif kind == "queues":
+            for q in refs:
+                store_view[q.metadata.name] = (q.metadata.resource_version,
+                                               q)
+            for name, qi in self.queues.items():
+                cache_view[name] = (qi.queue.metadata.resource_version,
+                                    qi.queue)
+        elif kind == "podgroups":
+            for pg in refs:
+                store_view[pg.metadata.key()] = (
+                    pg.metadata.resource_version, pg)
+            for job in self.jobs.values():
+                if job.pod_group is not None:
+                    cache_view[job.pod_group.metadata.key()] = (
+                        job.pod_group.metadata.resource_version,
+                        job.pod_group)
+        else:
+            raise ValueError(f"anti-entropy does not cover kind {kind!r}")
+        return store_view, cache_view
+
+    @staticmethod
+    def _fingerprint(view: Dict[str, tuple]) -> tuple:
+        """(count, max rv, crc32 of the sorted key@rv lines): any missed,
+        extra or stale object changes it."""
+        crc = 0
+        max_rv = 0
+        for key in sorted(view):
+            rv = view[key][0]
+            crc = zlib.crc32(f"{key}@{rv}\n".encode(), crc)
+            if rv > max_rv:
+                max_rv = rv
+        return (len(view), max_rv, crc)
+
+    def _repair_kind(self, kind: str, store_view, cache_view) -> int:
+        """Relist one diverged kind through the handlers a live watch
+        calls: adds for misses, deletes for strays, re-ingest for stale
+        versions, keys in sorted order. The caller holds ``self.mutex``."""
+        add_fn, update_fn, delete_fn = {
+            "pods": (self.add_pod, self.update_pod, self.delete_pod),
+            "nodes": (self.add_node, self.update_node, self.delete_node),
+            "queues": (self.add_queue, self.update_queue, self.delete_queue),
+            "podgroups": (self.add_pod_group, self.update_pod_group,
+                          self.delete_pod_group),
+        }[kind]
+        repaired = 0
+        for key in sorted(set(cache_view) - set(store_view)):
+            try:
+                delete_fn(cache_view[key][1])
+                repaired += 1
+            except KeyError:
+                pass
+        for key in sorted(store_view):
+            rv, ref = store_view[key]
+            cached = cache_view.get(key)
+            try:
+                if cached is None:
+                    add_fn(fast_clone(ref))
+                    repaired += 1
+                elif cached[0] != rv:
+                    update_fn(cached[1], fast_clone(ref))
+                    repaired += 1
+            except KeyError:
+                # e.g. a pod bound to a node the cache has not seen yet:
+                # nodes repair first, so the next pass converges it
+                continue
+        return repaired
+
+    def anti_entropy(self, repair: bool = True) -> dict:
+        """One cache<->store reconciliation pass: fingerprint every kind
+        covered, count ``volcano_cache_divergence_total{kind}`` on a
+        mismatch and (with ``repair``) relist the diverged kinds in place.
+        A repair means the watch stream lied, so the dirty sets cannot be
+        trusted either: the next snapshot rebuilds in full. Returns the
+        report; ``anti_entropy_state`` and ``/debug/health`` (component
+        ``anti_entropy``) keep the last check and repair.
+
+        Run between cycles: pending write-behind applies drain first, and
+        a bind staged but not yet committed does not show (the cache's pod
+        keeps the store's resource_version until its echo)."""
+        now = self.store.clock.now()
+        divergent: List[str] = []
+        repaired_total = 0
+        with self.mutex:
+            self._drain_applies_locked()
+            for kind in self.ANTI_ENTROPY_KINDS:
+                store_view, cache_view = self._anti_entropy_views(kind)
+                if self._fingerprint(store_view) == \
+                        self._fingerprint(cache_view):
+                    continue
+                divergent.append(kind)
+                m.inc(m.CACHE_DIVERGENCE, kind=kind)
+                if repair:
+                    self._state_version += 1
+                    if repaired_total == 0:
+                        pending.publish_idle(
+                            pending.REASON_CACHE_RESYNC,
+                            detail=f"anti-entropy repairing {kind}")
+                    repaired_total += self._repair_kind(
+                        kind, store_view, cache_view)
+        state = self.anti_entropy_state or {
+            "checks": 0, "repairs": 0, "objects_repaired": 0,
+            "last_check": None, "last_repair": None, "last_divergent": []}
+        state["checks"] += 1
+        state["last_check"] = now
+        state["last_divergent"] = list(divergent)
+        if divergent and repair:
+            state["repairs"] += 1
+            state["objects_repaired"] += repaired_total
+            state["last_repair"] = now
+            self.mark_structural_change()
+            log.warning("anti-entropy: cache diverged from the store on %s; "
+                        "repaired %d object(s) via relist", divergent,
+                        repaired_total)
+        self.anti_entropy_state = state
+        m.set_health(
+            "anti_entropy", True,
+            f"last-check @{state['last_check']}, last-repair "
+            f"@{state['last_repair']}, {state['repairs']} repair pass(es) "
+            f"/ {state['objects_repaired']} object(s) over "
+            f"{state['checks']} check(s)")
+        return {"divergent": divergent, "repaired": repaired_total,
+                "checked": list(self.ANTI_ENTROPY_KINDS)}
 
     # -- status writeback --------------------------------------------------
 

@@ -8,24 +8,23 @@ the cache lock is held by the caller (the watch fan-out is synchronous).
 Every handler records the job and node keys it changes in the cache's
 dirty sets, which the incremental snapshot re-clones
 (docs/design/incremental_cycle.md); queue, priority-class and
-resource-quota edits are structural and force a full rebuild. Left out:
-the bind-retry records (with the commit path's resilience) and the NUMA
-handlers.
+resource-quota edits are structural and force a full rebuild. A pod's
+update that changes its node or its request, and its delete, clear its
+bind-retry record and quarantine. Left out: the NUMA handlers.
 """
 
 from __future__ import annotations
 
-import threading
-import time
 from typing import Optional
 
+from ..apiserver import store as store_api
 from ..models import objects as obj
 from ..models.arrays import _group_sig
 from ..models.job_info import (JobInfo, TaskInfo, allocated_status,
                                get_job_id, get_task_status, is_terminated)
 from ..models.node_info import NodeInfo
 from ..models.queue_info import NamespaceCollection, QueueInfo
-from ..trace import ledger
+from ..trace import ledger, tracer
 from ..utils.fastclone import fast_clone
 
 
@@ -34,7 +33,7 @@ class EventHandlersMixin:
 
     The one delivery that does not dirty: the echo of the cache's own
     bind write, which :meth:`update_pods_bulk` recognises by the
-    expected-bind-echo hint of the binding thread; the bind's staging
+    expected-bind-echo hint of the writing thread; the bind's apply
     already dirtied its job and node with the same information."""
 
     # -- pods -------------------------------------------------------------
@@ -134,11 +133,23 @@ class EventHandlersMixin:
             self._dirty_jobs.add(nt.job)
             self._dirty_nodes.add(cached.node_name)
             return
-        self._delete_task(TaskInfo(old))
+        ot = TaskInfo(old)
+        # a material update (another node, another request) may cure what
+        # failed the bind: the pod gets a fresh retry budget. A status
+        # writeback (the Unschedulable condition each cycle) does not.
+        if self.retry_records or self.quarantined:
+            key = new.metadata.key()
+            if key in self.retry_records or key in self.quarantined:
+                if old.spec.node_name != new.spec.node_name or \
+                        not ot.resreq.equal(nt.resreq):
+                    self._clear_bind_retry_state(key)
+        self._delete_task(ot)
         self.add_pod(new)
 
     def update_pods_bulk(self, pairs) -> None:
-        """Batched echo ingest for bulk store patches (bind writes). The
+        """Batched echo ingest for bulk store patches (bind writes), one
+        call a delivery (a shard on the sharded flush, from the echo
+        worker, so it overlaps the cloning of the shards behind it). The
         delivered ``new`` objects are the store's own and must not be
         mutated. A bind echo (same node, allocated-like, same request,
         unchanged annotations, priority and deletion stamp) reduces to a
@@ -146,26 +157,32 @@ class EventHandlersMixin:
         cache already holds; anything else goes through
         :meth:`update_pod` on a private copy.
 
-        The echo of the cache's own bind write does not dirty: the store
-        delivers synchronously on the writing thread, so a delivery on
-        the thread that set the expected-bind-echo hint, of a pod the
-        hint names bound to the hinted node, is that write. Another
-        writer's patch of the same shape dirties its job and node like
-        any watch delta."""
-        t0 = time.perf_counter()
-        now = self.store.clock.now() if ledger.is_enabled() else None
-        confirms: list = []
+        The echo of the cache's own bind write does not dirty: a delivery
+        whose origin (``store.delivery_origin``: the writing thread, on
+        whose behalf the echo worker delivers) is the thread that set the
+        expected-bind-echo hint, of a pod the hint names bound to the
+        hinted node, is that write. Another writer's patch of the same
+        shape dirties its job and node like any watch delta. The ledger
+        confirms the echoed binds, with the shard's publish instant as
+        their store_committed stamp."""
         hint = self._expected_bind_echo
         exp = hint[1] if hint is not None \
-            and hint[0] == threading.get_ident() else None
-        with self.mutex:
+            and hint[0] == store_api.delivery_origin() else None
+        now = self.store.clock.now() if ledger.is_enabled() else None
+        commit_t = store_api.delivery_commit_time() \
+            if now is not None else None
+        confirms: list = []
+        with tracer.async_span("bind_flush.echo", pairs=len(pairs)), \
+                self.mutex:
+            self._state_version += 1
+
             def apply(job, cached, new_status, rv) -> None:
                 """The echo's status move and resource_version refresh."""
                 if now is not None:
                     if confirms and confirms[-1][1] == job.queue:
-                        confirms[-1][0].append(cached)
+                        confirms[-1][0].append(cached.key())
                     else:
-                        confirms.append(([cached], job.queue))
+                        confirms.append(([cached.key()], job.queue))
                 job.move_task_status(cached, new_status)
                 cached.pod.metadata.resource_version = rv
                 node = self.nodes.get(cached.node_name)
@@ -180,8 +197,7 @@ class EventHandlersMixin:
                 nm = new.metadata
                 own = exp.get(nm.uid) if exp is not None else None
                 if own is not None:
-                    # our own bind write (delivered on the hinting
-                    # thread): it changed node_name and the
+                    # our own bind write: it changed node_name and the
                     # resource_version and nothing else, so the guards
                     # below are moot and nothing is dirtied
                     task, host = own
@@ -221,16 +237,14 @@ class EventHandlersMixin:
                 except KeyError:
                     pass   # e.g. pod bound to a node we haven't seen yet
             if confirms:
-                ledger.defer(lambda: ledger.confirm_runs(
-                    [([t.key() for t in tasks], q) for tasks, q in confirms],
-                    now))
-        acc = self._commit_acc
-        if acc is not None:
-            acc[2] += time.perf_counter() - t0
-            acc[4] += len(pairs)
+                ledger.confirm_runs(confirms, now, commit_t)
 
     def delete_pod(self, pod: obj.Pod) -> None:
         ledger.drop(pod.metadata.key())
+        # a deleted pod drops its bind-failure history: a recreated pod
+        # starts with a fresh retry budget
+        if self.retry_records or self.quarantined:
+            self._clear_bind_retry_state(pod.metadata.key())
         self._delete_task(TaskInfo(pod))
         # drop empty shell jobs with no podgroup (processCleanupJob analogue)
         jid = get_job_id(pod)
@@ -282,6 +296,7 @@ class EventHandlersMixin:
         in the store's object without re-deriving the job's spec fields;
         anything else is cloned and fully re-ingested."""
         with self.mutex:
+            self._state_version += 1
             for old, new in pairs:
                 self._dirty_jobs.add(new.metadata.key())
                 job = self.jobs.get(new.metadata.key())

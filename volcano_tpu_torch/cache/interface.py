@@ -26,13 +26,15 @@ class StatusUpdater(Protocol):
     def update_pod_group(self, pg: PodGroup) -> PodGroup: ...
 
 
-def bind_pods_batch(store, items, per_pod_bind, batch_ok: bool) -> tuple:
+def bind_pods_batch(store, items, per_pod_bind, batch_ok: bool,
+                    fence=None, trace=None) -> tuple:
     """Shared engine behind StoreBinder/FakeBinder ``bind_batch``: one
     ``store.bind_pods`` commit for ``[(pod, hostname)]``, or per-pod
     ``per_pod_bind`` calls when there is no store or ``batch_ok`` is False
-    (a binder subclass overrode ``bind``). Returns ``(failed,
-    used_batch)``: the pairs that did not bind, and whether the batch path
-    ran."""
+    (a binder subclass overrode ``bind``). ``fence`` and ``trace``, when
+    set, ride the commit (the leader's fencing token and the flush's
+    correlation ID). Returns ``(failed, used_batch)``: the pairs that did
+    not bind, and whether the batch path ran."""
     if store is None or not batch_ok:
         failed = []
         for pod, hostname in items:
@@ -43,7 +45,7 @@ def bind_pods_batch(store, items, per_pod_bind, batch_ok: bool) -> tuple:
         return failed, False
     _, missing = store.bind_pods(
         [(pod.metadata.name, pod.metadata.namespace, hostname)
-         for pod, hostname in items])
+         for pod, hostname in items], fence=fence, trace=trace)
     if not missing:
         return [], True
     gone = set(missing)
@@ -53,22 +55,30 @@ def bind_pods_batch(store, items, per_pod_bind, batch_ok: bool) -> tuple:
 
 class StoreBinder:
     """Default binder: writes pod.spec.node_name through the object store
-    (the standalone equivalent of POST .../binding, cache.go:214-230)."""
+    (the standalone equivalent of POST .../binding, cache.go:214-230).
+
+    ``fence`` and ``trace`` (attributes the cache sets for each write
+    batch) stamp the store writes with the leader's fencing token, so a
+    deposed incarnation's binds raise FencedError instead of landing
+    after a takeover, and with the flush's correlation ID."""
 
     def __init__(self, store):
         self.store = store
+        self.fence = None
+        self.trace = None
 
     def bind(self, pod: Pod, hostname: str) -> None:
         live = self.store.get("pods", pod.metadata.name, pod.metadata.namespace)
         if live is None:
             raise KeyError(f"pod {pod.metadata.key()} not found")
         live.spec.node_name = hostname
-        self.store.update("pods", live)
+        self.store.update("pods", live, fence=self.fence, trace=self.trace)
 
     def bind_batch(self, items) -> list:
         """Batched bind; returns the failed [(pod, hostname)]."""
         failed, _ = bind_pods_batch(self.store, items, self.bind,
-                                    type(self).bind is StoreBinder.bind)
+                                    type(self).bind is StoreBinder.bind,
+                                    fence=self.fence, trace=self.trace)
         return failed
 
 

@@ -14,7 +14,10 @@ ingest it, and runs one ``Scheduler.run_once`` with the default conf plus
 binpack (``enqueue, allocate, backfill``). The first run is cold (it
 builds the kernel on the GPU); ``--warm`` more runs follow, each in a
 fresh store. The line gives, per run, the populate and cache-sync seconds,
-the cycle's wall ms and its split (``Scheduler.last_cycle``: snapshot,
+the cycle's wall ms, ``flush_ms`` (the ``cache.flush_executors()`` wait
+after it: the executor's store writes of the cycle's binds and PodGroup
+statuses, and their watch echoes) and the cycle's split
+(``Scheduler.last_cycle``: snapshot,
 open_session, each action, the allocate action's ordering, placement,
 staging and commit, close_session, and each placement's encode, solve,
 kernel and decode, its kernel launches and its prune summary), the binds,
@@ -99,6 +102,9 @@ tiers:
 
 SCENARIOS = ("default", "preempt", "reclaim")
 
+# how long a run waits for the cache's executor to drain a cycle's writes
+FLUSH_TIMEOUT_S = 300.0
+
 
 def populate_scenario(store, scenario: str, n_nodes: int) -> str:
     """Fill ``store`` with the preempt or reclaim shape at ``n_nodes``
@@ -150,6 +156,11 @@ def run_cycle(n_tasks: int, n_nodes: int, n_queues: int = 1,
         sched.run_once()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+        t3 = time.perf_counter()
+        if not cache.flush_executors(timeout=FLUSH_TIMEOUT_S):
+            raise RuntimeError(f"the cache's executor did not drain in "
+                               f"{FLUSH_TIMEOUT_S:g} s")
+        flush_ms = (time.perf_counter() - t3) * 1000.0
     finally:
         gc.unfreeze()
     pods = store.list("pods")
@@ -157,7 +168,8 @@ def run_cycle(n_tasks: int, n_nodes: int, n_queues: int = 1,
     committed = sum(1 for g in store.list("podgroups")
                     if g.status.phase == "Running")
     out = {"populate_s": t1 - t0, "sync_s": t2 - t1,
-           **sched.last_cycle, "binds": binds, "committed_gangs": committed,
+           **sched.last_cycle, "flush_ms": flush_ms,
+           "binds": binds, "committed_gangs": committed,
            "evictions": cache.evictions, "store": store}
     if tracer.is_enabled():
         out["trace"] = trace_split(tracer.last_record())

@@ -17,6 +17,10 @@ so that a drift of the host cancels:
   the quiet incremental cycles of the steady state (no plugin opens, as
   in the reference); 4 x ``--steady-rounds`` cycles.
 
+Both time the cycle itself (``cycle_ms``): the cache's executor writes the
+cycle's binds and statuses after it, and each run waits for that flush
+before the next starts (the placing runs report it as ``flush_ms``).
+
 The line gives every run's cycle ms and kernel launches, the overhead in
 percent by the minima (the least traced cycle over the least untraced
 one) and by the medians, and the span split of the last traced placing
@@ -96,6 +100,9 @@ def steady(store, device, rounds: int) -> dict:
             sched.run_once()
             out["launches"] += gang_allocate_cuda.launches
             out[mode].append(sched.last_cycle["cycle_ms"])
+            # the executor's writes land between cycles, not in the next
+            if not cache.flush_executors(timeout=cycle_cmd.FLUSH_TIMEOUT_S):
+                raise RuntimeError("the cache's executor did not drain")
     finally:
         tracer.disable()
         gc.unfreeze()

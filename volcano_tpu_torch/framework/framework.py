@@ -73,6 +73,10 @@ def open_session(cache, tiers, configurations=None, clock=None,
             ssn.total_resource = Resource()
             for n in ssn.nodes.values():
                 ssn.total_resource.add(n.allocatable)
+        # the commit path's resilience: quarantined pods and pods inside
+        # their bind-failure backoff are not placed this cycle;
+        # why-pending reports the reasons
+        ssn.ineligible_binds = cache.bind_ineligible()
         if ssn.quiet_cycle:
             return ssn
 
@@ -196,9 +200,8 @@ JOB_CONDITION_UPDATE_JITTER = 0.3
 
 class JobUpdater:
     """Push changed PodGroup statuses back on session close
-    (job_updater.go:40-108). The reference parallelizes over 16 goroutines;
-    here the store write is an in-process call, so a plain loop is the
-    faster equivalent."""
+    (job_updater.go:40-108): computed in the cycle, written on the cache's
+    executor."""
 
     def __init__(self, ssn: Session):
         self.ssn = ssn
@@ -215,12 +218,15 @@ class JobUpdater:
                           and (scope is None or j.uid in scope)]
 
     def update_all(self) -> None:
-        """Compute every job's status, then push the store writes in one
-        bulk call (synchronously: the port's cache has no executor)."""
+        """Compute every job's status in the cycle, then push the store
+        writes in one bulk call on the cache's executor, off the cycle, in
+        FIFO order after the binds they follow (the reference spreads the
+        API writes over 16 goroutines, job_updater.go:51)."""
         updates = [(job, self.prepare_job(job)) for job in self.job_queue]
         cache = self.ssn.cache
         if cache is not None and updates:
-            cache.update_job_statuses(updates)
+            cache.submit_background(
+                lambda: cache.update_job_statuses(updates))
 
     def prepare_job(self, job: JobInfo) -> bool:
         """Roll up the job's status; True if the PodGroup must be pushed.

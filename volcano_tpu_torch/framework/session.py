@@ -158,6 +158,10 @@ class Session:
         self.patched_jobs = None
         self.patched_nodes = None
         self.quiet_cycle = False
+        # pod keys the cache holds out of placement this cycle
+        # (quarantine, bind-failure backoff), each with its reason; set by
+        # open_session, skipped by the placing actions
+        self.ineligible_binds: dict = {}
 
     def add_timing(self, name: str, since: float) -> float:
         """Add the wall time since ``since`` (a perf_counter reading) to

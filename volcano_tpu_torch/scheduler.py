@@ -11,9 +11,16 @@ is watched by the cycle watchdog. The cache runs the incremental
 steady-state cycle by default (docs/design/incremental_cycle.md: a
 persistent snapshot patched by dirty job and node, the quiet cycle, the
 scoped allocate, resident node tensors); ``incremental=False`` forces the
-full rebuild of every cycle. Left out of this port: leader election and
-fencing, anti-entropy, the bind-retry records, the async bind flush and
-the conf file watcher.
+full rebuild of every cycle.
+
+``run_once`` brackets the cycle with the cache's ``begin_cycle`` and
+``end_cycle``: once the cache runs, its executor writes the cycle's binds,
+evictions and PodGroup statuses to the store after the cycle (readers of
+the store call ``cache.flush_executors()`` first). ``run`` starts the
+cache and, every ``anti_entropy_every`` cycles, runs the cache's
+anti-entropy pass in the gap between cycles. Left out of this port: leader
+election (a standby's skipped cycles; the cache takes its fencing token
+as ``SchedulerCache(fence_source=...)``) and the conf file watcher.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from .metrics import metrics as m
 from .models.job_info import TaskStatus
 from .models.objects import DEFAULT_SCHEDULER_NAME
 from .trace import ledger
+from .utils import gcguard
 from .utils.clock import Clock
 from .utils.platform import default_device
 
@@ -47,6 +55,11 @@ class Scheduler:
     # observes: the cycle is never interrupted.
     WATCHDOG_MULTIPLE = 4.0
 
+    # the anti-entropy cadence of the run() loop: one cache<->store
+    # fingerprint pass (docs/design/failover.md) every N cycles, between
+    # cycles; 0 turns it off
+    ANTI_ENTROPY_EVERY_CYCLES = 60
+
     def __init__(self, store: ObjectStore,
                  scheduler_name: str = DEFAULT_SCHEDULER_NAME,
                  scheduler_conf: Optional[str] = None,
@@ -55,6 +68,7 @@ class Scheduler:
                  cache: Optional[SchedulerCache] = None,
                  clock: Optional[Clock] = None,
                  watchdog_multiple: Optional[float] = None,
+                 anti_entropy_every: Optional[int] = None,
                  device=None, incremental: Optional[bool] = None):
         self.store = store
         self.device = default_device(device)
@@ -64,6 +78,9 @@ class Scheduler:
         self.clock = clock if clock is not None else store.clock
         self.cache = cache if cache is not None else SchedulerCache(
             store, scheduler_name)
+        self.anti_entropy_every = (anti_entropy_every
+                                   if anti_entropy_every is not None
+                                   else self.ANTI_ENTROPY_EVERY_CYCLES)
         # the incremental steady-state cycle is the default, as in the
         # reference; incremental=False rebuilds the snapshot every cycle
         self.incremental = incremental if incremental is not None else True
@@ -147,12 +164,10 @@ class Scheduler:
                                     args=(deadline,))
             timer.daemon = True
             timer.start()
-        was_enabled = gc.isenabled()
-        gc.disable()
+        gcguard.pause()
+        self.cache.begin_cycle()
         try:
             with tr.cycle():
-                if tr.is_enabled():
-                    self.cache.begin_commit_trace()
                 t0 = time.perf_counter()
                 ssn = open_session(self.cache, conf.tiers,
                                    conf.configurations, clock=self.clock,
@@ -194,7 +209,6 @@ class Scheduler:
                     tick = time.perf_counter()
                 finally:
                     close_session(ssn)
-                    self.cache.emit_commit_spans()
                 end = time.perf_counter()
             split["close_session_ms"] = (end - tick) * 1000.0
             split["cycle_ms"] = (end - t0) * 1000.0
@@ -203,8 +217,8 @@ class Scheduler:
             split["victim_runs"] = dict(ssn.victim_runs)
             self.last_cycle = split
         finally:
-            if was_enabled:
-                gc.enable()
+            self.cache.end_cycle()
+            gcguard.resume()
             elapsed = time.perf_counter() - start
             if timer is not None:
                 timer.cancel()
@@ -215,9 +229,10 @@ class Scheduler:
                                  "cycle time back under the watchdog "
                                  "deadline")
         m.update_e2e_duration(elapsed)
-        # the lifecycle ledger completes the cycle's echoed binds after
-        # the cycle, as the reference's flush executor does
-        ledger.complete_deferred()
+        # the lifecycle ledger's stamps held in the cycle complete on the
+        # flush executor, after the cycle's binds
+        if ledger.is_enabled():
+            self.cache.submit_background(ledger.complete_deferred)
         if tr.is_enabled():
             # /debug/timeseries: one sample of the key gauges and counters
             # a cycle, on the flight recorder's switch
@@ -245,13 +260,15 @@ class Scheduler:
 
     def run(self) -> None:
         """Start cache ingestion, then run a cycle every period until
-        stop()."""
+        stop(), with the anti-entropy pass every ``anti_entropy_every``
+        cycles between them."""
         self.cache.run()
         # long-lived startup objects never need cycle detection: freezing
         # them keeps the collections between cycles proportional to the
         # cycle's garbage, not to the cluster's size
         gc.collect()
         gc.freeze()
+        cycles = 0
         while not self._stop.is_set():
             start = time.monotonic()
             try:
@@ -261,6 +278,16 @@ class Scheduler:
                 # must not kill the scheduling thread; the next cycle
                 # resyncs from the cache
                 log.exception("scheduling cycle failed; retrying next period")
+            cycles += 1
+            if self.anti_entropy_every and \
+                    cycles % self.anti_entropy_every == 0:
+                try:
+                    # the executor may still be draining: a staged but
+                    # uncommitted bind does not show in the fingerprints
+                    self.cache.anti_entropy()
+                except Exception:
+                    log.exception("anti-entropy pass failed; the next "
+                                  "interval retries")
             gc.collect(0)   # the cycle's garbage with true reference cycles
             elapsed = time.monotonic() - start
             self._stop.wait(max(0.0, self.schedule_period - elapsed))

@@ -67,8 +67,10 @@ RECENT_CAPACITY = 64
 
 _enabled = False
 _lock = threading.Lock()
-# stamping calls held for complete_deferred, in order
+# stamping calls held for complete_deferred, in order, and the lock that
+# runs one held batch at a time
 _deferred: list = []
+_deferred_run_lock = threading.Lock()
 
 
 class _Entry:
@@ -256,6 +258,20 @@ def stamp_bulk(keys, stage: str, now: float, trace: Optional[str] = None,
     _drain_exports()
 
 
+def stamp_runs(runs, stage: str, trace: Optional[str] = None) -> None:
+    """``stamp_bulk`` for several key batches with different instants in
+    one lock pass, ``runs = [(keys, t)]``: the coalesced bind drain stamps
+    every gang's ``bind_staged`` at its own staging instant."""
+    if not _enabled:
+        return
+    idx = _STAGE_IDX[stage]
+    with _lock:
+        for keys, t in runs:
+            for key in keys:
+                _stamp_locked(key, idx, t, None, None, trace)
+    _drain_exports()
+
+
 def _confirm_one_locked(key: str, queue, commit_t: float,
                         echo_t: float) -> None:
     """Stamp ``store_committed`` @commit_t then ``echo_confirmed``
@@ -300,23 +316,26 @@ def confirm(key: str, now: float, queue: Optional[str] = None,
 
 def defer(fn) -> None:
     """Run ``fn()`` (a stamping call, its instants already fixed) at the
-    next :func:`complete_deferred`, in the order deferred. The port's
-    commit is synchronous, so the cycle's stamps and echo confirmations
-    are held here and applied after the cycle, where the reference's
-    flush executor applies its own (off the cycle's critical path); a
-    key list is built then, not in the cycle. No-op while disabled."""
+    next :func:`complete_deferred`, in the order deferred. The cycle's own
+    stamps (session_eligible, kernel_placed, a per-task bind_staged) are
+    held here and applied on the cache's flush executor, off the cycle,
+    before the executor stamps the same pods' commit; a key list is
+    built then, not in the cycle. No-op while disabled."""
     if _enabled:
         with _lock:
             _deferred.append(fn)
 
 
 def complete_deferred() -> int:
-    """Apply the held stamping calls, in order; returns how many ran."""
-    with _lock:
-        held = list(_deferred)
-        _deferred.clear()
-    for fn in held:
-        fn()
+    """Apply the held stamping calls, in order; returns how many ran.
+    Callers on two threads (the executor, a flush barrier) take turns, so
+    a later batch never runs before an earlier one."""
+    with _deferred_run_lock:
+        with _lock:
+            held = list(_deferred)
+            _deferred.clear()
+        for fn in held:
+            fn()
     return len(held)
 
 

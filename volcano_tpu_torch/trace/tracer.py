@@ -365,28 +365,6 @@ def async_span(name: str, **tags):
     return _AsyncCtx(s, _seq)
 
 
-def async_record(name: str, t0: float, dur: float,
-                 children=(), **tags) -> Optional["Span"]:
-    """Record a finished span (with its finished ``children``) on the
-    async track of the newest cycle, as ``async_span`` would have: for a
-    phase whose time is summed over many short intervals (the port's
-    synchronous commit, gang by gang) rather than timed as one. None when
-    tracing is off."""
-    if not _enabled:
-        return None
-    s = Span(name, t0)
-    s.dur = dur
-    if tags:
-        s.tags = tags
-    if children:
-        s.children = list(children)
-    global _async_count
-    with _lock:
-        _async.setdefault(_seq, []).append(s)
-        _async_count += 1
-    return s
-
-
 def _finish_cycle(root: Span, seq: int) -> None:
     rec = CycleRecord(seq, time.time(), root)
     with _lock:

@@ -25,6 +25,11 @@ class FakeBinder:
         self.binds: Dict[str, str] = {}
         self.channel: List[str] = []
         self.store = store
+        # the leader's fencing token and the flush's correlation ID to
+        # stamp on the store writes (set by the cache for each write
+        # batch; see cache.interface.StoreBinder)
+        self.fence = None
+        self.trace = None
 
     def bind(self, pod: Pod, hostname: str) -> None:
         key = f"{pod.metadata.namespace}/{pod.metadata.name}"
@@ -32,9 +37,10 @@ class FakeBinder:
             live = self.store.get("pods", pod.metadata.name, pod.metadata.namespace)
             if live is not None:
                 live.spec.node_name = hostname
-                self.store.update("pods", live)
-        # record AFTER the store write: a failed write must not appear in
-        # the bind channel
+                self.store.update("pods", live, fence=self.fence,
+                                  trace=self.trace)
+        # record AFTER the store write: a fenced or failed write must not
+        # appear in the bind channel
         self.binds[key] = hostname
         self.channel.append(key)
 
@@ -47,7 +53,8 @@ class FakeBinder:
         from ..cache.interface import bind_pods_batch
         failed, used_batch = bind_pods_batch(
             self.store, items, self.bind,
-            type(self).bind is FakeBinder.bind)
+            type(self).bind is FakeBinder.bind, fence=self.fence,
+            trace=self.trace)
         if used_batch:
             gone = set(map(id, (pod for pod, _ in failed)))
             for pod, hostname in items:
