@@ -140,7 +140,7 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
 15b. traced_cycle: the north-star cycle of phase 9 with the flight
     recorder (and ledger) off and on through volcano_tpu_torch/cmd/
     trace_overhead.py: two warm runs of each on fresh stores in
-    off-on-on-off order, then sixteen steady cycles (nothing left to
+    off-on-on-off order, then eight steady cycles (nothing left to
     place) on one of those stores, tracing off and on in the same order: the span split of the cycle and of its commit,
     the overhead of tracing in percent, the kernel's device time from the
     execute span's tag against the solver's own, /metrics fetched from
@@ -150,7 +150,7 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
     Full width: two north-star stores (phase 9's shape), one Scheduler
     with ``incremental=True`` and one with ``False``, through one seeded
     sequence: a placing cycle, three steady cycles (the last two quiet),
-    two cycles with a gang no node holds, eight churn cycles (each
+    two cycles with a gang no node holds, four churn cycles (each
     deletes 62 bound gangs, 1 %, adds 62 pending gangs of 8 and
     relabels 10 nodes) and a queue add (a full rebuild); after each
     cycle the binds, evictions and PodGroup phases and conditions of
@@ -171,7 +171,7 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
     one cycle, its flush (``flush_ms``) and one timed anti-entropy pass
     that must repair nothing, against fresh stores of the same shape
     committed inline by a cache whose executor never starts
-    (InlineCache), in live, inline, inline, live order: binds and
+    (InlineCache), live first: binds and
     PodGroups (phase and conditions) equal, every pod bound, every gang
     Running. (b) Faults: 4,096 pods over
     2,048 nodes on a FakeClock, a FlakyBinder failing a seeded 2 % of
@@ -303,8 +303,14 @@ def fail(msg: str) -> None:
     raise SystemExit(1)
 
 
+# each phase line says when it was printed, in seconds since the script
+# started, so that the phases' share of the time limit can be read off
+STARTED = time.perf_counter()
+
+
 def line(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - STARTED,
+                      **fields}), flush=True)
 
 
 def to_np(x: torch.Tensor) -> np.ndarray:
@@ -1831,7 +1837,7 @@ def traced_cycle(dev) -> dict:
     """Phase 15b: the north-star cycle with the flight recorder (and the
     lifecycle ledger tracer.enable turns on) off and on, through
     volcano_tpu_torch/cmd/trace_overhead.py: TRACE_PAIRS placing cycles
-    each way on fresh stores in off-on-on-off order, then four rounds of
+    each way on fresh stores in off-on-on-off order, then two rounds of
     steady cycles on one bound store, each cycle's launch count set to 0
     just before and read just after. Prints the span split of the cycle
     and of its commit, the overhead of tracing in percent (by the minima
@@ -1852,7 +1858,7 @@ def traced_cycle(dev) -> dict:
     if ledger.stats()["completed"] != FULL["n_tasks"]:
         fail(f"traced_cycle: the ledger completed "
              f"{ledger.stats()['completed']} binds")
-    steady = trace_overhead.steady(runs.pop("store"), dev, rounds=4)
+    steady = trace_overhead.steady(runs.pop("store"), dev, rounds=2)
     if steady["launches"]:
         fail("traced_cycle: a steady cycle launched the kernel")
     record = runs["record"]
@@ -1907,7 +1913,7 @@ def traced_cycle(dev) -> dict:
 
 # incremental_cycle: the cycles of the sequence after the placing one
 INCR_STEADY = 3
-INCR_CHURN = 8
+INCR_CHURN = 4
 INCR_RELABEL = 10
 
 
@@ -2183,15 +2189,16 @@ class InlineCache(SchedulerCache):
 
 
 def flush_full_width(dev) -> dict:
-    """flush_cycle (a): the north star's store (phase 9's shape), four
-    fresh stores in live, inline, inline, live order (a drift of the host
-    cancels): with the executor live, one cycle, its flush and one timed
-    anti-entropy pass (no repair expected); inline, the same committed by
-    InlineCache. Every run's binds and PodGroups (phase and conditions)
-    must equal the first's, every pod bound, every gang committed."""
+    """flush_cycle (a): the north star's store (phase 9's shape), two
+    fresh stores, live first: with the executor live, one cycle, its
+    flush and one timed anti-entropy pass (no repair expected); inline,
+    the same committed by InlineCache. The inline run's binds and
+    PodGroups (phase and conditions) must equal the live run's, every pod
+    bound, every gang committed. (``cmd.cycle --commit alternate`` times
+    the two in more runs.)"""
     out = {"live": [], "inline": []}
     first = None
-    for mode in ("live", "inline", "inline", "live"):
+    for mode in ("live", "inline"):
         store = ObjectStore()
         populate_store(store, n_nodes=FULL["n_nodes"],
                        n_jobs=FULL["n_tasks"] // FULL["gang"],

@@ -20,6 +20,7 @@ depend on thread timing, hold each package to the reference test's
 convergence checks and compare what does not depend on timing.
 """
 
+import json
 import random
 import threading
 import time
@@ -840,3 +841,41 @@ def test_bind_batch_races_pod_deletion():
     conv, cache_keys, store_keys, bound = port
     assert conv and cache_keys == store_keys == bound
     assert store_keys == [f"ns1/p{j}" for j in range(1, 10, 2)]
+
+
+@pytest.mark.parametrize("scenario", ["default", "preempt", "reclaim"])
+def test_cycle_command_commits_alike_live_and_inline(scenario):
+    """cmd.cycle's ``commit`` says who writes a cycle's binds, evictions
+    and statuses: the executor after the cycle (live) or the cycle itself
+    (inline, a cache whose executor never starts). Both leave the store
+    in the same state, every pod and PodGroup alike."""
+    from volcano_tpu_torch.cmd import cycle as cycle_cmd
+
+    def state(store):
+        return ({p.metadata.key(): p.spec.node_name
+                 for p in store.list("pods")},
+                {g.metadata.key(): (g.status.phase, g.status.running)
+                 for g in store.list("podgroups")})
+
+    runs = {commit: cycle_cmd.run_cycle(256, 64, 1, "cpu", scenario=scenario,
+                                        commit=commit)
+            for commit in ("live", "inline")}
+    for commit, r in runs.items():
+        assert r["commit"] == commit
+    assert state(runs["live"]["store"]) == state(runs["inline"]["store"])
+    assert runs["live"]["binds"] == runs["inline"]["binds"] > 0
+    assert runs["live"]["evictions"] == runs["inline"]["evictions"]
+    if scenario != "default":
+        assert runs["live"]["evictions"] > 0
+
+
+def test_cycle_command_alternates_commits(capsys):
+    """``--commit alternate``: a live cold run, then warm runs in live,
+    inline, inline, live order, each naming its commit."""
+    from volcano_tpu_torch.cmd import cycle as cycle_cmd
+    assert cycle_cmd.main(["--device", "cpu", "--tasks", "64", "--nodes",
+                           "16", "--commit", "alternate", "--warm", "4"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert [r["commit"] for r in [out["cold"]] + out["warm"]] == \
+        ["live", "live", "inline", "inline", "live"]
+    assert len({r["binds"] for r in [out["cold"]] + out["warm"]}) == 1

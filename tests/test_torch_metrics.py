@@ -262,15 +262,22 @@ def _names(snap):
             for k in snap[part]}
 
 
-def test_metric_names_and_route_free_values_match_reference():
+@pytest.fixture
+def fresh_ref_compile_state(monkeypatch):
+    """The JAX package counts a padded-shape recompile when a kernel it
+    already compiled in this process meets a new shape bucket. Give its
+    compile bookkeeping a fresh process's (empty) state for the test and
+    put the worker's own back afterwards, so the reference's metric names
+    do not depend on which tests ran before in the same worker."""
     import volcano_tpu.ops as ref_ops
+    monkeypatch.setattr(ref_ops, "_seen_shape_buckets", set())
+    monkeypatch.setattr(ref_ops, "_seen_kernels", set())
+
+
+def test_metric_names_and_route_free_values_match_reference(
+        fresh_ref_compile_state):
     from volcano_tpu.trace import explain as ref_explain
     from volcano_tpu_torch.trace import explain as port_explain
-    # the JAX package counts a padded-shape recompile when a kernel it
-    # already compiled meets a new shape bucket in this process: start
-    # from a fresh process's state, whatever ran before in this worker
-    ref_ops._seen_shape_buckets.clear()
-    ref_ops._seen_kernels.clear()
     try:
         ref, ref_body = _cycle(RefStore, RefCache, RefScheduler, ref_tu,
                                ref_tracer, ref_m)

@@ -459,14 +459,21 @@ def test_pending_report_matches_reference():
 def test_trace_overhead_command_alternates_and_reports(capsys):
     """cmd.trace_overhead runs placing cycles on fresh stores and steady
     cycles on one bound store, tracing off and on in off-on-on-off
-    order, and prints both overheads with every run's time and the last
+    order, and prints the overheads (the placing cycle's on its cycle,
+    its flush and the two together) with every run's times and the last
     traced cycle's span split."""
     from volcano_tpu_torch.cmd import trace_overhead
     assert trace_overhead.main(["--device", "cpu", "--tasks", "64",
                                 "--nodes", "16", "--pairs", "2",
                                 "--steady-rounds", "1"]) == 0
     out = json.loads(capsys.readouterr().out)
-    assert len(out["placing"]["on_ms"]) == len(out["placing"]["off_ms"]) == 2
+    placing = out["placing"]
+    assert len(placing["on_ms"]) == len(placing["off_ms"]) == 2
+    assert len(placing["on_flush_ms"]) == len(placing["off_flush_ms"]) == 2
+    assert all(ms > 0 for ms in placing["on_flush_ms"]
+               + placing["off_flush_ms"])
+    for part in ("cycle", "flush", "to_bound"):
+        assert set(placing[part]) == {"min_pct", "median_pct"}
     assert len(out["steady"]["on_ms"]) == len(out["steady"]["off_ms"]) == 2
     assert {"min_pct", "median_pct"} <= set(out["steady"])
     assert out["steady"]["launches"] == 0

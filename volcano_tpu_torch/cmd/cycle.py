@@ -3,7 +3,8 @@
     python -m volcano_tpu_torch.cmd.cycle --tasks 50000 --nodes 10000 \\
         [--queues 1] [--warm 1] [--device cpu] \\
         [--zones 8 --spread-every 4 --anti-every 8] \\
-        [--scenario {default,preempt,reclaim}] [--trace]
+        [--scenario {default,preempt,reclaim}] [--trace] \\
+        [--commit {live,alternate}]
 
 With ``--scenario default`` (the default), each run builds a fresh store
 with ``populate_store(n_nodes, n_jobs=tasks // 8, gang_size=8)`` over
@@ -39,6 +40,15 @@ allocate, preempt|reclaim, backfill`` with the reference's preemption or
 reclamation tiers (volcano_tpu/bench_suite.py:39-50 and :463-475). The
 line then also gives ``preempt_ms`` or ``reclaim_ms``, the evictions, the
 pipelined tasks and the victim-selection paths taken.
+
+Every run's entry names its ``commit``: who wrote the cycle's binds,
+evictions and statuses. ``live`` is the cache's executor, after the
+cycle, as in a scheduler once ``cache.run()`` has started it (every run
+with ``--commit live``, the default); ``inline`` is the cycle itself,
+through :class:`InlineCache`, whose executor never starts (the
+synchronous commit of a cache before ``run()``). ``--commit alternate``
+times the two against each other: a live cold run, then warm runs in
+live, inline, inline, live order, so that a drift of the host cancels.
 """
 
 from __future__ import annotations
@@ -101,9 +111,21 @@ tiers:
 """
 
 SCENARIOS = ("default", "preempt", "reclaim")
+COMMITS = ("live", "alternate")
+# the warm runs' order under --commit alternate
+ALTERNATION = ("live", "inline", "inline", "live")
 
 # how long a run waits for the cache's executor to drain a cycle's writes
 FLUSH_TIMEOUT_S = 300.0
+
+
+class InlineCache(SchedulerCache):
+    """A cache whose executor never starts: every bind, evict and status
+    write runs inline in the cycle, as it does before ``run()`` (the
+    synchronous commit the live executor is measured against)."""
+
+    def start_executors(self) -> None:
+        pass
 
 
 def populate_scenario(store, scenario: str, n_nodes: int) -> str:
@@ -121,9 +143,12 @@ def populate_scenario(store, scenario: str, n_nodes: int) -> str:
 
 def run_cycle(n_tasks: int, n_nodes: int, n_queues: int = 1,
               device=None, zones: int = 0, spread_every: int = 0,
-              anti_every: int = 0, scenario: str = "default") -> dict:
-    """One cycle on a fresh store: populate, sync the cache, run_once.
-    Returns the timings and counts, and the store (key ``store``)."""
+              anti_every: int = 0, scenario: str = "default",
+              commit: str = "live") -> dict:
+    """One cycle on a fresh store: populate, sync the cache, run_once,
+    its commit written by the cache's executor (``commit="live"``) or
+    inline in the cycle (``"inline"``). Returns the timings and counts,
+    and the store (key ``store``)."""
     device = default_device(device)
     store = ObjectStore()
     t0 = time.perf_counter()
@@ -137,7 +162,7 @@ def run_cycle(n_tasks: int, n_nodes: int, n_queues: int = 1,
     else:
         conf = populate_scenario(store, scenario, n_nodes)
     t1 = time.perf_counter()
-    cache = SchedulerCache(store)
+    cache = (InlineCache if commit == "inline" else SchedulerCache)(store)
     cache.run()
     t2 = time.perf_counter()
     sched = Scheduler(store, scheduler_conf=conf, cache=cache,
@@ -167,7 +192,7 @@ def run_cycle(n_tasks: int, n_nodes: int, n_queues: int = 1,
     binds = sum(1 for p in pods if p.spec.node_name)
     committed = sum(1 for g in store.list("podgroups")
                     if g.status.phase == "Running")
-    out = {"populate_s": t1 - t0, "sync_s": t2 - t1,
+    out = {"commit": commit, "populate_s": t1 - t0, "sync_s": t2 - t1,
            **sched.last_cycle, "flush_ms": flush_ms,
            "binds": binds, "committed_gangs": committed,
            "evictions": cache.evictions, "store": store}
@@ -214,6 +239,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "plain loop)")
+    ap.add_argument("--commit", choices=COMMITS, default="live",
+                    help="who writes the cycle's binds, evictions and "
+                         "statuses: the cache's executor after the cycle "
+                         "(live), or, alternated over the warm runs, it and "
+                         "the cycle itself (inline)")
     ap.add_argument("--trace", action="store_true",
                     help="record each cycle with the flight recorder and "
                          "print its span split")
@@ -224,10 +254,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         tracer.enable_from_env()
     device = default_device(opts.device)
     runs = []
-    for _ in range(1 + opts.warm):
+    for i in range(1 + opts.warm):
+        commit = opts.commit
+        if commit == "alternate":
+            commit = "live" if i == 0 else \
+                ALTERNATION[(i - 1) % len(ALTERNATION)]
         r = run_cycle(opts.tasks, opts.nodes, opts.queues, device,
                       zones=opts.zones, spread_every=opts.spread_every,
-                      anti_every=opts.anti_every, scenario=opts.scenario)
+                      anti_every=opts.anti_every, scenario=opts.scenario,
+                      commit=commit)
         r.pop("store")
         runs.append(r)
     print(json.dumps({

@@ -17,15 +17,19 @@ so that a drift of the host cancels:
   the quiet incremental cycles of the steady state (no plugin opens, as
   in the reference); 4 x ``--steady-rounds`` cycles.
 
-Both time the cycle itself (``cycle_ms``): the cache's executor writes the
-cycle's binds and statuses after it, and each run waits for that flush
-before the next starts (the placing runs report it as ``flush_ms``).
+Each run waits for the cache's executor to drain before the next starts.
+A placing cycle's binds, statuses and ledger stamps are written by that
+executor after the cycle (``flush_ms``, the ``flush_executors()`` wait),
+so the placing runs give the overhead three times: on the cycle
+(``cycle``), on its flush (``flush``) and on the two together
+(``to_bound``, what a pending gang waits to be bound). The steady cycles
+bind nothing; their overhead is on the cycle.
 
-The line gives every run's cycle ms and kernel launches, the overhead in
-percent by the minima (the least traced cycle over the least untraced
-one) and by the medians, and the span split of the last traced placing
-cycle. Each overhead is only as good as the host's spread, which the runs
-show.
+The line gives every run's cycle ms, flush ms and kernel launches, each
+overhead in percent by the minima (the least traced run over the least
+untraced one) and by the medians, and the span split of the last traced
+placing cycle. Each overhead is only as good as the host's spread, which
+the runs show.
 """
 
 from __future__ import annotations
@@ -137,13 +141,23 @@ def main(argv: Optional[List[str]] = None) -> int:
         torch.cuda.init()
     runs = placing(opts.tasks, opts.nodes, device, opts.pairs)
     still = steady(runs.pop("store"), device, opts.steady_rounds)
-    on = [r["cycle_ms"] for r in runs["on"]]
-    off = [r["cycle_ms"] for r in runs["off"]]
+    ms = {mode: {key: [r[key] for r in runs[mode]]
+                 for key in ("cycle_ms", "flush_ms")} for mode in ORDER}
+    for mode in ms:
+        ms[mode]["to_bound_ms"] = [c + f for c, f in
+                                   zip(ms[mode]["cycle_ms"],
+                                       ms[mode]["flush_ms"])]
     print(json.dumps({
         "device": torch.cuda.get_device_name(device)
         if device.type == "cuda" else str(device),
         "tasks": opts.tasks, "nodes": opts.nodes,
-        "placing": {"on_ms": on, "off_ms": off, **overhead(on, off),
+        "placing": {"on_ms": ms["on"]["cycle_ms"],
+                    "off_ms": ms["off"]["cycle_ms"],
+                    "on_flush_ms": ms["on"]["flush_ms"],
+                    "off_flush_ms": ms["off"]["flush_ms"],
+                    **{part: overhead(ms["on"][f"{part}_ms"],
+                                      ms["off"][f"{part}_ms"])
+                       for part in ("cycle", "flush", "to_bound")},
                     "launches": [r["kernel_launches"]
                                  for r in runs["off"] + runs["on"]]},
         "steady": {"on_ms": still["on"], "off_ms": still["off"],

@@ -1,115 +1,60 @@
 """Fault injection for the commit path (this port's own copy of the
-live injectors and watch faults of volcano_tpu/sim/faults.py).
+live injectors of volcano_tpu/sim/faults.py, cut to what the port's
+callers use).
 
 * :class:`FlakyBinder` wraps the recording binder with a seeded per-bind
-  failure coin, a targeted always-fail set and a virtual-clock latency
-  charge; failures take the production resync path (cache.resync_task ->
-  process_resync_tasks with retry accounting, gang healing and
-  quarantine). Its crash mode (:attr:`FlakyBinder.crash_after_binds`)
-  commits a prefix of a flush and then dies, as a scheduler killed in
-  the middle of a bind flush would.
+  failure coin and a targeted always-fail set; failures take the
+  production resync path (cache.resync_task -> process_resync_tasks with
+  retry accounting, gang healing and quarantine).
 * :class:`FlakyWatch` wraps one registered store watch and silently
   drops, or delays to the next release, a content-keyed fraction of its
   deliveries, so the cache diverges from the store as over a lossy
   informer stream; the anti-entropy pass (cache.anti_entropy) must find
   and repair it.
 
-:class:`FaultConfig` carries the knobs of these two; the reference's
-scheduled faults (node churn, evict storms) and storage faults wait for
-the simulator's port.
+The reference's FaultConfig, the binder's crash mode and virtual-clock
+latency, the watch's rv-keyed coin and the forced journal gap serve its
+simulator engine, and wait for the simulator's port together with its
+scheduled faults (node churn, evict storms) and storage faults.
 """
 
 from __future__ import annotations
 
 import random
 import zlib
-from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List
 
 from ..utils.clock import Clock
 from ..utils.test_utils import FakeBinder
 
 
-class SimulatedCrash(RuntimeError):
-    """The injected scheduler death: raised by FlakyBinder's crash mode
-    after a flush's prefix committed. Deliberately a batch-LEVEL error
-    (raised from bind_batch, not per pod) so the dying cache takes the
-    batch-failure path — resync-and-return, NO gang healing: a crashed
-    process doesn't get to run compensation writes."""
-
-
-@dataclass
-class FaultConfig:
-    seed: int = 0
-    bind_fail_rate: float = 0.0      # per-pod store-bind failure probability
-    api_latency_s: float = 0.0       # virtual seconds charged per store bind
-    # targeted failure: pod keys ("ns/name") whose binds ALWAYS fail —
-    # the deterministic poison-pod mode for quarantine testing (no
-    # coin flips involved; the fail-rate RNG sequence is untouched)
-    fail_pods: List[str] = field(default_factory=list)
-    # watch-delivery faults (FlakyWatch over the cache's pod watch):
-    # content-keyed per-delivery probabilities of a silent drop / a
-    # one-tick delay — divergence for the anti-entropy pass to repair
-    watch_drop_rate: float = 0.0
-    watch_delay_rate: float = 0.0
-    # fault-coin identity: "seq" keys on (key, per-key delivery
-    # sequence), which follows commit order; "rv" keys on the delivered
-    # object's resource_version. With the store's settle barrier rv
-    # assignment is itself a function of commit order, so both are
-    # stable across runs.
-    watch_coin: str = "seq"
-
-
 class FlakyBinder(FakeBinder):
-    """Recording binder with deterministic failure + latency injection.
+    """Recording binder with deterministic failure injection.
 
     Failure decisions come from one seeded RNG consumed in bind order;
-    the cache executor is a single FIFO worker and the engine flushes it
-    every tick, so the coin-flip sequence — and therefore the whole run —
+    the cache executor is a single FIFO worker and the caller flushes it
+    every cycle, so the coin-flip sequence, and therefore the whole run,
     is reproducible from the seed. Failed binds raise, taking the
     production resilience path: resync with retry accounting, gang-atomic
-    healing of the bound siblings, and quarantine past the retry budget
-    (docs/design/resilience.md). ``failed_keys`` records every injected
-    failure for test assertions. ``fail_pods`` is the targeted mode: the
-    named pods ALWAYS fail (without consuming the fail-rate coin), so
-    poison-pod quarantine is testable deterministically.
+    healing of the bound siblings, and quarantine past the retry budget.
+    ``failed_keys`` records every injected failure for test assertions.
+    ``fail_pods`` is the targeted mode: the named pods ALWAYS fail
+    (without consuming the fail-rate coin), so poison-pod quarantine is
+    testable deterministically.
     """
 
     def __init__(self, store, clock: Clock, fail_rate: float = 0.0,
-                 latency_s: float = 0.0, seed: int = 0, fail_pods=None):
+                 seed: int = 0, fail_pods=None):
         super().__init__(store)
         self.clock = clock
         self.fail_rate = fail_rate
-        self.latency_s = latency_s
         self.fail_pods = set(fail_pods or ())
         self._rng = random.Random(seed ^ 0x5EED)
         self.failed_keys: List[str] = []
         self.attempts = 0
-        # crash mode (docs/design/failover.md): when armed, the NEXT
-        # bind_batch commits only its first `crash_after_binds` pods and
-        # then raises SimulatedCrash — the scheduler died mid-flush,
-        # leaving partial gangs in the store. `crashed` tells the engine
-        # to perform the restart at its tick barrier.
-        self.crash_after_binds: Optional[int] = None
-        self.crashed = False
-        # latency is ACCUMULATED here and charged to the clock by the
-        # engine at the tick boundary (after the executor flush), never
-        # from the executor thread: a mid-cycle clock mutation would
-        # race concurrent ssn.clock.now() reads by time-dependent
-        # plugins and break the bit-identical-replay contract
-        self.pending_latency_s = 0.0
-
-    def take_pending_latency(self) -> float:
-        """Drain the accumulated virtual API latency. Called by the
-        engine after flush_executors() — the flush barrier is the
-        synchronization point, so no lock is needed."""
-        charged, self.pending_latency_s = self.pending_latency_s, 0.0
-        return charged
 
     def bind(self, pod, hostname: str) -> None:
         self.attempts += 1
-        if self.latency_s:
-            self.pending_latency_s += self.latency_s  # virtual round-trip
         key = f"{pod.metadata.namespace}/{pod.metadata.name}"
         if key in self.fail_pods:
             self.failed_keys.append(key)
@@ -119,34 +64,14 @@ class FlakyBinder(FakeBinder):
             raise RuntimeError(f"injected bind failure for {key}")
         super().bind(pod, hostname)
 
-    def bind_batch(self, items) -> list:
-        """Per-pod delegation through :meth:`bind` (failure injection
-        keeps its coin order), with the crash mode layered on top: an
-        armed crash commits only the burst's prefix, then raises —
-        batch-level, so the dying cache resyncs WITHOUT healing (a dead
-        process runs no compensation writes; the store keeps the partial
-        gangs the restarted scheduler must reconverge)."""
-        items = list(items)
-        if self.crash_after_binds is not None:
-            n = max(0, int(self.crash_after_binds))
-            self.crash_after_binds = None
-            self.crashed = True
-            prefix = items[:n]
-            if prefix:
-                super().bind_batch(prefix)
-            raise SimulatedCrash(
-                f"scheduler killed mid-flush: {len(prefix)} of "
-                f"{len(items)} binds committed")
-        return super().bind_batch(items)
-
 
 class FlakyWatch:
-    """Seeded watch-delivery fault injector (docs/design/failover.md).
+    """Seeded watch-delivery fault injector.
 
     Wraps ONE registered store :class:`~volcano_tpu_torch.apiserver.store.Watch`
     (typically the cache's pod watch) so a deterministic fraction of
-    deliveries is silently dropped, or delayed until the engine's next
-    tick — the informer-stream loss/reorder failure modes. The wrapped
+    deliveries is silently dropped, or held back until the caller
+    releases it — the informer-stream loss/reorder failure modes. The wrapped
     subscriber's view diverges from the store; nothing else in the system
     is told, which is the point: the anti-entropy reconciler has to FIND
     it.
@@ -158,19 +83,16 @@ class FlakyWatch:
     property the resync backoff jitter relies on). A key's own delivery
     order is commit order (writes to one object serialize), so the
     per-key sequence is a stable identity. Bulk deliveries are coined
-    per pair. Delayed
-    deliveries are re-played in recorded order by
-    :meth:`release_delayed` (the engine calls it at the top of each
-    tick); the production handlers treat them like any stale event.
+    per pair. Delayed deliveries are re-played in recorded order by
+    :meth:`release_delayed`; the production handlers treat them like any
+    stale event.
     """
 
     def __init__(self, seed: int = 0, drop_rate: float = 0.0,
-                 delay_rate: float = 0.0, coin: str = "seq"):
+                 delay_rate: float = 0.0):
         self.seed = seed
         self.drop_rate = drop_rate
         self.delay_rate = delay_rate
-        # "seq" (default) or "rv": see FaultConfig.watch_coin
-        self.coin = coin
         self.dropped = 0
         self.delayed = 0
         self._watch = None
@@ -186,11 +108,8 @@ class FlakyWatch:
 
     def _coin(self, action: str, o) -> int:
         key = o.metadata.key()
-        if self.coin == "rv":
-            ident = o.metadata.resource_version
-        else:
-            ident = self._key_seq.get(key, 0) + 1
-            self._key_seq[key] = ident
+        ident = self._key_seq.get(key, 0) + 1
+        self._key_seq[key] = ident
         h = zlib.crc32(f"{action}:{key}:{ident}:{self.seed}".encode())
         u = (h % 10_000) / 10_000.0
         if u < self.drop_rate:
@@ -269,12 +188,3 @@ class FlakyWatch:
         for handler, args in pending:
             handler(*args)
         return len(pending)
-
-    @staticmethod
-    def force_gap(store) -> None:
-        """Roll the store's journal window past every subscriber: clears
-        the journal so the next ``events_since`` from any older rv
-        returns ``resync=True`` — the forced-relist path remote mirrors
-        take when they fall behind the window."""
-        with store._lock:
-            store._journal.clear()
