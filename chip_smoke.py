@@ -181,12 +181,44 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
     after every flush. (c) Fenced: a cache whose fencing token is behind
     the store's floor: no bind lands, and the store's fenced writes and
     the cache's resync retries equal the binds attempted;
+15e. plugins_cycle: the remaining plugins and actions through the
+    kernel. (a) Full width: phase 9's north-star store with a
+    Numatopology on every node (2 NUMA nodes x 16 cores x 2 threads,
+    the static CPU manager, the single-numa-node topology manager),
+    every 8th gang Guaranteed with the single-numa-node policy and every
+    16th created two hours before the clock, under the text of
+    examples/scheduler-conf.yaml (sla, numa-aware and the rest): one
+    placing and one steady cycle, the launch count set to 0 just before
+    each and read just after; each prints cycle_ms with its split,
+    flush_ms, the host_predicates sweep's ms and G, the kernel's ms and
+    launches, the binds and the pods given NUMA CPU sets, beside phase
+    9's warm default-conf cycle; every pod binds, every gang runs. The
+    placing cycle's two launches (the pruned place's 64-column one and
+    the full-width one, numa-aware's host mask in the static mask) are
+    captured and held exactly against the plain loop on the same
+    tensors, as in phase 10 (the plain loop runs on the host during the
+    later phases, so this phase runs right after phase 11).
+    (b) The card against the plain loop on fresh FakeClock stores of
+    4,096 pods, equal every cycle in binds, PodGroups (phase and
+    conditions), evictions, NUMA sets, NUMA pods and the reservation's
+    target and locked nodes: (a)'s conf and shares over 2,048 nodes and
+    over 4,096 (the pruned place carries the host mask); tdm (zone rz1
+    on one node in 8, one gang in 4 revocable and preemptable) with
+    overcommit under enqueue, allocate, backfill and preempt, two cycles
+    with the zone active all day, then the bound pods marked Running and
+    a third cycle outside the zone's window, which must drain one
+    revocable pod of each job on the zone's nodes (tdm's victim tasks
+    and disruption budget); reservation with elect and reserve over
+    four cycles an hour apart, a gang of two 62-core pods Pending until
+    sla admits it, which binds on the nodes reserve locked. The reservation singleton and
+    tdm's evict clock are reset around every run;
 16. the kernels line (with the table refreshes, the cluster's blocks and
     each block's shared memory, the plan and R, as the main path's launch
     reported them, the shapes_vs_plain summary, traced_cycle's overhead,
     the kernel's launches per cycle, per preempt and per reclaim cycle,
     per quiet and per churn incremental cycle, per flush_cycle cycle
-    (``launches_per_flush_cycle``),
+    (``launches_per_flush_cycle``), plugins_cycle's launches, kernel ms,
+    host_predicates ms and G,
     and a ``prune`` entry for the north-star cycle's place: union, padded
     width, launches, refreshes, whether the reduced run served; a second
     entry for the slot path), then the card's nvidia-smi line, then
@@ -227,6 +259,7 @@ from volcano_tpu_torch import convert  # noqa: E402
 from volcano_tpu_torch.apiserver import ObjectStore  # noqa: E402
 from volcano_tpu_torch.cache import SchedulerCache  # noqa: E402
 from volcano_tpu_torch.cmd import cycle as cycle_cmd  # noqa: E402
+from volcano_tpu_torch.framework import parse_scheduler_conf  # noqa: E402
 from volcano_tpu_torch.framework.solver import DenseSolver  # noqa: E402
 from volcano_tpu_torch.ops import allocate, build, prune  # noqa: E402
 from volcano_tpu_torch.ops.cuda_allocate import (  # noqa: E402
@@ -237,8 +270,11 @@ from volcano_tpu_torch.models.resource import Resource  # noqa: E402
 from volcano_tpu_torch.ops.score import ScoreWeights  # noqa: E402
 from volcano_tpu_torch.scheduler import Scheduler  # noqa: E402
 from volcano_tpu_torch.sim.faults import FlakyBinder  # noqa: E402
+from volcano_tpu_torch.plugins import numaaware as numaaware_plugin  # noqa: E402
+from volcano_tpu_torch.plugins import tdm as tdm_plugin  # noqa: E402
 from volcano_tpu_torch.utils import test_utils as tu  # noqa: E402
 from volcano_tpu_torch.utils.clock import FakeClock  # noqa: E402
+from volcano_tpu_torch.utils.reservation import RESERVATION  # noqa: E402
 from volcano_tpu_torch.utils.synth import (  # noqa: E402
     populate_preempt_store, populate_reclaim_store, populate_store,
     scalar_kinds, synth_arrays, zone_slots)
@@ -643,15 +679,17 @@ def cycle_outcome(store: ObjectStore):
     return binds, phases, unschedulable
 
 
-def check_binds(store: ObjectStore, ctx: str) -> None:
+def check_binds(store: ObjectStore, ctx: str, drained=None) -> None:
     """The binds replay feasibly against every node's allocatable (cpu,
     memory and pod count), and every gang is all-or-nothing: a PodGroup
-    has no bound pod or at least minMember."""
+    has no bound pod or at least minMember, counting its pods in
+    ``drained`` ((namespace, group) -> pods a plugin evicted from the
+    running gang on purpose, as tdm's drain does, one at a time)."""
     alloc = {n.metadata.name: Resource.from_resource_list(
         n.status.allocatable) for n in store.list("nodes")}
     used = {name: Resource() for name in alloc}
     count = dict.fromkeys(alloc, 0)
-    per_group: dict = {}
+    per_group = dict(drained or {})
     for p in store.list("pods"):
         if not p.spec.node_name:
             continue
@@ -785,28 +823,38 @@ def place_prune(pl) -> dict:
 class ReducedTap:
     """While installed, keeps the inputs of every reduced-width launch
     DenseSolver.launch makes (a pruned place's gathered tensors, its
-    weights and budgets), so that the kernel can be held against its
-    plain loop on exactly those inputs after the cycle. It launches
-    nothing itself."""
+    weights and budgets) and, with ``full``, of every full-width launch
+    too (copies of the snapshot's tensors and the mask as launched, taken
+    before a later place can patch them), in launch order, so that the
+    kernel can be held against its plain loop on exactly those inputs
+    after the cycle. It launches nothing itself."""
 
-    def __init__(self):
+    def __init__(self, full: bool = False):
         self.inputs = []
+        self.full = full
         self._launch = DenseSolver.launch
 
     def __enter__(self):
-        launch, inputs = self._launch, self.inputs
+        launch, inputs, full = self._launch, self.inputs, self.full
 
         def tapped(solver, gmask, allow_pipeline=True, ns_live=False,
                    arrays=None):
+            if arrays is None and not full:
+                return launch(solver, gmask, allow_pipeline, ns_live, arrays)
+            cap = {"weights": solver.weights,
+                   "deserved": solver.queue_deserved(),
+                   "allow_pipeline": allow_pipeline, "ns_live": ns_live}
             if arrays is not None:
-                inputs.append({"arrays": convert.as_tensors(
-                                   arrays, solver.device),
-                               "gmask": gmask,
-                               "weights": solver.weights,
-                               "deserved": solver.queue_deserved(),
-                               "allow_pipeline": allow_pipeline,
-                               "ns_live": ns_live})
-            return launch(solver, gmask, allow_pipeline, ns_live, arrays)
+                cap.update(arrays=convert.as_tensors(arrays, solver.device),
+                           gmask=gmask)
+            out = launch(solver, gmask, allow_pipeline, ns_live, arrays)
+            if arrays is None:
+                # launch() materialized the snapshot's node tensors
+                snap = convert.as_tensors(solver.arrays, solver.device)
+                cap.update(arrays={k: v.clone() for k, v in snap.items()},
+                           gmask=gmask.clone())
+            inputs.append(cap)
+            return out
         DenseSolver.launch = tapped
         return self
 
@@ -2374,6 +2422,453 @@ def flush_cycle(dev) -> dict:
             "seconds": time.perf_counter() - t_phase}
 
 
+# plugins_cycle: the repo's full-featured conf, read from the checkout
+# (cmd.cycle.example_conf), over stores with the shares of its plugins
+# (populate_store's plugin_shares: a Numatopology of 64 CPUs on every
+# node, as its 64 cores, every 8th gang Guaranteed, every 16th past sla's
+# hour)
+example_conf = cycle_cmd.example_conf
+PLUGINS_CLOCK0 = 1_000_000.0
+REVOCABLE_ZONE = "volcano.sh/revocable-zone"
+TDM_CONF = """
+actions: "enqueue, allocate, backfill, preempt"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+  - name: tdm
+    arguments:
+      tdm.revocable-zone.rz1: {window}
+      tdm.evict.period: 1ms
+  - name: overcommit
+    arguments:
+      overcommit-factor: 1.2
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
+  - name: nodeorder
+  - name: binpack
+"""
+RESERVE_CONF = """
+actions: "enqueue, elect, allocate, backfill, reserve"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+  - name: reservation
+  - name: sla
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
+  - name: nodeorder
+  - name: overcommit
+"""
+# plugins_cycle (b): (nodes, cycles) of each case at MID's 4,096 pods
+PLUGIN_CASES = {"example_conf": (MID["n_nodes"], 2),
+                "example_conf_pruned": (4096, 2),
+                "tdm": (MID["n_nodes"], 3),
+                "reservation": (MID["n_nodes"], 4)}
+
+
+def numa_free(cache) -> dict:
+    """node -> sorted free CPU ids of the cache's scheduler-side NUMA
+    views (nodes with one)."""
+    with cache.mutex:
+        return {name: sorted(n.numa_scheduler_info.numa_res_map["cpu"]
+                             .allocatable)
+                for name, n in cache.nodes.items()
+                if n.numa_scheduler_info is not None}
+
+
+def numa_cpus(free: dict) -> int:
+    """The CPUs taken off the 64 of each node's NUMA view."""
+    return sum(64 - len(ids) for ids in free.values())
+
+
+class NumaTap:
+    """While installed, records at each numa-aware session close how many
+    allocated tasks it writes CPU sets back for (the plugin's
+    ``task_bind_node``): the pods given NUMA CPU sets that cycle. It
+    changes nothing the plugin does."""
+
+    def __init__(self):
+        self.counts = []
+        self._close = numaaware_plugin.NumaAwarePlugin.on_session_close
+
+    def __enter__(self):
+        close, counts = self._close, self.counts
+
+        def tapped(plugin, ssn):
+            counts.append(len(plugin.task_bind_node))
+            return close(plugin, ssn)
+        numaaware_plugin.NumaAwarePlugin.on_session_close = tapped
+        return self
+
+    def __exit__(self, *exc):
+        numaaware_plugin.NumaAwarePlugin.on_session_close = self._close
+
+    def last(self) -> int:
+        return self.counts[-1] if self.counts else 0
+
+
+def guaranteed_binds(binds: dict) -> int:
+    """Bound pods of the Guaranteed gangs (populate_store's job j with
+    j % 8 == 0, pods named job<j>-task<t>)."""
+    return sum(1 for k in binds
+               if int(k.split("/")[1].split("-")[0][3:]) % 8 == 0)
+
+
+def plugins_full_width(dev, north_star: dict, late) -> dict:
+    """plugins_cycle (a): the north star's store with the plugin shares under
+    examples/scheduler-conf.yaml, one placing cycle and one steady cycle
+    on it, the launch count set to 0 just before each and read just
+    after. Every pod binds, every gang runs, every bound Guaranteed pod
+    got a 2-CPU NUMA set. Each cycle prints its cycle_ms and split,
+    flush_ms, the host_predicates sweep's ms and G, the kernel's ms
+    (CUDA events) and launches, the binds and the pods given NUMA sets;
+    ``north_star`` is phase 9's warm default-conf cycle of this run.
+    Every launch of the placing cycle (the pruned place's reduced one and
+    the full-width one, with numa-aware's host mask in the static mask)
+    is captured and held exactly against the plain loop on the same
+    tensors by ``late`` (a LatePlain), and each place's launch report
+    must equal that of the kernel rerun on its last launch's inputs."""
+    store = ObjectStore()
+    t0 = time.perf_counter()
+    populate_store(store, n_nodes=FULL["n_nodes"],
+                   n_jobs=FULL["n_tasks"] // FULL["gang"],
+                   gang_size=FULL["gang"], plugin_shares=True)
+    t1 = time.perf_counter()
+    cache = SchedulerCache(store)
+    cache.run()
+    t2 = time.perf_counter()
+    sched = Scheduler(store, scheduler_conf=example_conf(), cache=cache,
+                      device=dev)
+    runs = []
+    gc.collect()
+    gc.freeze()
+    try:
+        for run in ("placing", "steady"):
+            with NumaTap() as tap, ReducedTap(full=True) as inputs:
+                gang_allocate_cuda.launches = 0
+                sched.run_once()
+                torch.cuda.synchronize(dev)
+                launches = gang_allocate_cuda.launches
+            flush_ms = flush(cache, f"plugins_cycle {run}")
+            split = dict(sched.last_cycle)
+            places = split.pop("places")
+            check_launches(f"plugins_cycle {run}", launches, places, True)
+            binds, groups = store_state(store)
+            free = numa_free(cache)
+            host = [pl["host_predicates"] or {} for pl in places]
+            held = hold_plugin_launches(run, places, inputs.inputs, late)
+            runs.append(dict(
+                run=run, launches=launches, flush_ms=flush_ms,
+                held=held,
+                kernel_ms=[pl["kernel_ms"] for pl in places],
+                host_predicates_ms=[h.get("ms") for h in host],
+                groups=[h.get("groups") for h in host],
+                host_nodes=[h.get("nodes") for h in host],
+                encode_ms=[pl["encode_ms"] for pl in places],
+                prune=[pl["prune"] for pl in places],
+                binds=len(binds), numa_pods=tap.last(),
+                numa_cpus=numa_cpus(free),
+                guaranteed_binds=guaranteed_binds(binds),
+                running_gangs=sum(g[0] == "Running"
+                                  for g in groups.values()), **split))
+            line("plugins_cycle", part="full_width",
+                 shape={"tasks": FULL["n_tasks"], "nodes": FULL["n_nodes"],
+                        "gang": FULL["gang"]},
+                 populate_s=t1 - t0, sync_s=t2 - t1,
+                 north_star_cycle_ms=north_star["cycle_ms"],
+                 north_star_flush_ms=north_star["flush_ms"], **runs[-1])
+    finally:
+        gc.unfreeze()
+    check_binds(store, "plugins_cycle")
+    placing = runs[0]
+    if placing["binds"] != FULL["n_tasks"] or \
+            placing["running_gangs"] != FULL["n_tasks"] // FULL["gang"]:
+        fail(f"plugins_cycle: {placing['binds']} binds, "
+             f"{placing['running_gangs']} running gangs")
+    # a group's first task is admitted against the session-open NUMA
+    # views and its CPU sets fixed then (the reference's design), so two
+    # Guaranteed gangs on one node may be given overlapping sets: the
+    # CPUs taken may fall short of 2 a pod, never exceed it
+    if not 0 < placing["numa_pods"] <= placing["guaranteed_binds"] or \
+            not 0 < placing["numa_cpus"] <= 2 * placing["numa_pods"] or \
+            runs[1]["numa_cpus"] != placing["numa_cpus"]:
+        fail(f"plugins_cycle: {placing['numa_pods']} pods given NUMA sets "
+             f"({placing['numa_cpus']} CPUs) for "
+             f"{placing['guaranteed_binds']} bound Guaranteed pods "
+             f"({runs[1]['numa_cpus']} CPUs after the steady cycle)")
+    if not all(placing["groups"]) or runs[1]["launches"]:
+        fail(f"plugins_cycle: host sweeps {placing['groups']}, "
+             f"{runs[1]['launches']} launches in the steady cycle")
+    cache.stop()
+    del store, cache, sched
+    gc.collect()
+    return {"runs": runs, "populate_s": t1 - t0, "sync_s": t2 - t1}
+
+
+def hold_plugin_launches(run: str, places: list, inputs: list,
+                         late) -> list:
+    """Hold each captured launch of a plugins_cycle (a) cycle against the
+    plain loop (hold_inputs, then late.finish); a place's launch report
+    must equal the rerun's on its last launch's inputs. Returns one dict
+    a launch, which late.finish completes with the comparison."""
+    if len(inputs) != sum(pl["launches"] for pl in places):
+        fail(f"plugins_cycle {run}: {len(inputs)} launches captured for "
+             f"{[pl['launches'] for pl in places]} launches by place")
+    held, i = [], 0
+    for p, pl in enumerate(places):
+        for k in range(pl["launches"]):
+            cap = inputs[i]
+            i += 1
+            a = cap["arrays"]
+            shape = {"T": a["task_group"].shape[0],
+                     "G": a["group_req"].shape[0],
+                     "N": a["node_idle"].shape[0],
+                     "R": a["group_req"].shape[1]}
+            ctx = f"plugins_cycle {run} place {p} launch {k} inputs"
+            kw = dict(allow_pipeline=cap["allow_pipeline"],
+                      ns_live=cap["ns_live"], **convert.slot_kwargs(a))
+
+            def print_held(r, ctx=ctx):
+                line("kernel_vs_plain", case=ctx.replace(" ", "_"), **r)
+            res, _, _ = hold_inputs(a, cap["gmask"], cap["weights"],
+                                    cap["deserved"], kw, ctx, plain=late,
+                                    done=print_held)
+            res["shape"] = shape
+            held.append(res)
+        if pl["launches"] and pl["launch"][0] != held[-1]["refreshes"]:
+            fail(f"plugins_cycle {run} place {p}: the cycle's launch and "
+                 f"the kernel rerun on its inputs refreshed their tables "
+                 f"{pl['launch'][0]} and {held[-1]['refreshes']} times")
+    return held
+
+
+def make_revocable(store, n_nodes: int, n_jobs: int) -> None:
+    """tdm's shares: one node in 8 in revocable zone rz1, one gang in 4
+    (j % 4 == 0) revocable (its pods carry the zone) and preemptable."""
+    for i in range(0, n_nodes, 8):
+        node = store.get("nodes", f"node-{i}")
+        node.metadata.labels[REVOCABLE_ZONE] = "rz1"
+        store.update("nodes", node)
+    for j in range(0, n_jobs, 4):
+        pg = store.get("podgroups", f"pg-{j}")
+        pg.metadata.annotations[obj.PREEMPTABLE_KEY] = "true"
+        store.update("podgroups", pg)
+        for t in range(MID["gang"]):
+            pod = store.get("pods", f"job{j}-task{t}")
+            pod.metadata.annotations.update(
+                {obj.REVOCABLE_ZONE_KEY: "rz1", obj.PREEMPTABLE_KEY: "true"})
+            store.update("pods", pod)
+
+
+def zone_window(active: bool) -> str:
+    """A tdm window that cannot end during a run: the whole day when
+    active, else 02:00-03:00 hours from now (which never holds now)."""
+    if active:
+        return "00:00-23:59"
+    lt = time.localtime()
+    now_min = lt.tm_hour * 60 + lt.tm_min
+    start, end = (now_min + 120) % 1440, (now_min + 180) % 1440
+    return f"{start // 60:02d}:{start % 60:02d}-{end // 60:02d}:{end % 60:02d}"
+
+
+def run_bound_pods(store) -> None:
+    """The kubelet's part: every bound pod not yet Running starts."""
+    with store._lock:
+        bound = [p for p in store._objects["pods"].values()
+                 if p.spec.node_name and p.status.phase != "Running"]
+    for pod in bound:
+        pod = store.get("pods", pod.metadata.name, pod.metadata.namespace)
+        pod.status.phase = "Running"
+        store.update("pods", pod)
+
+
+def reservation_target(store) -> None:
+    """The reservation case's gang: two pods of 62 of a node's 64 cores,
+    priority 1000, Pending behind MinResources that no overcommit
+    headroom passes, until its sla-waiting-time (150 min) is over."""
+    store.create("priorityclasses", obj.PriorityClass(
+        metadata=obj.ObjectMeta(name="top"), value=1000))
+    pg = tu.build_pod_group("pg-target", "default", "default", 2,
+                            phase="Pending", priority_class="top")
+    pg.spec.min_resources = {"cpu": "1000000", "memory": "1Gi"}
+    pg.metadata.annotations["sla-waiting-time"] = "150m"
+    pg.metadata.creation_timestamp = PLUGINS_CLOCK0 - 60.0
+    store.create("podgroups", pg)
+    for t in range(2):
+        store.create("pods", tu.build_pod(
+            "default", f"target-task{t}", "", "Pending",
+            {"cpu": "62", "memory": "8Gi"}, groupname="pg-target",
+            priority=1000))
+
+
+def plugins_case(case: str, device) -> list:
+    """One plugins_cycle (b) case on ``device`` ("cuda": the card, "cpu":
+    the plain loop) on a fresh FakeClock store, the reservation and tdm's
+    evict clock reset first and after; per cycle the binds, PodGroups
+    (phase, conditions), evictions in order, NUMA sets, the reservation's
+    target and locked nodes, launches, cycle and flush ms and places."""
+    n_nodes, n_cycles = PLUGIN_CASES[case]
+    n_jobs = MID["n_tasks"] // MID["gang"]
+    RESERVATION.reset()
+    tdm_plugin._last_evict_at = 0.0
+    clock = FakeClock(PLUGINS_CLOCK0)
+    store = ObjectStore(clock=clock)
+    if case.startswith("example_conf"):
+        populate_store(store, n_nodes=n_nodes, n_jobs=n_jobs,
+                       gang_size=MID["gang"], plugin_shares=True)
+        conf = example_conf()
+    elif case == "tdm":
+        populate_store(store, n_nodes=n_nodes, n_jobs=n_jobs,
+                       gang_size=MID["gang"])
+        make_revocable(store, n_nodes, n_jobs)
+        conf = TDM_CONF.format(window=zone_window(True))
+    else:
+        populate_store(store, n_nodes=n_nodes, n_jobs=0,
+                       gang_size=MID["gang"])
+        reservation_target(store)
+        conf = RESERVE_CONF
+    evictor = tu.FakeEvictor(store)
+    cache = SchedulerCache(store, evictor=evictor)
+    cache.run()
+    sched = Scheduler(store, scheduler_conf=conf, cache=cache,
+                      device=device)
+    out = []
+    for c in range(n_cycles):
+        if case == "reservation" and c:
+            clock.advance(3600.0)
+            if c == 2:    # the other gangs arrive after two locks
+                populate_store(store, n_nodes=0, n_jobs=n_jobs,
+                               gang_size=MID["gang"])
+        if case == "tdm" and c == 2:
+            # the zone's window closes on pods that run: tdm drains them
+            run_bound_pods(store)
+            sched.conf = parse_scheduler_conf(
+                TDM_CONF.format(window=zone_window(False)))
+        with NumaTap() as tap:
+            launches0 = gang_allocate_cuda.launches
+            t0 = time.perf_counter()
+            sched.run_once()
+            ms = (time.perf_counter() - t0) * 1000.0
+            launches = gang_allocate_cuda.launches - launches0
+        flush_ms = flush(cache, f"plugins_cycle {case} on {device}")
+        binds, groups = store_state(store)
+        places = sched.last_cycle["places"]
+        check_launches(f"plugins_cycle {case} on {device}", launches,
+                       places, device == "cuda")
+        drained: dict = {}
+        for k in evictor.evicts:    # populate_store's job<j>-task<t>
+            g = ("default", "pg-" + k.split("/")[1].split("-")[0][3:])
+            drained[g] = drained.get(g, 0) + 1
+        check_binds(store, f"plugins_cycle {case} on {device}", drained)
+        out.append({
+            "binds": binds, "groups": groups,
+            "evictions": list(evictor.evicts), "numa": numa_free(cache),
+            "numa_pods": tap.last(),
+            "reservation": (RESERVATION.target_job.name
+                            if RESERVATION.target_job is not None else None,
+                            sorted(RESERVATION.locked_nodes)),
+            "launches": launches, "cycle_ms": ms, "flush_ms": flush_ms,
+            "places": places})
+    cache.stop()
+    RESERVATION.reset()
+    tdm_plugin._last_evict_at = 0.0
+    return out
+
+
+def check_plugin_case(case: str, runs: list, store_nodes: int) -> None:
+    """What each (b) case must have exercised (on the card's runs, which
+    equal the plain loop's)."""
+    first, last = runs[0], runs[-1]
+    if case.startswith("example_conf"):
+        host = [pl["host_predicates"] for pl in first["places"]]
+        if not first["binds"] or not first["numa_pods"] or \
+                not numa_cpus(first["numa"]) or not host or None in host:
+            fail(f"plugins_cycle {case}: {len(first['binds'])} binds, "
+                 f"{first['numa_pods']} NUMA pods, host sweeps {host}")
+        pruned = [pl["prune"] is not None for pl in first["places"]]
+        if pruned != [case == "example_conf_pruned"] * len(pruned):
+            fail(f"plugins_cycle {case}: prune records {pruned}")
+    elif case == "tdm":
+        # the active cycles put only revocable pods on the zone's nodes;
+        # the closed one drains one of each job there (the default
+        # disruption budget) and nothing else
+        zone = {f"node-{i}" for i in range(0, store_nodes, 8)}
+        on_zone = [k for k, n in runs[1]["binds"].items() if n in zone]
+        revocable = [k for k in on_zone
+                     if int(k.split("/")[1].split("-")[0][3:]) % 4 == 0]
+        if not on_zone or len(revocable) != len(on_zone):
+            fail(f"plugins_cycle tdm: {len(on_zone)} pods on the zone's "
+                 f"nodes, {len(revocable)} of them revocable")
+        jobs = {k.split("/")[1].split("-")[0] for k in on_zone}
+        drained = last["evictions"]
+        if runs[1]["evictions"] or len(drained) != len(jobs) or \
+                {k.split("/")[1].split("-")[0] for k in drained} != jobs or \
+                not set(drained) <= set(on_zone):
+            fail(f"plugins_cycle tdm: evictions {runs[1]['evictions']} "
+                 f"while the zone is active, then {len(drained)} of the "
+                 f"{len(jobs)} jobs on the zone's nodes drained")
+    else:
+        res = [r["reservation"] for r in runs]
+        locked = set(res[2][1])
+        target = {last["binds"].get(f"default/target-task{t}")
+                  for t in range(2)}
+        if [r[0] for r in res] != ["pg-target"] * 3 + [None] or \
+                [len(r[1]) for r in res[:3]] != [1, 2, 3] or \
+                not target <= locked:
+            fail(f"plugins_cycle reservation: reservations {res}, the "
+                 f"target bound on {target}")
+
+
+def plugins_cycle(dev, north_star: dict, late) -> dict:
+    """Phase 15e: the scheduler's remaining plugins and actions (sla,
+    overcommit, tdm, reservation with elect and reserve, numa-aware on
+    the host-predicate mask) through the gang-allocate kernel: (a) at
+    full width under examples/scheduler-conf.yaml, (b) the card against
+    the plain loop in four cases, equal every cycle."""
+    full = plugins_full_width(dev, north_star, late)
+    cases = {}
+    for case in PLUGIN_CASES:
+        res = {device: plugins_case(case, device)
+               for device in ("cuda", "cpu")}
+        for c, (k, p) in enumerate(zip(res["cuda"], res["cpu"])):
+            diff = {f: k[f] != p[f] for f in ("binds", "groups", "evictions",
+                                              "numa", "numa_pods",
+                                              "reservation")}
+            if any(diff.values()):
+                fail(f"plugins_cycle {case} cycle {c}: the card and the "
+                     f"plain loop differ in "
+                     f"{[f for f, d in diff.items() if d]}")
+        check_plugin_case(case, res["cuda"], PLUGIN_CASES[case][0])
+        k_runs, p_runs = res["cuda"], res["cpu"]
+        cases[case] = {
+            "nodes": PLUGIN_CASES[case][0], "pods": MID["n_tasks"],
+            "cycles": len(k_runs),
+            "binds": [len(r["binds"]) for r in k_runs],
+            "evictions": [len(r["evictions"]) for r in k_runs],
+            "numa_pods": [r["numa_pods"] for r in k_runs],
+            "numa_cpus": [numa_cpus(r["numa"]) for r in k_runs],
+            "reservation": [r["reservation"] for r in k_runs],
+            "kernel_launches": [r["launches"] for r in k_runs],
+            "kernel_ms": [[pl["kernel_ms"] for pl in r["places"]]
+                          for r in k_runs],
+            "host_predicates": [[pl["host_predicates"]
+                                 for pl in r["places"]] for r in k_runs],
+            "prune": [[pl["prune"] for pl in r["places"]] for r in k_runs],
+            "cycle_ms": [r["cycle_ms"] for r in k_runs],
+            "plain_cycle_ms": [r["cycle_ms"] for r in p_runs],
+            "flush_ms": [r["flush_ms"] for r in k_runs],
+            "mismatches": 0}
+        line("plugins_cycle", part="card_vs_plain", case=case,
+             **cases[case])
+    return {"full_width": full, "cases": cases}
+
+
 def main() -> None:
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(dev)
@@ -2554,6 +3049,9 @@ def main() -> None:
                               for runs in (cycles, con_cycles))
     cycle_kernel_ms = [sum(pl["kernel_ms"] for pl in r["places"])
                        for r in warm]
+    # early, so that the plain loop on its full-width launch runs on the
+    # host while the later phases run on the card
+    plugins = plugins_cycle(dev, warm[-1], late)
 
     victims_vs_plain()
     preempt = victim_cycle("preempt")
@@ -2596,6 +3094,19 @@ def main() -> None:
         "launches_per_incremental_cycle": incr_launches,
         "launches_per_flush_cycle": flushed["full_width"]["live"][-1][
             "launches"],
+        "plugins_cycle": {
+            "launches": [r["launches"] for r in plugins["full_width"]["runs"]],
+            "kernel_ms": [r["kernel_ms"]
+                          for r in plugins["full_width"]["runs"]],
+            "host_predicates_ms": plugins["full_width"]["runs"][0][
+                "host_predicates_ms"],
+            "groups": plugins["full_width"]["runs"][0]["groups"],
+            "cycle_ms": [r["cycle_ms"] for r in plugins["full_width"]["runs"]],
+            "held": [{k: h[k] for k in ("shape", "assign_mismatches",
+                                        "max_abs_err", "plain_ms")}
+                     for h in plugins["full_width"]["runs"][0]["held"]],
+            "cases_launches": {c: v["kernel_launches"]
+                               for c, v in plugins["cases"].items()}},
         "launches_per_preempt_cycle": preempt["launches"],
         "launches_per_reclaim_cycle": reclaim["launches"],
         "preempt_cycle_kernel_ms": [pl["kernel_ms"]

@@ -644,28 +644,94 @@ def test_placement_changing_options_raise_not_implemented():
     assert ssn.solver is not None
 
 
-def test_host_predicate_of_unvectorized_plugin_raises():
-    """A plugin that registers a host predicate without marking itself
-    vectorized cannot be honoured by the kernel: place() raises."""
-    from volcano_tpu_torch.framework import (Plugin, get_action,
-                                             register_plugin_builder)
+def _host_only_plugin(pkg_framework, name, fault=None):
+    """A plugin in ``pkg_framework``'s registry that registers only a
+    host predicate: it vetoes a node for a task's job by a fixed hash of
+    the two names (about one pair in three), raising ``fault`` instead
+    when given (an error outside the veto contract)."""
+    import zlib
 
-    class HostOnly(Plugin):
+    class HostOnly(pkg_framework.Plugin):
         def __init__(self, arguments=None):
             pass
 
         def name(self):
-            return "test-host-only"
+            return name
 
         def on_session_open(self, ssn):
-            ssn.add_predicate_fn(self.name(), lambda task, node: None)
+            def predicate(task, node):
+                if fault is not None:
+                    raise fault(f"{name}: broken on {node.name}")
+                if zlib.crc32(f"{task.job}/{node.name}".encode()) % 3 == 0:
+                    raise ValueError(f"{name}: {task.job} kept off "
+                                     f"{node.name}")
+            ssn.add_predicate_fn(name, predicate)
 
-    register_plugin_builder("test-host-only", HostOnly)
+    pkg_framework.register_plugin_builder(name, HostOnly)
+
+
+def test_host_predicate_of_unvectorized_plugin_raises():
+    """A plugin that registers a host predicate without marking itself
+    vectorized is honoured as in the reference: the solver sweeps it over
+    every group and node into the static mask, equal to the reference's
+    ``_host_predicate_mask`` on the same session; whole cycles bind for
+    bind the same; and an error outside the veto contract is raised, not
+    read as a veto."""
+    import volcano_tpu.framework as ref_fw
+    import volcano_tpu_torch.framework as port_fw
+    from volcano_tpu.models.arrays import NodeArrays as RefNodeArrays
+    from volcano_tpu.models.arrays import TaskBatch as RefTaskBatch
+    from volcano_tpu_torch.models.arrays import NodeArrays, TaskBatch
+
+    for fw in (ref_fw, port_fw):
+        _host_only_plugin(fw, "test-host-only")
+        _host_only_plugin(fw, "test-host-broken", fault=TypeError)
     text = conf().replace("  - name: nodeorder\n",
                           "  - name: nodeorder\n  - name: test-host-only\n")
-    ssn = _small_session(text)()
-    with pytest.raises(NotImplementedError, match="test-host-only"):
-        get_action("allocate").execute(ssn)
+
+    def session(pkg, fw, conf_text, **kw):
+        store = pkg.Store()
+        pkg.synth.populate_store(store, n_nodes=12, n_jobs=6, gang_size=3)
+        cache = pkg.Cache(store)
+        cache.run()
+        cache.stop()
+        c = fw.parse_scheduler_conf(conf_text)
+        return fw.open_session(cache, c.tiers, c.configurations, **kw)
+
+    masks = []
+    for pkg, fw, NA, TB, kw in ((REF, ref_fw, RefNodeArrays, RefTaskBatch,
+                                 {}),
+                                (PORT, port_fw, NodeArrays, TaskBatch,
+                                 {"device": "cpu"})):
+        ssn = session(pkg, fw, text, **kw)
+        jobs = sorted(ssn.jobs.values(), key=lambda j: j.uid)
+        ordered = [(j, sorted(j.tasks.values(), key=lambda t: t.uid))
+                   for j in jobs]
+        narr = NA.build(ssn.nodes, [n.name for n in ssn.node_list],
+                        ssn.solver.rindex)
+        batch = TB.build(ordered, ssn.solver.rindex)
+        sweep = ssn.solver._host_predicate_mask if pkg is REF \
+            else ssn.solver.host_predicate_mask
+        masks.append(np.asarray(sweep(batch, narr)))
+    assert masks[1].shape == masks[0].shape
+    assert np.array_equal(masks[1], masks[0])
+    assert 0 < int((~masks[0][:6, :12]).sum()) < 6 * 12
+
+    # whole cycles: the same binds, phases and conditions, and the
+    # vetoed pairs unused
+    (binds, _, _), = assert_same(make_spec(23, n_nodes=10, n_jobs=12), text)
+    import zlib
+    for key, node in binds.items():
+        ns, pod = key.split("/")
+        job = f"{ns}/pg-{pod.split('-')[0][3:]}"
+        assert zlib.crc32(f"{job}/{node}".encode()) % 3 != 0
+
+    broken = conf().replace("  - name: nodeorder\n",
+                            "  - name: nodeorder\n"
+                            "  - name: test-host-broken\n")
+    ssn = session(PORT, port_fw, broken, device="cpu")
+    with pytest.raises(TypeError, match="test-host-broken"):
+        port_fw.get_action("allocate").execute(ssn)
 
 
 def test_cycle_command_on_cpu(capsys):

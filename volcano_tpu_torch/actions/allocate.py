@@ -23,6 +23,8 @@ from __future__ import annotations
 import time
 from typing import Dict, List, Optional
 
+import numpy as np
+
 from ..framework.plugin import Action
 from ..framework.registry import register_action
 from ..framework.solver import Placement
@@ -33,6 +35,7 @@ from ..models.objects import PodGroupPhase
 from ..models.resource import ZERO, Resource
 from ..trace import ledger
 from ..trace import tracer as trace
+from ..utils.reservation import RESERVATION
 
 
 class AllocateAction(Action):
@@ -40,10 +43,31 @@ class AllocateAction(Action):
         return "allocate"
 
     def execute(self, ssn) -> None:
-        # The reference's reservation lock (allocate.go:98-107, masking
-        # locked nodes for every job but the reservation target) is not
-        # here: elect/reserve are not ported, so no target is ever set.
-        self._execute_inner(ssn)
+        # reservation-locked nodes are masked for every job except the
+        # reservation target they are held for (allocate.go:98-107; the
+        # exemption realizes the reservation design's intent)
+        if RESERVATION.target_job is not None and RESERVATION.locked_nodes:
+            locked = set(RESERVATION.locked_nodes)
+            target_uid = RESERVATION.target_job.uid
+
+            def locked_mask(batch, narr, feats):
+                node_open = np.array([name not in locked
+                                      for name in narr.names] +
+                                     [True] * (narr.idle.shape[0]
+                                               - len(narr.names)))
+                mask = np.ones((batch.g_pad, narr.idle.shape[0]), bool)
+                for g, members in enumerate(batch.group_members):
+                    if batch.tasks[members[0]].job != target_uid:
+                        mask[g] &= node_open
+                return mask
+
+            ssn.solver.add_mask_fn(locked_mask)
+            try:
+                self._execute_inner(ssn)
+            finally:
+                ssn.solver.mask_fns.remove(locked_mask)
+        else:
+            self._execute_inner(ssn)
 
     # -- ordering ----------------------------------------------------------
 
@@ -64,10 +88,13 @@ class AllocateAction(Action):
         # cycle's no-placement (a placement would have dirtied it), so it
         # is skipped. A patched node (or a full rebuild) widens the set to
         # every pending job: changed capacity can unlock any of them.
-        # (The reference also widens while a reservation lock is live or
-        # just changed; this port has no reservation lock.)
+        # Reservation locks are session-global state with no cache delta
+        # (elect and reserve lock and unlock nodes on their own clock), so
+        # a live or just-changed lock state widens too: a job parked by a
+        # lock must be evaluated again the cycle the lock lifts.
         working = None
-        if ssn.incr_mode == "incremental" and not ssn.patched_nodes:
+        if ssn.incr_mode == "incremental" and not ssn.patched_nodes \
+                and not self._reservation_active_or_changed(ssn):
             working = set(ssn.patched_jobs or ()) | ssn.touched_jobs
         skipped_jobs = skipped_tasks = 0
 
@@ -122,6 +149,24 @@ class AllocateAction(Action):
                     jobs.sort(key=job_key)
                     ordered.extend(jobs)
         return ordered
+
+    @staticmethod
+    def _reservation_active_or_changed(ssn) -> bool:
+        """True while reservation locks are live or the lock state
+        differs from the previous cycle's (the unlock itself carries no
+        cache delta, so the cycle it happens on must evaluate every
+        pending job again)."""
+        state = (RESERVATION.target_job.uid
+                 if RESERVATION.target_job is not None else None,
+                 frozenset(RESERVATION.locked_nodes))
+        cache = ssn.cache
+        prev = getattr(cache, "_incr_reservation_state", None) \
+            if cache is not None else None
+        if cache is not None:
+            cache._incr_reservation_state = state
+        if state != (None, frozenset()):
+            return True
+        return prev is not None and prev != state
 
     def _pending_tasks(self, ssn, job: JobInfo) -> List[TaskInfo]:
         """Pending, non-best-effort, task-order sorted (allocate.go:183-196).

@@ -40,7 +40,7 @@ from ..utils.clock import GLOBAL_CLOCK, Clock
 from ..utils.fastclone import fast_clone
 
 NAMESPACED = {"pods", "podgroups", "resourcequotas"}
-CLUSTER_SCOPED = {"nodes", "queues", "priorityclasses"}
+CLUSTER_SCOPED = {"nodes", "queues", "priorityclasses", "numatopologies"}
 KINDS = NAMESPACED | CLUSTER_SCOPED
 
 # the shared worker pool of the sharded patch's clone phase: module-wide,

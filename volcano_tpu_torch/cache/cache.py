@@ -38,7 +38,7 @@ sets, a closing session folds in what it mutated
 (``absorb_session_touches``), and the jobs of live retry records are
 re-dirtied every snapshot (their backoff ends without a watch delta).
 The first snapshot, every structural change (queue, priority class,
-resource quota, an anti-entropy repair) and every
+resource quota, NUMA topology, an anti-entropy repair) and every
 ``INCR_FULL_RECOMPUTE_EVERY_CYCLES``-th snapshot rebuild in full.
 
 While tracing is on the executor records the flush as the flight
@@ -49,7 +49,13 @@ ledger (``bind_staged`` at the gang's staging instant, then
 echo); the ledger's stamps held during the cycle complete on the
 executor before its own.
 
-Left out of this port: NUMA and the volume binder.
+NUMA: the ``numatopologies`` watch feeds each node's CRD view
+(``NodeInfo.numa_info``); every snapshot refreshes the nodes'
+scheduler-side views from it (``refresh_numa_scheduler_info``), and the
+numa-aware plugin writes the CPU sets it assigned back at session close
+(``update_scheduler_numa_info``), dirtying those nodes.
+
+Left out of this port: the volume binder.
 """
 
 from __future__ import annotations
@@ -177,6 +183,7 @@ class SchedulerCache(EventHandlersMixin):
         self.default_priority: int = 0
         self.default_priority_class: Optional[obj.PriorityClass] = None
         self.namespace_collection: Dict[str, NamespaceCollection] = {}
+        self.numatopologies: Dict[str, object] = {}
         self.node_list: List[str] = []
 
         self.binder = binder if binder is not None else StoreBinder(store)
@@ -306,6 +313,9 @@ class SchedulerCache(EventHandlersMixin):
             s.watch("resourcequotas", locked(self.add_resource_quota),
                     locked(self.update_resource_quota),
                     locked(self.delete_resource_quota)),
+            s.watch("numatopologies", locked(self.add_numa_info),
+                    locked(self.update_numa_info),
+                    locked(self.delete_numa_info)),
         ]
 
     def stop(self) -> None:
@@ -547,6 +557,8 @@ class SchedulerCache(EventHandlersMixin):
         snap = ClusterInfo()
         snap.node_list = list(self.node_list)
         for node in self.nodes.values():
+            node.refresh_numa_scheduler_info()
+        for node in self.nodes.values():
             if not node.ready():
                 continue
             cloned = node.clone()
@@ -577,7 +589,8 @@ class SchedulerCache(EventHandlersMixin):
         """Make the next snapshot a full rebuild: a change that reaches
         beyond one job or node (queue add/update/delete re-gates every
         job's inclusion and fair share; priority-class and quota edits
-        re-resolve every job)."""
+        re-resolve every job; NUMA topology feeds every node's scheduler
+        view)."""
         with self.mutex:
             self._dirty_structural = True
 
@@ -744,6 +757,7 @@ class SchedulerCache(EventHandlersMixin):
                     rindex_stale |= self._incr_scalar_update(("n", name),
                                                              None)
                     continue
+                node.refresh_numa_scheduler_info()
                 snap.nodes[name] = node.clone()
                 rindex_stale |= self._incr_scalar_update(
                     ("n", name), self._scalar_names_of(node.allocatable))
@@ -1590,6 +1604,17 @@ class SchedulerCache(EventHandlersMixin):
                 self.store.record_event("pods", task.pod, "Warning",
                                         "FailedScheduling", reason)
                 condition_sink.append((task.pod, "Unschedulable", reason))
+
+    def update_scheduler_numa_info(self, node_res_sets: Dict[str, Dict[str, set]]) -> None:
+        """Write allocated NUMA sets back (numa-aware plugin session
+        close); the nodes written are dirty for the next snapshot."""
+        with self.mutex:
+            self._state_version += 1
+            for node_name, res_sets in node_res_sets.items():
+                node = self.nodes.get(node_name)
+                if node is not None and node.numa_scheduler_info is not None:
+                    node.numa_scheduler_info.allocate(res_sets)
+                    self._dirty_nodes.add(node_name)
 
     def __repr__(self):
         return (f"SchedulerCache(jobs={len(self.jobs)}, "

@@ -2,15 +2,16 @@
 (counterpart of volcano_tpu/cache/event_handlers.py; reference:
 pkg/scheduler/cache/event_handlers.go): pod->task conversion and job/node
 accounting (:47-260), node ingestion (:302-418), PodGroup/Queue ingestion
-(:420-560), PriorityClass and ResourceQuota handlers. All methods assume
-the cache lock is held by the caller (the watch fan-out is synchronous).
+(:420-560), PriorityClass, ResourceQuota and Numatopology handlers. All
+methods assume the cache lock is held by the caller (the watch fan-out is
+synchronous).
 
 Every handler records the job and node keys it changes in the cache's
 dirty sets, which the incremental snapshot re-clones
-(docs/design/incremental_cycle.md); queue, priority-class and
-resource-quota edits are structural and force a full rebuild. A pod's
-update that changes its node or its request, and its delete, clear its
-bind-retry record and quarantine. Left out: the NUMA handlers.
+(docs/design/incremental_cycle.md); queue, priority-class,
+resource-quota and Numatopology edits are structural and force a full
+rebuild. A pod's update that changes its node or its request, and its
+delete, clear its bind-retry record and quarantine.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from ..models.arrays import _group_sig
 from ..models.job_info import (JobInfo, TaskInfo, allocated_status,
                                get_job_id, get_task_status, is_terminated)
 from ..models.node_info import NodeInfo
+from ..models.numa_info import NumatopoInfo
 from ..models.queue_info import NamespaceCollection, QueueInfo
 from ..trace import ledger, tracer
 from ..utils.fastclone import fast_clone
@@ -262,6 +264,9 @@ class EventHandlersMixin:
             self.nodes[name].set_node(node)
         else:
             self.nodes[name] = NodeInfo(node)
+            nt = self.numatopologies.get(name)
+            if nt is not None:
+                self.nodes[name].numa_info = nt
         if name not in self.node_list:
             self.node_list.append(name)
 
@@ -320,10 +325,10 @@ class EventHandlersMixin:
             del self.jobs[key]
 
     # -- queues -----------------------------------------------------------
-    # Queue, priority-class and quota edits are structural for the
-    # incremental snapshot: they reach every job (inclusion, fair-share
-    # budgets, priority resolution, namespace weights), so the next
-    # snapshot rebuilds in full.
+    # Queue, priority-class, quota and NUMA topology edits are structural
+    # for the incremental snapshot: they reach every job (inclusion,
+    # fair-share budgets, priority resolution, namespace weights) or
+    # every node (the NUMA views), so the next snapshot rebuilds in full.
 
     def add_queue(self, queue: obj.Queue) -> None:
         self.mark_structural_change()
@@ -374,3 +379,32 @@ class EventHandlersMixin:
         coll = self.namespace_collection.get(quota.metadata.namespace)
         if coll is not None:
             coll.delete(quota)
+
+    # -- numatopology -----------------------------------------------------
+
+    def add_numa_info(self, nt: obj.Numatopology) -> None:
+        self.mark_structural_change()
+        info = NumatopoInfo.from_crd(nt)
+        old = self.numatopologies.get(nt.metadata.name)
+        self.numatopologies[nt.metadata.name] = info
+        node = self.nodes.get(nt.metadata.name)
+        if node is not None:
+            node.numa_info = info
+            # widen vs narrow decides how the scheduler-side view is merged
+            # at snapshot time (reference: event_handlers.go:818-841 Compare)
+            shrank = old is not None and any(
+                len(info.numa_res_map[res].allocatable) < len(ri.allocatable)
+                for res, ri in old.numa_res_map.items()
+                if res in info.numa_res_map)
+            node.numa_chg_flag = "less" if shrank else "more"
+
+    def update_numa_info(self, old: obj.Numatopology,
+                         new: obj.Numatopology) -> None:
+        self.add_numa_info(new)
+
+    def delete_numa_info(self, nt: obj.Numatopology) -> None:
+        self.mark_structural_change()
+        self.numatopologies.pop(nt.metadata.name, None)
+        node = self.nodes.get(nt.metadata.name)
+        if node is not None:
+            node.numa_info = None

@@ -3,7 +3,7 @@
     python -m volcano_tpu_torch.cmd.cycle --tasks 50000 --nodes 10000 \\
         [--queues 1] [--warm 1] [--device cpu] \\
         [--zones 8 --spread-every 4 --anti-every 8] \\
-        [--scenario {default,preempt,reclaim}] [--trace] \\
+        [--scenario {default,preempt,reclaim,example-conf}] [--trace] \\
         [--commit {live,alternate}]
 
 With ``--scenario default`` (the default), each run builds a fresh store
@@ -41,6 +41,15 @@ reclamation tiers (volcano_tpu/bench_suite.py:39-50 and :463-475). The
 line then also gives ``preempt_ms`` or ``reclaim_ms``, the evictions, the
 pipelined tasks and the victim-selection paths taken.
 
+``--scenario example-conf`` runs the repo's full-featured conf, the text
+of examples/scheduler-conf.yaml, on the default scenario's store with the
+shares of its plugins (``populate_store(..., plugin_shares=True)``): a
+Numatopology on every node (2 NUMA nodes of 16 cores of 2 threads, the
+static CPU manager, the single-numa-node topology manager), every 8th
+gang Guaranteed with the single-numa-node policy and every 16th created
+two hours before the store's clock (past sla's 1 h). Each run's
+``places`` then carry the ``host_predicates`` sweep (ms, groups, nodes).
+
 Every run's entry names its ``commit``: who wrote the cycle's binds,
 evictions and statuses. ``live`` is the cache's executor, after the
 cycle, as in a scheduler once ``cache.run()`` has started it (every run
@@ -56,6 +65,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import time
 from typing import List, Optional
 
@@ -110,7 +120,12 @@ tiers:
   - name: nodeorder
 """
 
-SCENARIOS = ("default", "preempt", "reclaim")
+# the repo's full-featured conf
+EXAMPLE_CONF = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "examples", "scheduler-conf.yaml")
+
+SCENARIOS = ("default", "preempt", "reclaim", "example-conf")
 COMMITS = ("live", "alternate")
 # the warm runs' order under --commit alternate
 ALTERNATION = ("live", "inline", "inline", "live")
@@ -126,6 +141,12 @@ class InlineCache(SchedulerCache):
 
     def start_executors(self) -> None:
         pass
+
+
+def example_conf() -> str:
+    """The text of examples/scheduler-conf.yaml."""
+    with open(EXAMPLE_CONF) as f:
+        return f.read()
 
 
 def populate_scenario(store, scenario: str, n_nodes: int) -> str:
@@ -152,13 +173,14 @@ def run_cycle(n_tasks: int, n_nodes: int, n_queues: int = 1,
     device = default_device(device)
     store = ObjectStore()
     t0 = time.perf_counter()
-    if scenario == "default":
+    if scenario in ("default", "example-conf"):
         queues = [(f"queue-{i}", 1) for i in range(n_queues)] \
             if n_queues > 1 else None
         populate_store(store, n_nodes=n_nodes, n_jobs=n_tasks // 8,
                        gang_size=8, queues=queues, zones=zones,
-                       spread_every=spread_every, anti_every=anti_every)
-        conf = CONF
+                       spread_every=spread_every, anti_every=anti_every,
+                       plugin_shares=scenario == "example-conf")
+        conf = example_conf() if scenario == "example-conf" else CONF
     else:
         conf = populate_scenario(store, scenario, n_nodes)
     t1 = time.perf_counter()
@@ -233,9 +255,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--anti-every", type=int, default=0,
                     help="every Nth gang places one replica per zone")
     ap.add_argument("--scenario", choices=SCENARIOS, default="default",
-                    help="the cluster's shape: the allocation backlog, or "
+                    help="the cluster's shape: the allocation backlog, "
                          "the preemption or reclamation shape (--tasks is "
-                         "then not read)")
+                         "then not read), or the backlog with NUMA, "
+                         "Guaranteed and sla shares under "
+                         "examples/scheduler-conf.yaml")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "plain loop)")

@@ -13,10 +13,12 @@ plain loop on the CPU.
 
 ``BatchSolver`` is the session's placement context. Plugins feed it score
 weights, mask and static-score functions and fair-share budgets while the
-session opens; ``place`` encodes the session's Pods and Nodes
-(models/arrays.py), runs a ``DenseSolver`` over them and decodes the
-kernel's assignment back into per-job placements. Placement constraints
-(topology spread, pod anti-affinity) reach the kernel through
+session opens; the predicate fns of plugins that did not mark themselves
+vectorized (numa-aware's) are swept over every group and node into one
+more mask (``host_predicate_mask``); ``place`` encodes the session's Pods
+and Nodes (models/arrays.py), runs a ``DenseSolver`` over them and
+decodes the kernel's assignment back into per-job placements. Placement
+constraints (topology spread, pod anti-affinity) reach the kernel through
 ops/constraints.py, as per-task domain slots on the place path and as
 split groups in host contexts. The conf keys of the reference that only
 choose among exact kernels are accepted and ignored.
@@ -36,6 +38,7 @@ as the reference's ``kernel`` span (``DenseSolver.launch``).
 
 from __future__ import annotations
 
+import logging
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -58,6 +61,16 @@ from ..ops.score import ScoreWeights
 from ..trace import explain
 from ..trace import tracer as tr
 from ..utils.platform import default_device
+
+_logger = logging.getLogger(__name__)
+_logged_once: set = set()
+
+
+def _log_once(msg: str) -> None:
+    if msg not in _logged_once:
+        _logged_once.add(msg)
+        _logger.warning(msg)
+
 
 # the start of the sampling window: a process-wide cursor, as the
 # reference's node cursor (scheduler_helper.go:95); it advances by the
@@ -406,7 +419,13 @@ class BatchSolver:
     evaluates the constraint mask per pair and lowers domains by
     splitting groups (ops/constraints.py). ``victims.kernel: off`` makes
     preempt and reclaim select victims by the walk of
-    framework/victims.py instead of ops/victims.py; both are exact."""
+    framework/victims.py instead of ops/victims.py; both are exact.
+
+    A plugin's predicate fn reaches the kernel as a mask: a plugin that
+    marks itself vectorized (``mark_vectorized``) gives its own
+    ``mask_fn``; any other predicate fn is swept over every group and
+    node by ``host_predicate_mask`` into the static mask, on the full
+    width and, through its union columns, on a pruned place."""
 
     def __init__(self, ssn, device=None, rindex: Optional[ResourceIndex] = None):
         self.ssn = ssn
@@ -455,6 +474,9 @@ class BatchSolver:
         # the exact-dedupe license of the shortlist distillation, set by
         # each context build (_context)
         self._prune_dedupe_ok = False
+        # the last host-predicate sweep's ms, groups and nodes (None when
+        # no plugin registered a host predicate)
+        self._host_record: Optional[Dict[str, Any]] = None
 
     def _node_order(self) -> List[str]:
         """The node names the contexts are built over: every ready node,
@@ -673,6 +695,59 @@ class BatchSolver:
         m.inc(m.SOLVER_DEVICE_BUFFER, event="reuse")
         return dict(state.dev), xfer
 
+    def host_predicate_mask(self, batch: TaskBatch, narr: NodeArrays
+                            ) -> Optional[np.ndarray]:
+        """The [G, N] mask of the host predicates: the predicate fns of
+        the plugins that did not mark themselves vectorized, called for
+        each group's first task on every node of ``narr``
+        (volcano_tpu/framework/solver.py:487-526); None without any.
+
+        O(G x N) Python, as in the reference, so the first use logs which
+        plugins forced the sweep; it runs inside the span
+        ``host_predicates`` (tagged with G, the nodes and the plugins).
+        A predicate vetoes a node by raising (the PredicateFn error
+        contract, scheduler_helper.go:95-127): FitException and the
+        assertion, lookup, runtime and value errors a filter raises;
+        anything else is a plugin bug, logged once and re-raised rather
+        than read as "node infeasible"."""
+        extra = {name: fn for name, fn in self.ssn.predicate_fns.items()
+                 if name not in self.vectorized_plugins}
+        if not extra:
+            return None
+        from ..plugins.predicates import FitException
+        veto_types = (FitException, AssertionError, KeyError, RuntimeError,
+                      ValueError)
+        _log_once("host-predicate fallback active for plugins "
+                  f"{sorted(extra)}: per-node Python sweep (register a "
+                  "vectorized mask_fn for solver-speed predicates)")
+        mask = np.ones((batch.g_pad, narr.n_pad), bool)
+        name_to_idx = narr.name_to_idx
+        columns = [(name_to_idx[name], node)
+                   for name, node in self.ssn.nodes.items()
+                   if name in name_to_idx]
+        fns = list(extra.items())
+        t0 = time.perf_counter()
+        with tr.span("host_predicates", groups=batch.n_groups,
+                     nodes=len(columns), plugins=sorted(extra)):
+            for g, members in enumerate(batch.group_members):
+                rep = batch.tasks[members[0]]
+                row = mask[g]
+                for i, node in columns:
+                    for pname, fn in fns:
+                        try:
+                            fn(rep, node)
+                        except veto_types:
+                            row[i] = False
+                            break
+                        except Exception:
+                            _log_once(f"host predicate {pname!r} raised an "
+                                      "unexpected error (plugin bug?)")
+                            raise
+        self._host_record = {"ms": (time.perf_counter() - t0) * 1000.0,
+                             "groups": batch.n_groups,
+                             "nodes": len(columns)}
+        return mask
+
     def _context(self, ordered_jobs, device, slot_tensors: bool = False
                  ) -> Tuple[NodeArrays, TaskBatch, "DenseSolver"]:
         """Encode the batch against the session's current node state and
@@ -685,12 +760,6 @@ class BatchSolver:
         (``_incremental_node_arrays``); later builds see the nodes the
         session mutated and encode afresh."""
         ssn = self.ssn
-        extra = {name for name in ssn.predicate_fns
-                 if name not in self.vectorized_plugins}
-        if extra:
-            raise NotImplementedError(
-                f"host predicate fns of plugins {sorted(extra)}: this port "
-                "places only through vectorized masks")
         narr = None
         if not getattr(ssn, "_narr_first_done", False):
             ssn._narr_first_done = True
@@ -715,6 +784,10 @@ class BatchSolver:
                 gmask = contrib if gmask is None else gmask & contrib
                 parts.append((getattr(fn, "explain_label", "plugin"),
                               contrib))
+        host_mask = self.host_predicate_mask(batch, narr)
+        if host_mask is not None:
+            gmask = host_mask if gmask is None else gmask & host_mask
+            parts.append(("host_predicates", host_mask))
         self._explain_parts = parts if self.explain else []
         static_score = None
         for fn in self.static_score_fns:
@@ -726,8 +799,8 @@ class BatchSolver:
         # reference grants it (volcano_tpu/framework/solver.py:720-804):
         # no mask stage beyond the capability fit applied (the selector
         # and taint masks DenseSolver.static_mask adds, node affinity, a
-        # plugin's mask) and no static score, so that identical request
-        # rows have identical mask and score rows
+        # plugin's mask, the host predicates) and no static score, so
+        # that identical request rows have identical mask and score rows
         selector_or_taint = self.enable_default_predicates and (
             bool(feats.group_require_counts.any())
             or bool(feats.node_taints.any()))
@@ -830,6 +903,7 @@ class BatchSolver:
         global _place_counter
         t0 = time.perf_counter()
         self.ssn._constraint_ms = 0.0
+        self._host_record = None
         with tr.span("build_context"):
             narr, batch, dense = self._context(ordered_jobs, self.device,
                                                slot_tensors=True)
@@ -883,6 +957,7 @@ class BatchSolver:
             "plan": out.plan,
             "R": out.r,
             "node_bytes": dense.node_bytes,
+            "host_predicates": self._host_record,
             "prune": prune_record})
 
         # decode (volcano_tpu/framework/solver.py:1016-1106): one pass over

@@ -1,7 +1,7 @@
 """NodeInfo: per-node resource state machine.
 
-The port's own copy of volcano_tpu/models/node_info.py, without NUMA
-state and the native clone accelerator. Behavioral contract mirrors the
+The port's own copy of volcano_tpu/models/node_info.py, without the
+native clone accelerator. Behavioral contract mirrors the
 reference (pkg/scheduler/api/node_info.go):
 Idle/Used/Releasing/Pipelined accounting by task status (AddTask:341,
 RemoveTask:388), FutureIdle = Idle + Releasing - Pipelined (:71-73),
@@ -60,6 +60,9 @@ class NodeInfo:
         self.allocatable = Resource()
         self.capability = Resource()
         self.tasks: Dict[str, TaskInfo] = {}
+        self.numa_info = None            # NumatopoInfo, set by cache
+        self.numa_scheduler_info = None
+        self.numa_chg_flag: str = ""     # ""|"more"|"less" (NumaChgFlag)
         self.revocable_zone: str = ""
         self.others: Dict[str, object] = {}
         # topology labels the placement constraints read (zone/rack/...):
@@ -152,6 +155,24 @@ class NodeInfo:
 
     def ready(self) -> bool:
         return self.state.phase == "Ready"
+
+    def refresh_numa_scheduler_info(self) -> None:
+        """Sync scheduler-side NUMA view from the CRD-fed one, only widening
+        (or narrowing when the kubelet shrank allocatable)
+        (node_info.go:120-143 RefreshNumaSchedulerInfoByCrd)."""
+        if self.numa_info is None:
+            self.numa_scheduler_info = None
+            return
+        if self.numa_scheduler_info is None or self.numa_chg_flag == "more":
+            self.numa_scheduler_info = self.numa_info.clone()
+        elif self.numa_chg_flag == "less":
+            tmp = self.numa_info.clone()
+            for res, resinfo in tmp.numa_res_map.items():
+                cur = self.numa_scheduler_info.numa_res_map.get(res)
+                if cur is not None and len(cur.allocatable) >= len(resinfo.allocatable):
+                    cur.allocatable = set(resinfo.allocatable)
+                    cur.capacity = resinfo.capacity
+        self.numa_chg_flag = ""
 
     def future_idle(self) -> Resource:
         """Idle + Releasing - Pipelined (node_info.go:71-73)."""
@@ -342,6 +363,10 @@ class NodeInfo:
         c.allocatable = self.allocatable
         c.capability = self.capability
         c.tasks = {k: t.clone() for k, t in self.tasks.items()}
+        c.numa_info = self.numa_info
+        c.numa_scheduler_info = (self.numa_scheduler_info.clone()
+                                 if self.numa_scheduler_info is not None else None)
+        c.numa_chg_flag = self.numa_chg_flag
         c.revocable_zone = self.revocable_zone
         c.topology = self.topology   # immutable after build: share
         c.others = dict(self.others)

@@ -3,9 +3,10 @@ scheduling and priority slice of volcano_tpu/models/objects.py).
 
   * core: ObjectMeta, Pod, Node, PriorityClass, ResourceQuota
   * scheduling: PodGroup, Queue
+  * nodeinfo: Numatopology (the per-node NUMA topology numa-aware reads)
 
-The controller CRDs (Job, Command, Service, volumes, NUMA topology) are not
-part of the scheduling cycle and are not ported. The clone helpers at the
+The controller CRDs (Job, Command, Service, volumes) are not part of the
+scheduling cycle and are not ported. The clone helpers at the
 end rebuild only the mutable shells of the hot shapes and share the
 substructures a stored object never mutates.
 """
@@ -391,6 +392,33 @@ class Queue:
     metadata: ObjectMeta = field(default_factory=ObjectMeta)
     spec: QueueSpec = field(default_factory=QueueSpec)
     status: QueueStatus = field(default_factory=QueueStatus)
+
+
+# ---------------------------------------------------------------------------
+# nodeinfo group: Numatopology
+# ---------------------------------------------------------------------------
+
+@dataclass
+class CpuInfo:
+    numa_id: int = 0
+    socket_id: int = 0
+    core_id: int = 0
+
+
+@dataclass
+class NumaResInfo:
+    """Per-resource allocatable set/amount on a node (numatopo_types.go)."""
+    allocatable: List[int] = field(default_factory=list)   # e.g. cpu ids
+    capacity: int = 0
+
+
+@dataclass
+class Numatopology:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    policies: Dict[str, str] = field(default_factory=dict)  # TopologyManagerPolicy etc.
+    numa_res: Dict[str, NumaResInfo] = field(default_factory=dict)
+    cpu_detail: Dict[int, CpuInfo] = field(default_factory=dict)
+    res_reserved: Dict[str, Any] = field(default_factory=dict)
 
 
 # ---------------------------------------------------------------------------

@@ -272,6 +272,11 @@ def scalar_request(job: int, k: int) -> int:
     return (job + k) % 3
 
 
+# populate_store's plugin shares: how long before the store's clock the
+# old jobs were created (two hours, past sla's one)
+SHARES_OLD_S = 7200.0
+
+
 def populate_store(store, *, n_nodes: int, n_jobs: int, gang_size: int,
                    queues: Optional[List[Tuple[str, int]]] = None,
                    cpu_req: str = "2", mem_req: str = "4Gi",
@@ -280,7 +285,8 @@ def populate_store(store, *, n_nodes: int, n_jobs: int, gang_size: int,
                    phase: str = "Inqueue", zones: int = 0,
                    spread_every: int = 0,
                    anti_every: int = 0,
-                   scalars: Sequence[str] = ()) -> Dict[str, int]:
+                   scalars: Sequence[str] = (),
+                   plugin_shares: bool = False) -> Dict[str, int]:
     """Object-level synthetic cluster in an ObjectStore.
 
     ``scalars`` names extra scalar resource kinds (each adds one to the
@@ -293,10 +299,19 @@ def populate_store(store, *, n_nodes: int, n_jobs: int, gang_size: int,
     job a hard zone topology-spread constraint (max_skew 1) / a required
     one-replica-per-zone self-anti-affinity term, which the constraint
     compiler lowers to per-task zone slots (ops/constraints.py).
-    Deterministic by job index, no rng."""
-    from ..models.objects import (Affinity, NodeSelectorRequirement,
-                                  PodAffinity, PodAffinityTerm,
-                                  TopologySpreadConstraint)
+
+    ``plugin_shares`` adds what the plugins of the repo's full-featured
+    conf (examples/scheduler-conf.yaml) read: every node a Numatopology of
+    SHARES_NUMA (64 CPUs, as the default node's 64 cores); every 8th job
+    (j % 8 == 0) Guaranteed pods (limits = requests: 2 integral CPUs with
+    the default request) with the single-numa-node policy annotation;
+    every 16th job (j % 16 == 15) created SHARES_OLD_S before the store's
+    clock, past sla's one hour, the others at it. Deterministic by job
+    index, no rng."""
+    from ..models.objects import (NUMA_TOPOLOGY_POLICY_KEY, Affinity,
+                                  NodeSelectorRequirement, PodAffinity,
+                                  PodAffinityTerm, TopologySpreadConstraint)
+    from .numa_agent import SHARES_NUMA, build_numatopology
     from .test_utils import (build_node, build_pod, build_pod_group,
                              build_queue)
     queues = queues or [("default", 1)]
@@ -310,11 +325,19 @@ def populate_store(store, *, n_nodes: int, n_jobs: int, gang_size: int,
         alloc = {"cpu": node_cpu, "memory": node_mem, "pods": "110"}
         alloc.update({kind: SCALAR_CAPACITY for kind in scalars})
         store.create("nodes", build_node(f"node-{i}", alloc, labels=labels))
+        if plugin_shares:
+            store.create("numatopologies",
+                         build_numatopology(f"node-{i}", SHARES_NUMA))
+    now = store.clock.now()
     for j in range(n_jobs):
         qname = queues[j % len(queues)][0]
         pg = build_pod_group(f"pg-{j}", namespace, qname, gang_size,
                              phase=phase)
+        if plugin_shares:
+            pg.metadata.creation_timestamp = \
+                now - SHARES_OLD_S if j % 16 == 15 else now
         store.create("podgroups", pg)
+        guaranteed = plugin_shares and j % 8 == 0
         spread = zones > 0 and spread_every > 0 and j % spread_every == 0
         anti = zones > 0 and anti_every > 0 and not spread \
             and j % anti_every == 1 % max(1, anti_every)
@@ -327,6 +350,10 @@ def populate_store(store, *, n_nodes: int, n_jobs: int, gang_size: int,
                 namespace, f"job{j}-task{t}", "", "Pending",
                 dict(req), groupname=f"pg-{j}",
                 labels={"synth-job": f"pg-{j}"} if anti else None)
+            if guaranteed:
+                pod.spec.containers[0].limits = dict(req)
+                pod.metadata.annotations[NUMA_TOPOLOGY_POLICY_KEY] = \
+                    "single-numa-node"
             if spread:
                 pod.spec.topology_spread = [TopologySpreadConstraint(
                     max_skew=1,
