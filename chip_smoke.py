@@ -212,13 +212,45 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
     four cycles an hour apart, a gang of two 62-core pods Pending until
     sla admits it, which binds on the nodes reserve locked. The reservation singleton and
     tdm's evict clock are reset around every run;
+15f. scheduler_binary: the scheduler binary (volcano_tpu_torch/cmd/
+    scheduler.py) with leader election, the conf hot reload, the
+    deferred apply (the default) and the store's volume binder.
+    (a) Two candidates through ``run_scheduler`` (--leader-elect, a 1 s
+    period) on one store of populate_store(10,000 nodes, 6,250 gangs of
+    8, volumes=32: every 32nd gang's pods mount a claim each, the claims
+    of every 8th such gang match no volume), the default conf plus
+    binpack read from a file: the leader's placing cycle and two steady
+    cycles, each with the launch count set to 0 just before and read
+    just after and its flush timed; the binds replay within allocatable
+    and gangs are all-or-nothing; every bound pod's claim is Bound to a
+    volume that holds it, no volume holds two claims, the 25 unmatched
+    gangs stay Pending and their volumes Available; the standby's
+    pending report says REASON_NOT_LEADER. Then the leader's elector
+    stops and releases the lease: the standby takes over with a higher
+    token, a write with the old token is fenced, and the new leader's
+    first cycle keeps every bind and volume. Then the conf file is
+    rewritten without binpack: the new leader runs it within two
+    watcher intervals. Prints each cycle's cycle_ms, flush_ms,
+    allocate.stage_ms (and within it the volume plan's ms), the volume
+    binds' ms, backfill_ms, kernel ms and launches, the
+    takeover time, the tokens and the volumes bound. (b) The deferred
+    apply against ``apply: eager`` at the north star: one warm cycle
+    each on a fresh store, binds and PodGroups equal; prints both
+    sides' allocate.stage_ms, backfill_ms and cycle_ms. (c) The card
+    against the plain loop at 4,096 pods x 2,048 nodes with volumes:
+    three cycles with the executor live and a seeded churn between them
+    (volumes for an unmatched gang, which then binds; a claim of the
+    other deleted; two new gangs whose claims have volumes), and two
+    cycles in which the deferred apply of gang pg-1 fails before its
+    commit in the first (the gang is dropped, and binds in the second);
+    binds, PodGroups, claims and volumes equal after every cycle;
 16. the kernels line (with the table refreshes, the cluster's blocks and
     each block's shared memory, the plan and R, as the main path's launch
     reported them, the shapes_vs_plain summary, traced_cycle's overhead,
     the kernel's launches per cycle, per preempt and per reclaim cycle,
     per quiet and per churn incremental cycle, per flush_cycle cycle
     (``launches_per_flush_cycle``), plugins_cycle's launches, kernel ms,
-    host_predicates ms and G,
+    host_predicates ms and G, scheduler_binary's launches per cycle,
     and a ``prune`` entry for the north-star cycle's place: union, padded
     width, launches, refreshes, whether the reduced run served; a second
     entry for the slot path), then the card's nvidia-smi line, then
@@ -235,6 +267,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import atexit
 import concurrent.futures
 import gc
@@ -244,6 +277,8 @@ import multiprocessing
 import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import types
 import urllib.request
@@ -257,9 +292,12 @@ if not torch.cuda.is_available():
 
 from volcano_tpu_torch import convert  # noqa: E402
 from volcano_tpu_torch.apiserver import ObjectStore  # noqa: E402
+from volcano_tpu_torch.apiserver.store import FencedError  # noqa: E402
 from volcano_tpu_torch.cache import SchedulerCache  # noqa: E402
 from volcano_tpu_torch.cmd import cycle as cycle_cmd  # noqa: E402
+from volcano_tpu_torch.cmd import scheduler as scheduler_cmd  # noqa: E402
 from volcano_tpu_torch.framework import parse_scheduler_conf  # noqa: E402
+from volcano_tpu_torch.framework import statement as statement_mod  # noqa: E402
 from volcano_tpu_torch.framework.solver import DenseSolver  # noqa: E402
 from volcano_tpu_torch.ops import allocate, build, prune  # noqa: E402
 from volcano_tpu_torch.ops.cuda_allocate import (  # noqa: E402
@@ -272,12 +310,13 @@ from volcano_tpu_torch.scheduler import Scheduler  # noqa: E402
 from volcano_tpu_torch.sim.faults import FlakyBinder  # noqa: E402
 from volcano_tpu_torch.plugins import numaaware as numaaware_plugin  # noqa: E402
 from volcano_tpu_torch.plugins import tdm as tdm_plugin  # noqa: E402
+from volcano_tpu_torch.trace import pending, tracer  # noqa: E402
 from volcano_tpu_torch.utils import test_utils as tu  # noqa: E402
 from volcano_tpu_torch.utils.clock import FakeClock  # noqa: E402
 from volcano_tpu_torch.utils.reservation import RESERVATION  # noqa: E402
 from volcano_tpu_torch.utils.synth import (  # noqa: E402
-    populate_preempt_store, populate_reclaim_store, populate_store,
-    scalar_kinds, synth_arrays, zone_slots)
+    UNMATCHED_CLAIM, populate_preempt_store, populate_reclaim_store,
+    populate_store, scalar_kinds, synth_arrays, volume_plan, zone_slots)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s
 # and float32 operations/s outside the tensor cores. The float32 peak
@@ -2869,6 +2908,525 @@ def plugins_cycle(dev, north_star: dict, late) -> dict:
     return {"full_width": full, "cases": cases}
 
 
+# scheduler_binary: every BINARY_VOLUMES-th gang's pods mount one claim
+# each (utils/synth.py:volume_plan: the claims of every 8th such gang
+# match no volume); the schedule period of the binary's candidates; the
+# north star's unmatched gangs
+BINARY_VOLUMES = 32
+BINARY_PERIOD_S = 1.0
+BINARY_CYCLES = 3          # the leader's placing cycle and two steady
+BINARY_WAIT_S = 600.0
+BINARY_CHURN_SEED = 17
+
+
+class CycleRecorder:
+    """Wraps Scheduler.run_once for the binary's threads: the launch count
+    set to 0 just before each cycle and read just after, then the flush
+    waited for and timed; one record a cycle, with the cycle's split."""
+
+    def __init__(self):
+        self.records = []
+        self.errors = []
+        self.cond = threading.Condition()
+        self._orig = Scheduler.run_once
+
+    def __enter__(self):
+        orig = self._orig
+        recorder = self
+
+        def recorded(sched):
+            if sched.elector is not None and not sched.elector.is_leader:
+                return orig(sched)   # a standby's: nothing to count
+            try:
+                gang_allocate_cuda.launches = 0
+                orig(sched)
+                torch.cuda.synchronize()
+                launches = gang_allocate_cuda.launches
+                t0 = time.perf_counter()
+                if not sched.cache.flush_executors(
+                        timeout=cycle_cmd.FLUSH_TIMEOUT_S):
+                    raise RuntimeError("the cache's executor did not drain")
+                flush_ms = (time.perf_counter() - t0) * 1000.0
+                lc = sched.last_cycle
+                rec = {"sched": sched, "launches": launches,
+                       "cycle_ms": lc["cycle_ms"], "flush_ms": flush_ms,
+                       "allocate.stage_ms": lc.get("allocate.stage_ms"),
+                       "volumes.plan_ms": lc.get("volumes.plan_ms"),
+                       "volumes.bind_ms": lc.get("volumes.bind_ms"),
+                       "backfill_ms": lc.get("backfill_ms"),
+                       "kernel_ms": [pl["kernel_ms"] for pl in lc["places"]],
+                       "places": lc["places"], "mode": lc["mode"]}
+            except BaseException as e:
+                # the scheduler's loop would log and go on: the phase
+                # fails instead
+                with recorder.cond:
+                    recorder.errors.append(repr(e))
+                    recorder.cond.notify_all()
+                raise
+            with recorder.cond:
+                recorder.records.append(rec)
+                recorder.cond.notify_all()
+
+        Scheduler.run_once = recorded
+        return self
+
+    def __exit__(self, *exc):
+        Scheduler.run_once = self._orig
+
+    def wait(self, sched, n: int, ctx: str) -> list:
+        """The first ``n`` records of ``sched``'s cycles."""
+        deadline = time.monotonic() + BINARY_WAIT_S
+        with self.cond:
+            while True:
+                if self.errors:
+                    fail(f"scheduler_binary {ctx}: a cycle failed: "
+                         f"{self.errors[0]}")
+                mine = [r for r in self.records if r["sched"] is sched]
+                if len(mine) >= n:
+                    return mine[:n]
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    fail(f"scheduler_binary {ctx}: {len(mine)} of {n} "
+                         f"cycles in {BINARY_WAIT_S:g} s")
+                self.cond.wait(left)
+
+
+def volume_facts(store: ObjectStore) -> dict:
+    """What the volume checks read from the store: each claim's (phase,
+    volume), each volume's (phase, claim), and the claim of each pod that
+    mounts one with its node."""
+    with store._lock:
+        pvcs = {k: (c.phase, c.volume_name) for k, c in
+                store._objects["persistentvolumeclaims"].items()}
+        pvs = {k: (v.phase, v.claim_ref) for k, v in
+               store._objects["persistentvolumes"].items()}
+        mounts = {k: (f"{p.metadata.namespace}/"
+                      f"{p.spec.volumes[0]['persistentVolumeClaim']['claimName']}",
+                      p.spec.node_name)
+                  for k, p in store._objects["pods"].items()
+                  if p.spec.volumes}
+    return {"pvcs": pvcs, "pvs": pvs, "mounts": mounts}
+
+
+def placed(store: ObjectStore):
+    """(binds, PodGroup phases) as the store holds them."""
+    binds, groups = store_state(store)
+    return binds, {k: g[0] for k, g in groups.items()}
+
+
+def check_volumes(store: ObjectStore, n_jobs: int, gang: int,
+                  ctx: str) -> dict:
+    """Every bound pod's claim is Bound to a volume that holds it, no
+    volume holds two claims, every pod of an unmatched gang (volume_plan)
+    is unbound with its claim Pending and its gang not Running, and no
+    volume of the unmatched class is taken. Returns the counts."""
+    facts = volume_facts(store)
+    pvcs, pvs = facts["pvcs"], facts["pvs"]
+    claims, _ = volume_plan(n_jobs, gang, BINARY_VOLUMES)
+    unmatched = {f"default/pg-{j}" for j, _, _, storage, _ in claims
+                 if storage == UNMATCHED_CLAIM}
+    for pod, (claim, node) in facts["mounts"].items():
+        phase, vol = pvcs.get(claim, ("missing", ""))
+        if node and (phase != "Bound" or pvs.get(vol) != ("Bound", claim)):
+            fail(f"{ctx}: {pod} is bound but its claim {claim} is "
+                 f"{phase} on {vol!r} ({pvs.get(vol)})")
+    held = [c for _, c in pvs.values() if c]
+    if len(held) != len(set(held)):
+        fail(f"{ctx}: a claim is held by two volumes")
+    vols = [v for phase, v in pvcs.values() if phase == "Bound"]
+    if len(vols) != len(set(vols)):
+        fail(f"{ctx}: a volume is bound to two claims")
+    binds, groups = store_state(store)
+    for key in unmatched:
+        if groups[key][0] == "Running":
+            fail(f"{ctx}: the unmatched gang {key} runs")
+    unmatched_pods = [p for p, (c, _) in facts["mounts"].items()
+                      if pvcs[c][0] != "Bound"]
+    if any(p in binds for p in unmatched_pods):
+        fail(f"{ctx}: a pod whose claim is unbound is bound")
+    free = [v for v, (phase, c) in pvs.items() if phase == "Available"]
+    for j, t, _, storage, _ in claims:
+        if storage == UNMATCHED_CLAIM and \
+                pvs[f"pv-job{j}-task{t}"] != ("Available", ""):
+            fail(f"{ctx}: the unmatched gang pg-{j}'s volume was taken")
+    return {"claims": len(pvcs), "claims_bound": len(vols),
+            "volumes": len(pvs), "volumes_bound": len(held),
+            "volumes_available": len(free), "unmatched_gangs": len(unmatched),
+            "unmatched_pods": len(unmatched_pods), "binds": len(binds)}
+
+
+def binary_args(conf_path: str):
+    parser = argparse.ArgumentParser()
+    scheduler_cmd.add_flags(parser)
+    return parser.parse_args(["--leader-elect", "--scheduler-conf",
+                              conf_path, "--schedule-period",
+                              str(BINARY_PERIOD_S)])
+
+
+def stop_candidate(sched) -> None:
+    """End a candidate: its elector's loop (which releases the lease), its
+    cycle loop and its cache."""
+    sched.elector.stop(timeout=60.0)
+    sched.stop()
+    if sched.thread is not None:
+        sched.thread.join(BINARY_WAIT_S)
+    sched.cache.stop()
+
+
+def binary_north_star(dev) -> dict:
+    """scheduler_binary (a): the binary at the north star. Two candidates
+    through cmd/scheduler.py:run_scheduler (--leader-elect, a 1 s period)
+    on one store of populate_store(10,000 nodes, 6,250 gangs of 8,
+    volumes=BINARY_VOLUMES) under the default conf plus binpack, read from
+    a file: the leader's placing cycle and two steady ones; the standby's
+    report; the leader released, the standby's takeover with a higher
+    token, a write with the old token fenced, the new leader's cycle
+    keeping the binds; then the conf file rewritten without binpack,
+    which the new leader must run within two watcher intervals."""
+    n_jobs = FULL["n_tasks"] // FULL["gang"]
+    store = ObjectStore()
+    t0 = time.perf_counter()
+    populate_store(store, n_nodes=FULL["n_nodes"], n_jobs=n_jobs,
+                   gang_size=FULL["gang"], volumes=BINARY_VOLUMES)
+    populate_s = time.perf_counter() - t0
+    out = {"populate_s": populate_s}
+    with tempfile.TemporaryDirectory() as tmp, CycleRecorder() as rec:
+        conf_path = f"{tmp}/scheduler.yaml"
+        with open(conf_path, "w") as f:
+            f.write(CYCLE_CONF.format(drf=""))
+        args = binary_args(conf_path)
+        cands = [scheduler_cmd.run_scheduler(store, args) for _ in range(2)]
+        try:
+            deadline = time.monotonic() + 60.0
+            while not any(c.elector.is_leader for c in cands):
+                if time.monotonic() > deadline:
+                    fail("scheduler_binary: no candidate leads")
+                time.sleep(0.01)
+            leader = next(c for c in cands if c.elector.is_leader)
+            standby = next(c for c in cands if c is not leader)
+            if leader.device != dev:
+                fail(f"scheduler_binary: the binary runs on "
+                     f"{leader.device}")
+            runs = rec.wait(leader, BINARY_CYCLES, "leader")
+            if runs[0]["launches"] < 1:
+                fail("scheduler_binary: the placing cycle launched no "
+                     "kernel")
+            check_launches("scheduler_binary placing", runs[0]["launches"],
+                           runs[0]["places"], True)
+            check_binds(store, "scheduler_binary")
+            vols = check_volumes(store, n_jobs, FULL["gang"],
+                                 "scheduler_binary")
+            want = FULL["n_tasks"] - vols["unmatched_gangs"] * FULL["gang"]
+            if vols["binds"] != want or \
+                    vols["claims_bound"] != vols["claims"] - \
+                    vols["unmatched_pods"]:
+                fail(f"scheduler_binary: {vols}, {want} binds wanted")
+            binds_before = placed(store)
+            facts_before = volume_facts(store)
+            # the standby does not schedule, and says why
+            tracer.set_pending_report(None)
+            standby.run_once()
+            report = tracer.pending_report()
+            if report is None or \
+                    report.get("idle_reason") != pending.REASON_NOT_LEADER:
+                fail(f"scheduler_binary: the standby's report {report}")
+            old_token = leader.cache.fence_source()
+            # release: the standby takes over at its next round
+            t_release = time.perf_counter()
+            leader.elector.stop(timeout=60.0)
+            while not standby.elector.is_leader:
+                if time.perf_counter() - t_release > 60.0:
+                    fail("scheduler_binary: the standby did not take over")
+                time.sleep(0.01)
+            takeover_s = time.perf_counter() - t_release
+            new_token = standby.elector.fencing_token
+            if not new_token > old_token or store.fence_floor() != new_token:
+                fail(f"scheduler_binary: token {old_token} -> {new_token}, "
+                     f"floor {store.fence_floor()}")
+            fenced0 = store.fenced_writes
+            pod = store.get("pods", "job0-task0", "default")
+            try:
+                store.update("pods", pod, fence=old_token)
+                fail("scheduler_binary: a write with the old token landed")
+            except FencedError:
+                pass
+            if store.fenced_writes != fenced0 + 1:
+                fail("scheduler_binary: the fenced write was not counted")
+            after = rec.wait(standby, 1, "new leader")[0]
+            if placed(store) != binds_before or \
+                    volume_facts(store) != facts_before:
+                fail("scheduler_binary: the new leader's cycle changed the "
+                     "binds or the volumes")
+            # the conf hot reload
+            with open(conf_path, "w") as f:
+                f.write(CYCLE_CONF.format(drf="").replace(
+                    "  - name: binpack\n", ""))
+            t_write = time.perf_counter()
+            while any(p.name == "binpack" for tier in standby.conf.tiers
+                      for p in tier.plugins):
+                if time.perf_counter() - t_write > 2.5 * BINARY_PERIOD_S:
+                    fail("scheduler_binary: the conf was not reloaded "
+                         "within two watcher intervals")
+                time.sleep(0.01)
+            reload_s = time.perf_counter() - t_write
+        finally:
+            for c in cands:
+                stop_candidate(c)
+    if any(c.thread is not None and c.thread.is_alive() for c in cands):
+        fail("scheduler_binary: a scheduler loop did not end")
+    # Scheduler.run froze the process's objects out of the collector
+    gc.unfreeze()
+    keep = ("launches", "cycle_ms", "flush_ms", "allocate.stage_ms",
+            "volumes.plan_ms", "volumes.bind_ms", "backfill_ms",
+            "kernel_ms", "mode")
+    out.update({
+        "cycles": [{k: r[k] for k in keep} for r in runs],
+        "new_leader_cycle": {k: after[k] for k in keep},
+        "prune": prune_fields(runs[0]["places"]), "volumes": vols,
+        "takeover_s": takeover_s, "tokens": [old_token, new_token],
+        "fenced_writes": store.fenced_writes, "reload_s": reload_s,
+        "standby_reason": report["idle_reason"]})
+    return out
+
+
+def binary_apply_modes(dev) -> dict:
+    """scheduler_binary (b): the deferred apply (the default) against
+    ``apply: eager`` at the north star: one warm cycle each on a fresh
+    store of populate_store(10,000 nodes, 6,250 gangs of 8) under the
+    default conf plus binpack; binds and PodGroups equal."""
+    out = {}
+    states = {}
+    for mode in ("deferred", "eager"):
+        store = ObjectStore()
+        populate_store(store, n_nodes=FULL["n_nodes"],
+                       n_jobs=FULL["n_tasks"] // FULL["gang"],
+                       gang_size=FULL["gang"])
+        cache = SchedulerCache(store)
+        cache.run()
+        conf = CYCLE_CONF.format(drf="")
+        if mode == "eager":
+            conf = with_solver(conf, apply="eager")
+        sched = Scheduler(store, scheduler_conf=conf, cache=cache,
+                          device=dev)
+        gc.collect()
+        gc.freeze()
+        try:
+            gang_allocate_cuda.launches = 0
+            sched.run_once()
+            torch.cuda.synchronize(dev)
+            launches = gang_allocate_cuda.launches
+            flush_ms = flush(cache, f"scheduler_binary {mode}")
+        finally:
+            gc.unfreeze()
+        check_launches(f"scheduler_binary {mode}", launches,
+                       sched.last_cycle["places"], True)
+        check_binds(store, f"scheduler_binary {mode}")
+        lc = sched.last_cycle
+        out[mode] = {"launches": launches, "cycle_ms": lc["cycle_ms"],
+                     "flush_ms": flush_ms,
+                     "allocate_ms": lc["allocate_ms"],
+                     "allocate.stage_ms": lc["allocate.stage_ms"],
+                     "allocate.commit_ms": lc["allocate.commit_ms"],
+                     "backfill_ms": lc["backfill_ms"],
+                     "close_session_ms": lc["close_session_ms"],
+                     "kernel_ms": [pl["kernel_ms"] for pl in lc["places"]]}
+        states[mode] = store_state(store)
+        cache.stop()
+        del store, cache, sched
+        gc.collect()
+    if states["deferred"] != states["eager"]:
+        (ab, ag), (bb, bg) = states["deferred"], states["eager"]
+        fail(f"scheduler_binary: deferred and eager differ in "
+             f"{sum(ab.get(k) != bb.get(k) for k in set(ab) | set(bb))} "
+             f"binds and {sum(ag[k] != bg[k] for k in ag)} PodGroups")
+    binds, groups = states["deferred"]
+    if len(binds) != FULL["n_tasks"]:
+        fail(f"scheduler_binary apply modes: {len(binds)} binds")
+    out["binds"] = len(binds)
+    return out
+
+
+def volume_churn(store, cycle: int, order) -> dict:
+    """scheduler_binary (c)'s churn before ``cycle`` (1 or 2), over MID's
+    two unmatched gangs in the seeded ``order``: before the second cycle,
+    volumes for the claims of the first (it binds then); before the
+    third, one claim of the second deleted (it stays Pending) and two new
+    gangs of 8 whose claims have volumes (they bind)."""
+    n_jobs = MID["n_tasks"] // MID["gang"]
+    claims, _ = volume_plan(n_jobs, MID["gang"], BINARY_VOLUMES)
+    if cycle == 1:
+        for j, t, name, _, cls in claims:
+            if j == order[0]:
+                store.create("persistentvolumes", obj.PersistentVolume(
+                    metadata=obj.ObjectMeta(name=f"late-{name}"),
+                    capacity="600Gi", storage_class=cls))
+        return {"volumes_for": f"pg-{order[0]}"}
+    name = next(n for j, t, n, _, _ in claims if j == order[1])
+    store.delete("persistentvolumeclaims", name, "default")
+    for j in (n_jobs, n_jobs + 1):
+        store.create("podgroups", tu.build_pod_group(
+            f"pg-{j}", "default", "default", MID["gang"], phase="Inqueue"))
+        for t in range(MID["gang"]):
+            claim = f"data-job{j}-task{t}"
+            store.create("persistentvolumeclaims", obj.PersistentVolumeClaim(
+                metadata=obj.ObjectMeta(name=claim, namespace="default"),
+                spec={"resources": {"requests": {"storage": "20Gi"}},
+                      "storageClassName": "standard"}))
+            store.create("persistentvolumes", obj.PersistentVolume(
+                metadata=obj.ObjectMeta(name=f"pv-{claim}"),
+                capacity="25Gi", storage_class="standard"))
+            pod = tu.build_pod("default", f"job{j}-task{t}", "", "Pending",
+                               {"cpu": "2", "memory": "4Gi"},
+                               groupname=f"pg-{j}")
+            pod.spec.volumes = [{"name": "data", "persistentVolumeClaim":
+                                 {"claimName": claim}}]
+            store.create("pods", pod)
+    return {"claim_deleted": name,
+            "new_gangs": [f"pg-{n_jobs}", f"pg-{n_jobs + 1}"]}
+
+
+def binary_card_vs_plain_run(device, case: str) -> list:
+    """scheduler_binary (c) on one device: MID's populate_store cluster
+    with volumes, the executor live, three incremental cycles with
+    volume_churn between them (case ``churn``), or two cycles with the
+    deferred apply of gang pg-1 failing before its commit in the first
+    (case ``apply_failure``). Per cycle: binds, PodGroups, claims and
+    volumes, the churn, launches and ms."""
+    store = ObjectStore()
+    populate_store(store, n_nodes=MID["n_nodes"],
+                   n_jobs=MID["n_tasks"] // MID["gang"],
+                   gang_size=MID["gang"], volumes=BINARY_VOLUMES)
+    cache = SchedulerCache(store)
+    cache.run()
+    sched = Scheduler(store, scheduler_conf=CYCLE_CONF.format(drf=""),
+                      cache=cache, device=device)
+    claims, _ = volume_plan(MID["n_tasks"] // MID["gang"], MID["gang"],
+                            BINARY_VOLUMES)
+    order = [int(j) for j in np.random.default_rng(BINARY_CHURN_SEED)
+             .permutation(sorted({j for j, _, _, storage, _ in claims
+                                  if storage == UNMATCHED_CLAIM}))]
+    apply = statement_mod._DeferredBatch.apply
+    failed = []
+
+    def failing_apply(op, ssn):
+        if op.job.name == "pg-1" and not failed:
+            failed.append(op.job.name)
+            raise RuntimeError("injected deferred apply failure")
+        return apply(op, ssn)
+
+    rows = []
+    cycles = 3 if case == "churn" else 2
+    session_log = logging.getLogger("volcano_tpu_torch.framework.session")
+    level = session_log.level
+    try:
+        for c in range(cycles):
+            churn = volume_churn(store, c, order) \
+                if case == "churn" and c else None
+            if case == "apply_failure" and c == 0:
+                statement_mod._DeferredBatch.apply = failing_apply
+                # the failure's expected traceback stays off the output
+                session_log.setLevel(logging.CRITICAL)
+            gang_allocate_cuda.launches = 0
+            try:
+                sched.run_once()
+            finally:
+                statement_mod._DeferredBatch.apply = apply
+                session_log.setLevel(level)
+            launches = gang_allocate_cuda.launches
+            flush_ms = flush(cache, f"scheduler_binary {case} cycle {c}")
+            binds, groups = store_state(store)
+            facts = volume_facts(store)
+            rows.append({"binds": binds, "groups": groups,
+                         "pvcs": facts["pvcs"], "pvs": facts["pvs"],
+                         "churn": churn, "failed": list(failed),
+                         "launches": launches,
+                         "cycle_ms": sched.last_cycle["cycle_ms"],
+                         "flush_ms": flush_ms})
+        check_binds(store, f"scheduler_binary {case}")
+    finally:
+        cache.stop()
+    return rows
+
+
+def binary_card_vs_plain(dev) -> dict:
+    """scheduler_binary (c): the card against the plain loop at 4,096
+    pods x 2,048 nodes with volumes, equal in binds, PodGroups, claims
+    and volumes after every cycle, in both cases of
+    binary_card_vs_plain_run."""
+    out = {}
+    for case in ("churn", "apply_failure"):
+        card = binary_card_vs_plain_run(dev, case)
+        plain = binary_card_vs_plain_run(torch.device("cpu"), case)
+        keys = ("binds", "groups", "pvcs", "pvs", "churn", "failed")
+        for c, (a, b) in enumerate(zip(card, plain)):
+            diff = [k for k in keys if a[k] != b[k]]
+            if diff:
+                fail(f"scheduler_binary {case} cycle {c}: the card's and "
+                     f"the plain loop's {diff} differ")
+        if case == "churn":
+            late = card[1]["churn"]["volumes_for"]
+            if card[0]["launches"] < 1 or \
+                    card[0]["groups"][f"default/{late}"][0] == "Running" or \
+                    card[1]["groups"][f"default/{late}"][0] != "Running":
+                fail(f"scheduler_binary churn: {late} did not wait for its "
+                     f"volumes and then bind")
+            for g in card[2]["churn"]["new_gangs"]:
+                if card[2]["groups"][f"default/{g}"][0] != "Running":
+                    fail(f"scheduler_binary churn: the new gang {g} did "
+                         f"not bind")
+            deleted = card[2]["churn"]["claim_deleted"]
+            gone = f"default/pg-{deleted.split('-')[1][3:]}"
+            if f"default/{deleted}" in card[2]["pvcs"] or \
+                    card[2]["groups"][gone][0] == "Running":
+                fail(f"scheduler_binary churn: {gone} runs without its "
+                     f"deleted claim")
+        else:
+            first, second = card
+            if first["failed"] != ["pg-1"] or \
+                    first["groups"]["default/pg-1"][0] == "Running" or \
+                    any(k.startswith("default/job1-") for k in first["binds"]) \
+                    or second["groups"]["default/pg-1"][0] != "Running":
+                fail(f"scheduler_binary apply_failure: pg-1 "
+                     f"{first['groups']['default/pg-1'][0]} then "
+                     f"{second['groups']['default/pg-1'][0]}")
+        out[case] = {
+            "cycles": len(card),
+            "binds": [len(r["binds"]) for r in card],
+            "claims_bound": [sum(p == "Bound" for p, _ in r["pvcs"].values())
+                             for r in card],
+            "churn": [r["churn"] for r in card],
+            "kernel_launches": [r["launches"] for r in card],
+            "cycle_ms": [r["cycle_ms"] for r in card],
+            "flush_ms": [r["flush_ms"] for r in card],
+            "plain_cycle_ms": [r["cycle_ms"] for r in plain],
+            "mismatches": 0}
+        line("scheduler_binary", part="card_vs_plain", case=case,
+             shape={"tasks": MID["n_tasks"], "nodes": MID["n_nodes"],
+                    "gang": MID["gang"], "volumes_every": BINARY_VOLUMES},
+             **out[case])
+    return out
+
+
+def scheduler_binary(dev) -> dict:
+    """Phase 15f: the scheduler binary (cmd/scheduler.py) with leader
+    election, the conf hot reload, the deferred apply and the store's
+    volume binder, through the gang-allocate kernel: (a)
+    binary_north_star, (b) binary_apply_modes, (c) binary_card_vs_plain."""
+    t_phase = time.perf_counter()
+    full = binary_north_star(dev)
+    line("scheduler_binary", part="north_star",
+         shape={"tasks": FULL["n_tasks"], "nodes": FULL["n_nodes"],
+                "gang": FULL["gang"], "volumes_every": BINARY_VOLUMES},
+         **full)
+    modes = binary_apply_modes(dev)
+    line("scheduler_binary", part="apply_modes",
+         shape={"tasks": FULL["n_tasks"], "nodes": FULL["n_nodes"],
+                "gang": FULL["gang"]}, **modes)
+    cases = binary_card_vs_plain(dev)
+    return {"north_star": full, "apply_modes": modes, "cases": cases,
+            "seconds": time.perf_counter() - t_phase}
+
+
 def main() -> None:
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(dev)
@@ -3052,6 +3610,7 @@ def main() -> None:
     # early, so that the plain loop on its full-width launch runs on the
     # host while the later phases run on the card
     plugins = plugins_cycle(dev, warm[-1], late)
+    binary = scheduler_binary(dev)
 
     victims_vs_plain()
     preempt = victim_cycle("preempt")
@@ -3107,6 +3666,19 @@ def main() -> None:
                      for h in plugins["full_width"]["runs"][0]["held"]],
             "cases_launches": {c: v["kernel_launches"]
                                for c, v in plugins["cases"].items()}},
+        "scheduler_binary": {
+            "launches": [r["launches"]
+                         for r in binary["north_star"]["cycles"]],
+            "kernel_ms": [r["kernel_ms"]
+                          for r in binary["north_star"]["cycles"]],
+            "new_leader_launches": binary["north_star"][
+                "new_leader_cycle"]["launches"],
+            "apply_modes_launches": {
+                m: binary["apply_modes"][m]["launches"]
+                for m in ("deferred", "eager")},
+            "cases_launches": {c: v["kernel_launches"]
+                               for c, v in binary["cases"].items()},
+            "seconds": binary["seconds"]},
         "launches_per_preempt_cycle": preempt["launches"],
         "launches_per_reclaim_cycle": reclaim["launches"],
         "preempt_cycle_kernel_ms": [pl["kernel_ms"]

@@ -28,9 +28,10 @@ print(' '.join(names))
 """
 
 # the packages of the scheduling cycle the walk must reach, the
-# placement-constraint layer, the preempt/reclaim path, candidate pruning
-# and the observability layer (tracer, ledger, why-pending, explainer,
-# metrics, their time series and server) included
+# placement-constraint layer, the preempt/reclaim path, candidate pruning,
+# the observability layer (tracer, ledger, why-pending, explainer,
+# metrics, their time series and server) and the scheduler binary with
+# its conf watcher and leader election included
 CYCLE_MODULES = ("volcano_tpu_torch.apiserver.store",
                  "volcano_tpu_torch.cache.cache",
                  "volcano_tpu_torch.actions.allocate",
@@ -53,7 +54,10 @@ CYCLE_MODULES = ("volcano_tpu_torch.apiserver.store",
                  "volcano_tpu_torch.metrics.timeseries",
                  "volcano_tpu_torch.metrics.server",
                  "volcano_tpu_torch.scheduler",
-                 "volcano_tpu_torch.cmd.cycle")
+                 "volcano_tpu_torch.cmd.cycle",
+                 "volcano_tpu_torch.cmd.scheduler",
+                 "volcano_tpu_torch.utils.filewatcher",
+                 "volcano_tpu_torch.utils.leaderelection")
 
 
 def _is_reference(module: str) -> bool:
@@ -67,7 +71,7 @@ def test_every_port_module_imports_without_jax_or_reference():
     assert out.returncode == 0, out.stderr
     first, walked = out.stdout.strip().split("\n")
     count, leaked = first.split(" ", 1)
-    assert int(count) >= 75, out.stdout
+    assert int(count) >= 95, out.stdout
     assert leaked == "[]", leaked
     assert set(CYCLE_MODULES) <= set(walked.split()), walked
 

@@ -303,11 +303,15 @@ class AllocateAction(Action):
             bulk.append((job, items))
 
         if bulk:
-            failed = self._stage_bulk(ssn, bulk, staged)
+            failed = self._stage_bulk(ssn, bulk, staged, result_a)
             # fallbacks re-stage in phase-A priority order with the rest
             slow.extend((pos_of[job.uid], job, pls) for job, pls in failed)
             slow.sort(key=lambda e: e[0])
 
+        if slow:
+            # the per-task staging checks against live node state, so the
+            # deferred placements are applied first
+            ssn.materialize()
         for _, job, pls in slow:
             stmt = Statement(ssn)
             try:
@@ -320,12 +324,50 @@ class AllocateAction(Action):
             staged[job.uid] = stmt
         return staged
 
-    def _stage_bulk(self, ssn, bulk, staged: Dict[str, Statement]) -> List:
+    def _stage_bulk(self, ssn, bulk, staged: Dict[str, Statement],
+                    result) -> List:
         """Apply ``bulk`` = [(job, [(task, node, pipelined)])] with
         per-node accounting. Returns the jobs that must retry on the
         per-job path (as (job, placements-like) pairs rebuilt lazily).
         On any unexpected apply failure everything staged here is undone
-        and ALL bulk jobs are returned for the per-job path."""
+        and ALL bulk jobs are returned for the per-job path.
+
+        Under the deferred apply (the default) each gang is only recorded
+        (``Statement.record_batch_deferred``: node_name markers and the
+        job's deltas) and its staging runs at ``Session.materialize``."""
+        if ssn.solver.deferred_apply:
+            # the deferred fast path: the kernel's vectorized totals stand
+            # in for the per-task Resource sums, and the fit check is one
+            # array compare, which fails only on internal drift and then
+            # routes the gangs on those nodes to the per-job path
+            rindex = ssn.solver.rindex
+            narr = result.narr
+            failed_uids = set()
+            if result.node_alloc_vec is not None:
+                over = (result.node_alloc_vec >
+                        narr.idle + rindex.eps[None, :]).any(axis=1)
+                if over.any():
+                    bad = {narr.names[i] for i in np.flatnonzero(over)
+                           if i < len(narr.names)}
+                    for job, items in bulk:
+                        if any((not p) and node.name in bad
+                               for _, node, p in items):
+                            failed_uids.add(job.uid)
+            for job, items in bulk:
+                if job.uid in failed_uids:
+                    continue
+                for t, node, pipelined in items:
+                    t.node_name = node.name
+                stmt = Statement(ssn)
+                vec = result.job_total_vec.get(job.uid)
+                stmt.record_batch_deferred(
+                    job, items,
+                    total=rindex.resource(vec) if vec is not None
+                    else None)
+                staged[job.uid] = stmt
+            return [(job, [Placement(t, n.name, p) for t, n, p in items])
+                    for job, items in bulk if job.uid in failed_uids]
+
         # upfront fit validation per (node, allocated) group; the group
         # totals are kept and reused by add_tasks_bulk below
         groups: Dict[int, tuple] = {}

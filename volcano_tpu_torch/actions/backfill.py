@@ -23,6 +23,7 @@ class BackfillAction(Action):
         return "backfill"
 
     def execute(self, ssn) -> None:
+        ssn.materialize()   # Pending scans must not see deferred placements
         ineligible = ssn.ineligible_binds
         jobs_tasks = []
         for job in list(ssn.jobs.values()):

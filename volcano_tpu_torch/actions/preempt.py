@@ -15,8 +15,8 @@ all-nodes feasibility pass plus plugin filtering for the few nodes actually
 visited in score order — instead of the reference's per-preemptor
 full-cluster sweeps. The context's placements by victim-selection path
 add into ``ssn.victim_runs``. Bind-ineligible pods (quarantine, backoff;
-``ssn.ineligible_binds``) trigger no preemption. The reference's metrics
-and trace spans are not ported.
+``ssn.ineligible_binds``) trigger no preemption. The preemption attempts
+and victims metrics and the reference's trace spans are recorded.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ class PreemptAction(Action):
         return "preempt"
 
     def execute(self, ssn) -> None:
+        ssn.materialize()   # Pending scans must not see deferred placements
         # preemption metrics, flushed once: attempts (a counter) and the
         # victims of the last successful placement (a gauge). Local state:
         # the registered action is a process-wide singleton.

@@ -34,6 +34,10 @@ class ReclaimAction(Action):
         return "reclaim"
 
     def execute(self, ssn) -> None:
+        # deferred placements must be real before the Pending scans below
+        # collect reclaimers (a deferred task is still Pending in the
+        # status index and would be placed twice)
+        ssn.materialize()
         queue_list = []
         queue_seen = set()
         preemptors_map: Dict[str, List[JobInfo]] = {}

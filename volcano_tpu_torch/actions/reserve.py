@@ -26,9 +26,7 @@ class ReserveAction(Action):
             return
         RESERVATION.target_job = target
         if not target.ready():
-            # the reference applies its deferred placements first
-            # (ssn.materialize()) so that node idle includes them; this
-            # port stages placements eagerly, so idle already does
+            ssn.materialize()   # node idle must include deferred placements
             ssn.reserved_nodes()
         else:
             RESERVATION.reset()

@@ -39,8 +39,10 @@ from ..trace import tracer
 from ..utils.clock import GLOBAL_CLOCK, Clock
 from ..utils.fastclone import fast_clone
 
-NAMESPACED = {"pods", "podgroups", "resourcequotas"}
-CLUSTER_SCOPED = {"nodes", "queues", "priorityclasses", "numatopologies"}
+NAMESPACED = {"pods", "podgroups", "resourcequotas", "configmaps",
+              "persistentvolumeclaims"}
+CLUSTER_SCOPED = {"nodes", "queues", "priorityclasses", "numatopologies",
+                  "persistentvolumes"}
 KINDS = NAMESPACED | CLUSTER_SCOPED
 
 # the shared worker pool of the sharded patch's clone phase: module-wide,

@@ -55,7 +55,11 @@ scheduler-side views from it (``refresh_numa_scheduler_info``), and the
 numa-aware plugin writes the CPU sets it assigned back at session close
 (``update_scheduler_numa_info``), dirtying those nodes.
 
-Left out of this port: the volume binder.
+Volumes: the default ``volume_binder`` is ``StoreVolumeBinder(store)``, as
+in the reference: a pod whose claim matches no PV fails its staging and
+stays Pending. Its PV and PVC writes carry the fencing token too (the
+reference's do not). Pass ``NullVolumeBinder()`` to count every volume as
+bound.
 """
 
 from __future__ import annotations
@@ -85,8 +89,8 @@ from ..utils import gcguard
 from ..utils.backoff import seeded_backoff
 from ..utils.fastclone import fast_clone
 from .event_handlers import EventHandlersMixin
-from .interface import (NullVolumeBinder, StoreBinder, StoreEvictor,
-                        StoreStatusUpdater)
+from .interface import (StoreBinder, StoreEvictor, StoreStatusUpdater,
+                        StoreVolumeBinder)
 
 log = logging.getLogger(__name__)
 
@@ -192,7 +196,7 @@ class SchedulerCache(EventHandlersMixin):
         self.status_updater = (status_updater if status_updater is not None
                                else StoreStatusUpdater(store))
         self.volume_binder = volume_binder if volume_binder is not None \
-            else NullVolumeBinder()
+            else StoreVolumeBinder(store, fence_source=self._current_fence)
 
         self.mutex = threading.RLock()
         self.err_tasks: deque = deque()      # resync queue (cache.go:116)

@@ -1,10 +1,9 @@
 """Cache-facing executor interfaces (counterpart of
 volcano_tpu/cache/interface.py; reference: pkg/scheduler/cache/
 interface.go:29-100): Binder, Evictor, StatusUpdater, plus the
-store-backed binder, evictor and status updater and the no-op volume
-binder.
-The PV/PVC volume binder is not ported: every pod's volumes count as
-ready."""
+store-backed binder, evictor and status updater, and the volume binders:
+``StoreVolumeBinder``, the cache's default, binds PVCs to PVs through the
+store; ``NullVolumeBinder`` counts every pod's volumes as ready."""
 
 from __future__ import annotations
 
@@ -165,3 +164,155 @@ class NullVolumeBinder:
 
     def release_volumes(self, task, pod_volumes) -> None:
         return None
+
+
+class PodVolumes:
+    """Planned PVC -> PV bindings of one task on one node (the reference's
+    scheduling.PodVolumes, cache/interface.go:56-74)."""
+
+    def __init__(self, bindings=None):
+        # [(pvc key "ns/name", pv name)]
+        self.bindings = bindings or []
+
+
+class VolumeBindError(RuntimeError):
+    """No PV for a claim: a RuntimeError, so the allocate action's staging
+    treats it as a placement failure."""
+
+
+class StoreVolumeBinder:
+    """The PV/PVC flow against store objects (the reference's
+    volumebinding-backed defaultVolumeBinder, cache/cache.go
+    GetPodVolumes/AllocateVolumes/BindVolumes):
+
+    * ``get_pod_volumes``: for each unbound PVC the pod mounts, the
+      smallest Available PV of enough capacity, of the claim's storage
+      class and reachable from the node, that no placement of this cycle
+      has assumed;
+    * ``allocate_volumes``: assume the planned PVs, so that two placements
+      of one cycle cannot book one PV, and pods that share a claim ride
+      one binding;
+    * ``bind_volumes``: write PV ``claim_ref``/``phase`` and PVC
+      ``volume_name``/``phase`` through the store (the API bind);
+    * ``release_volumes``: drop the assumptions on a statement rollback.
+
+    ``fence_source`` (the cache's, when the cache builds the binder) gives
+    the leader's fencing token for the PV and PVC writes, as for the pod
+    binds: a deposed leader's volume bind raises FencedError and leaves
+    both objects as they were.
+    """
+
+    def __init__(self, store, fence_source=None):
+        self.store = store
+        self.fence_source = fence_source
+        self._assumed: set = set()       # pv names reserved in the cycle
+        self._assumed_pvc: set = set()   # pvc keys planned in the cycle
+
+    def reset_assumptions(self) -> None:
+        """Forget every assumption. The reference defines it for the
+        snapshot (assumptions that never reached a bind, a kept pipelined
+        gang's, would otherwise outlive the cycle) but calls it nowhere;
+        neither does this port."""
+        self._assumed.clear()
+        self._assumed_pvc.clear()
+
+    @staticmethod
+    def _pvc_names(pod) -> list:
+        names = []
+        for vol in pod.spec.volumes:
+            vol = vol or {}
+            # k8s' {"persistentVolumeClaim": {"claimName": ...}} and the
+            # job controller's {"pvc": <claim>}
+            claim = vol.get("persistentVolumeClaim")
+            if claim and claim.get("claimName"):
+                names.append(claim["claimName"])
+            elif vol.get("pvc"):
+                names.append(vol["pvc"])
+        return names
+
+    def get_pod_volumes(self, task, node):
+        pvc_names = self._pvc_names(task.pod)
+        if not pvc_names:
+            return None
+        node_name = node.metadata.name if node is not None else ""
+        bindings = []
+        planned = set()
+        for name in pvc_names:
+            pvc_key = f"{task.namespace}/{name}"
+            pvc = self.store.get("persistentvolumeclaims", name,
+                                 task.namespace)
+            if pvc is None:
+                raise VolumeBindError(f"pvc {pvc_key} not found")
+            if pvc.phase == "Bound" and pvc.volume_name:
+                continue   # already bound: nothing to plan
+            if pvc_key in self._assumed_pvc:
+                # another placement of this cycle binds it; pods that
+                # share the claim ride that binding
+                continue
+            pv_name = self._find_pv(pvc, node_name, planned)
+            if pv_name is None:
+                raise VolumeBindError(
+                    f"no available PV for pvc {pvc_key} on node "
+                    f"{node_name}")
+            planned.add(pv_name)
+            bindings.append((pvc_key, pv_name))
+        return PodVolumes(bindings)
+
+    def _find_pv(self, pvc, node_name: str, planned: set) -> Optional[str]:
+        """The name of the smallest fitting PV (k8s' smallest fit; the
+        first in store order on a tie), or None. Reads the stored PVs
+        without copying them."""
+        want = pvc.requested_bytes()
+        cls = pvc.storage_class()
+        best = None
+        best_bytes = 0.0
+        for pv in self.store.list_refs("persistentvolumes"):
+            name = pv.metadata.name
+            if pv.phase != "Available" or pv.claim_ref:
+                continue
+            if name in self._assumed or name in planned:
+                continue
+            if cls and pv.storage_class != cls:
+                continue
+            if pv.node_affinity and node_name not in pv.node_affinity:
+                continue
+            cap = pv.capacity_bytes()
+            if cap < want:
+                continue
+            if best is None or cap < best_bytes:
+                best, best_bytes = name, cap
+        return best
+
+    def allocate_volumes(self, task, hostname, pod_volumes) -> None:
+        if pod_volumes is None:
+            return
+        for pvc_key, pv_name in pod_volumes.bindings:
+            self._assumed.add(pv_name)
+            self._assumed_pvc.add(pvc_key)
+
+    def release_volumes(self, task, pod_volumes) -> None:
+        if pod_volumes is None:
+            return
+        for pvc_key, pv_name in pod_volumes.bindings:
+            self._assumed.discard(pv_name)
+            self._assumed_pvc.discard(pvc_key)
+
+    def bind_volumes(self, task, pod_volumes) -> None:
+        if pod_volumes is None:
+            return
+        fence = self.fence_source() if self.fence_source is not None \
+            else None
+        for pvc_key, pv_name in pod_volumes.bindings:
+            ns, name = pvc_key.split("/", 1)
+            pv = self.store.get("persistentvolumes", pv_name)
+            pvc = self.store.get("persistentvolumeclaims", name, ns)
+            if pv is None or pvc is None:
+                continue
+            pv.claim_ref = pvc_key
+            pv.phase = "Bound"
+            self.store.update("persistentvolumes", pv, fence=fence)
+            pvc.volume_name = pv_name
+            pvc.phase = "Bound"
+            self.store.update("persistentvolumeclaims", pvc, fence=fence)
+            self._assumed.discard(pv_name)
+            self._assumed_pvc.discard(pvc_key)

@@ -4,7 +4,7 @@
         [--queues 1] [--warm 1] [--device cpu] \\
         [--zones 8 --spread-every 4 --anti-every 8] \\
         [--scenario {default,preempt,reclaim,example-conf}] [--trace] \\
-        [--commit {live,alternate}]
+        [--commit {live,alternate}] [--apply {deferred,eager,alternate}]
 
 With ``--scenario default`` (the default), each run builds a fresh store
 with ``populate_store(n_nodes, n_jobs=tasks // 8, gang_size=8)`` over
@@ -58,6 +58,14 @@ through :class:`InlineCache`, whose executor never starts (the
 synchronous commit of a cache before ``run()``). ``--commit alternate``
 times the two against each other: a live cold run, then warm runs in
 live, inline, inline, live order, so that a drift of the host cancels.
+
+Every run's entry also names its ``apply``: ``deferred`` (the default, as
+in the reference: allocate records the placed gangs and their staging
+runs at the first ``Session.materialize``, under the default conf
+backfill's) or ``eager`` (the solver's ``apply: eager``: allocate stages
+them). ``--apply alternate`` times the two against each other in the same
+order: a deferred cold run, then warm runs in deferred, eager, eager,
+deferred order.
 """
 
 from __future__ import annotations
@@ -127,8 +135,12 @@ EXAMPLE_CONF = os.path.join(
 
 SCENARIOS = ("default", "preempt", "reclaim", "example-conf")
 COMMITS = ("live", "alternate")
-# the warm runs' order under --commit alternate
+APPLIES = ("deferred", "eager", "alternate")
+# the warm runs' order under --commit alternate and --apply alternate
 ALTERNATION = ("live", "inline", "inline", "live")
+APPLY_ALTERNATION = ("deferred", "eager", "eager", "deferred")
+EAGER_APPLY = ("configurations:\n- name: solver\n"
+               "  arguments: {apply: eager}\n")
 
 # how long a run waits for the cache's executor to drain a cycle's writes
 FLUSH_TIMEOUT_S = 300.0
@@ -165,11 +177,12 @@ def populate_scenario(store, scenario: str, n_nodes: int) -> str:
 def run_cycle(n_tasks: int, n_nodes: int, n_queues: int = 1,
               device=None, zones: int = 0, spread_every: int = 0,
               anti_every: int = 0, scenario: str = "default",
-              commit: str = "live") -> dict:
+              commit: str = "live", apply: str = "deferred") -> dict:
     """One cycle on a fresh store: populate, sync the cache, run_once,
     its commit written by the cache's executor (``commit="live"``) or
-    inline in the cycle (``"inline"``). Returns the timings and counts,
-    and the store (key ``store``)."""
+    inline in the cycle (``"inline"``), its staging deferred
+    (``apply="deferred"``) or eager (``"eager"``). Returns the timings
+    and counts, and the store (key ``store``)."""
     device = default_device(device)
     store = ObjectStore()
     t0 = time.perf_counter()
@@ -183,6 +196,8 @@ def run_cycle(n_tasks: int, n_nodes: int, n_queues: int = 1,
         conf = example_conf() if scenario == "example-conf" else CONF
     else:
         conf = populate_scenario(store, scenario, n_nodes)
+    if apply == "eager":
+        conf = conf.rstrip("\n") + "\n" + EAGER_APPLY
     t1 = time.perf_counter()
     cache = (InlineCache if commit == "inline" else SchedulerCache)(store)
     cache.run()
@@ -214,7 +229,7 @@ def run_cycle(n_tasks: int, n_nodes: int, n_queues: int = 1,
     binds = sum(1 for p in pods if p.spec.node_name)
     committed = sum(1 for g in store.list("podgroups")
                     if g.status.phase == "Running")
-    out = {"commit": commit, "populate_s": t1 - t0, "sync_s": t2 - t1,
+    out = {"commit": commit, "apply": apply, "populate_s": t1 - t0, "sync_s": t2 - t1,
            **sched.last_cycle, "flush_ms": flush_ms,
            "binds": binds, "committed_gangs": committed,
            "evictions": cache.evictions, "store": store}
@@ -268,6 +283,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "statuses: the cache's executor after the cycle "
                          "(live), or, alternated over the warm runs, it and "
                          "the cycle itself (inline)")
+    ap.add_argument("--apply", choices=APPLIES, default="deferred",
+                    help="the placed gangs' staging: deferred to the "
+                         "first materialize (the default), eager in "
+                         "allocate, or the two alternated over the warm "
+                         "runs")
     ap.add_argument("--trace", action="store_true",
                     help="record each cycle with the flight recorder and "
                          "print its span split")
@@ -283,10 +303,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         if commit == "alternate":
             commit = "live" if i == 0 else \
                 ALTERNATION[(i - 1) % len(ALTERNATION)]
+        apply = opts.apply
+        if apply == "alternate":
+            apply = "deferred" if i == 0 else \
+                APPLY_ALTERNATION[(i - 1) % len(APPLY_ALTERNATION)]
         r = run_cycle(opts.tasks, opts.nodes, opts.queues, device,
                       zones=opts.zones, spread_every=opts.spread_every,
                       anti_every=opts.anti_every, scenario=opts.scenario,
-                      commit=commit)
+                      commit=commit, apply=apply)
         r.pop("store")
         runs.append(r)
     print(json.dumps({

@@ -172,7 +172,7 @@ def job_status(ssn: Session, job: JobInfo):
     if running and unschedulable:
         phase = PodGroupPhase.UNKNOWN
     else:
-        allocated = 0
+        allocated = job.deferred_alloc
         for st, tasks in job.task_status_index.items():
             if allocated_status(st) or st == TaskStatus.Succeeded:
                 allocated += len(tasks)

@@ -11,12 +11,18 @@ eviction at once).
 
 ``ssn.solver`` (framework/solver.py) is the batched task x node placement
 context that the builtin plugins feed masks and score terms into; it runs
-the gang-allocate kernel on the session's device. Placements are staged
-into the session's objects as they are made (there is no deferred apply).
+the gang-allocate kernel on the session's device. Under the default
+``apply: deferred`` the allocate action records each placed gang as
+``task.node_name`` markers plus the job's ``deferred_alloc`` and
+``deferred_pipe`` deltas, and the object-model staging (status moves, node
+accounting, pod spec writes) runs at :meth:`Session.materialize`, when
+something reads placement state: a context build, a later action, gang's
+unready report. ``apply: eager`` stages as the placements are made.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 import uuid
 from typing import Callable, Dict, List, Optional
@@ -102,6 +108,9 @@ _ENABLE_FOR = {
 }
 
 
+_session_log = logging.getLogger(__name__)
+
+
 class Session:
     """One scheduling cycle's context."""
 
@@ -133,6 +142,11 @@ class Session:
         self._victims_chain_cache: Dict[str, list] = {}
         # the placement solver (framework/solver.py), built by open_session
         self.solver = None
+        # the deferred-apply queue (materialize): job uid -> its staged
+        # gangs whose object-model apply is postponed, in staging order.
+        # The readiness rollups stay exact through the jobs' deferred
+        # deltas.
+        self._deferred_ops: Dict[str, List[object]] = {}
         # open_session fills these: the cluster total and the PodGroup
         # status fingerprints taken before the session changed anything
         self.total_resource: Resource = Resource()
@@ -162,6 +176,74 @@ class Session:
         # (quarantine, bind-failure backoff), each with its reason; set by
         # open_session, skipped by the placing actions
         self.ineligible_binds: dict = {}
+
+    # ------------------------------------------------------------------
+    # deferred apply (the allocate action's fast path)
+    # ------------------------------------------------------------------
+
+    def defer_apply(self, op) -> None:
+        """Queue a staged gang (a statement ``_DeferredBatch``) for its
+        object-model apply at materialize."""
+        self._deferred_ops.setdefault(op.job.uid, []).append(op)
+
+    def _apply_deferred(self, op) -> None:
+        try:
+            op.apply(self)
+        except Exception:
+            # the kernel checked these fits against this snapshot, so a
+            # failed apply is internal drift; apply() undid its partial
+            # work. Going on with the deltas alone would leave node
+            # accounting without the gang while the rollups count it.
+            if op.committed:
+                # the binds already went to the cache and the pods are
+                # binding: the deltas stand, node accounting stays
+                # optimistic for the rest of the cycle, and the cache
+                # reconverges from the store
+                _session_log.exception(
+                    "deferred apply failed for job %s after its binds were "
+                    "dispatched; keeping delta-based accounting", op.job.uid)
+            else:
+                # not committed: drop the gang (reverse the deltas, clear
+                # the node_name markers, fire the deallocate events) and
+                # mark the op dead, so commit skips its binds and discard
+                # its un-stage; it is Pending again next cycle
+                _session_log.exception(
+                    "deferred apply failed for job %s; dropping the gang "
+                    "(it re-enters as Pending next cycle)", op.job.uid)
+                op.drop(self)
+                op.dead = True
+
+    def materialize(self) -> None:
+        """Apply every deferred gang to the session's objects, in staging
+        order. Called by whatever reads placement state: the solver's
+        context build, the later actions, gang's unready report. Does
+        nothing when nothing is deferred."""
+        if not self._deferred_ops:
+            return
+        by_job, self._deferred_ops = self._deferred_ops, {}
+        for ops in by_job.values():
+            for op in ops:
+                self._apply_deferred(op)
+
+    def materialize_job(self, job) -> None:
+        """Apply only one job's deferred gangs (gang's unready report
+        reads single jobs)."""
+        for op in self._deferred_ops.pop(job.uid, ()):
+            self._apply_deferred(op)
+
+    def pipelined_tasks(self) -> Dict[str, str]:
+        """"namespace/name" -> node of every task the session holds
+        Pipelined, the deferred ones (still Pending in the status index)
+        included."""
+        out = {t.key(): t.node_name for job in self.jobs.values()
+               for t in job.task_status_index.get(
+                   TaskStatus.Pipelined, {}).values()}
+        for ops in self._deferred_ops.values():
+            for op in ops:
+                if not op.applied:
+                    out.update((t.key(), node.name)
+                               for t, node, p in op.items if p)
+        return out
 
     def add_timing(self, name: str, since: float) -> float:
         """Add the wall time since ``since`` (a perf_counter reading) to
@@ -507,11 +589,10 @@ class Session:
         """Assign onto idle resources; dispatches the whole gang to the cache
         binder once the job is ready (session.go:281-331)."""
         hostname = node_info.name
-        pod_volumes = self.cache.volume_binder.get_pod_volumes(task, node_info.node) \
-            if self.cache is not None else None
         if self.cache is not None:
-            self.cache.volume_binder.allocate_volumes(task, hostname, pod_volumes)
-        task.pod_volumes = pod_volumes
+            self.plan_volumes(task, hostname, node_info.node)
+        else:
+            task.pod_volumes = None
         task.pod.spec.node_name = hostname
         job = self.jobs.get(task.job)
         if job is None:
@@ -529,12 +610,31 @@ class Session:
             for t in list(job.task_status_index.get(TaskStatus.Allocated, {}).values()):
                 self.dispatch(t, t.pod_volumes)
 
+    def plan_volumes(self, task: TaskInfo, hostname: str, node) -> None:
+        """Plan and assume ``task``'s volumes on ``hostname`` through the
+        cache's binder into ``task.pod_volumes``; raises VolumeBindError
+        when a claim has no PV. A pod that mounts volumes adds its time
+        to ``timings['volumes.plan']``."""
+        binder = self.cache.volume_binder
+        tick = time.perf_counter()
+        try:
+            pod_volumes = binder.get_pod_volumes(task, node)
+            binder.allocate_volumes(task, hostname, pod_volumes)
+        finally:
+            if task.has_volumes:
+                self.add_timing("volumes.plan", tick)
+        task.pod_volumes = pod_volumes
+
     def dispatch(self, task: TaskInfo, volumes=None) -> None:
-        """Send a session-allocated task to the cache for real binding."""
+        """Send a session-allocated task to the cache for real binding;
+        its volume bind writes add to ``timings['volumes.bind']``."""
         if self.cache is not None:
-            self.cache.volume_binder.bind_volumes(task, volumes
-                                                  if volumes is not None
-                                                  else task.pod_volumes)
+            if volumes is None:
+                volumes = task.pod_volumes
+            tick = time.perf_counter()
+            self.cache.volume_binder.bind_volumes(task, volumes)
+            if volumes is not None:
+                self.add_timing("volumes.bind", tick)
             self.cache.bind(task, task.node_name)
         job = self.jobs.get(task.job)
         if job is not None:

@@ -399,6 +399,12 @@ class PlacementResult:
     kept: Dict[str, bool]                       # job uid -> JobPipelined (keep)
     placements: Dict[str, List[Placement]]      # job uid -> placements
     unplaced: Dict[str, List[TaskInfo]]         # job uid -> tasks left pending
+    # the deferred staging's vectorized accounting (one array sum in place
+    # of a Resource.add per placed task): the context's node arrays, the
+    # per-job placed totals and the per-node allocated claims, scaled
+    narr: Optional[NodeArrays] = None
+    job_total_vec: Optional[Dict[str, np.ndarray]] = None  # uid -> [R]
+    node_alloc_vec: Optional[np.ndarray] = None  # [N_pad, R]
 
 
 class BatchSolver:
@@ -406,10 +412,14 @@ class BatchSolver:
     default the GPU, which raises when there is none).
 
     Conf (``configurations: [{name: solver, arguments: {...}}]``): the
-    reference's keys that only choose among exact kernels or apply modes
-    that give the same binds (``kernel``, ``mesh.*``, ``breaker.window``,
-    ``apply``) are accepted and ignored: this port runs one kernel per
-    device and stages placements eagerly. ``prune.*`` is candidate pruning
+    reference's keys that only choose among exact kernels (``kernel``,
+    ``mesh.*``, ``breaker.window``) are accepted and ignored: this port
+    runs one kernel per device. ``apply`` is the reference's: by default
+    (``deferred``) the allocate action records placed gangs as per-job
+    deltas and ``task.node_name`` markers, and their object-model staging
+    runs at ``Session.materialize``, when something reads placement state
+    (the head of every context build, the later actions); ``apply: eager``
+    stages them as they are made. ``prune.*`` is candidate pruning
     (ops/prune.py): with the default ``prune.enable: auto`` a place over
     4,096 ready nodes or more runs the kernel over the union of per-gang
     shortlists, as the reference does; ``off`` keeps the full width.
@@ -451,6 +461,10 @@ class BatchSolver:
         # engage)
         self.stats: List[Dict[str, Any]] = []
         solver_args = (ssn.configurations or {}).get("solver")
+        # the deferred object-model apply (Session.materialize), the
+        # reference's default; ``apply: eager`` stages at once
+        self.deferred_apply = solver_args is None or \
+            solver_args.get_str("apply", "deferred") != "eager"
         self.sampling = False
         self.sampling_pct = 0.0
         self.sampling_min = 100
@@ -758,8 +772,10 @@ class BatchSolver:
         DenseSolver takes the node tensors from ``_device_node_inputs``.
         The session's first build goes through the persistent node state
         (``_incremental_node_arrays``); later builds see the nodes the
-        session mutated and encode afresh."""
+        session mutated and encode afresh. Deferred placements are applied
+        first (``Session.materialize``), so the encode sees them."""
         ssn = self.ssn
+        ssn.materialize()
         narr = None
         if not getattr(ssn, "_narr_first_done", False):
             ssn._narr_first_done = True
@@ -965,12 +981,28 @@ class BatchSolver:
         # placed/unplaced indices
         uid_to_j = {uid: j for j, uid in enumerate(batch.job_uids)}
         result = PlacementResult(batch=batch, committed={}, kept={},
-                                 placements={}, unplaced={})
+                                 placements={}, unplaced={}, narr=narr)
         unplaced_records: List[Tuple[JobInfo, TaskInfo, int]] = []
         all_tasks = batch.tasks
         a_real = assign[:len(all_tasks)]
         placed_all = np.flatnonzero(a_real >= 0)
         unplaced_all = np.flatnonzero(a_real < 0)
+        if placed_all.size:
+            # per-job and per-node placed totals for the deferred staging
+            # (volcano_tpu/framework/solver.py:1033-1048)
+            rows_req = batch.group_req[batch.task_group[placed_all]]
+            jt = np.zeros((len(batch.job_uids), self.rindex.r), np.float32)
+            np.add.at(jt, batch.task_job[placed_all], rows_req)
+            result.job_total_vec = {uid: jt[j]
+                                    for uid, j in uid_to_j.items()
+                                    if jt[j].any()}
+            alloc_rows = ~pipelined[placed_all].astype(bool)
+            if alloc_rows.any():
+                nv = np.zeros((narr.idle.shape[0], self.rindex.r),
+                              np.float32)
+                np.add.at(nv, a_real[placed_all][alloc_rows],
+                          rows_req[alloc_rows])
+                result.node_alloc_vec = nv
         names_obj = np.empty(narr.n_pad, object)
         names_obj[:len(narr.names)] = narr.names
         pnames = names_obj[a_real[placed_all]].tolist()

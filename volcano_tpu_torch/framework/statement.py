@@ -25,10 +25,90 @@ class _BatchOperation:
     """One staged gang: [(task, node_info, pipelined)] applied together."""
 
     name = "batch"
+    applied = True
+    # set by Session._apply_deferred when a deferred apply failed and the
+    # gang was dropped: commit must not bind it, discard must not un-stage it
+    dead = False
+    # set by _commit_batch once the gang's binds went to the cache: a later
+    # failed deferred apply must not drop the gang then (the pods are
+    # binding, so the delta accounting stands)
+    committed = False
 
     def __init__(self, job, items):
         self.job = job
         self.items = items
+
+
+class _DeferredBatch(_BatchOperation):
+    """A staged gang whose object-model apply is deferred
+    (Session.materialize). Until ``apply`` runs, the placements exist as
+    ``task.node_name`` strings plus the job's deferred_alloc/deferred_pipe
+    deltas; statuses stay Pending and node accounting is untouched."""
+
+    applied = False
+
+    def apply(self, ssn) -> None:
+        """The postponed staging: bulk status moves, per-node bulk
+        accounting, pod spec writes. All or nothing: on a failure the
+        partial mutations are undone, the deltas stay in force and the
+        error re-raises; ``applied`` and the deltas change only after full
+        success.
+
+        Keep in step with AllocateAction._stage_bulk's eager branch, which
+        stages the same mutations across jobs."""
+        if self.applied:
+            return
+        job = self.job
+        alloc = [t for t, _, p in self.items if not p]
+        pipe = [t for t, _, p in self.items if p]
+        moved: List = []
+        added: List = []
+        try:
+            if alloc:
+                job.move_tasks_status_bulk(alloc, TaskStatus.Allocated)
+                moved.append(alloc)
+            if pipe:
+                job.move_tasks_status_bulk(pipe, TaskStatus.Pipelined)
+                moved.append(pipe)
+            groups: dict = {}
+            for task, node, pipelined in self.items:
+                g = groups.setdefault((id(node), pipelined),
+                                      (node, pipelined, []))
+                g[2].append(task)
+            for node, pipelined, tasks in groups.values():
+                node.add_tasks_bulk(tasks, pipelined, share_objects=True)
+                added.append((node, pipelined, tasks))
+                if not pipelined:
+                    name = node.name
+                    for t in tasks:
+                        t.pod.spec.node_name = name
+        except BaseException:
+            for node, pipelined, tasks in reversed(added):
+                for t in tasks:
+                    node.remove_task(t)
+                    t.node_name = node.name   # keep the deferred marker
+                    if not pipelined:
+                        t.pod.spec.node_name = ""
+            for tasks in reversed(moved):
+                job.move_tasks_status_bulk(tasks, TaskStatus.Pending)
+            raise
+        self.applied = True
+        job.deferred_alloc -= len(alloc)
+        job.deferred_pipe -= len(pipe)
+
+    def drop(self, ssn) -> None:
+        """Discard before the apply: reverse the deltas and the
+        node_name markers and fire the deallocate events; nothing else
+        was mutated. Marks the op applied so a queued materialize skips
+        it."""
+        self.applied = True
+        job = self.job
+        alloc_n = sum(1 for _, _, p in self.items if not p)
+        job.deferred_alloc -= alloc_n
+        job.deferred_pipe -= len(self.items) - alloc_n
+        for task, _, _ in self.items:
+            task.node_name = ""
+        ssn._fire_deallocate_batch(job, [t for t, _, _ in self.items])
 
 
 class Statement:
@@ -95,10 +175,9 @@ class Statement:
     def allocate(self, task: TaskInfo, node_info) -> None:
         hostname = node_info.name if hasattr(node_info, "name") else str(node_info)
         if self.ssn.cache is not None:
-            pod_volumes = self.ssn.cache.volume_binder.get_pod_volumes(
-                task, getattr(self.ssn.nodes.get(hostname), "node", None))
-            self.ssn.cache.volume_binder.allocate_volumes(task, hostname, pod_volumes)
-            task.pod_volumes = pod_volumes
+            self.ssn.plan_volumes(
+                task, hostname,
+                getattr(self.ssn.nodes.get(hostname), "node", None))
         job = self.ssn.jobs.get(task.job)
         if job is None:
             raise KeyError(f"failed to find job {task.job}")
@@ -228,6 +307,20 @@ class Statement:
         self.ssn._fire_allocate_batch(job, [t for t, _, _ in items], total)
         self.operations.append(_BatchOperation(job, items))
 
+    def record_batch_deferred(self, job, items, total=None) -> None:
+        """Register a gang whose object-model staging is deferred: fires
+        the batched plugin events now (the handlers read task.resreq and
+        node_name, both set), adds the job's readiness deltas and queues
+        the apply for Session.materialize."""
+        op = _DeferredBatch(job, items)
+        self._touch_items(job, items)
+        alloc_n = sum(1 for _, _, p in items if not p)
+        job.deferred_alloc += alloc_n
+        job.deferred_pipe += len(items) - alloc_n
+        self.ssn._fire_allocate_batch(job, [t for t, _, _ in items], total)
+        self.ssn.defer_apply(op)
+        self.operations.append(op)
+
     def _unbatch(self, op: _BatchOperation) -> None:
         for task, node, pipelined in reversed(op.items):
             node.remove_task(task)
@@ -244,6 +337,8 @@ class Statement:
         in one locked pass (cache.bind_batch); pipelined ones stay
         session-state only, exactly like the per-task ops."""
         ssn = self.ssn
+        if op.dead:
+            return   # its deferred apply failed and the gang was dropped
         to_bind = [(task, node.name) for task, node, pipelined in op.items
                    if not pipelined]
         if not to_bind:
@@ -254,6 +349,9 @@ class Statement:
             accepted = [t for t, _ in to_bind]
         if not accepted:
             return
+        op.committed = True
+        if not op.applied:
+            return   # statuses still deferred; the deltas carry them
         job_of = ssn.jobs.get(op.job.uid)
         if job_of is not None and \
                 all(t.job == op.job.uid for t in accepted):
@@ -276,7 +374,15 @@ class Statement:
             elif op.name == "allocate":
                 self._unallocate(op.task)
             elif op.name == "batch":
-                self._unbatch(op)
+                if op.dead:
+                    continue   # already dropped by Session._apply_deferred
+                if op.applied:
+                    self._unbatch(op)
+                else:
+                    # deferred and never applied: reverse the deltas;
+                    # drop() marks the op applied, so its queued
+                    # materialize entry does nothing
+                    op.drop(self.ssn)
         self.operations = []
 
     def commit(self) -> None:

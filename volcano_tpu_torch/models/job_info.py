@@ -224,6 +224,12 @@ class JobInfo:
         # tens of thousands of times between mutations)
         self._status_version: int = 0
         self._ready_cache: tuple = (-1, 0)
+        # the session's deferred-apply deltas (Session.materialize):
+        # placements the allocate action recorded whose object-model apply
+        # (status moves, node accounting) has not run yet. The readiness
+        # and status rollups stay exact by adding them.
+        self.deferred_alloc: int = 0
+        self.deferred_pipe: int = 0
         for t in tasks:
             self.add_task_info(t)
 
@@ -432,6 +438,8 @@ class JobInfo:
         info.job_fit_errors = ""
         info._status_version = 0
         info._ready_cache = (-1, 0)
+        info.deferred_alloc = 0
+        info.deferred_pipe = 0
         info.name = self.name
         info.namespace = self.namespace
         info.queue = self.queue
@@ -476,7 +484,7 @@ class JobInfo:
         (reference: job_info.go:509-527). Memoized per status version."""
         cached_version, cached = self._ready_cache
         if cached_version == self._status_version:
-            return cached
+            return cached + self.deferred_alloc
         occupied = 0
         for status, tasks in self.task_status_index.items():
             if allocated_status(status) or status == TaskStatus.Succeeded:
@@ -484,10 +492,11 @@ class JobInfo:
             elif status == TaskStatus.Pending:
                 occupied += sum(1 for t in tasks.values() if t.init_resreq.is_empty())
         self._ready_cache = (self._status_version, occupied)
-        return occupied
+        return occupied + self.deferred_alloc
 
     def waiting_task_num(self) -> int:
-        return len(self.task_status_index.get(TaskStatus.Pipelined, {}))
+        return len(self.task_status_index.get(TaskStatus.Pipelined, {})) \
+            + self.deferred_pipe
 
     def valid_task_num(self) -> int:
         occupied = 0

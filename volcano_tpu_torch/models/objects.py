@@ -1,11 +1,12 @@
 """API objects a scheduling cycle reads (the port's own copy of the core,
 scheduling and priority slice of volcano_tpu/models/objects.py).
 
-  * core: ObjectMeta, Pod, Node, PriorityClass, ResourceQuota
+  * core: ObjectMeta, Pod, Node, PriorityClass, ResourceQuota, ConfigMap
+    (the leader-election lease), PersistentVolumeClaim, PersistentVolume
   * scheduling: PodGroup, Queue
   * nodeinfo: Numatopology (the per-node NUMA topology numa-aware reads)
 
-The controller CRDs (Job, Command, Service, volumes) are not part of the
+The controller CRDs (Job, Command, Service) are not part of the
 scheduling cycle and are not ported. The clone helpers at the
 end rebuild only the mutable shells of the hot shapes and share the
 substructures a stored object never mutates.
@@ -419,6 +420,53 @@ class Numatopology:
     numa_res: Dict[str, NumaResInfo] = field(default_factory=dict)
     cpu_detail: Dict[int, CpuInfo] = field(default_factory=dict)
     res_reserved: Dict[str, Any] = field(default_factory=dict)
+
+
+# ---------------------------------------------------------------------------
+# core/v1: ConfigMap (the leader-election lease), PersistentVolumeClaim,
+# PersistentVolume
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ConfigMap:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    data: Dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class PersistentVolumeClaim:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: Dict[str, Any] = field(default_factory=dict)
+    # binding status (k8s PVC.status and spec.volumeName)
+    volume_name: str = ""
+    phase: str = "Pending"          # Pending | Bound | Lost
+
+    def requested_bytes(self) -> float:
+        from .quantity import parse_quantity
+        req = (self.spec.get("resources", {}) or {}).get("requests", {})
+        return float(parse_quantity(req.get("storage", "0")))
+
+    def storage_class(self) -> str:
+        return self.spec.get("storageClassName", "") or ""
+
+
+@dataclass
+class PersistentVolume:
+    """A cluster-scoped volume; the store holds PVs directly (the
+    reference's PV informer feeds k8s' volumebinding plugin,
+    cache/cache.go:84-96)."""
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    capacity: str = "0"             # storage quantity
+    storage_class: str = ""
+    access_modes: List[str] = field(default_factory=list)
+    # the node names this PV is reachable from; empty: any node
+    node_affinity: List[str] = field(default_factory=list)
+    claim_ref: str = ""             # "ns/name" of the bound PVC
+    phase: str = "Available"        # Available | Bound | Released
+
+    def capacity_bytes(self) -> float:
+        from .quantity import parse_quantity
+        return float(parse_quantity(self.capacity))
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,8 @@ updates. Event handlers keep shares live as the session allocates/evicts.
 The initial per-job share computation is one ``dominant_share`` call over
 a dense [J,R] allocation matrix on the CPU (ops/fairshare.py) instead of
 J×R host loops; incremental in-session updates are O(R) host math like the
-reference's. The reference's share gauges are not ported.
+reference's. The job and namespace shares are published as the reference's
+gauges.
 """
 
 from __future__ import annotations

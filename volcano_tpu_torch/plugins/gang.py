@@ -4,7 +4,7 @@ reference: pkg/scheduler/plugins/gang/gang.go).
 Extension points: JobValid (minAvailable admission), Preemptable/Reclaimable
 (victims only above minAvailable), JobOrder (ready jobs last), JobReady,
 JobPipelined, JobStarving; OnSessionClose writes Unschedulable/Scheduled
-PodGroup conditions (the reference's unschedulable metrics are not ported).
+PodGroup conditions and the unschedulable task and job metrics.
 
 The gang *commit/rollback* semantics themselves live in the allocate kernel
 (ops/allocate.py, csrc/gang_allocate.cu) whose per-job ready/kept flags
@@ -104,6 +104,9 @@ class GangPlugin(Plugin):
             if job.pod_group is None:
                 continue
             if not job.ready():
+                # deferred placements of kept (pipelined) gangs must be
+                # real before the unready report reads task statuses
+                ssn.materialize_job(job)
                 unready = job.min_available - job.ready_task_num()
                 msg = (f"{unready}/{len(job.tasks)} tasks in gang "
                        f"unschedulable: {job.fit_error()}")

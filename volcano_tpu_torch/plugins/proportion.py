@@ -8,8 +8,8 @@ keeping shares live.
 
 The iterative weighted water-fill of per-queue ``deserved``
 (proportion.go:129-194) runs over dense [Q,R] tensors on the CPU
-(ops/fairshare.py::proportion_waterfill). The reference's queue gauges are
-not ported.
+(ops/fairshare.py::proportion_waterfill). The queues' allocated, deserved,
+weight, share and overused values are published as the reference's gauges.
 """
 
 from __future__ import annotations

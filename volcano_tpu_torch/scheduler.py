@@ -17,10 +17,17 @@ full rebuild of every cycle.
 ``end_cycle``: once the cache runs, its executor writes the cycle's binds,
 evictions and PodGroup statuses to the store after the cycle (readers of
 the store call ``cache.flush_executors()`` first). ``run`` starts the
-cache and, every ``anti_entropy_every`` cycles, runs the cache's
-anti-entropy pass in the gap between cycles. Left out of this port: leader
-election (a standby's skipped cycles; the cache takes its fencing token
-as ``SchedulerCache(fence_source=...)``) and the conf file watcher.
+cache and the conf file watcher (``watch_conf``: a changed file is
+reloaded within a second, and a conf that fails to parse, names no action
+or an unknown one leaves the running conf in place) and, every
+``anti_entropy_every`` cycles, runs the cache's anti-entropy pass in the
+gap between cycles.
+
+With an ``elector`` (utils/leaderelection.py) the scheduler is one of
+several candidates: ``run_once`` does nothing on a standby but publish
+the pending report's REASON_NOT_LEADER, and the cache stamps its writes
+with the elector's fencing token (``fence_source``), so a deposed leader
+cannot write after a takeover.
 """
 
 from __future__ import annotations
@@ -36,11 +43,11 @@ from .cache import SchedulerCache
 from .framework import (close_session, default_scheduler_conf, get_action,
                         open_session, parse_scheduler_conf)
 from .metrics import metrics as m
-from .models.job_info import TaskStatus
 from .models.objects import DEFAULT_SCHEDULER_NAME
 from .trace import ledger
 from .utils import gcguard
 from .utils.clock import Clock
+from .utils.filewatcher import FileWatcher
 from .utils.platform import default_device
 
 log = logging.getLogger(__name__)
@@ -68,6 +75,7 @@ class Scheduler:
                  cache: Optional[SchedulerCache] = None,
                  clock: Optional[Clock] = None,
                  watchdog_multiple: Optional[float] = None,
+                 elector=None,
                  anti_entropy_every: Optional[int] = None,
                  device=None, incremental: Optional[bool] = None):
         self.store = store
@@ -78,6 +86,12 @@ class Scheduler:
         self.clock = clock if clock is not None else store.clock
         self.cache = cache if cache is not None else SchedulerCache(
             store, scheduler_name)
+        # leader election and fencing (docs/design/failover.md): a standby
+        # skips its cycles, and the cache's writes carry the elector's
+        # token unless the caller gave the cache a fence source of its own
+        self.elector = elector
+        if elector is not None and self.cache.fence_source is None:
+            self.cache.fence_source = lambda: elector.fencing_token
         self.anti_entropy_every = (anti_entropy_every
                                    if anti_entropy_every is not None
                                    else self.ANTI_ENTROPY_EVERY_CYCLES)
@@ -93,7 +107,16 @@ class Scheduler:
         self.cycle_deadline_exceeded = 0
         self._conf_path = scheduler_conf_path
         self._mutex = threading.Lock()
+        # one stop event a start(): a thread of run() reads the event it
+        # began with, so a stop and a later start (a lease lost and won
+        # back) end the old loop and begin a new one
         self._stop = threading.Event()
+        # held by run() for its whole loop: a new run waits for the
+        # previous one's last cycle, so two loops never overlap
+        self._run_lock = threading.Lock()
+        self._watcher: Optional[FileWatcher] = None
+        # the thread of run(), once start() began it
+        self.thread: Optional[threading.Thread] = None
         self.last_cycle: dict = {}
         # "namespace/name" -> node of the tasks the last cycle left
         # Pipelined (preempt's and reclaim's placements onto releasing
@@ -129,6 +152,15 @@ class Scheduler:
             log.warning("scheduler conf reload failed, keeping previous: %s",
                         e)
 
+    def watch_conf(self) -> None:
+        """Start the conf file's watcher (a 1 s mtime poll): each change
+        reloads it through :meth:`load_scheduler_conf`."""
+        if self._conf_path is None:
+            return
+        self._watcher = FileWatcher(self._conf_path,
+                                    on_change=self.load_scheduler_conf)
+        self._watcher.start()
+
     def run_once(self) -> None:
         """One scheduling cycle (scheduler.go:90-110).
 
@@ -152,8 +184,20 @@ class Scheduler:
         With tracing on (trace/tracer.py) the cycle is one flight-recorder
         record: the root span ``cycle`` tagged with the session's jobs,
         nodes and queues, one ``action:<name>`` span an action, and a
-        metrics time-series sample after it."""
+        metrics time-series sample after it.
+
+        On a standby (an ``elector`` that does not lead) the cycle does
+        nothing but publish REASON_NOT_LEADER on the pending report."""
         from .trace import tracer as tr
+        if self.elector is not None and not self.elector.is_leader:
+            # scheduling is the leader's; say so on /debug/pending rather
+            # than doing nothing in silence
+            from .trace import pending
+            pending.publish_idle(
+                pending.REASON_NOT_LEADER,
+                detail=f"candidate {self.elector.identity!r} is waiting "
+                       f"on the lease")
+            return
         with self._mutex:
             conf = self.conf
         start = time.perf_counter()
@@ -201,10 +245,7 @@ class Scheduler:
                         now = time.perf_counter()
                         split[f"{name}_ms"] = (now - tick) * 1000.0
                         tick = now
-                    self.last_pipelined = {
-                        t.key(): t.node_name for job in ssn.jobs.values()
-                        for t in job.task_status_index.get(
-                            TaskStatus.Pipelined, {}).values()}
+                    self.last_pipelined = ssn.pipelined_tasks()
                     split["pipelined"] = len(self.last_pipelined)
                     tick = time.perf_counter()
                 finally:
@@ -259,17 +300,27 @@ class Scheduler:
                   phases if phases else "(tracing disabled)")
 
     def run(self) -> None:
-        """Start cache ingestion, then run a cycle every period until
-        stop(), with the anti-entropy pass every ``anti_entropy_every``
-        cycles between them."""
-        self.cache.run()
+        """Start cache ingestion (once a process) and the conf watcher,
+        then run a cycle every period until stop(), with the anti-entropy
+        pass every ``anti_entropy_every`` cycles between them."""
+        stop = self._stop
+        with self._run_lock:
+            self.cache.run()
+            self.watch_conf()
+            try:
+                self._loop(stop)
+            finally:
+                if self._watcher is not None:
+                    self._watcher.stop()
+
+    def _loop(self, stop: threading.Event) -> None:
         # long-lived startup objects never need cycle detection: freezing
         # them keeps the collections between cycles proportional to the
         # cycle's garbage, not to the cluster's size
         gc.collect()
         gc.freeze()
         cycles = 0
-        while not self._stop.is_set():
+        while not stop.is_set():
             start = time.monotonic()
             try:
                 self.run_once()
@@ -290,12 +341,21 @@ class Scheduler:
                                   "interval retries")
             gc.collect(0)   # the cycle's garbage with true reference cycles
             elapsed = time.monotonic() - start
-            self._stop.wait(max(0.0, self.schedule_period - elapsed))
+            stop.wait(max(0.0, self.schedule_period - elapsed))
 
     def start(self) -> threading.Thread:
-        t = threading.Thread(target=self.run, daemon=True)
-        t.start()
-        return t
+        """Run :meth:`run` on a thread of its own (``self.thread``) under
+        a fresh stop event, so that a scheduler stopped by a lost lease
+        schedules again when it wins the lease back."""
+        self._stop = threading.Event()
+        self.thread = threading.Thread(target=self.run, name="scheduler",
+                                       daemon=True)
+        self.thread.start()
+        return self.thread
 
     def stop(self) -> None:
+        """End the cycle loop after its current cycle and stop the conf
+        watcher."""
         self._stop.set()
+        if self._watcher is not None:
+            self._watcher.stop()

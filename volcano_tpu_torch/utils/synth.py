@@ -9,7 +9,9 @@ port's own copy of volcano_tpu/utils/synth.py):
   other on one fixture.
 * ``populate_store`` fills an ObjectStore with Nodes, Pods, PodGroups and
   Queues for the whole scheduling cycle; it is deterministic by index and
-  builds the same objects as the JAX package's for the same arguments.
+  builds the same objects as the JAX package's for the same arguments
+  (its ``scalars``, ``plugin_shares`` and ``volumes`` options are the
+  port's own).
 * ``populate_preempt_store`` and ``populate_reclaim_store`` build the
   reference harness's preemption and reclamation shapes
   (volcano_tpu/bench_suite.py:203-250, config 4, and :478-520,
@@ -277,6 +279,48 @@ def scalar_request(job: int, k: int) -> int:
 SHARES_OLD_S = 7200.0
 
 
+# populate_store(volumes=...): the two storage classes of the claims that
+# bind, and the class and request of the claims that match no volume: the
+# volumes of that class are 10-100 Gi, below the request, so no claim
+# takes them
+VOLUME_CLASSES = ("fast", "standard")
+UNMATCHED_CLASS = "archive"
+UNMATCHED_CLAIM = "500Gi"
+
+
+def volume_plan(n_jobs: int, gang_size: int, every: int
+                ) -> Tuple[List[tuple], List[tuple]]:
+    """The claims and volumes of ``populate_store(volumes=every)``.
+
+    Every ``every``-th job (j % every == 0; the k-th such job has
+    k = j // every) mounts one claim in each pod, ``data-job<j>-task<t>``,
+    and each claim has a volume ``pv-job<j>-task<t>``. The claims of
+    every 8th such job (k % 8 == 0) are of UNMATCHED_CLASS and request
+    UNMATCHED_CLAIM, above their volumes' 10-100 Gi, so those gangs stay
+    Pending and those volumes Available. Every other claim is of
+    VOLUME_CLASSES[(k + t) % 2] and requests 10-90 Gi; its volume is of
+    its class and 0-10 Gi larger (10-100 Gi), so the smallest-fit choice
+    binds every one of them, in any order. Returns ``(claims,
+    volumes)``: [(job, task, claim name, storage, class)] and [(volume
+    name, capacity, class)]. Deterministic by index."""
+    claims: List[tuple] = []
+    pvs: List[tuple] = []
+    for j in range(0, n_jobs, every):
+        k = j // every
+        for t in range(gang_size):
+            name = f"data-job{j}-task{t}"
+            req = 10 + (7 * k + 13 * t) % 81
+            cap = f"{req + (k + 3 * t) % 11}Gi"
+            if k % 8 == 0:
+                claims.append((j, t, name, UNMATCHED_CLAIM, UNMATCHED_CLASS))
+                pvs.append((f"pv-job{j}-task{t}", cap, UNMATCHED_CLASS))
+                continue
+            cls = VOLUME_CLASSES[(k + t) % 2]
+            claims.append((j, t, name, f"{req}Gi", cls))
+            pvs.append((f"pv-job{j}-task{t}", cap, cls))
+    return claims, pvs
+
+
 def populate_store(store, *, n_nodes: int, n_jobs: int, gang_size: int,
                    queues: Optional[List[Tuple[str, int]]] = None,
                    cpu_req: str = "2", mem_req: str = "4Gi",
@@ -286,7 +330,8 @@ def populate_store(store, *, n_nodes: int, n_jobs: int, gang_size: int,
                    spread_every: int = 0,
                    anti_every: int = 0,
                    scalars: Sequence[str] = (),
-                   plugin_shares: bool = False) -> Dict[str, int]:
+                   plugin_shares: bool = False,
+                   volumes: int = 0) -> Dict[str, int]:
     """Object-level synthetic cluster in an ObjectStore.
 
     ``scalars`` names extra scalar resource kinds (each adds one to the
@@ -307,10 +352,17 @@ def populate_store(store, *, n_nodes: int, n_jobs: int, gang_size: int,
     the default request) with the single-numa-node policy annotation;
     every 16th job (j % 16 == 15) created SHARES_OLD_S before the store's
     clock, past sla's one hour, the others at it. Deterministic by job
-    index, no rng."""
+    index, no rng.
+
+    ``volumes`` > 0 gives every ``volumes``-th job's pods one
+    PersistentVolumeClaim each, and creates the claims and volumes of
+    ``volume_plan``: the claims of every 8th such job match no volume,
+    so those gangs stay Pending."""
     from ..models.objects import (NUMA_TOPOLOGY_POLICY_KEY, Affinity,
-                                  NodeSelectorRequirement, PodAffinity,
-                                  PodAffinityTerm, TopologySpreadConstraint)
+                                  NodeSelectorRequirement, ObjectMeta,
+                                  PersistentVolume, PersistentVolumeClaim,
+                                  PodAffinity, PodAffinityTerm,
+                                  TopologySpreadConstraint)
     from .numa_agent import SHARES_NUMA, build_numatopology
     from .test_utils import (build_node, build_pod, build_pod_group,
                              build_queue)
@@ -328,6 +380,19 @@ def populate_store(store, *, n_nodes: int, n_jobs: int, gang_size: int,
         if plugin_shares:
             store.create("numatopologies",
                          build_numatopology(f"node-{i}", SHARES_NUMA))
+    claim_of: Dict[Tuple[int, int], str] = {}
+    if volumes > 0:
+        claims, pvs = volume_plan(n_jobs, gang_size, volumes)
+        for j, t, name, storage, cls in claims:
+            store.create("persistentvolumeclaims", PersistentVolumeClaim(
+                metadata=ObjectMeta(name=name, namespace=namespace),
+                spec={"resources": {"requests": {"storage": storage}},
+                      "storageClassName": cls}))
+            claim_of[j, t] = name
+        for name, capacity, cls in pvs:
+            store.create("persistentvolumes", PersistentVolume(
+                metadata=ObjectMeta(name=name), capacity=capacity,
+                storage_class=cls))
     now = store.clock.now()
     for j in range(n_jobs):
         qname = queues[j % len(queues)][0]
@@ -350,6 +415,10 @@ def populate_store(store, *, n_nodes: int, n_jobs: int, gang_size: int,
                 namespace, f"job{j}-task{t}", "", "Pending",
                 dict(req), groupname=f"pg-{j}",
                 labels={"synth-job": f"pg-{j}"} if anti else None)
+            claim = claim_of.get((j, t))
+            if claim is not None:
+                pod.spec.volumes = [{"name": "data", "persistentVolumeClaim":
+                                     {"claimName": claim}}]
             if guaranteed:
                 pod.spec.containers[0].limits = dict(req)
                 pod.metadata.annotations[NUMA_TOPOLOGY_POLICY_KEY] = \
