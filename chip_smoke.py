@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--group NAME]
 
 Run from the root of a checkout on a machine with one Hopper GPU and nvcc
 (under $CUDA_HOME or /usr/local/cuda). Phases, each printing one line:
@@ -9,6 +9,9 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``;
 2. build: every kernel of volcano_tpu_torch/csrc, compiled with nvcc, and
    ptxas's registers and spills of every gang-allocate instantiation;
+   and the native engine (volcano_tpu_torch/native/fastmodel.c), compiled
+   with gcc, the default engine of the commit path and the snapshot's
+   clones in every later phase;
 3. kernel against plain on the card at 4,096 tasks x 2,048 nodes, gang 8:
    one queue; four queues with budgets from the proportion water-fill;
    three namespaces with the live namespace order off and on; tight
@@ -244,6 +247,25 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
     cycles in which the deferred apply of gang pg-1 fails before its
     commit in the first (the gang is dropped, and binds in the second);
     binds, PodGroups, claims and volumes equal after every cycle;
+15g. native_commit: the native engine (native/fastmodel.c) against the
+    Python bodies at the north star (phase 9's store, the default conf
+    plus binpack, pruning auto, the cache's executor live, the ledger
+    on): one placing cycle and its flush a run, each on a fresh store of
+    the same seed, the engines in N P P N order (Python: every native
+    switch off), then one traced Python run for the flush's async spans
+    (the native engine's are phase 15b's, whose traced placing cycles run
+    the same store and conf on it). After every flush the stored pods and their resource
+    versions, the journal's (rv, action, kind, key) sequence, the
+    ledger's counts (completed, open, per hop, per queue, the recent
+    ring's pods and hops) and the PodGroup phases must equal the first
+    run's; every pod binds (the first run's binds replay within
+    allocatable, gangs all-or-nothing), the kernel launches once a
+    cycle, and the native entries must have taken the native runs' work
+    and the Python runs must call none (counted in each run's line,
+    ``entries``: calls, calls that took their work). Prints per engine
+    cycle_ms, snapshot_ms, flush_ms and the gang's bound time (cycle +
+    flush) with medians and spreads, and the traced runs'
+    bind_flush.apply, bind_flush.store and store.patch.echo_wait;
 16. the kernels line (with the table refreshes, the cluster's blocks and
     each block's shared memory, the plan and R, as the main path's launch
     reported them, the shapes_vs_plain summary, traced_cycle's overhead,
@@ -256,6 +278,15 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
     entry for the slot path), then the card's nvidia-smi line, then
     {"ok": true, "device": {...}} as the last line.
 
+The phases after 8 run in three groups (GROUPS), each in a process of
+its own, started together after the build and run beside phases 3-8 on
+the one card: ``cycles`` (9-11, 15e, 12), ``binary_victims`` (15f, 13,
+14, 15, 15c) and ``commit`` (15b, 15d, 15g). Their lines reach stdout
+through the script; their host times carry each other's load, on the
+host's cores and the card's time slices (``--group NAME`` runs one
+group alone, for host times without that load). A group that fails
+stops the script; every process it started is killed on the way out.
+
 Every phase that runs a cache (``cache.run()`` starts its executor)
 waits for it with ``flush_executors()`` before it reads the store, and
 prints that wait as ``flush_ms`` beside the cycle's ``cycle_ms``.
@@ -267,14 +298,18 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import _thread
 import argparse
 import atexit
 import concurrent.futures
+import ctypes
 import gc
 import json
 import logging
 import multiprocessing
+import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -294,6 +329,8 @@ from volcano_tpu_torch import convert  # noqa: E402
 from volcano_tpu_torch.apiserver import ObjectStore  # noqa: E402
 from volcano_tpu_torch.apiserver.store import FencedError  # noqa: E402
 from volcano_tpu_torch.cache import SchedulerCache  # noqa: E402
+from volcano_tpu_torch.cache.event_handlers import (  # noqa: E402
+    EventHandlersMixin)
 from volcano_tpu_torch.cmd import cycle as cycle_cmd  # noqa: E402
 from volcano_tpu_torch.cmd import scheduler as scheduler_cmd  # noqa: E402
 from volcano_tpu_torch.framework import parse_scheduler_conf  # noqa: E402
@@ -303,14 +340,16 @@ from volcano_tpu_torch.ops import allocate, build, prune  # noqa: E402
 from volcano_tpu_torch.ops.cuda_allocate import (  # noqa: E402
     gang_allocate_cuda)
 from volcano_tpu_torch.ops.fairshare import proportion_waterfill  # noqa: E402
+from volcano_tpu_torch.models import job_info  # noqa: E402
 from volcano_tpu_torch.models import objects as obj  # noqa: E402
+from volcano_tpu_torch.native import build as native_build  # noqa: E402
 from volcano_tpu_torch.models.resource import Resource  # noqa: E402
 from volcano_tpu_torch.ops.score import ScoreWeights  # noqa: E402
 from volcano_tpu_torch.scheduler import Scheduler  # noqa: E402
 from volcano_tpu_torch.sim.faults import FlakyBinder  # noqa: E402
 from volcano_tpu_torch.plugins import numaaware as numaaware_plugin  # noqa: E402
 from volcano_tpu_torch.plugins import tdm as tdm_plugin  # noqa: E402
-from volcano_tpu_torch.trace import pending, tracer  # noqa: E402
+from volcano_tpu_torch.trace import ledger, pending, tracer  # noqa: E402
 from volcano_tpu_torch.utils import test_utils as tu  # noqa: E402
 from volcano_tpu_torch.utils.clock import FakeClock  # noqa: E402
 from volcano_tpu_torch.utils.reservation import RESERVATION  # noqa: E402
@@ -379,13 +418,23 @@ def fail(msg: str) -> None:
 
 
 # each phase line says when it was printed, in seconds since the script
-# started, so that the phases' share of the time limit can be read off
-STARTED = time.perf_counter()
+# started (a group's process is handed the start by its parent), so that
+# the phases' share of the time limit can be read off
+STARTED = float(os.environ.get("CHIP_SMOKE_STARTED", time.time()))
+# the lines of a group's processes reach stdout through their parent,
+# whole, one at a time
+PRINT_LOCK = threading.Lock()
+
+
+def emit(text: str) -> None:
+    with PRINT_LOCK:
+        sys.stdout.write(text)
+        sys.stdout.flush()
 
 
 def line(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - STARTED,
-                      **fields}), flush=True)
+    emit(json.dumps({"phase": phase, "t_s": time.time() - STARTED,
+                     **fields}) + "\n")
 
 
 def to_np(x: torch.Tensor) -> np.ndarray:
@@ -2461,6 +2510,209 @@ def flush_cycle(dev) -> dict:
             "seconds": time.perf_counter() - t_phase}
 
 
+# native_commit: the engines' order over the runs (each on a fresh store
+# of the same seed), then the traced run's engine (the native engine's
+# traced runs are traced_cycle's placing cycles: the same store, conf and
+# executor on the default engine)
+ENGINE_ORDER = ("native", "python", "python", "native")
+TRACED_ENGINE = "python"
+# the flush's async spans the phase prints of a traced run
+COMMIT_SPANS = ("bind_flush.apply", "bind_flush.store",
+                "store.patch.echo_wait", "bind_flush.echo",
+                "store.patch.clone_wait", "store.patch.publish")
+# the native engine's switches: (owner, attribute); all off is the
+# Python engine
+NATIVE_SWITCHES = ((ObjectStore, "NATIVE_PUBLISH"),
+                   (SchedulerCache, "NATIVE_APPLY"),
+                   (EventHandlersMixin, "NATIVE_ECHO"),
+                   (ledger, "NATIVE_CONFIRM"), (job_info, "NATIVE_CLONE"))
+# the native entries of the path, each with the test of whether a call
+# took its work (None: every call does)
+NATIVE_ENTRIES = {
+    "bind_apply_bursts": lambda args, out: out is True,
+    "bind_echo_apply": lambda args, out: out == len(args[0]),
+    "bind_clone_pods": lambda args, out: out is not None,
+    "bind_request_items": lambda args, out: out is not None,
+    "publish_shard": None, "attr_eq_filter_pairs": None,
+    "ledger_confirm_runs": None, "clone_task_table": None,
+    "clone_task_dict": None, "clone_resource": None}
+
+
+def set_engine(engine: str) -> None:
+    for owner, attr in NATIVE_SWITCHES:
+        setattr(owner, attr, engine == "native")
+
+
+class EntryTap:
+    """Counts, per native entry, the calls made while it is installed and
+    the calls that took their work (the module's attributes wrapped)."""
+
+    def __init__(self):
+        self.fm = job_info._fastmodel()
+        self.counts = {name: [0, 0] for name in NATIVE_ENTRIES}
+        self.real = {}
+
+    def __enter__(self):
+        for name, took in NATIVE_ENTRIES.items():
+            real = self.real[name] = getattr(self.fm, name)
+
+            def wrapper(*args, _real=real, _name=name, _took=took):
+                out = _real(*args)
+                c = self.counts[_name]
+                c[0] += 1
+                c[1] += _took is None or bool(_took(args, out))
+                return out
+            setattr(self.fm, name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.real.items():
+            setattr(self.fm, name, real)
+
+
+def commit_state(store: ObjectStore) -> dict:
+    """What the two engines must leave equal after a flush: the stored
+    pods (node, resource version), the journal's (rv, action, kind, key)
+    sequence, the PodGroup phases and the ledger's counts (completed,
+    open, per hop, per queue, and the recent ring's pods, queues and
+    hops), read in place."""
+    with store._lock:
+        pods = {k: (p.spec.node_name, p.metadata.resource_version)
+                for k, p in store._objects["pods"].items()}
+        journal = [(rv, action, kind, store.key_of(kind, o))
+                   for rv, action, kind, o in store._journal]
+        groups = {k: g.status.phase
+                  for k, g in store._objects["podgroups"].items()}
+    rep = ledger.report()
+    led = {"open": rep["open"], "completed": rep["completed"],
+           "dropped": rep["dropped"], "detours": rep["detours"],
+           "hops": {h: r["count"] for h, r in rep["hops"].items()},
+           "queues": {q: r["count"]
+                      for q, r in rep["per_queue_e2e"].items()},
+           "recent": [(r["pod"], r["queue"], tuple(r["hops"]))
+                      for r in rep["recent"]]}
+    return {"pods": pods, "journal": journal, "groups": groups,
+            "ledger": led}
+
+
+def native_commit_run(dev, engine: str, traced: bool, check: bool) -> tuple:
+    """One placing cycle and its flush on a fresh north-star store on
+    ``engine``, the ledger on (and the flight recorder when ``traced``);
+    ``check`` replays the binds against allocatable (later runs must leave
+    the same binds). Returns (the run's line, its commit_state)."""
+    set_engine(engine)
+    ledger.reset()
+    if traced:
+        tracer.enable()
+    else:
+        ledger.enable()
+    try:
+        store = ObjectStore()
+        populate_store(store, n_nodes=FULL["n_nodes"],
+                       n_jobs=FULL["n_tasks"] // FULL["gang"],
+                       gang_size=FULL["gang"])
+        with EntryTap() as tap:
+            cache = SchedulerCache(store)
+            cache.run()
+            sched = Scheduler(store, scheduler_conf=cycle_cmd.CONF,
+                              cache=cache, device=dev)
+            gc.collect()
+            gc.freeze()
+            try:
+                gang_allocate_cuda.launches = 0
+                sched.run_once()
+                torch.cuda.synchronize(dev)
+                launches = gang_allocate_cuda.launches
+                flush_ms = flush(cache, f"native_commit {engine}")
+            finally:
+                gc.unfreeze()
+        check_launches(f"native_commit {engine}", launches,
+                       sched.last_cycle["places"], True)
+        if check:
+            check_binds(store, f"native_commit {engine}")
+        lc = sched.last_cycle
+        r = {"engine": engine, "traced": traced, "launches": launches,
+             "cycle_ms": lc["cycle_ms"], "snapshot_ms": lc["snapshot_ms"],
+             "flush_ms": flush_ms, "bound_ms": lc["cycle_ms"] + flush_ms,
+             "entries": tap.counts}
+        if traced:
+            r["async"] = commit_spans(
+                tracer.async_phases(tracer.last_record()))
+        state = commit_state(store)
+        cache.stop()
+        return r, state
+    finally:
+        tracer.disable()
+        ledger.disable()
+        ledger.reset()
+        set_engine("native")
+
+
+def commit_spans(spans: dict) -> dict:
+    """The flush's spans of a cycle's async split (tracer.async_phases)."""
+    return {k: v for k, v in spans.items()
+            if k.split("/")[-1] in COMMIT_SPANS}
+
+
+def spread(xs) -> dict:
+    """Median, least and greatest of ``xs``, and the values in order."""
+    xs = sorted(xs)
+    mid = len(xs) // 2
+    return {"median": xs[mid] if len(xs) % 2 else (xs[mid - 1] + xs[mid]) / 2,
+            "min": xs[0], "max": xs[-1], "runs": xs}
+
+
+def native_commit(dev, native_async: dict) -> dict:
+    """Phase 15g: the native engine against the Python bodies at the
+    north star (see the module docstring); ``native_async`` is the async
+    split of traced_cycle's last traced placing cycle."""
+    t_phase = time.perf_counter()
+    runs = []
+    first = None
+    plan = [(e, False) for e in ENGINE_ORDER] + [(TRACED_ENGINE, True)]
+    for i, (engine, traced) in enumerate(plan):
+        # the run's garbage is collected before the next cycle starts
+        r, state = native_commit_run(dev, engine, traced, check=i == 0)
+        n_binds = sum(1 for node, _ in state["pods"].values() if node)
+        if n_binds != FULL["n_tasks"] or \
+                state["ledger"]["completed"] != FULL["n_tasks"]:
+            fail(f"native_commit run {i} ({engine}): {n_binds} binds, "
+                 f"{state['ledger']['completed']} ledger completions")
+        if engine == "native":
+            idle = [n for n, (calls, took) in r["entries"].items()
+                    if calls == 0 or took != calls]
+            if idle:
+                fail(f"native_commit run {i}: the native entries {idle} "
+                     f"did not take their work: {r['entries']}")
+        elif any(calls for calls, _ in r["entries"].values()):
+            fail(f"native_commit run {i}: the Python engine called "
+                 f"native entries: {r['entries']}")
+        if first is None:
+            first = state
+        else:
+            diff = [k for k in first if state[k] != first[k]]
+            if diff:
+                fail(f"native_commit run {i} ({engine}, traced "
+                     f"{traced}): {diff} differ from the first run's")
+        r["run"] = i
+        runs.append(r)
+        line("native_commit", **r)
+    out = {"seconds": time.perf_counter() - t_phase,
+           "launches": [r["launches"] for r in runs]}
+    for engine in ("native", "python"):
+        mine = [r for r in runs if r["engine"] == engine]
+        out[engine] = {k: spread([r[k] for r in mine if not r["traced"]])
+                       for k in ("cycle_ms", "snapshot_ms", "flush_ms",
+                                 "bound_ms")}
+        out[engine]["async"] = commit_spans(native_async) \
+            if engine == "native" else \
+            [r for r in mine if r["traced"]][0]["async"]
+    line("native_commit", summary=True,
+         shape={"tasks": FULL["n_tasks"], "nodes": FULL["n_nodes"],
+                "gang": FULL["gang"]}, **out)
+    return out
+
+
 # plugins_cycle: the repo's full-featured conf, read from the checkout
 # (cmd.cycle.example_conf), over stores with the shares of its plugins
 # (populate_store's plugin_shares: a Numatopology of 64 CPUs on every
@@ -3427,8 +3679,233 @@ def scheduler_binary(dev) -> dict:
             "seconds": time.perf_counter() - t_phase}
 
 
+def cycles_group(dev) -> dict:
+    """Phases 9-11, 15e and 12: the north-star cycle and the constrained
+    one, the kernel against its plain version on their inputs (the plain
+    loop in this group's own LatePlain workers), plugins_cycle on the warm
+    north-star cycle, and the victim cases at mid size. Returns, per
+    kernel, the kernels line's entries they give."""
+    late = LatePlain()
+    try:
+        cycle_launches, cycles, reduced = cycle(dev)
+        cyc = cycle_inputs_vs_plain(dev, late, reduced=reduced)
+        con_launches, con_cycles, con_reduced = cycle_constrained(dev)
+        con = cycle_inputs_vs_plain(dev, late, HEAVY, reduced=con_reduced)
+        for phase, runs, held, taps in (("cycle", cycles, cyc, reduced),
+                                        ("cycle_constrained", con_cycles,
+                                         con, con_reduced)):
+            # the warm cycle made a reduced-width launch exactly when its
+            # place's prune outcome says so, and that launch's inputs are
+            # the ones held against the plain loop above
+            prunes = [pl["prune"] for pl in runs[-1]["places"]]
+            made = [p is not None and p["fallback"] in (
+                None, "shortlist_exhausted") for p in prunes]
+            if sum(made) != len(taps):
+                fail(f"{phase}: {len(taps)} reduced launches captured for "
+                     f"prune outcomes {prunes}")
+            # a place's launch report is its last launch's: the reduced
+            # run's where it served, else the full-width run's
+            for r in runs:
+                want = [held["reduced"]["refreshes"]
+                        if pl["prune"] is not None and pl["prune"]["served"]
+                        else held["refreshes"] for pl in r["places"]]
+                if [pl["launch"][0] for pl in r["places"]] != want:
+                    fail(f"{phase}: the cycle's launches and the kernel run "
+                         f"on their inputs refreshed their tables a "
+                         f"different number of times")
+        warm = cycles[1:]
+        north_prune, con_prune = (place_prune(runs[-1]["places"][0])
+                                  for runs in (cycles, con_cycles))
+        # early, so that the plain loop on its full-width launch runs on
+        # the host while victims_vs_plain runs on the card
+        plugins = plugins_cycle(dev, warm[-1], late)
+        victims_vs_plain()
+        # the plain loop's full-size runs, held against the kernel's results
+        late.finish()
+    finally:
+        late.close()
+    # the kernel against the plain loop on the inputs the warm cycles
+    # launched on (pruned: the reduced ones)
+    held_cyc, held_con = (h.get("reduced", h) for h in (cyc, con))
+    runs = plugins["full_width"]["runs"]
+    return {"gang_allocate": {
+        "launches_per_cycle": cycle_launches[-1],
+        "plugins_cycle": {
+            "launches": [r["launches"] for r in runs],
+            "kernel_ms": [r["kernel_ms"] for r in runs],
+            "host_predicates_ms": runs[0]["host_predicates_ms"],
+            "groups": runs[0]["groups"],
+            "cycle_ms": [r["cycle_ms"] for r in runs],
+            "held": [{k: h[k] for k in ("shape", "assign_mismatches",
+                                        "max_abs_err", "plain_ms")}
+                     for h in runs[0]["held"]],
+            "cases_launches": {c: v["kernel_launches"]
+                               for c, v in plugins["cases"].items()}},
+        "cycle_kernel_ms": [sum(pl["kernel_ms"] for pl in r["places"])
+                            for r in warm],
+        "cycle_ms": [r["cycle_ms"] for r in warm],
+        "prune": north_prune,
+        "cycle_inputs": {k: held_cyc[k] for k in (
+            "plain_ms", "max_abs_err", "assign_mismatches")}
+        | {"ms": min(held_cyc["kernel_ms"]), "N": held_cyc["N"]}},
+        "gang_allocate_slots": {
+            "launches": con_launches[-1],
+            "max_abs_err": held_con["max_abs_err"],
+            "ms": min(held_con["kernel_ms"]),
+            "plain_ms": held_con["plain_ms"], "plain_device": "cpu",
+            "bound_ms": max(held_con["bytes_ms"], held_con["ops_ms"]),
+            "bound_by": "bytes"
+            if held_con["bytes_ms"] >= held_con["ops_ms"] else "operations",
+            "library_ms": None, "slots": con["slots"],
+            "plan": con["plan"], "R": con["R"],
+            "refreshes": con["refreshes"],
+            "rule_refreshes": con["rule_refreshes"], "steps": con["steps"],
+            "cycle_kernel_ms": [sum(pl["kernel_ms"] for pl in r["places"])
+                                for r in con_cycles[1:]],
+            "cycle_ms": [r["cycle_ms"] for r in con_cycles[1:]],
+            "constraint_ms": [sum(pl["constraint_ms"] for pl in r["places"])
+                              for r in con_cycles[1:]],
+            "prune": con_prune,
+            "checked_against_plain": True,
+            "assign_mismatches": held_con["assign_mismatches"],
+            "N": held_con["N"]}}
+
+
+def binary_victims_group(dev) -> dict:
+    """Phases 15f, 13, 14, 15 and 15c: the scheduler binary, the preempt
+    and reclaim cycles at full size, the victim prefix functions and the
+    incremental cycle. Returns, per kernel, the kernels line's entries
+    they give."""
+    binary = scheduler_binary(dev)
+    preempt = victim_cycle("preempt")
+    reclaim = victim_cycle("reclaim")
+    victim_prefix_phase(dev)
+    incr = incremental_cycle(dev)
+    north = binary["north_star"]
+    return {"gang_allocate": {
+        "launches_per_incremental_cycle": {
+            case: {kind: sorted({n for k, q, n in zip(
+                r["incremental"]["kind"], r["incremental"]["quiet"],
+                r["incremental"]["kernel_launches"])
+                if (q if kind == "quiet" else k == kind and not q)})
+                for kind in ("quiet", "churn")}
+            for case, r in incr.items()},
+        "scheduler_binary": {
+            "launches": [r["launches"] for r in north["cycles"]],
+            "kernel_ms": [r["kernel_ms"] for r in north["cycles"]],
+            "new_leader_launches": north["new_leader_cycle"]["launches"],
+            "apply_modes_launches": {
+                m: binary["apply_modes"][m]["launches"]
+                for m in ("deferred", "eager")},
+            "cases_launches": {c: v["kernel_launches"]
+                               for c, v in binary["cases"].items()},
+            "seconds": binary["seconds"]},
+        "launches_per_preempt_cycle": preempt["launches"],
+        "launches_per_reclaim_cycle": reclaim["launches"],
+        "preempt_cycle_kernel_ms": [pl["kernel_ms"]
+                                    for pl in preempt["split"]["places"]],
+        "reclaim_cycle_kernel_ms": [pl["kernel_ms"]
+                                    for pl in reclaim["split"]["places"]]}}
+
+
+def commit_group(dev) -> dict:
+    """Phases 15b, 15d and 15g: the traced cycle, the write-behind commit
+    and the native commit path. Returns, per kernel, the kernels line's
+    entries they give."""
+    traced = traced_cycle(dev)
+    flushed = flush_cycle(dev)
+    native = native_commit(dev, traced["commit"])
+    return {"gang_allocate": {
+        "traced_cycle": {k: traced[k] for k in (
+            "overhead_pct", "overhead_median_pct", "cycle_ms_on",
+            "cycle_ms_off", "steady_overhead_pct",
+            "steady_overhead_median_pct",
+            "span_kernel_ms", "solver_kernel_ms")},
+        "launches_per_flush_cycle": flushed["full_width"]["live"][-1][
+            "launches"],
+        "launches_per_native_commit_cycle": native["launches"]}}
+
+
+# the phases after the kernel's own, in groups that need nothing of each
+# other: by default each group runs in a process of its own (this script
+# with --group), all at once and beside main's phases 3-8, on the one card
+GROUPS = {"cycles": cycles_group, "binary_victims": binary_victims_group,
+          "commit": commit_group}
+# a group's process prints its result as its last line, after this tag
+RESULT_TAG = "chip_smoke group result: "
+PR_SET_PDEATHSIG = 1        # linux/prctl.h
+
+
+def share_threads() -> None:
+    """torch's CPU threads in each of the processes that run at once (main
+    and one per group): an equal share of the host's cores."""
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0))
+                              // (1 + len(GROUPS))))
+
+
+class Groups:
+    """The GROUPS, each in a process of its own, started at once. Their
+    lines reach stdout whole through this process, and their results come
+    from their tagged last lines. A group that exits non-zero interrupts
+    the main thread; ``close`` kills what is left of every group, the
+    group's own worker processes included (each group is a session)."""
+
+    def __init__(self):
+        env = dict(os.environ, CHIP_SMOKE_STARTED=repr(STARTED))
+        self.results = {}
+        self.failed = []
+        self.procs = {name: subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--group", name],
+            stdout=subprocess.PIPE, text=True, env=env,
+            start_new_session=True) for name in GROUPS}
+        self.threads = [threading.Thread(target=self._relay, args=item,
+                                         daemon=True)
+                        for item in self.procs.items()]
+        for t in self.threads:
+            t.start()
+
+    def _relay(self, name, proc) -> None:
+        for text in proc.stdout:
+            if text.startswith(RESULT_TAG):
+                self.results[name] = json.loads(text[len(RESULT_TAG):])
+            else:
+                emit(text)
+        if proc.wait() != 0:
+            self.failed.append(name)
+            _thread.interrupt_main()
+
+    def wait(self) -> dict:
+        for t in self.threads:
+            t.join()
+        missing = sorted(set(GROUPS) - set(self.results))
+        if self.failed or missing:
+            fail(f"phase groups {self.failed or missing} failed")
+        return self.results
+
+    def close(self) -> None:
+        for proc in self.procs.values():
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(
+        description="Chip smoke test of the PyTorch/CUDA port on one H100.")
+    parser.add_argument("--group", choices=sorted(GROUPS),
+                        help="run only this phase group and print its "
+                             "result (what the default run starts; alone, "
+                             "its host times carry no other group's load)")
+    opts = parser.parse_args()
     dev = torch.device("cuda", 0)
+    if opts.group:
+        # the group dies with the script, however the script ends
+        ctypes.CDLL(None).prctl(PR_SET_PDEATHSIG, signal.SIGKILL)
+        share_threads()
+        emit(RESULT_TAG + json.dumps(GROUPS[opts.group](dev)) + "\n")
+        return
     name = torch.cuda.get_device_name(dev)
     cap = torch.cuda.get_device_capability(dev)
     smi = subprocess.run(
@@ -3443,10 +3920,19 @@ def main() -> None:
 
     t0 = time.perf_counter()
     libs = build.build_all()
-    line("build", seconds=time.perf_counter() - t0, libraries=sorted(libs),
+    kernels_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    libs["fastmodel"] = native_build.build()
+    native_s = time.perf_counter() - t0
+    line("build", seconds=kernels_s + native_s, native_seconds=native_s,
+         libraries={k: v.name for k, v in sorted(libs.items())},
          ptxas=ptxas_usage(build.report("gang_allocate")))
+    share_threads()
+    groups = Groups()
     late = LatePlain()
     atexit.register(late.close)
+    # first on the way out: the groups stop before main's workers drain
+    atexit.register(groups.close)
 
     # ---- 3. kernel against plain at the mid size
     mid = kernel_vs_plain_mid(dev)
@@ -3572,66 +4058,17 @@ def main() -> None:
          gang8_refreshes=n_refresh, gang8_steps=steps)
 
     shapes = shapes_vs_plain(dev, args, solver.weights, sa)
-
     cycle_vs_plain()
     prune_vs_plain()
-    cycle_launches, cycles, reduced = cycle(dev)
-    cyc = cycle_inputs_vs_plain(dev, late, reduced=reduced)
-    con_launches, con_cycles, con_reduced = cycle_constrained(dev)
-    con = cycle_inputs_vs_plain(dev, late, HEAVY, reduced=con_reduced)
-    for phase, runs, held, taps in (("cycle", cycles, cyc, reduced),
-                                    ("cycle_constrained", con_cycles, con,
-                                     con_reduced)):
-        # the warm cycle made a reduced-width launch exactly when its
-        # place's prune outcome says so, and that launch's inputs are the
-        # ones held against the plain loop above
-        prunes = [pl["prune"] for pl in runs[-1]["places"]]
-        made = [p is not None and p["fallback"] in (None,
-                                                    "shortlist_exhausted")
-                for p in prunes]
-        if sum(made) != len(taps):
-            fail(f"{phase}: {len(taps)} reduced launches captured for "
-                 f"prune outcomes {prunes}")
-        # a place's launch report is its last launch's: the reduced run's
-        # where it served, else the full-width run's
-        for r in runs:
-            want = [held["reduced"]["refreshes"]
-                    if pl["prune"] is not None and pl["prune"]["served"]
-                    else held["refreshes"] for pl in r["places"]]
-            if [pl["launch"][0] for pl in r["places"]] != want:
-                fail(f"{phase}: the cycle's launches and the kernel run on "
-                     f"their inputs refreshed their tables a different "
-                     f"number of times")
-    warm = cycles[1:]
-    north_prune, con_prune = (place_prune(runs[-1]["places"][0])
-                              for runs in (cycles, con_cycles))
-    cycle_kernel_ms = [sum(pl["kernel_ms"] for pl in r["places"])
-                       for r in warm]
-    # early, so that the plain loop on its full-width launch runs on the
-    # host while the later phases run on the card
-    plugins = plugins_cycle(dev, warm[-1], late)
-    binary = scheduler_binary(dev)
-
-    victims_vs_plain()
-    preempt = victim_cycle("preempt")
-    reclaim = victim_cycle("reclaim")
-    victim_prefix_phase(dev)
-    traced = traced_cycle(dev)
-    incr = incremental_cycle(dev)
-    flushed = flush_cycle(dev)
-    incr_launches = {
-        case: {kind: sorted({n for k, q, n in zip(
-            r["incremental"]["kind"], r["incremental"]["quiet"],
-            r["incremental"]["kernel_launches"])
-            if (q if kind == "quiet" else k == kind and not q)})
-            for kind in ("quiet", "churn")}
-        for case, r in incr.items()}
-    # the plain loop's full-size runs, held against the kernel's results
+    results = groups.wait()
+    # the plain loop's run on the main path's inputs, held against the
+    # kernel's result
     late.finish()
 
-    # the kernel against the plain loop on the inputs the warm cycles
-    # launched on (pruned: the reduced ones)
-    held_cyc, held_con = (h.get("reduced", h) for h in (cyc, con))
+    mid_cases = {k: {"ms": v["ms"], "plain_ms": v["plain_ms"],
+                     "refreshes": v["refreshes"],
+                     "assign_mismatches": v["assign_mismatches"]}
+                 for k, v in mid.items()}
     kernels = [{
         "name": "gang_allocate", "route": "cuda",
         "source": "volcano_tpu_torch/csrc/gang_allocate.cu",
@@ -3644,89 +4081,20 @@ def main() -> None:
         "library_ms": None,
         "no_fma_ops_ms": no_fma_ops_ms, **main_stats, "R": R,
         "shapes": shapes,
-        "traced_cycle": {k: traced[k] for k in (
-            "overhead_pct", "overhead_median_pct", "cycle_ms_on",
-            "cycle_ms_off", "steady_overhead_pct",
-            "steady_overhead_median_pct",
-            "span_kernel_ms", "solver_kernel_ms")},
-        "launches_per_cycle": cycle_launches[-1],
-        "launches_per_incremental_cycle": incr_launches,
-        "launches_per_flush_cycle": flushed["full_width"]["live"][-1][
-            "launches"],
-        "plugins_cycle": {
-            "launches": [r["launches"] for r in plugins["full_width"]["runs"]],
-            "kernel_ms": [r["kernel_ms"]
-                          for r in plugins["full_width"]["runs"]],
-            "host_predicates_ms": plugins["full_width"]["runs"][0][
-                "host_predicates_ms"],
-            "groups": plugins["full_width"]["runs"][0]["groups"],
-            "cycle_ms": [r["cycle_ms"] for r in plugins["full_width"]["runs"]],
-            "held": [{k: h[k] for k in ("shape", "assign_mismatches",
-                                        "max_abs_err", "plain_ms")}
-                     for h in plugins["full_width"]["runs"][0]["held"]],
-            "cases_launches": {c: v["kernel_launches"]
-                               for c, v in plugins["cases"].items()}},
-        "scheduler_binary": {
-            "launches": [r["launches"]
-                         for r in binary["north_star"]["cycles"]],
-            "kernel_ms": [r["kernel_ms"]
-                          for r in binary["north_star"]["cycles"]],
-            "new_leader_launches": binary["north_star"][
-                "new_leader_cycle"]["launches"],
-            "apply_modes_launches": {
-                m: binary["apply_modes"][m]["launches"]
-                for m in ("deferred", "eager")},
-            "cases_launches": {c: v["kernel_launches"]
-                               for c, v in binary["cases"].items()},
-            "seconds": binary["seconds"]},
-        "launches_per_preempt_cycle": preempt["launches"],
-        "launches_per_reclaim_cycle": reclaim["launches"],
-        "preempt_cycle_kernel_ms": [pl["kernel_ms"]
-                                    for pl in preempt["split"]["places"]],
-        "reclaim_cycle_kernel_ms": [pl["kernel_ms"]
-                                    for pl in reclaim["split"]["places"]],
-        "cycle_kernel_ms": cycle_kernel_ms,
-        "cycle_ms": [r["cycle_ms"] for r in warm],
-        "prune": north_prune,
-        "cycle_inputs": {k: held_cyc[k] for k in (
-            "plain_ms", "max_abs_err", "assign_mismatches")}
-        | {"ms": min(held_cyc["kernel_ms"]), "N": held_cyc["N"]},
         "worst_case_ms": w_ms, "worst_case_refreshes": w_refresh,
         "shape": sa.shapes, "checked_against_plain": True,
         "assign_mismatches": full["assign_mismatches"],
-        "mid_cases": {k: {"ms": v["ms"], "plain_ms": v["plain_ms"],
-                          "refreshes": v["refreshes"],
-                          "assign_mismatches": v["assign_mismatches"]}
-                      for k, v in mid.items()}}, {
+        "mid_cases": mid_cases}, {
         "name": "gang_allocate_slots", "route": "cuda",
         "source": "volcano_tpu_torch/csrc/gang_allocate.cu",
         "replaces": "volcano_tpu/ops/pallas_allocate.py:55",
-        "launches": con_launches[-1],
-        "max_abs_err": held_con["max_abs_err"],
-        "ms": min(held_con["kernel_ms"]), "plain_ms": held_con["plain_ms"],
-        "plain_device": "cpu",
-        "bound_ms": max(held_con["bytes_ms"], held_con["ops_ms"]),
-        "bound_by": "bytes" if held_con["bytes_ms"] >= held_con["ops_ms"]
-        else "operations",
-        "library_ms": None, "slots": con["slots"],
-        "plan": con["plan"], "R": con["R"],
-        "refreshes": con["refreshes"],
-        "rule_refreshes": con["rule_refreshes"], "steps": con["steps"],
-        "cycle_kernel_ms": [sum(pl["kernel_ms"] for pl in r["places"])
-                            for r in con_cycles[1:]],
-        "cycle_ms": [r["cycle_ms"] for r in con_cycles[1:]],
-        "constraint_ms": [sum(pl["constraint_ms"] for pl in r["places"])
-                          for r in con_cycles[1:]],
-        "prune": con_prune,
         "shape": {"tasks": FULL["n_tasks"], "nodes": FULL["n_nodes"],
                   **HEAVY},
-        "checked_against_plain": True,
-        "assign_mismatches": held_con["assign_mismatches"],
-        "N": held_con["N"],
-        "mid_cases": {k: {"ms": v["ms"], "plain_ms": v["plain_ms"],
-                          "refreshes": v["refreshes"],
-                          "assign_mismatches": v["assign_mismatches"]}
-                      for k, v in mid.items() if v["slots"]}}]
+        "mid_cases": {k: v for k, v in mid_cases.items()
+                      if mid[k]["slots"]}}]
+    for res in results.values():
+        for k in kernels:
+            k.update(res.get(k["name"], {}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3735,4 +4103,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    except KeyboardInterrupt:
+        fail("stopped: a phase group failed (its error is above)")

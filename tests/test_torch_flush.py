@@ -2,8 +2,9 @@
 held against the JAX package.
 
 The store (volcano_tpu_torch/apiserver/store.py) against
-volcano_tpu/apiserver/store.py's Python engine (``NATIVE_PUBLISH`` off on
-the reference side): serial against sharded commits, the rv reservation
+volcano_tpu/apiserver/store.py, each case on both engines of both
+packages (the ``engine`` fixture: every native switch on, then every one
+off, on both sides): serial against sharded commits, the rv reservation
 and the journal under an interleaved writer, the write barrier on keys
 in flight, a raising patch fn, the bind clone's sharing and filter flips
 on every delivery path (tests/test_flush_pipeline.py's TestShardedEngine
@@ -28,6 +29,9 @@ from types import SimpleNamespace
 
 import pytest
 
+import volcano_tpu.cache.event_handlers as ref_handlers
+import volcano_tpu_torch.cache.event_handlers as port_handlers
+import volcano_tpu_torch.models.job_info as port_job_info
 from volcano_tpu.apiserver import ObjectStore as RefStore
 from volcano_tpu.apiserver.store import ConflictError as RefConflict
 from volcano_tpu.cache import SchedulerCache as RefCache
@@ -76,12 +80,29 @@ def both(fn):
     return fn(REF), fn(PORT)
 
 
+# each package's native-engine switches: (owner, attribute)
+SWITCHES = {
+    "ref": [(RefStore, "NATIVE_PUBLISH"), (RefCache, "NATIVE_APPLY"),
+            (ref_handlers.EventHandlersMixin, "NATIVE_ECHO"),
+            (ref_ledger, "NATIVE_CONFIRM")],
+    "port": [(PortStore, "NATIVE_PUBLISH"), (PortCache, "NATIVE_APPLY"),
+             (port_handlers.EventHandlersMixin, "NATIVE_ECHO"),
+             (port_ledger, "NATIVE_CONFIRM"),
+             (port_job_info, "NATIVE_CLONE")]}
+
+
+@pytest.fixture(autouse=True, params=["native", "python"])
+def engine(request):
+    """Every case on both engines, the same one on both sides."""
+    for owner, attr in SWITCHES["ref"] + SWITCHES["port"]:
+        setattr(owner, attr, request.param == "native")
+    yield request.param
+    for owner, attr in SWITCHES["ref"] + SWITCHES["port"]:
+        setattr(owner, attr, True)
+
+
 def new_store(side, **kw):
-    store = side.Store(**kw)
-    if side is REF:
-        # the reference's Python publish engine, the one the port has
-        store.NATIVE_PUBLISH = False
-    return store
+    return side.Store(**kw)
 
 
 def sharded(store, target: int = 2, cap: int = 4):

@@ -1,9 +1,11 @@
 """The PyTorch/CUDA port stands alone: every module of volcano_tpu_torch
 imports with jax blocked and loads no module of the JAX package, and
-chip_smoke.py imports neither. Entry points need a GPU unless the caller
-names another device."""
+chip_smoke.py imports neither; the port's C source (the native engine)
+includes and opens nothing of the JAX package. Entry points need a GPU
+unless the caller names another device."""
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -31,8 +33,11 @@ print(' '.join(names))
 # placement-constraint layer, the preempt/reclaim path, candidate pruning,
 # the observability layer (tracer, ledger, why-pending, explainer,
 # metrics, their time series and server) and the scheduler binary with
-# its conf watcher and leader election included
+# its conf watcher and leader election included, and the native engine's
+# build
 CYCLE_MODULES = ("volcano_tpu_torch.apiserver.store",
+                 "volcano_tpu_torch.native",
+                 "volcano_tpu_torch.native.build",
                  "volcano_tpu_torch.cache.cache",
                  "volcano_tpu_torch.actions.allocate",
                  "volcano_tpu_torch.actions.preempt",
@@ -92,6 +97,38 @@ def test_no_jax_or_reference_import_statement(path):
         for m in mods:
             assert not (m == "jax" or m.startswith("jax.")), (path, m)
             assert not _is_reference(m), (path, m)
+
+
+def test_native_modules_are_scanned():
+    """The import-statement scan above covers the native engine's Python
+    modules."""
+    native = sorted(p.name for p in
+                    (ROOT / "volcano_tpu_torch" / "native").glob("*.py"))
+    assert native == ["__init__.py", "build.py"]
+
+
+_C_SOURCES = sorted(str(p.relative_to(ROOT)) for p in
+                    (ROOT / "volcano_tpu_torch").rglob("*.c"))
+
+
+@pytest.mark.parametrize("path", _C_SOURCES)
+def test_c_source_reaches_nothing_of_the_reference(path):
+    """The port's C includes only system headers (<...>) and names no
+    path of the JAX package in a string (an #include "...", an fopen)."""
+    text = (ROOT / path).read_text()
+    includes = re.findall(r'^\s*#\s*include\s*(\S.*)$', text, re.M)
+    assert includes and all(i.startswith("<") for i in includes), includes
+    for lit in re.findall(r'"((?:[^"\\\n]|\\.)*)"', text):
+        assert "volcano_tpu/" not in lit and "volcano_tpu." not in lit, lit
+    assert not re.search(r"\b(fopen|open|dlopen)\s*\(", text)
+
+
+def test_native_build_compiles_the_ports_own_source():
+    from volcano_tpu_torch.native import build
+    assert build.SOURCE == ROOT / "volcano_tpu_torch" / "native" / \
+        "fastmodel.c"
+    assert build.BUILD_DIR == ROOT / "volcano_tpu_torch" / "_build"
+    assert "volcano_tpu_torch/native/fastmodel.c" in _C_SOURCES
 
 
 def test_reference_prefix_check_spares_the_port():

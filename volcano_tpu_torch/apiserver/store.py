@@ -17,10 +17,15 @@ two-phase commit (docs/design/bind_pipeline.md): reserve an rv range,
 clone the shards on a small worker pool, publish them in shard order and
 hand each shard's watch delivery to a one-thread echo worker.
 
+The sharded patch's clone (``bind_pods``), its ordered publish and the
+classification of a bulk delivery by a watch's ``filter_attr`` run on the
+native engine (native/fastmodel.c: ``bind_clone_pods``, ``publish_shard``,
+``attr_eq_filter_pairs``) while ``NATIVE_PUBLISH`` is on, the default; the
+Python bodies beside them are the plain version.
+
 Left out of this port: admission hooks, the write-ahead log and
-read-only mode, replication (``apply_replicated``, ``install_snapshot``)
-and the native publish and bind clone (``fastmodel.c``); the Python
-engine is the only one.
+read-only mode, and replication (``apply_replicated``,
+``install_snapshot``).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from typing import Callable, Dict, List, Optional
 
 from ..metrics import metrics as m
 from ..models import objects as obj
+from ..models.job_info import _fastmodel
 from ..trace import tracer
 from ..utils.clock import GLOBAL_CLOCK, Clock
 from ..utils.fastclone import fast_clone
@@ -127,7 +133,8 @@ class FencedError(Exception):
 class Watch:
     def __init__(self, kind: str, on_add=None, on_update=None, on_delete=None,
                  filter_fn: Optional[Callable] = None,
-                 on_bulk_update: Optional[Callable] = None):
+                 on_bulk_update: Optional[Callable] = None,
+                 filter_attr: Optional[tuple] = None):
         self.kind = kind
         self.on_add = on_add
         self.on_update = on_update
@@ -136,6 +143,10 @@ class Watch:
         # batched delivery of bulk patches: on_bulk_update([(old, new)]);
         # watchers without it get one on_update call per pair
         self.on_bulk_update = on_bulk_update
+        # ((a0, a1), expected): a declaration that filter_fn is the
+        # equality obj.<a0>.<a1> == expected, which lets the native engine
+        # classify a whole delivery in one call
+        self.filter_attr = filter_attr
 
     def passes(self, o) -> bool:
         return self.filter_fn is None or self.filter_fn(o)
@@ -155,6 +166,10 @@ class ObjectStore:
     SHARD_SERIAL_MAX = 512
     SHARD_TARGET = 2048
     SHARD_MAX = 8
+    # the native engine's switch for the bind clone, the ordered publish
+    # and the filter classification (a class attribute, so tests can
+    # force either engine)
+    NATIVE_PUBLISH = True
 
     def __init__(self, clock: Clock = GLOBAL_CLOCK):
         self._objects: Dict[str, Dict[str, object]] = {k: {} for k in KINDS}
@@ -409,28 +424,44 @@ class ObjectStore:
         or to on_update with a private copy. See :meth:`_bulk_patch` for
         the two engines and their failure semantics."""
         return self._bulk_patch(kind, patches, clone_fn or fast_clone,
-                                lambda new, fn: fn(new), fence=fence,
+                                lambda new, fn: fn(new), None, fence=fence,
                                 trace=trace)
 
     def bind_pods(self, bindings, fence: Optional[int] = None,
                   trace: Optional[str] = None) -> tuple:
         """``[(name, namespace, hostname)]`` -> pod.spec.node_name patches
-        through the bulk engine; returns ``(pairs, missing)``."""
+        through the bulk engine; returns ``(pairs, missing)``. On the
+        native engine a shard's clone, patch and rv step is one
+        ``bind_clone_pods`` call."""
         def apply_fn(new, hostname):
             new.spec.node_name = hostname
             new.resource_request()
+
+        batch_shard = None
+        if self.NATIVE_PUBLISH:
+            fm = _fastmodel()
+
+            def batch_shard(shard, rv_base):
+                # None hands the shard back to the Python loop
+                return fm.bind_clone_pods([old for _, old, _ in shard],
+                                          [h for _, _, h in shard],
+                                          rv_base + 1)
         return self._bulk_patch("pods", bindings, obj.clone_pod_for_bind,
-                                apply_fn, fence=fence, trace=trace)
+                                apply_fn, batch_shard, fence=fence,
+                                trace=trace)
 
     def _shard_count(self, n: int) -> int:
         return min(self.SHARD_MAX, -(-n // self.SHARD_TARGET))
 
-    def _bulk_patch(self, kind: str, items, clone_fn, apply_fn,
+    def _bulk_patch(self, kind: str, items, clone_fn, apply_fn, batch_shard,
                     fence: Optional[int] = None,
                     trace: Optional[str] = None) -> tuple:
         """The engine behind patch_batch and bind_pods. ``items`` is
         [(name, namespace, payload)]; each applied item becomes ``new =
-        clone_fn(old); apply_fn(new, payload)`` with a fresh rv.
+        clone_fn(old); apply_fn(new, payload)`` with a fresh rv;
+        ``batch_shard(shard, rv_base)``, when given, does a whole shard's
+        clone, patch and rv step on the sharded path (None: the shard
+        takes the per-item loop).
 
         * Serial (n <= SHARD_SERIAL_MAX, or a key repeated in the burst):
           resolve, clone, patch, install and journal in one lock pass. A
@@ -519,10 +550,10 @@ class ObjectStore:
                 self._deliver(watches, pairs, bulk=True)
         m.observe(m.STORE_PATCH_SHARDS, len(shards), kind=kind)
         return self._publish_shards(kind, shards, bases, watches, clone_fn,
-                                    apply_fn, missing)
+                                    apply_fn, batch_shard, missing)
 
     def _publish_shards(self, kind, shards, bases, watches, clone_fn,
-                        apply_fn, missing) -> tuple:
+                        apply_fn, batch_shard, missing) -> tuple:
         """Phases 2-4 of the sharded patch: the shards clone on the worker
         pool, this thread publishes them strictly in shard order, and each
         published shard's delivery goes to the echo worker. Every delivery
@@ -530,6 +561,10 @@ class ObjectStore:
         first_err: list = [None]
 
         def run_shard(shard, rv_base):
+            if batch_shard is not None:
+                news = batch_shard(shard, rv_base)
+                if news is not None:
+                    return news
             news = []
             rv = rv_base
             for _, old, payload in shard:
@@ -622,11 +657,19 @@ class ObjectStore:
     def _install_shard(self, kind, shard, news) -> list:
         """The ordered publish of one shard (takes the lock itself):
         install its new versions, journal them (the shard's contiguous
-        reserved rvs) in one sequencer call and release their keys.
-        Returns the shard's [(old, new)]."""
+        reserved rvs) in one sequencer call and release their keys; on the
+        native engine the loop is one ``publish_shard`` call. Returns the
+        shard's [(old, new)]."""
+        fm = _fastmodel() if self.NATIVE_PUBLISH else None
         with self._lock:
             objs = self._objects[kind]
             infl = self._inflight[kind]
+            if fm is not None:
+                entries, pairs = fm.publish_shard(objs, infl, kind, shard,
+                                                  news)
+                self._journal_extend_locked(entries)
+                self._flush_cond.notify_all()
+                return pairs
             entries = []
             for (key, _, _), new in zip(shard, news):
                 objs[key] = new
@@ -637,23 +680,36 @@ class ObjectStore:
             self._flush_cond.notify_all()
         return [(old, new) for (_, old, _), new in zip(shard, news)]
 
-    @staticmethod
-    def _deliver(watches, pairs, bulk: bool) -> None:
+    def _deliver(self, watches, pairs, bulk: bool) -> None:
         """Deliver [(old, new)] updates: a filter that flips over the pair
         is delivered as an add or a delete; pairs that pass both go to the
-        bulk handler (bulk commits) or to on_update with a private copy."""
+        bulk handler (bulk commits) or to on_update with a private copy.
+        A watch that declares ``filter_attr`` is classified by the native
+        engine's ``attr_eq_filter_pairs`` while NATIVE_PUBLISH is on: the
+        same flips, fired in pair order, then the same delivery."""
         if not pairs:
             return
+        fm = _fastmodel() if self.NATIVE_PUBLISH else None
         for w in watches:
-            delivery = []
-            for old, new in pairs:
-                old_p, new_p = w.passes(old), w.passes(new)
-                if old_p and new_p:
-                    delivery.append((old, new))
-                elif new_p and w.on_add:
-                    w.on_add(fast_clone(new))
-                elif old_p and w.on_delete:
-                    w.on_delete(old)
+            if fm is not None and w.filter_attr is not None:
+                (a0, a1), expected = w.filter_attr
+                delivery, flips = fm.attr_eq_filter_pairs(
+                    pairs, a0, a1, expected)
+                for is_add, o in flips:
+                    if is_add and w.on_add:
+                        w.on_add(fast_clone(o))
+                    elif not is_add and w.on_delete:
+                        w.on_delete(o)
+            else:
+                delivery = []
+                for old, new in pairs:
+                    old_p, new_p = w.passes(old), w.passes(new)
+                    if old_p and new_p:
+                        delivery.append((old, new))
+                    elif new_p and w.on_add:
+                        w.on_add(fast_clone(new))
+                    elif old_p and w.on_delete:
+                        w.on_delete(old)
             if not delivery:
                 continue
             if bulk and w.on_bulk_update is not None:
@@ -666,11 +722,13 @@ class ObjectStore:
 
     def watch(self, kind: str, on_add=None, on_update=None, on_delete=None,
               filter_fn=None, sync: bool = True,
-              on_bulk_update=None) -> Watch:
+              on_bulk_update=None, filter_attr=None) -> Watch:
         """Subscribe to events of a kind; with sync=True, existing objects
-        are replayed through on_add first (informer list+watch)."""
+        are replayed through on_add first (informer list+watch).
+        ``filter_attr=((a0, a1), expected)`` declares filter_fn to be the
+        equality obj.<a0>.<a1> == expected (see Watch)."""
         w = Watch(kind, on_add, on_update, on_delete, filter_fn,
-                  on_bulk_update=on_bulk_update)
+                  on_bulk_update=on_bulk_update, filter_attr=filter_attr)
         with self._lock:
             # an in-flight sharded patch snapshotted its watch list at
             # reservation: a watch added meanwhile would miss part of it

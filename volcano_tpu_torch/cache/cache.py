@@ -60,6 +60,13 @@ in the reference: a pod whose claim matches no PV fails its staging and
 stays Pending. Its PV and PVC writes carry the fencing token too (the
 reference's do not). Pass ``NullVolumeBinder()`` to count every volume as
 bound.
+
+The native engine (native/fastmodel.c): while ``NATIVE_APPLY`` is on, the
+default, the cross-gang bind apply is one ``bind_apply_bursts`` call, and
+while ``NATIVE_ECHO`` is on (event_handlers.py) the echo of the cache's
+own bind write is ingested by ``bind_echo_apply``; the pods watch
+declares its filter (``filter_attr``) for the store's native
+classification. The Python bodies beside them are the plain version.
 """
 
 from __future__ import annotations
@@ -76,13 +83,13 @@ from ..metrics import metrics as m
 from ..models import objects as obj
 from ..models.arrays import ResourceIndex
 from ..models.cluster_info import ClusterInfo
-from ..models.job_info import (JobInfo, TaskInfo, TaskStatus,
+from ..models.job_info import (JobInfo, TaskInfo, TaskStatus, _fastmodel,
                                allocated_status, get_job_id)
 from ..models.node_info import NodeInfo
 from ..models.objects import (DEFAULT_QUEUE, DEFAULT_SCHEDULER_NAME,
                               PodGroupPhase, status_fingerprint)
 from ..models.queue_info import NamespaceCollection, QueueInfo
-from ..models.resource import CPU, MEMORY, Resource
+from ..models.resource import CPU, EPS, MEMORY, Resource
 from ..trace import ledger, pending
 from ..trace import tracer
 from ..utils import gcguard
@@ -166,6 +173,10 @@ class SchedulerCache(EventHandlersMixin):
     # the kinds the anti-entropy pass fingerprints, in repair order (pods
     # reference nodes, so nodes repair first)
     ANTI_ENTROPY_KINDS = ("nodes", "queues", "podgroups", "pods")
+
+    # the native engine's switch for the bind apply (a class attribute, so
+    # tests can force either engine; NATIVE_ECHO is the echo's)
+    NATIVE_APPLY = True
 
     def __init__(self, store: ObjectStore,
                  scheduler_name: str = DEFAULT_SCHEDULER_NAME,
@@ -310,7 +321,9 @@ class SchedulerCache(EventHandlersMixin):
             s.watch("pods", locked(self.add_pod), locked(self.update_pod),
                     locked(self.delete_pod),
                     filter_fn=self._responsible_for,
-                    on_bulk_update=self.update_pods_bulk),
+                    on_bulk_update=self.update_pods_bulk,
+                    filter_attr=(("spec", "scheduler_name"),
+                                 self.scheduler_name)),
             s.watch("priorityclasses", locked(self.add_priority_class),
                     locked(self.update_priority_class),
                     locked(self.delete_priority_class)),
@@ -989,7 +1002,15 @@ class SchedulerCache(EventHandlersMixin):
         6,250 gangs). A lookup miss or a refused fit falls back to the
         per-task path for exactly the items affected. Each burst's
         accepted and bound lists fill in (job group, node group) order,
-        both in input order."""
+        both in input order.
+
+        On the native engine the whole pass is one ``bind_apply_bursts``
+        call; it checks everything first and, on any irregular shape,
+        returns False with nothing changed, and this body runs."""
+        if self.NATIVE_APPLY and _fastmodel().bind_apply_bursts(
+                list(bursts), self.jobs, self.nodes, self._dirty_jobs,
+                self._dirty_nodes, TaskStatus.Binding, EPS):
+            return
         by_job: Dict[str, list] = {}
         for burst in bursts:
             for task_info, hostname in burst.pairs:

@@ -21,8 +21,9 @@ from typing import Optional
 from ..apiserver import store as store_api
 from ..models import objects as obj
 from ..models.arrays import _group_sig
-from ..models.job_info import (JobInfo, TaskInfo, allocated_status,
-                               get_job_id, get_task_status, is_terminated)
+from ..models.job_info import (JobInfo, TaskInfo, _fastmodel,
+                               allocated_status, get_job_id, get_task_status,
+                               is_terminated)
 from ..models.node_info import NodeInfo
 from ..models.numa_info import NumatopoInfo
 from ..models.queue_info import NamespaceCollection, QueueInfo
@@ -37,6 +38,10 @@ class EventHandlersMixin:
     bind write, which :meth:`update_pods_bulk` recognises by the
     expected-bind-echo hint of the writing thread; the bind's apply
     already dirtied its job and node with the same information."""
+
+    # the native engine's switch for the own-write echo (a class
+    # attribute, so tests can force either engine)
+    NATIVE_ECHO = True
 
     # -- pods -------------------------------------------------------------
 
@@ -166,7 +171,12 @@ class EventHandlersMixin:
         hinted node, is that write. Another writer's patch of the same
         shape dirties its job and node like any watch delta. The ledger
         confirms the echoed binds, with the shard's publish instant as
-        their store_committed stamp."""
+        their store_committed stamp.
+
+        On the native engine (NATIVE_ECHO) ``bind_echo_apply`` takes the
+        own-write pairs, the same guards and the same changes, up to the
+        first pair it hands back; that pair takes this body, and the
+        native pass resumes after it, so pairs are handled in order."""
         hint = self._expected_bind_echo
         exp = hint[1] if hint is not None \
             and hint[0] == store_api.delivery_origin() else None
@@ -195,7 +205,8 @@ class EventHandlersMixin:
                     if stored.pod is not cached.pod:
                         stored.pod.metadata.resource_version = rv
 
-            for old, new in pairs:
+            def one(old, new) -> None:
+                """The ingest of one pair."""
                 nm = new.metadata
                 own = exp.get(nm.uid) if exp is not None else None
                 if own is not None:
@@ -210,7 +221,7 @@ class EventHandlersMixin:
                             and allocated_status(task.status) \
                             and allocated_status(new_status):
                         apply(job, task, new_status, nm.resource_version)
-                        continue
+                        return
                 jid = get_job_id(new)
                 job = self.jobs.get(jid) if jid else None
                 cached = None
@@ -233,11 +244,26 @@ class EventHandlersMixin:
                         self._dirty_jobs.add(jid)
                         self._dirty_nodes.add(cached.node_name)
                         apply(job, cached, new_status, nm.resource_version)
-                        continue
+                        return
                 try:
                     self.update_pod(old, fast_clone(new))
                 except KeyError:
                     pass   # e.g. pod bound to a node we haven't seen yet
+
+            if exp is None or not self.NATIVE_ECHO:
+                for old, new in pairs:
+                    one(old, new)
+            else:
+                fm = _fastmodel()
+                pairs = pairs if isinstance(pairs, list) else list(pairs)
+                i, n = 0, len(pairs)
+                while i < n:
+                    i = fm.bind_echo_apply(
+                        pairs, i, exp, self.jobs, self.nodes,
+                        confirms if now is not None else None)
+                    if i < n:
+                        one(*pairs[i])
+                        i += 1
             if confirms:
                 ledger.confirm_runs(confirms, now, commit_t)
 

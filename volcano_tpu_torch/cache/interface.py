@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Optional, Protocol
 
+from ..models.job_info import _fastmodel
 from ..models.objects import (Pod, PodGroup, clone_pod_group_for_status)
 
 
@@ -33,7 +34,9 @@ def bind_pods_batch(store, items, per_pod_bind, batch_ok: bool,
     (a binder subclass overrode ``bind``). ``fence`` and ``trace``, when
     set, ride the commit (the leader's fencing token and the flush's
     correlation ID). Returns ``(failed, used_batch)``: the pairs that did
-    not bind, and whether the batch path ran."""
+    not bind, and whether the batch path ran. The commit's request list
+    is built by the native engine's ``bind_request_items`` while the
+    store's NATIVE_PUBLISH is on."""
     if store is None or not batch_ok:
         failed = []
         for pod, hostname in items:
@@ -42,9 +45,14 @@ def bind_pods_batch(store, items, per_pod_bind, batch_ok: bool,
             except Exception:
                 failed.append((pod, hostname))
         return failed, False
-    _, missing = store.bind_pods(
-        [(pod.metadata.name, pod.metadata.namespace, hostname)
-         for pod, hostname in items], fence=fence, trace=trace)
+    items = items if isinstance(items, list) else list(items)
+    # None from the native engine hands the list back to this body
+    reqs = _fastmodel().bind_request_items(items) \
+        if store.NATIVE_PUBLISH else None
+    if reqs is None:
+        reqs = [(pod.metadata.name, pod.metadata.namespace, hostname)
+                for pod, hostname in items]
+    _, missing = store.bind_pods(reqs, fence=fence, trace=trace)
     if not missing:
         return [], True
     gone = set(missing)

@@ -1,8 +1,9 @@
 """NodeInfo: per-node resource state machine.
 
-The port's own copy of volcano_tpu/models/node_info.py, without the
-native clone accelerator. Behavioral contract mirrors the
-reference (pkg/scheduler/api/node_info.go):
+The port's own copy of volcano_tpu/models/node_info.py (``clone``'s
+Resources and task table are cloned by the native engine under
+``job_info.NATIVE_CLONE``). Behavioral contract
+mirrors the reference (pkg/scheduler/api/node_info.go):
 Idle/Used/Releasing/Pipelined accounting by task status (AddTask:341,
 RemoveTask:388), FutureIdle = Idle + Releasing - Pipelined (:71-73),
 oversubscription ingestion (:187-226), ready/phase state (:227-263), and
@@ -15,6 +16,7 @@ from typing import Dict, List, Optional
 
 from . import objects
 from .objects import Node
+from . import job_info
 from .job_info import TaskInfo, TaskStatus
 from .resource import EPS, GPU_MEMORY_RESOURCE, GPU_NUMBER_RESOURCE, Resource, ZERO
 
@@ -350,19 +352,28 @@ class NodeInfo:
         mirror the cache's state, and replaying costs O(tasks) resource
         arithmetic plus a quantity re-parse per node, which dominated the
         per-cycle snapshot at 10k nodes."""
+        # the native engine clones the Resources and the task table in C;
+        # the fields stay Python stores (see JobInfo.clone)
+        if job_info.NATIVE_CLONE:
+            fm = job_info._fastmodel()
+            clone_resource = fm.clone_resource
+            tasks = fm.clone_task_dict(self.tasks)
+        else:
+            clone_resource = Resource.clone
+            tasks = {k: t.clone() for k, t in self.tasks.items()}
         c = NodeInfo.__new__(NodeInfo)
         c.name = self.name
         c.node = self.node
         c.state = self.state
-        c.releasing = self.releasing.clone()
-        c.pipelined = self.pipelined.clone()
-        c.idle = self.idle.clone()
-        c.used = self.used.clone()
+        c.releasing = clone_resource(self.releasing)
+        c.pipelined = clone_resource(self.pipelined)
+        c.idle = clone_resource(self.idle)
+        c.used = clone_resource(self.used)
         # capacity vectors are only ever replaced wholesale (set_node),
         # never mutated in place — share them across clones
         c.allocatable = self.allocatable
         c.capability = self.capability
-        c.tasks = {k: t.clone() for k, t in self.tasks.items()}
+        c.tasks = tasks
         c.numa_info = self.numa_info
         c.numa_scheduler_info = (self.numa_scheduler_info.clone()
                                  if self.numa_scheduler_info is not None else None)

@@ -38,6 +38,10 @@ export as ``volcano_pod_e2e_latency_milliseconds{queue}`` /
 ``/debug/latency`` endpoint serves p50/p95/p99 over a bounded sample
 window. Enabled/disabled together with the tracer (one production
 switch); a disabled ledger's ``stamp`` is one flag check.
+
+``confirm_runs`` (the bind echo's completions) runs on the native engine
+(native/fastmodel.c ``ledger_confirm_runs``) while ``NATIVE_CONFIRM`` is
+on, the default; its Python body is the plain version.
 """
 
 from __future__ import annotations
@@ -150,6 +154,25 @@ def _metrics():
         from ..metrics import metrics as m
         _metrics_mod = m
     return _metrics_mod
+
+
+# the native completion's switch: a module attribute, so tests can force
+# either engine
+NATIVE_CONFIRM = True
+_native = None
+
+
+def _ledger_native():
+    """The native engine, registered with this module's _Entry and _Agg
+    layouts and hop table at first use. A failed build raises."""
+    global _native
+    if _native is None:
+        from ..native.build import fastmodel
+        fm = fastmodel()
+        fm.register_ledger_types(_Entry, _Agg, _HOP_NAME, _COMMIT_IDX,
+                                 _ECHO_IDX)
+        _native = fm
+    return _native
 
 
 # -- control ----------------------------------------------------------------
@@ -350,12 +373,22 @@ def confirm_runs(runs, now: float, commit_t: Optional[float] = None) -> None:
     the per-pod body, and the entry completion is inlined for the
     common shape (no out-of-order stamps). Aggregation arithmetic is
     IDENTICAL to :func:`_complete_locked` — fingerprints must not see
-    which loop ran."""
+    which loop ran. On the native engine the loop is one
+    ``ledger_confirm_runs`` call."""
     if not _enabled:
         return
     global _completed
     ct = commit_t if commit_t is not None else now
     m = _metrics()
+    if NATIVE_CONFIRM:
+        fm = _ledger_native()
+        with _lock:
+            _completed += fm.ledger_confirm_runs(
+                _entries, _hops, _queue_e2e, _pending_exports,
+                _export_keys, _recent, m.POD_HOP_LATENCY,
+                m.POD_E2E_LATENCY, runs, ct, float(now))
+        _drain_exports()
+        return
     with _lock:
         hop_cache: dict = {}
 
