@@ -33,8 +33,8 @@ print(' '.join(names))
 # placement-constraint layer, the preempt/reclaim path, candidate pruning,
 # the observability layer (tracer, ledger, why-pending, explainer,
 # metrics, their time series and server) and the scheduler binary with
-# its conf watcher and leader election included, and the native engine's
-# build
+# its conf watcher and leader election included, the native engine's
+# build, and the churn simulator with the store checkpoint
 CYCLE_MODULES = ("volcano_tpu_torch.apiserver.store",
                  "volcano_tpu_torch.native",
                  "volcano_tpu_torch.native.build",
@@ -62,7 +62,16 @@ CYCLE_MODULES = ("volcano_tpu_torch.apiserver.store",
                  "volcano_tpu_torch.cmd.cycle",
                  "volcano_tpu_torch.cmd.scheduler",
                  "volcano_tpu_torch.utils.filewatcher",
-                 "volcano_tpu_torch.utils.leaderelection")
+                 "volcano_tpu_torch.utils.leaderelection",
+                 "volcano_tpu_torch.apiserver.codec",
+                 "volcano_tpu_torch.apiserver.persistence",
+                 "volcano_tpu_torch.sim.events",
+                 "volcano_tpu_torch.sim.faults",
+                 "volcano_tpu_torch.sim.workload",
+                 "volcano_tpu_torch.sim.invariants",
+                 "volcano_tpu_torch.sim.engine",
+                 "volcano_tpu_torch.sim.replay",
+                 "volcano_tpu_torch.sim.cli")
 
 
 def _is_reference(module: str) -> bool:

@@ -335,11 +335,13 @@ class AllocateAction(Action):
         Under the deferred apply (the default) each gang is only recorded
         (``Statement.record_batch_deferred``: node_name markers and the
         job's deltas) and its staging runs at ``Session.materialize``."""
-        if ssn.solver.deferred_apply:
+        if ssn.solver.deferred_apply and result.job_total_vec is not None:
             # the deferred fast path: the kernel's vectorized totals stand
             # in for the per-task Resource sums, and the fit check is one
             # array compare, which fails only on internal drift and then
-            # routes the gangs on those nodes to the per-job path
+            # routes the gangs on those nodes to the per-job path. A
+            # solve that placed nothing has no totals: its bulk is only
+            # kept gangs with no new placement, staged below
             rindex = ssn.solver.rindex
             narr = result.narr
             failed_uids = set()

@@ -1,60 +1,129 @@
-"""Fault injection for the commit path (this port's own copy of the
-live injectors of volcano_tpu/sim/faults.py, cut to what the port's
-callers use).
+"""Fault injection for the simulator (the port's own copy of
+volcano_tpu/sim/faults.py): flaky binds, API latency, node churn
+schedules, evict storms, watch-delivery faults and mid-flush scheduler
+crashes.
 
-* :class:`FlakyBinder` wraps the recording binder with a seeded per-bind
-  failure coin and a targeted always-fail set; failures take the
-  production resync path (cache.resync_task -> process_resync_tasks with
-  retry accounting, gang healing and quarantine).
-* :class:`FlakyWatch` wraps one registered store watch and silently
-  drops, or delays to the next release, a content-keyed fraction of its
-  deliveries, so the cache diverges from the store as over a lossy
-  informer stream; the anti-entropy pass (cache.anti_entropy) must find
-  and repair it.
+Three layers:
 
-The reference's FaultConfig, the binder's crash mode and virtual-clock
-latency, the watch's rv-keyed coin and the forced journal gap serve its
-simulator engine, and wait for the simulator's port together with its
-scheduled faults (node churn, evict storms) and storage faults.
+* **Live injectors** — :class:`FlakyBinder` wraps the recording binder
+  with a seeded per-bind failure coin and a virtual-clock latency charge;
+  failures take the production resync path (cache.resync_task →
+  process_resync_tasks), which is exactly the machinery the simulator
+  exists to stress. Its crash mode (:attr:`FlakyBinder.crash_after_binds`)
+  commits a PREFIX of a flush and then dies, modeling a scheduler killed
+  mid bind-flush — the store is left with partially bound gangs for the
+  restarted scheduler to reconverge (docs/design/failover.md).
+* **Watch faults** — :class:`FlakyWatch` wraps a subscriber's registered
+  store watch and silently drops (or delays by one tick) a content-keyed
+  fraction of deliveries, diverging the cache from the store exactly the
+  way a lossy informer stream would; the anti-entropy reconciler
+  (cache.anti_entropy) must detect and repair it. ``force_gap`` clears
+  the store journal — the remote-watch "window rolled past" failure that
+  forces a relist.
+* **Scheduled faults** — :func:`synthesize_node_churn` /
+  :func:`synthesize_evict_storms` emit plain events (drain/undrain,
+  kill/re-add, storms) from a seeded RNG so they ride the same replayable
+  stream as arrivals.
+
+Left out of this port: the storage faults of the write-ahead log
+(``FileFaults``, ``FaultyFile``, ``flip_bit``, ``tear_tail``), which wait
+for the log itself.
 """
 
 from __future__ import annotations
 
 import random
 import zlib
-from typing import List
+from dataclasses import dataclass, field
+from typing import List, Optional
 
 from ..utils.clock import Clock
 from ..utils.test_utils import FakeBinder
+from .events import Event, make_event
+
+
+class SimulatedCrash(RuntimeError):
+    """The injected scheduler death: raised by FlakyBinder's crash mode
+    after a flush's prefix committed. Deliberately a batch-LEVEL error
+    (raised from bind_batch, not per pod) so the dying cache takes the
+    batch-failure path — resync-and-return, NO gang healing: a crashed
+    process doesn't get to run compensation writes."""
+
+
+@dataclass
+class FaultConfig:
+    seed: int = 0
+    bind_fail_rate: float = 0.0      # per-pod store-bind failure probability
+    api_latency_s: float = 0.0       # virtual seconds charged per store bind
+    # targeted failure: pod keys ("ns/name") whose binds ALWAYS fail —
+    # the deterministic poison-pod mode for quarantine testing (no
+    # coin flips involved; the fail-rate RNG sequence is untouched)
+    fail_pods: List[str] = field(default_factory=list)
+    # node churn (over the workload horizon)
+    flap_rate: float = 0.0           # drain+undrain pairs per virtual second
+    flap_down_s: float = 5.0         # how long a flapped node stays drained
+    kill_rate: float = 0.0           # node kill + re-add pairs per second
+    kill_down_s: float = 10.0
+    # evict storms
+    storm_rate: float = 0.0          # storms per virtual second
+    storm_fraction: float = 0.1      # fraction of bound pods deleted
+    # watch-delivery faults (FlakyWatch over the cache's pod watch):
+    # content-keyed per-delivery probabilities of a silent drop / a
+    # one-tick delay — divergence for the anti-entropy pass to repair
+    watch_drop_rate: float = 0.0
+    watch_delay_rate: float = 0.0
 
 
 class FlakyBinder(FakeBinder):
-    """Recording binder with deterministic failure injection.
+    """Recording binder with deterministic failure + latency injection.
 
     Failure decisions come from one seeded RNG consumed in bind order;
-    the cache executor is a single FIFO worker and the caller flushes it
-    every cycle, so the coin-flip sequence, and therefore the whole run,
+    the cache executor is a single FIFO worker and the engine flushes it
+    every tick, so the coin-flip sequence — and therefore the whole run —
     is reproducible from the seed. Failed binds raise, taking the
     production resilience path: resync with retry accounting, gang-atomic
-    healing of the bound siblings, and quarantine past the retry budget.
-    ``failed_keys`` records every injected failure for test assertions.
-    ``fail_pods`` is the targeted mode: the named pods ALWAYS fail
-    (without consuming the fail-rate coin), so poison-pod quarantine is
-    testable deterministically.
+    healing of the bound siblings, and quarantine past the retry budget
+    (docs/design/resilience.md). ``failed_keys`` records every injected
+    failure for test assertions. ``fail_pods`` is the targeted mode: the
+    named pods ALWAYS fail (without consuming the fail-rate coin), so
+    poison-pod quarantine is testable deterministically.
     """
 
     def __init__(self, store, clock: Clock, fail_rate: float = 0.0,
-                 seed: int = 0, fail_pods=None):
+                 latency_s: float = 0.0, seed: int = 0, fail_pods=None):
         super().__init__(store)
         self.clock = clock
         self.fail_rate = fail_rate
+        self.latency_s = latency_s
         self.fail_pods = set(fail_pods or ())
         self._rng = random.Random(seed ^ 0x5EED)
         self.failed_keys: List[str] = []
         self.attempts = 0
+        # crash mode (docs/design/failover.md): when armed, the NEXT
+        # bind_batch commits only its first `crash_after_binds` pods and
+        # then raises SimulatedCrash — the scheduler died mid-flush,
+        # leaving partial gangs in the store. `crashed` tells the engine
+        # to perform the restart at its tick barrier.
+        self.crash_after_binds: Optional[int] = None
+        self.crashed = False
+        # latency is ACCUMULATED here and charged to the clock by the
+        # engine at the tick boundary (after the executor flush), never
+        # from the executor thread: a mid-cycle clock mutation would
+        # race concurrent ssn.clock.now() reads by time-dependent
+        # plugins and break the bit-identical-replay contract
+        self.pending_latency_s = 0.0
+
+    def take_pending_latency(self) -> float:
+        """Drain the accumulated virtual API latency. Called by the
+        engine after flush_executors() — the flush barrier is the
+        synchronization point, so no lock is needed."""
+        charged, self.pending_latency_s = self.pending_latency_s, 0.0
+        return charged
 
     def bind(self, pod, hostname: str) -> None:
         self.attempts += 1
+        if self.latency_s:
+            self.pending_latency_s += self.latency_s  # virtual round-trip
         key = f"{pod.metadata.namespace}/{pod.metadata.name}"
         if key in self.fail_pods:
             self.failed_keys.append(key)
@@ -64,14 +133,34 @@ class FlakyBinder(FakeBinder):
             raise RuntimeError(f"injected bind failure for {key}")
         super().bind(pod, hostname)
 
+    def bind_batch(self, items) -> list:
+        """Per-pod delegation through :meth:`bind` (failure injection
+        keeps its coin order), with the crash mode layered on top: an
+        armed crash commits only the burst's prefix, then raises —
+        batch-level, so the dying cache resyncs WITHOUT healing (a dead
+        process runs no compensation writes; the store keeps the partial
+        gangs the restarted scheduler must reconverge)."""
+        items = list(items)
+        if self.crash_after_binds is not None:
+            n = max(0, int(self.crash_after_binds))
+            self.crash_after_binds = None
+            self.crashed = True
+            prefix = items[:n]
+            if prefix:
+                super().bind_batch(prefix)
+            raise SimulatedCrash(
+                f"scheduler killed mid-flush: {len(prefix)} of "
+                f"{len(items)} binds committed")
+        return super().bind_batch(items)
+
 
 class FlakyWatch:
-    """Seeded watch-delivery fault injector.
+    """Seeded watch-delivery fault injector (docs/design/failover.md).
 
-    Wraps ONE registered store :class:`~volcano_tpu_torch.apiserver.store.Watch`
+    Wraps ONE registered store :class:`~..apiserver.store.Watch`
     (typically the cache's pod watch) so a deterministic fraction of
-    deliveries is silently dropped, or held back until the caller
-    releases it — the informer-stream loss/reorder failure modes. The wrapped
+    deliveries is silently dropped, or delayed until the engine's next
+    tick — the informer-stream loss/reorder failure modes. The wrapped
     subscriber's view diverges from the store; nothing else in the system
     is told, which is the point: the anti-entropy reconciler has to FIND
     it.
@@ -80,12 +169,16 @@ class FlakyWatch:
     ``(action, object key, per-key delivery sequence, seed)`` —
     commit-order-stable, so it is independent of thread timing AND of
     journal rv interleaving, identical across double runs (the same
-    property the resync backoff jitter relies on). A key's own delivery
-    order is commit order (writes to one object serialize), so the
-    per-key sequence is a stable identity. Bulk deliveries are coined
-    per pair. Delayed deliveries are re-played in recorded order by
-    :meth:`release_delayed`; the production handlers treat them like any
-    stale event.
+    property the resync backoff jitter relies on). Where the journal's
+    rv INTERLEAVING between the executor's bind/status-writeback commits
+    and other writers is timing-dependent, every scheduling outcome stays
+    bit-identical but an rv-keyed coin would turn the reordering
+    semantic. A key's own delivery ORDER is commit order (writes to one
+    object serialize), so the per-key sequence is the stable identity.
+    Bulk deliveries are coined per pair. Delayed
+    deliveries are re-played in recorded order by
+    :meth:`release_delayed` (the engine calls it at the top of each
+    tick); the production handlers treat them like any stale event.
     """
 
     def __init__(self, seed: int = 0, drop_rate: float = 0.0,
@@ -188,3 +281,77 @@ class FlakyWatch:
         for handler, args in pending:
             handler(*args)
         return len(pending)
+
+    @staticmethod
+    def force_gap(store) -> None:
+        """Roll the store's journal window past every subscriber: clears
+        the journal so the next ``events_since`` from any older rv
+        returns ``resync=True`` — the forced-relist path remote mirrors
+        take when they fall behind the window."""
+        with store._lock:
+            store._journal.clear()
+
+
+def synthesize_node_churn(cfg: FaultConfig, node_names: List[str],
+                          horizon_s: float,
+                          start_at: float = 0.0) -> List[Event]:
+    """Drain/undrain flaps and kill/re-add cycles over ``horizon_s``.
+
+    Every down event is paired with its recovery up front, so a dumped
+    trace carries the full schedule (no RNG at apply time). Node specs
+    for re-adds are resolved by the engine from its node catalog.
+    """
+    rng = random.Random(cfg.seed ^ 0xF1A9)
+    events: List[Event] = []
+    for rate, down_s, down_kind, up_kind in (
+            (cfg.flap_rate, cfg.flap_down_s, "node_drain", "node_undrain"),
+            (cfg.kill_rate, cfg.kill_down_s, "node_kill", "node_add")):
+        if rate <= 0 or not node_names:
+            continue
+        t = start_at
+        while True:
+            t += rng.expovariate(rate)
+            if t > start_at + horizon_s:
+                break
+            name = rng.choice(node_names)
+            events.append(make_event(t, down_kind, name=name))
+            events.append(make_event(t + down_s, up_kind, name=name))
+    return events
+
+
+def synthesize_evict_storms(cfg: FaultConfig, horizon_s: float,
+                            start_at: float = 0.0) -> List[Event]:
+    """Periodic storms deleting a seeded fraction of bound pods (the
+    kubelet-pressure / node-OOM analogue)."""
+    if cfg.storm_rate <= 0:
+        return []
+    rng = random.Random(cfg.seed ^ 0x5702)
+    events: List[Event] = []
+    t = start_at
+    while True:
+        t += rng.expovariate(cfg.storm_rate)
+        if t > start_at + horizon_s:
+            break
+        events.append(make_event(t, "evict_storm",
+                                 fraction=cfg.storm_fraction,
+                                 seed=rng.randrange(1 << 30)))
+    return events
+
+
+def apply_evict_storm(store, event: Event) -> List[str]:
+    """Delete ``fraction`` of currently bound pods, chosen by the event's
+    own seed over the key-sorted pod list (order-independent of store
+    internals). Returns the deleted keys."""
+    bound = sorted((p.metadata.namespace, p.metadata.name)
+                   for p in store.list_refs("pods") if p.spec.node_name)
+    rng = random.Random(int(event.get("seed", 0)))
+    k = int(len(bound) * float(event.get("fraction", 0.0)))
+    victims = rng.sample(bound, k) if k else []
+    deleted: List[str] = []
+    for ns, name in victims:
+        try:
+            store.delete("pods", name, ns)
+            deleted.append(f"{ns}/{name}")
+        except KeyError:
+            pass
+    return deleted
