@@ -294,6 +294,39 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
     ticks twice on the card: zero violations, and both runs' fingerprints
     and counters equal to the reference's at that shape; per tick the
     cycle, flush and audit ms and launches;
+15i. served: the apiserver's durable, served layer (volcano_tpu_torch/
+    apiserver/{wal,http,remote}.py, serving/, cmd/apiserver.py), in two
+    groups. ``served``: (a) the served north star: phase 9's store
+    (populate_store 10,000 nodes, 6,250 gangs of 8) saved into a data
+    directory with the anchored save, ``python -m
+    volcano_tpu_torch.cmd.apiserver --data-dir D`` started as a child
+    process that never initializes CUDA, and the scheduler binary's
+    entry with ``--server`` (cmd/scheduler.py: open_store, run_scheduler,
+    the default conf and binpack) in the group's process on the card:
+    one placing cycle and its flush, the reference's 50,000 per-pod REST
+    binds. Every pod bound, the binds replaying within allocatable, every
+    gang all or nothing, launches as the place's prune outcome gives, the
+    binds equal pod for pod to the port's embedded cycle on the same
+    seeded store on the card; then, once the write-ahead log has made the
+    last rv durable, the apiserver SIGKILLed and restarted from D: every
+    bind read back, the journal and bind fingerprints equal to those from
+    before the kill; the scheduler's mirror resyncs across the restart, a
+    second cycle binds nothing new and the anti-entropy audit of the
+    mirror repairs nothing. It prints the save, boot, recovery and list
+    seconds, the cycle's split, the kernel's CUDA-event ms, launches and
+    prune fields, flush_ms and the bind rate, the log's records and
+    fsyncs, the recovery's seconds and entries, and peak device memory.
+    ``storm``: (b) ``python -m volcano_tpu_torch.sim.cli storm --device
+    cuda --json`` at the reference's shape (seed 43, 80 ticks, 192 nodes,
+    1,024 subscribers, 8 shards, drop rate 0.03) twice through the CLI's
+    main: exit 0 with every check true, both runs' bind and ledger
+    fingerprints and the gate's counters equal to the reference's record
+    (tests/torch_sim_reference.json ``storm``), launches per placing tick
+    as the prune outcomes give; (c) the reference's pure store-and-WAL
+    leg (bench.py's WAL worker) at 50,000 binds over 10,000 nodes,
+    printed and not gated: ``wal_bind_flush_ms`` and ``wal_off_flush_ms``
+    in five paired rounds beside the reference's budget of 1.10, the
+    drain, the fsync p99 and the recovery;
 16. the kernels line (with the table refreshes, the cluster's blocks and
     each block's shared memory, the plan and R, as the main path's launch
     reported them, the shapes_vs_plain summary, traced_cycle's overhead,
@@ -302,17 +335,20 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
     (``launches_per_flush_cycle``), plugins_cycle's launches, kernel ms,
     host_predicates ms and G, scheduler_binary's launches per cycle,
     the sim group's launches per tick in each run of (a), (b) and (c)
-    and whether its fingerprints agreed (``sim``), and a ``prune`` entry for the north-star cycle's place: union, padded
+    and whether its fingerprints agreed (``sim``), the served north
+    star's launches, kernel ms, flush ms and binds recovered
+    (``served``), the storm's launches per tick and whether its
+    fingerprints agreed (``storm``), and a ``prune`` entry for the north-star cycle's place: union, padded
     width, launches, refreshes, whether the reduced run served; a second
     entry for the slot path), then the card's nvidia-smi line, then
     {"ok": true, "device": {...}} as the last line.
 
-The phases after 8 run in four groups (GROUPS), each in a process of
+The phases after 8 run in six groups (GROUPS), each in a process of
 its own, beside phases 3-8 on the one card: ``cycles`` (9-11, 15e, 12),
 ``binary_victims`` (15f, 13, 14, 15, 15c) and ``commit`` (15b, 15d, 15g)
-start together after the build; ``sim`` (15h) starts once phases 3-6
-and the cycles group have timed the kernel, so that its 10,000-node
-launches stay out of the kernel's timed runs. Their lines reach stdout
+start together after the build; ``sim`` (15h), ``served`` and ``storm``
+(15i) start once phases 3-6 and the cycles group have timed the kernel,
+so that their 10,000-node launches stay out of the kernel's timed runs. Their lines reach stdout
 through the script; their host times carry each other's load, on the
 host's cores and the card's time slices (``--group NAME`` runs one
 group alone, for host times without that load). A group that fails
@@ -344,6 +380,7 @@ import os
 import re
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -362,6 +399,9 @@ if not torch.cuda.is_available():
 from volcano_tpu_torch import convert  # noqa: E402
 from volcano_tpu_torch.apiserver import ObjectStore  # noqa: E402
 from volcano_tpu_torch.apiserver.store import FencedError  # noqa: E402
+from volcano_tpu_torch.apiserver import persistence  # noqa: E402
+from volcano_tpu_torch.apiserver import wal as wal_mod  # noqa: E402
+from volcano_tpu_torch.apiserver.http import StoreClient  # noqa: E402
 from volcano_tpu_torch.cache import SchedulerCache  # noqa: E402
 from volcano_tpu_torch.cache.event_handlers import (  # noqa: E402
     EventHandlersMixin)
@@ -3219,10 +3259,13 @@ class CycleRecorder:
     set to 0 just before each cycle and read just after, then the flush
     waited for and timed; one record a cycle, with the cycle's split."""
 
-    def __init__(self):
+    def __init__(self, flush_timeout: float = cycle_cmd.FLUSH_TIMEOUT_S,
+                 wait_s: float = BINARY_WAIT_S):
         self.records = []
         self.errors = []
         self.cond = threading.Condition()
+        self.flush_timeout = flush_timeout
+        self.wait_s = wait_s
         self._orig = Scheduler.run_once
 
     def __enter__(self):
@@ -3239,7 +3282,7 @@ class CycleRecorder:
                 launches = gang_allocate_cuda.launches
                 t0 = time.perf_counter()
                 if not sched.cache.flush_executors(
-                        timeout=cycle_cmd.FLUSH_TIMEOUT_S):
+                        timeout=recorder.flush_timeout):
                     raise RuntimeError("the cache's executor did not drain")
                 flush_ms = (time.perf_counter() - t0) * 1000.0
                 lc = sched.last_cycle
@@ -3270,19 +3313,18 @@ class CycleRecorder:
 
     def wait(self, sched, n: int, ctx: str) -> list:
         """The first ``n`` records of ``sched``'s cycles."""
-        deadline = time.monotonic() + BINARY_WAIT_S
+        deadline = time.monotonic() + self.wait_s
         with self.cond:
             while True:
                 if self.errors:
-                    fail(f"scheduler_binary {ctx}: a cycle failed: "
-                         f"{self.errors[0]}")
+                    fail(f"{ctx}: a cycle failed: {self.errors[0]}")
                 mine = [r for r in self.records if r["sched"] is sched]
                 if len(mine) >= n:
                     return mine[:n]
                 left = deadline - time.monotonic()
                 if left <= 0:
-                    fail(f"scheduler_binary {ctx}: {len(mine)} of {n} "
-                         f"cycles in {BINARY_WAIT_S:g} s")
+                    fail(f"{ctx}: {len(mine)} of {n} cycles in "
+                         f"{self.wait_s:g} s")
                 self.cond.wait(left)
 
 
@@ -3402,7 +3444,8 @@ def binary_north_star(dev) -> dict:
             if leader.device != dev:
                 fail(f"scheduler_binary: the binary runs on "
                      f"{leader.device}")
-            runs = rec.wait(leader, BINARY_CYCLES, "leader")
+            runs = rec.wait(leader, BINARY_CYCLES,
+                            "scheduler_binary leader")
             if runs[0]["launches"] < 1:
                 fail("scheduler_binary: the placing cycle launched no "
                      "kernel")
@@ -3447,7 +3490,7 @@ def binary_north_star(dev) -> dict:
                 pass
             if store.fenced_writes != fenced0 + 1:
                 fail("scheduler_binary: the fenced write was not counted")
-            after = rec.wait(standby, 1, "new leader")[0]
+            after = rec.wait(standby, 1, "scheduler_binary new leader")[0]
             if placed(store) != binds_before or \
                     volume_facts(store) != facts_before:
                 fail("scheduler_binary: the new leader's cycle changed the "
@@ -4164,15 +4207,465 @@ def sim_group(dev) -> dict:
         and north["fingerprints_agree"]}}}
 
 
+# ---- 15i. served: the apiserver's durable, served layer on the card
+
+SERVED_FLUSH_TIMEOUT_S = 1200.0     # 50,000 per-pod REST binds
+SERVED_WAIT_S = 60.0                # the apiserver's boot and recovery
+SERVED_PERIOD_S = 1.0
+# the storm gate's shape, from the record it is held to
+STORM_VERB = ["storm", "--device", "cuda", "--json"]
+# (c): the reference's WAL leg (bench.py's WAL worker) at the north star
+WAL_ROUNDS = 5
+WAL_NAMESPACES = 64
+WAL_BUDGET = 1.10                   # tools/bench_check.py:check_wal
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def get_json(url: str, timeout: float = 30.0):
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def die_with_parent() -> None:
+    ctypes.CDLL(None).prctl(PR_SET_PDEATHSIG, signal.SIGKILL)
+
+
+class ApiServer:
+    """``python -m volcano_tpu_torch.cmd.apiserver --data-dir D`` as a
+    child OS process of the group (in the group's session, and killed
+    with it): host-only, with no CUDA device visible to it. It runs with
+    ``--checkpoint-interval 0`` (no periodic compaction), so a restart
+    replays the write-ahead log of everything written since the save,
+    and no compaction's snapshot of 66,000 objects holds the store's
+    lock while the binds stream in."""
+
+    def __init__(self, data_dir: str):
+        self.data_dir = data_dir
+        self.port, self.mport = free_port(), free_port()
+        self.url = f"http://127.0.0.1:{self.port}"
+        self.murl = f"http://127.0.0.1:{self.mport}"
+        self.proc = None
+
+    def start(self) -> float:
+        """Start it and wait until it answers; returns the seconds."""
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        t0 = time.perf_counter()
+        # its log goes to a file: a pipe nobody reads would block it
+        log_path = f"{self.data_dir}.log"
+        with open(log_path, "a") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "volcano_tpu_torch.cmd.apiserver",
+                 "--port", str(self.port), "--data-dir", self.data_dir,
+                 "--checkpoint-interval", "0",
+                 "--metrics", f"127.0.0.1:{self.mport}"],
+                env=env, stdout=log, stderr=log,
+                preexec_fn=die_with_parent)
+        deadline = time.monotonic() + SERVED_WAIT_S
+        while True:
+            if self.proc.poll() is not None:
+                with open(log_path) as log:
+                    tail = log.read()[-2000:]
+                fail(f"served: the apiserver exited {self.proc.returncode}: "
+                     f"{tail}")
+            try:
+                get_json(f"{self.url}/rv", 2.0)
+                get_json(f"{self.murl}/debug/durability", 2.0)
+                return time.perf_counter() - t0
+            except OSError:
+                if time.monotonic() > deadline:
+                    fail("served: the apiserver did not answer in "
+                         f"{SERVED_WAIT_S:g} s")
+                time.sleep(0.1)
+
+    def durability(self) -> dict:
+        return get_json(f"{self.murl}/debug/durability")
+
+    def kill(self) -> None:
+        self.proc.send_signal(signal.SIGKILL)
+        self.proc.wait()
+
+    def stop(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+
+
+class Listed:
+    """The objects one listing of the apiserver gave, by kind, with the
+    ``list`` that check_binds reads."""
+
+    def __init__(self, client):
+        self.objects = {kind: client.list(kind) for kind in
+                        ("nodes", "queues", "podgroups", "pods")}
+
+    def list(self, kind):
+        return self.objects[kind]
+
+
+def served_view(client) -> tuple:
+    """(binds pod -> node, bind fingerprint, journal fingerprint, the
+    listing) as the apiserver serves them: the journal fingerprint
+    hashes every pod, PodGroup, node and queue with its rv, and the rv
+    tail."""
+    import hashlib
+    rv = get_json(f"{client.base_url}/rv")["rv"]
+    listed = Listed(client)
+    journal = hashlib.sha256(f"rv={rv}\n".encode())
+    binds = {}
+    for kind, objs in listed.objects.items():
+        objs = sorted(objs, key=lambda o: (o.metadata.namespace,
+                                           o.metadata.name))
+        for o in objs:
+            journal.update(f"{kind}/{o.metadata.namespace}/"
+                           f"{o.metadata.name}@"
+                           f"{o.metadata.resource_version}\n".encode())
+            if kind == "pods" and o.spec.node_name:
+                binds[o.metadata.key()] = o.spec.node_name
+    bind_fp = hashlib.sha256("".join(
+        f"{k}={v}\n" for k, v in sorted(binds.items())).encode())
+    return binds, bind_fp.hexdigest(), journal.hexdigest(), listed
+
+
+def embedded_binds(store: ObjectStore, dev) -> dict:
+    """The port's embedded cycle on ``store`` on the card (the served
+    cycle's control): pod -> node."""
+    sched = Scheduler(store, scheduler_conf=cycle_cmd.CONF, device=dev)
+    try:
+        sched.cache.run()
+        sched.run_once()
+        flush(sched.cache, "served embedded")
+    finally:
+        sched.cache.stop()
+    return store_state(store)[0]
+
+
+def served_args(server: str, conf_path: str):
+    parser = argparse.ArgumentParser()
+    scheduler_cmd.add_flags(parser)
+    return parser.parse_args(["--server", server, "--scheduler-conf",
+                              conf_path, "--schedule-period",
+                              str(SERVED_PERIOD_S)])
+
+
+def served_north_star(dev) -> dict:
+    """15i (a): the served north star (see the module's docstring)."""
+    n_jobs = FULL["n_tasks"] // FULL["gang"]
+    store = ObjectStore()
+    t0 = time.perf_counter()
+    populate_store(store, n_nodes=FULL["n_nodes"], n_jobs=n_jobs,
+                   gang_size=FULL["gang"])
+    populate_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_served_")
+    atexit.register(shutil.rmtree, tmp, True)
+    data_dir = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    count, anchor = persistence.save_store_anchored(
+        store, os.path.join(data_dir, wal_mod.WriteAheadLog.SNAPSHOT_NAME),
+        fsync=True)
+    save_s = time.perf_counter() - t0
+    api = ApiServer(data_dir)
+    atexit.register(api.stop)
+    boot_s = api.start()
+    boot = api.durability()["last_recovery"]
+    if boot["snapshot_objects"] != count or boot["final_rv"] != anchor:
+        fail(f"served: the apiserver recovered {boot}, the save wrote "
+             f"{count} objects at rv {anchor}")
+    # the control: the port's embedded cycle on the same seeded store
+    embedded = embedded_binds(store, dev)
+    del store
+    conf_path = os.path.join(tmp, "scheduler.yaml")
+    with open(conf_path, "w") as f:
+        f.write(cycle_cmd.CONF)
+    args = served_args(api.url, conf_path)
+    client = StoreClient(api.url)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with CycleRecorder(SERVED_FLUSH_TIMEOUT_S,
+                       SERVED_FLUSH_TIMEOUT_S + 300.0) as rec:
+        t0 = time.perf_counter()
+        remote = scheduler_cmd.open_store(args)
+        list_s = time.perf_counter() - t0
+        sched = scheduler_cmd.run_scheduler(remote, args)
+        try:
+            if sched.device != dev:
+                fail(f"served: the binary runs on {sched.device}")
+            first = rec.wait(sched, 1, "served placing cycle")[0]
+            sched.stop()
+            if sched.thread is not None:
+                sched.thread.join(SERVED_FLUSH_TIMEOUT_S)
+            # the loop may have run a cycle more before it stopped
+            n_loop = sum(r["sched"] is sched for r in rec.records)
+            check_launches("served placing", first["launches"],
+                           first["places"], True)
+            if first["launches"] < 1:
+                fail("served: the placing cycle launched no kernel")
+            binds, bind_fp, journal_fp, listed = served_view(client)
+            if len(binds) != FULL["n_tasks"]:
+                fail(f"served: {len(binds)} of {FULL['n_tasks']} pods bound")
+            check_binds(listed, "served")
+            del listed
+            if binds != embedded:
+                diff = sum(binds.get(k) != v for k, v in embedded.items())
+                fail(f"served: {diff} binds differ from the embedded "
+                     f"cycle's on the same store")
+            # acknowledged is fsynced: kill only once the log holds the
+            # last rv
+            last_rv = get_json(f"{api.url}/rv")["rv"]
+            deadline = time.monotonic() + SERVED_WAIT_S
+            while (dur := api.durability())["durable_rv"] < last_rv:
+                if time.monotonic() > deadline:
+                    fail(f"served: durable rv {dur['durable_rv']} short of "
+                         f"{last_rv}")
+                time.sleep(0.05)
+            restarts0 = remote.watch_restarts
+            api.kill()
+            restart_s = api.start()
+            recovery = api.durability()["last_recovery"]
+            binds2, bind_fp2, journal_fp2, _ = served_view(client)
+            if binds2 != binds or (bind_fp2, journal_fp2) != (bind_fp,
+                                                             journal_fp):
+                fail("served: the restarted apiserver's binds or journal "
+                     "differ from those before the kill")
+            # the mirror resyncs across the restart
+            deadline = time.monotonic() + SERVED_WAIT_S
+            while remote.watch_restarts == restarts0 or \
+                    sum(bool(p.spec.node_name) for p in
+                        remote.mirror.list_refs("pods")) != len(binds):
+                if time.monotonic() > deadline:
+                    fail("served: the scheduler's mirror did not resync "
+                         "after the restart")
+                time.sleep(0.1)
+            rv_before = get_json(f"{api.url}/rv")["rv"]
+            sched.run_once()
+            second = rec.wait(sched, n_loop + 1, "served second cycle")[-1]
+            check_launches("served second", second["launches"],
+                           second["places"], True)
+            # nothing bound anew: the apiserver wrote nothing, or what it
+            # holds binds as before
+            if get_json(f"{api.url}/rv")["rv"] != rv_before and \
+                    served_view(client)[0] != binds:
+                fail("served: the second cycle changed the binds")
+            audit = sched.cache.anti_entropy()
+            if audit["divergent"] or audit["repaired"]:
+                fail(f"served: the mirror's audit repaired {audit}")
+        finally:
+            sched.stop()
+            sched.cache.stop()
+            remote.stop()
+            api.stop()
+    gc.unfreeze()
+    flush_s = first["flush_ms"] / 1000.0
+    out = {"populate_s": populate_s, "save_s": save_s, "boot_s": boot_s,
+           "boot_recovery_ms": boot["recovery_ms"], "list_s": list_s,
+           "cycle_ms": first["cycle_ms"],
+           "allocate.stage_ms": first["allocate.stage_ms"],
+           "backfill_ms": first["backfill_ms"],
+           "kernel_ms": first["kernel_ms"], "launches": first["launches"],
+           **prune_fields(first["places"]), "mode": first["mode"],
+           "flush_ms": first["flush_ms"],
+           "binds_per_s": len(binds) / flush_s,
+           "wal_records": dur["records_written"], "wal_fsyncs": dur["fsyncs"],
+           "wal_entries": dur["entries_written"],
+           "wal_fsync_p99_ms": dur["fsync_p99_ms"],
+           "wal_compactions": dur["compactions"],
+           "durable_rv": dur["durable_rv"], "restart_s": restart_s,
+           "recovery_ms": recovery["recovery_ms"],
+           "recovery_entries": recovery["entries_replayed"],
+           "recovery_snapshot_objects": recovery["snapshot_objects"],
+           "binds_recovered": len(binds2),
+           "watch_restarts": remote.watch_restarts - restarts0,
+           "second_cycle_ms": second["cycle_ms"],
+           "second_launches": second["launches"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+    line("served", shape={"tasks": FULL["n_tasks"],
+                          "nodes": FULL["n_nodes"], "gang": FULL["gang"]},
+         **out)
+    return out
+
+
+def served_group(dev) -> dict:
+    """Phase 15i (a): the served north star. Returns the kernels line's
+    entry."""
+    r = served_north_star(dev)
+    return {"gang_allocate": {"served": {
+        "launches": r["launches"], "kernel_ms": r["kernel_ms"],
+        "flush_ms": r["flush_ms"], "binds_recovered": r["binds_recovered"],
+        "cycle_ms": r["cycle_ms"]}}}
+
+
+def storm_reference() -> dict:
+    with open(SIM_REFERENCE) as f:
+        return json.load(f)["storm"]
+
+
+def storm_gate(dev) -> dict:
+    """15i (b): the storm gate through the port's CLI on the card, twice,
+    each run held to the reference's record."""
+    want = storm_reference()
+    shape = want["kwargs"]
+    runs = []
+    for i in range(2):
+        buf = io.StringIO()
+        with SimTap() as tap, contextlib.redirect_stdout(buf):
+            gang_allocate_cuda.launches = 0
+            t0 = time.perf_counter()
+            rc = sim_cli.main(STORM_VERB)
+            seconds = time.perf_counter() - t0
+        verdict = json.loads(buf.getvalue())
+        checks = verdict["checks"]
+        if rc != 0 or not verdict["pass"] or not all(checks.values()):
+            fail(f"storm {i}: exit {rc}, failed checks "
+                 f"{sorted(k for k, v in checks.items() if not v)}")
+        facts = sim_facts(verdict["storm"])
+        facts.update(subscribers=verdict["subscribers"])
+        pf = verdict["port_facts"]
+        for k in ("converged", "gaps_unrecovered", "noisy_throttled_writes",
+                  "noisy_subscription_throttles", "violations",
+                  "watch_drops", "divergence_repairs"):
+            facts[k] = pf[k][0]
+        ref = {k: v for k, v in want.items() if k != "kwargs"}
+        if facts != ref:
+            diff = {k: v for k, v in facts.items() if v != ref.get(k)}
+            fail(f"storm {i}: {diff} differ from the reference's")
+        # the CLI's second run: the same fingerprints and counters
+        for k, key in (("bind_fingerprint", "bind"),
+                       ("ledger_fingerprint", "ledger")):
+            if pf[k][1] != ref[key]:
+                fail(f"storm {i}: the second run's {k} differs")
+        for k in ("converged", "gaps_unrecovered", "noisy_throttled_writes",
+                  "violations", "watch_drops", "divergence_repairs"):
+            if pf[k][1] != ref[k]:
+                fail(f"storm {i}: the second run's {k} differs")
+        launches = [check_sim_launches(f"storm {i} run {j}", t, True)
+                    for j, t in enumerate(tap.runs)]
+        runs.append({"seconds": seconds,
+                     "launches_per_placing_tick": [
+                         x["launches_per_placing_tick"] for x in launches],
+                     "launches_per_tick": [x["launches_per_tick"]
+                                           for x in launches]})
+        line("storm", run=i, shape=shape, checks=sorted(checks),
+             **runs[-1],
+             cycle_ms=verdict["storm"]["cycle_ms"],
+             fanout_ms=verdict["fanout_ms"],
+             frames_total=pf["frames_total"],
+             events_total=pf["events_total"],
+             frames_dropped=pf["frames_dropped"],
+             gaps_detected=pf["gaps_detected"],
+             relists=pf["relists"], binds=facts["binds"],
+             bind_fingerprint=facts["bind"])
+    return {"launches_per_tick": [r["launches_per_tick"] for r in runs],
+            "launches_per_placing_tick": [r["launches_per_placing_tick"]
+                                          for r in runs],
+            "fingerprints_agree": True}
+
+
+def wal_leg() -> dict:
+    """15i (c): the reference's pure store-and-WAL leg (bench.py's WAL
+    worker): the 50,000-pod bind flush through a store without and with
+    the log attached (its group-commit thread paused, so the window is
+    the writer's cost), five paired rounds in alternating order, then
+    the drain to durable and a cold recovery of the log. Printed, not
+    gated; the reference's budget is the best round within 1.10."""
+    n_tasks, n_nodes = FULL["n_tasks"], FULL["n_nodes"]
+
+    def populate(store):
+        for i in range(n_tasks):
+            store.create("pods", tu.build_pod(
+                f"ns-{i % WAL_NAMESPACES}", f"b-{i}", "", "Pending",
+                {"cpu": "2", "memory": "4Gi"}), skip_admission=True)
+
+    def drain(wal, store):
+        final_rv = store.current_rv()
+        deadline = time.time() + 120.0
+        while wal.report()["durable_rv"] < final_rv and \
+                time.time() < deadline:
+            wal.flush()
+            time.sleep(0.005)
+        return final_rv
+
+    off_store = ObjectStore()
+    populate(off_store)
+    data_dir = tempfile.mkdtemp(prefix="chip_smoke_wal_")
+    try:
+        store = ObjectStore()
+        wal = wal_mod.WriteAheadLog(data_dir, flush_interval=0.02)
+        wal.attach(store)
+        populate(store)
+        drain(wal, store)
+        off_ms, on_ms, drain_ms = [], [], []
+        for r in range(WAL_ROUNDS):
+            bindings = [(f"b-{i}", f"ns-{i % WAL_NAMESPACES}",
+                         f"node-{(i + r) % n_nodes}") for i in range(n_tasks)]
+
+            def leg(s, into):
+                gc.collect()
+                t0 = time.perf_counter()
+                pairs, missing = s.bind_pods(bindings)
+                into.append((time.perf_counter() - t0) * 1000.0)
+                if missing or len(pairs) != n_tasks:
+                    fail(f"wal_leg: {len(pairs)} binds, {len(missing)} "
+                         f"missing")
+            legs = [(off_store, off_ms), (store, on_ms)]
+            for s, into in (legs if r % 2 == 0 else legs[::-1]):
+                leg(s, into)
+            t0 = time.perf_counter()
+            drain(wal, store)
+            drain_ms.append((time.perf_counter() - t0) * 1000.0)
+        ratios = [on / off for on, off in zip(on_ms, off_ms)]
+        best = min(range(WAL_ROUNDS), key=lambda i: ratios[i])
+        final_rv = drain(wal, store)
+        rep = wal.report()
+        wal.close()
+        if rep["durable_rv"] != final_rv:
+            fail(f"wal_leg: durable rv {rep['durable_rv']} != {final_rv}")
+        recovered, rrep = wal_mod.recover_store(data_dir)
+        if recovered.current_rv() != final_rv:
+            fail("wal_leg: the recovery's rv differs")
+    finally:
+        shutil.rmtree(data_dir, True)
+    out = {"binds": n_tasks, "rounds": WAL_ROUNDS,
+           "wal_off_flush_ms": off_ms[best], "wal_bind_flush_ms": on_ms[best],
+           "wal_flush_overhead_ratio": ratios[best],
+           "budget_ratio": WAL_BUDGET, "ratios": ratios,
+           "off_ms": off_ms, "on_ms": on_ms,
+           "wal_drain_ms": min(drain_ms),
+           "wal_append_p99_ms": rep["append_p99_ms"],
+           "wal_fsync_p99_ms": rep["fsync_p99_ms"],
+           "wal_fsyncs": rep["fsyncs"],
+           "wal_entries_written": rep["entries_written"],
+           "wal_recovery_ms": rrep["recovery_ms"],
+           "wal_recovered_entries": rrep["entries_replayed"]}
+    line("wal_leg", **out)
+    return out
+
+
+def storm_group(dev) -> dict:
+    """Phase 15i (b) and (c). Returns the kernels line's entry."""
+    storm = storm_gate(dev)
+    wal = wal_leg()
+    return {"gang_allocate": {"storm": {
+        **storm, "wal_flush_overhead_ratio":
+        wal["wal_flush_overhead_ratio"]}}}
+
+
 # the phases after the kernel's own, in groups that need nothing of each
 # other: by default each group runs in a process of its own (this script
 # with --group), all at once and beside main's phases 3-8, on the one card
 GROUPS = {"cycles": cycles_group, "binary_victims": binary_victims_group,
-          "commit": commit_group, "sim": sim_group}
+          "commit": commit_group, "sim": sim_group, "served": served_group,
+          "storm": storm_group}
 # groups whose card work would land in the kernel's timed runs: started
 # once main has timed the kernel (phases 3-6) and the cycles group has
 # timed it on the cycles' inputs (TIMED_TAG)
-LATE_GROUPS = ("sim",)
+LATE_GROUPS = ("sim", "served", "storm")
 # a group's process prints its result as its last line, after this tag
 RESULT_TAG = "chip_smoke group result: "
 # the cycles group prints this line once it has timed the kernel alone

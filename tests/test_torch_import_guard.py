@@ -34,7 +34,10 @@ print(' '.join(names))
 # the observability layer (tracer, ledger, why-pending, explainer,
 # metrics, their time series and server) and the scheduler binary with
 # its conf watcher and leader election included, the native engine's
-# build, and the churn simulator with the store checkpoint
+# build, the churn simulator with the store checkpoint, and the
+# apiserver's durable, served layer (the write-ahead log, the HTTP server
+# and RemoteStore, the serving hub and its storm gate, replication's
+# leader half, the apiserver binary)
 CYCLE_MODULES = ("volcano_tpu_torch.apiserver.store",
                  "volcano_tpu_torch.native",
                  "volcano_tpu_torch.native.build",
@@ -71,7 +74,18 @@ CYCLE_MODULES = ("volcano_tpu_torch.apiserver.store",
                  "volcano_tpu_torch.sim.invariants",
                  "volcano_tpu_torch.sim.engine",
                  "volcano_tpu_torch.sim.replay",
-                 "volcano_tpu_torch.sim.cli")
+                 "volcano_tpu_torch.sim.cli",
+                 "volcano_tpu_torch.apiserver.wal",
+                 "volcano_tpu_torch.apiserver.http",
+                 "volcano_tpu_torch.apiserver.remote",
+                 "volcano_tpu_torch.serving",
+                 "volcano_tpu_torch.serving.admission",
+                 "volcano_tpu_torch.serving.hub",
+                 "volcano_tpu_torch.serving.storm",
+                 "volcano_tpu_torch.replication",
+                 "volcano_tpu_torch.replication.leader",
+                 "volcano_tpu_torch.cli.util",
+                 "volcano_tpu_torch.cmd.apiserver")
 
 
 def _is_reference(module: str) -> bool:

@@ -361,15 +361,15 @@ def test_registry_matches_compiled_exports(side):
 
 def test_port_entries_are_the_reference_entries_the_port_calls():
     """The port exports the reference's entries that its layers call and
-    adds the bind clone's class registration. It leaves out the JSON
-    encoder (its callers are not ported) and the __dict__ shell clone (a
-    dict-backed instance reads its attributes about three times slower
-    than one the class's __init__ layout holds, so the clones keep their
-    field stores in Python)."""
+    adds the bind clone's class registration. It leaves out the __dict__
+    shell clone (a dict-backed instance reads its attributes about three
+    times slower than one the class's __init__ layout holds, so the
+    clones keep their field stores in Python). The JSON encoder came with
+    the write-ahead log and the HTTP layer."""
     ref = set(declared_entries(ref_build._FM_SRC))
     port = set(declared_entries(port_build.SOURCE))
     assert port - ref == {"register_pod_types"}
-    assert ref - port == {"encode_object_json", "shell_clone"}
+    assert ref - port == {"shell_clone"}
 
 
 @pytest.mark.parametrize("side", SIDES)

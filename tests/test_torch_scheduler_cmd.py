@@ -585,10 +585,60 @@ def test_flags_are_the_reference_flags_and_device():
         (True, 0.5, "/x", "cpu", "c.yaml")
 
 
-def test_server_exits_non_zero(capsys):
-    assert port_cmd.main(["--server", "http://127.0.0.1:1",
-                          "--device", "cpu"]) != 0
-    assert "apiserver/remote.py" in capsys.readouterr().err
+def test_server_exits_non_zero(tmp_path):
+    """--server schedules through a RemoteStore (it used to exit
+    non-zero): the binary's store over a port apiserver binds a gang,
+    driven as main does (open_store, then run_scheduler)."""
+    from volcano_tpu_torch.apiserver.http import StoreHTTPServer
+    from volcano_tpu_torch.apiserver.remote import RemoteStore
+    from volcano_tpu_torch.apiserver.store import ObjectStore
+    from volcano_tpu_torch.utils.test_utils import (build_node, build_pod,
+                                                    build_pod_group,
+                                                    build_queue)
+    store = ObjectStore()
+    store.create("queues", build_queue("default"))
+    for i in range(2):
+        store.create("nodes", build_node(f"n{i}", {"cpu": "4",
+                                                   "memory": "8Gi"}))
+    store.create("podgroups", build_pod_group("pg", "ns", "default", 2,
+                                              phase="Inqueue"))
+    for t in range(2):
+        store.create("pods", build_pod("ns", f"pg-{t}", "", "Pending",
+                                       {"cpu": "1", "memory": "1Gi"},
+                                       groupname="pg"))
+    server = StoreHTTPServer(store, port=0)
+    server.start()
+    parser = argparse.ArgumentParser()
+    port_cmd.add_flags(parser)
+    args = parser.parse_args(["--server", f"http://127.0.0.1:{server.port}",
+                              "--schedule-period", "0.2", "--device",
+                              "cpu"])
+    remote = port_cmd.open_store(args)
+    sched = None
+    try:
+        assert isinstance(remote, RemoteStore)
+        sched = port_cmd.run_scheduler(remote, args)
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline and not all(
+                p.spec.node_name for p in store.list("pods")):
+            time.sleep(0.05)
+        assert all(p.spec.node_name for p in store.list("pods"))
+    finally:
+        if sched is not None:
+            sched.stop()
+            sched.cache.stop()
+        remote.stop()
+        server.stop()
+
+
+@pytest.mark.parametrize("flag", ["--replicate-from", "--peers"])
+def test_apiserver_replication_flags_exit_naming_10b(flag, capsys):
+    """The apiserver's follower and member flags wait for ROADMAP item
+    10b: the command exits non-zero and starts no server."""
+    import volcano_tpu_torch.cmd.apiserver as api_cmd
+    assert api_cmd.main(["--port", "0", flag, "a=http://127.0.0.1:1"]) == 2
+    err = capsys.readouterr().err
+    assert "ROADMAP item 10b" in err and flag in err
 
 
 def test_version_prints_and_exits(capsys):

@@ -711,8 +711,8 @@ def test_cli_needs_a_device_or_cpu(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main(["smoke"]) == 2
     assert "no CUDA device" in capsys.readouterr().err
-    for verb, item in (("mesh", "13"), ("storm", "10"),
-                       ("durability", "10"), ("federation", "10")):
+    for verb, item in (("mesh", "13"), ("durability", "10b"),
+                       ("federation", "10b")):
         assert cli.main([verb, "--ticks", "3"]) == 2
         assert f"ROADMAP item {item}" in capsys.readouterr().err
     with pytest.raises(SystemExit):

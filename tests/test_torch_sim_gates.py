@@ -12,7 +12,9 @@ counters. The other verbs are in tests/test_torch_sim_verbs.py and
 tests/test_torch_sim_smoke.py.
 
 tests/torch_sim_reference.json records the reference's first run at the
-shapes chip_smoke.py runs (``RECORDED``); ``generate_reference`` makes it
+shapes chip_smoke.py runs (``RECORDED``), and its storm gate's first run
+at the gate's own shape (``STORM_RECORDED``: the fingerprints and the
+counters that repeat from run to run); ``generate_reference`` makes it
 (``python -m tests.test_torch_sim_gates`` rewrites it), and the slow test
 regenerates it and requires it unchanged.
 
@@ -58,6 +60,25 @@ RECORDED = {
               {"node_cpu": "64", "node_mem": "256Gi",
                "resident_jobs": 6250, "resident_gang": 8}),
 }
+
+
+# the storm gate's shape (sim/cli.py storm's defaults) and what its first
+# run is held to beside summary_facts: frames_total, events_total,
+# final_rv, frames_dropped and gaps_detected vary from run to run in both
+# packages (the hub's dispatch rounds meet the journal at different
+# points), so they are left out
+STORM_RECORDED = {"seed": 43, "ticks": 80, "nodes": 192,
+                  "subscribers": 1024, "shards": 8, "drop_rate": 0.03}
+STORM_FACTS = ("subscribers", "converged", "gaps_unrecovered",
+               "noisy_throttled_writes", "noisy_subscription_throttles",
+               "violations", "watch_drops", "divergence_repairs")
+
+
+def storm_facts(verdict: dict) -> dict:
+    """What a run_storm verdict (either package) is held to."""
+    out = summary_facts(verdict["storm"])
+    out.update({k: verdict[k] for k in STORM_FACTS})
+    return out
 
 
 def summary_facts(summary: dict) -> dict:
@@ -117,7 +138,17 @@ def generate_reference() -> dict:
         shapes[name] = {"config": fn, "kwargs": kwargs, "fields": fields,
                         **summary_facts(result.summary())}
     return {"generator": "tests/test_torch_sim_gates.py:generate_reference",
-            "reference_commit": reference_commit(), "shapes": shapes}
+            "reference_commit": reference_commit(), "shapes": shapes,
+            "storm": generate_storm()}
+
+
+def generate_storm() -> dict:
+    """The reference's storm gate's first run at STORM_RECORDED."""
+    from volcano_tpu.serving.storm import run_storm
+    reset_breaker()
+    verdict = run_storm(**STORM_RECORDED)
+    assert verdict["violations"] == 0
+    return {"kwargs": STORM_RECORDED, **storm_facts(verdict)}
 
 
 def recorded_config(cli, name: str, **extra):
@@ -179,6 +210,23 @@ def test_recorded_reference_schema():
         assert set(entry) == {"config", "kwargs", "fields", "bind",
                               "outcome", "ledger", *COUNTERS}
         assert entry["binds"] > 0
+
+
+def test_recorded_storm_schema():
+    entry = recorded()["storm"]
+    assert entry["kwargs"] == STORM_RECORDED
+    assert set(entry) == {"kwargs", "bind", "outcome", "ledger", *COUNTERS,
+                          *STORM_FACTS}
+    assert entry["binds"] > 0 and entry["converged"] == entry["subscribers"]
+
+
+def test_port_gives_recorded_storm_facts():
+    """The port's storm gate at the gate's shape on the CPU (run_storm, as
+    the CLI's first run) gives the recorded fingerprints and counters."""
+    from volcano_tpu_torch.serving.storm import run_storm
+    entry = dict(recorded()["storm"])
+    kwargs = entry.pop("kwargs")
+    assert storm_facts(run_storm(device="cpu", **kwargs)) == entry
 
 
 def port_facts(name: str) -> dict:

@@ -3,19 +3,36 @@ port's own copy of volcano_tpu/apiserver/codec.py, in its plain Python
 form).
 
 A generic reflection codec covers every kind the port's store holds, so
-store persistence (persistence.py) writes one wire format, the same as
-the reference's byte for byte. bytes fields are base64-encoded; nested
+store persistence (persistence.py), the write-ahead log (wal.py) and the
+HTTP and watch wire (http.py, serving/hub.py) write one format, the same
+as the reference's byte for byte. bytes fields are base64-encoded; nested
 dataclasses/lists/dicts/Optionals are handled from the type hints.
+
+``dumps_compact`` is the encode fused with the compact JSON dump. While
+``NATIVE_ENCODE`` is on (the default) it runs the native engine's
+``encode_object_json`` (native/fastmodel.c), one C pass over the object
+graph; a value of a shape that pass does not know is handed back to the
+Python body and counted in ``encode_handbacks``.
 """
 
 from __future__ import annotations
 
 import base64
 import dataclasses
+import json
+import threading
 import typing
 from typing import Any, Dict, Optional
 
 from ..models import objects as obj
+from ..models.job_info import _fastmodel
+
+# the native engine's switch for dumps_compact (a module attribute, so
+# tests can force either engine)
+NATIVE_ENCODE = True
+# values the native encoder handed back to the Python body
+encode_handbacks = 0
+_handback_lock = threading.Lock()
 
 # kind -> dataclass (the store's KINDS each map to one root type)
 KIND_TYPES: Dict[str, type] = {
@@ -104,3 +121,16 @@ def decode_object(kind: str, data: Dict[str, Any]) -> Any:
     if cls is None:
         raise KeyError(f"unknown kind {kind!r}")
     return decode(data, cls)
+
+
+def dumps_compact(value: Any) -> bytes:
+    """``json.dumps(encode(value), separators=(",", ":"))`` as bytes: the
+    write-ahead log's records and the wire's object payloads."""
+    global encode_handbacks
+    if NATIVE_ENCODE:
+        out = _fastmodel().encode_object_json(value)
+        if out is not None:
+            return out
+        with _handback_lock:
+            encode_handbacks += 1
+    return json.dumps(encode(value), separators=(",", ":")).encode()

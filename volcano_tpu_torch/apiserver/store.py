@@ -23,9 +23,15 @@ native engine (native/fastmodel.c: ``bind_clone_pods``, ``publish_shard``,
 ``attr_eq_filter_pairs``) while ``NATIVE_PUBLISH`` is on, the default; the
 Python bodies beside them are the plain version.
 
-Left out of this port: admission hooks, the write-ahead log and
-read-only mode, and replication (``apply_replicated``,
-``install_snapshot``).
+Writes pass the admission hook chain (``register_admission``: mutating
+hooks, then validating ones, outside the store lock; ``skip_admission``
+bypasses it). A write-ahead log (apiserver/wal.py) bound with
+``attach_wal`` receives every run of entries that lands on the journal's
+tail, and every fence advance; when it cannot persist (ENOSPC, EIO) it
+puts the store in read-only mode, where every write raises ReadOnlyError
+before anything changes. ``install_snapshot`` and ``apply_replicated``
+install state at given rvs: WAL recovery (``wal.recover_store``) replays
+through them.
 """
 
 from __future__ import annotations
@@ -117,6 +123,10 @@ def trace_in_ranges(ranges: list, rv: int):
     return None
 
 
+class AdmissionError(Exception):
+    """Raised when a validating admission hook rejects an operation."""
+
+
 class ConflictError(Exception):
     """Raised on update when the caller's copy is stale (optimistic
     concurrency, the apiserver 409). Re-get and retry."""
@@ -128,6 +138,47 @@ class FencedError(Exception):
     deposed leader's in-flight binds must not land after the standby took
     over. Not retryable by re-reading: the writer stops writing until it
     holds the lease (and a newer token) again."""
+
+
+class ReadOnlyError(Exception):
+    """The store is read-only because its write-ahead log cannot persist
+    (ENOSPC, EIO; docs/design/durability.md): every write is refused
+    before any state changes. The HTTP edge answers 503 with
+    Retry-After."""
+
+    def __init__(self, reason: str, retry_after: float = 5.0):
+        super().__init__(f"store is read-only: {reason}")
+        self.reason = reason
+        self.retry_after = retry_after
+
+
+class ReplicationGapError(Exception):
+    """Raised by :meth:`ObjectStore.apply_replicated` when a run of
+    entries does not extend the journal's tail contiguously; carries the
+    ``expected`` and ``got`` rvs."""
+
+    def __init__(self, expected: int, got: int):
+        super().__init__(
+            f"replication gap: expected rv {expected}, got {got}")
+        self.expected = expected
+        self.got = got
+
+
+class AdmissionHook:
+    """One admission service (reference: pkg/webhooks/router/
+    interface.go:38-48). ``mutate``/``validate`` receive (operation,
+    new_obj, old_obj), operation being "CREATE", "UPDATE" or "DELETE";
+    mutate edits new_obj in place, validate raises AdmissionError."""
+
+    def __init__(self, kind: str, path: str = "",
+                 mutate: Optional[Callable] = None,
+                 validate: Optional[Callable] = None,
+                 operations: tuple = ("CREATE",)):
+        self.kind = kind
+        self.path = path
+        self.mutate = mutate
+        self.validate = validate
+        self.operations = operations
 
 
 class Watch:
@@ -174,6 +225,7 @@ class ObjectStore:
     def __init__(self, clock: Clock = GLOBAL_CLOCK):
         self._objects: Dict[str, Dict[str, object]] = {k: {} for k in KINDS}
         self._watches: Dict[str, List[Watch]] = defaultdict(list)
+        self._hooks: List[AdmissionHook] = []
         self._rv = 0
         self._lock = threading.RLock()
         self.clock = clock
@@ -200,6 +252,9 @@ class ObjectStore:
         # (fence=None) pass
         self._fence_floor = 0
         self.fenced_writes = 0
+        # the write-ahead log (attach_wal) and the read-only reason
+        self.wal = None
+        self._read_only_reason: Optional[str] = None
         # (lo, hi, trace) rv ranges of the writes stamped with a
         # correlation ID: one range for a whole bulk patch
         self._trace_ranges = deque(maxlen=4096)
@@ -229,6 +284,9 @@ class ObjectStore:
         with self._lock:
             if token > self._fence_floor:
                 self._fence_floor = token
+                if self.wal is not None:
+                    # recovery re-anchors the floor from the log
+                    self.wal.append_fence(token)
             return self._fence_floor
 
     def fence_floor(self) -> int:
@@ -244,6 +302,35 @@ class ObjectStore:
             raise FencedError(
                 f"write fenced: token {fence} is behind the floor "
                 f"{self._fence_floor} (lease superseded)")
+
+    # -- durability (docs/design/durability.md) ----------------------------
+
+    def attach_wal(self, wal) -> None:
+        """Bind a write-ahead log: every run of entries that lands on the
+        journal's tail from here on is forwarded to it. Attach after
+        recovery, so the log opens its segment at the recovered tail."""
+        with self._lock:
+            self.wal = wal
+
+    def enter_read_only(self, reason: str) -> None:
+        """Refuse every write until the log heals or the process
+        restarts."""
+        with self._lock:
+            self._read_only_reason = reason
+
+    def exit_read_only(self) -> None:
+        with self._lock:
+            self._read_only_reason = None
+
+    def read_only_reason(self) -> Optional[str]:
+        with self._lock:
+            return self._read_only_reason
+
+    def _check_writable_locked(self) -> None:
+        """Raised before any state changes: an acknowledged write must
+        never live only in memory while the log cannot persist it."""
+        if self._read_only_reason is not None:
+            raise ReadOnlyError(self._read_only_reason)
 
     # -- keys --------------------------------------------------------------
 
@@ -264,10 +351,14 @@ class ObjectStore:
         """Append one entry, keeping the journal sorted and gap-free: an
         entry above the tail parks until the range below it lands."""
         if rv == self._journal_tail + 1:
-            self._journal.append((rv, action, kind, o))
+            landed = [(rv, action, kind, o)]
+            self._journal.append(landed[0])
             self._journal_tail = rv
-            self._drain_parked_locked()
+            drained = self._drain_parked_locked()
             self._journal_cond.notify_all()
+            if self.wal is not None:
+                self.wal.append_entries(landed + drained if drained
+                                        else landed)
         else:
             self._journal_parked[rv] = (rv, action, kind, o)
 
@@ -280,20 +371,30 @@ class ObjectStore:
         if entries[0][0] == self._journal_tail + 1:
             self._journal.extend(entries)
             self._journal_tail = entries[-1][0]
-            self._drain_parked_locked()
+            drained = self._drain_parked_locked()
             self._journal_cond.notify_all()
+            if self.wal is not None:
+                # the log holds the run itself: journal runs are never
+                # mutated after they land
+                self.wal.append_entries(list(entries) + drained if drained
+                                        else entries)
         else:
             for e in entries:
                 self._journal_parked[e[0]] = e
 
-    def _drain_parked_locked(self) -> None:
+    def _drain_parked_locked(self) -> list:
+        """Land the parked entries that now extend the tail; returns
+        them."""
         parked = self._journal_parked
+        drained: list = []
         while parked:
             nxt = parked.pop(self._journal_tail + 1, None)
             if nxt is None:
-                return
+                break
             self._journal.append(nxt)
+            drained.append(nxt)
             self._journal_tail += 1
+        return drained
 
     def _wait_journal_settled_locked(self) -> None:
         """Wait (releasing the lock) until every allocated rv is in the
@@ -305,10 +406,39 @@ class ObjectStore:
             self._flush_cond.wait_for(
                 lambda: self._rv == self._journal_tail)
 
+    # -- admission ---------------------------------------------------------
+
+    def register_admission(self, hook: AdmissionHook,
+                           replace: bool = False) -> None:
+        """replace=True first drops the hooks of the same (kind, path): a
+        webhook manager that restarts registers its services again."""
+        if replace:
+            self._hooks = [h for h in self._hooks
+                           if not (h.kind == hook.kind
+                                   and getattr(h, "path", "") == hook.path)]
+        self._hooks.append(hook)
+
+    def _admit(self, kind: str, operation: str, new_obj,
+               old_obj=None) -> None:
+        """Every mutating hook of the kind and operation, then every
+        validating one (which raise AdmissionError)."""
+        hooks = [h for h in self._hooks
+                 if h.kind == kind and operation in h.operations]
+        for h in hooks:
+            if h.mutate is not None:
+                h.mutate(operation, new_obj, old_obj)
+        for h in hooks:
+            if h.validate is not None:
+                h.validate(operation, new_obj, old_obj)
+
     # -- CRUD --------------------------------------------------------------
 
-    def create(self, kind: str, o, fence: Optional[int] = None,
-               trace: Optional[str] = None):
+    def create(self, kind: str, o, skip_admission: bool = False,
+               fence: Optional[int] = None, trace: Optional[str] = None):
+        # admission runs outside the lock: a remote hook must not stall
+        # every other writer
+        if not skip_admission:
+            self._admit(kind, "CREATE", o)
         if kind == "pods":
             # the aggregate request is parsed once here; every copy handed
             # out afterwards shares the memo
@@ -317,6 +447,7 @@ class ObjectStore:
             self._wait_journal_settled_locked()
             # the fence after the settle wait (which releases the lock): a
             # takeover may happen while this writer waits
+            self._check_writable_locked()
             self._check_fence_locked(fence)
             key = self.key_of(kind, o)
             if key in self._objects[kind]:
@@ -338,13 +469,20 @@ class ObjectStore:
                 w.on_add(fast_clone(o))
         return o
 
-    def update(self, kind: str, o, fence: Optional[int] = None,
-               trace: Optional[str] = None):
+    def update(self, kind: str, o, skip_admission: bool = False,
+               fence: Optional[int] = None, trace: Optional[str] = None):
+        key = self.key_of(kind, o)
+        if not skip_admission:
+            with self._lock:
+                old_pre = self._objects[kind].get(key)
+            if old_pre is None:
+                raise KeyError(f"{kind} {key!r} not found")
+            self._admit(kind, "UPDATE", o, old_pre)
         if kind == "pods":
             o.resource_request()
-        key = self.key_of(kind, o)
         with self._lock:
             self._wait_journal_settled_locked()
+            self._check_writable_locked()
             self._check_fence_locked(fence)
             old = self._objects[kind].get(key)
             if old is None:
@@ -365,12 +503,19 @@ class ObjectStore:
         return o
 
     def delete(self, kind: str, name: str, namespace: str = "default",
-               fence: Optional[int] = None,
+               skip_admission: bool = False, fence: Optional[int] = None,
                trace: Optional[str] = None) -> int:
         """Returns the deletion's resource version."""
         key = self._key(kind, name, namespace)
+        if not skip_admission:
+            with self._lock:
+                old_pre = self._objects[kind].get(key)
+            if old_pre is None:
+                raise KeyError(f"{kind} {key!r} not found")
+            self._admit(kind, "DELETE", None, old_pre)
         with self._lock:
             self._wait_journal_settled_locked()
+            self._check_writable_locked()
             self._check_fence_locked(fence)
             old = self._objects[kind].get(key)
             if old is None:
@@ -387,9 +532,14 @@ class ObjectStore:
         return deleted_rv
 
     def get(self, kind: str, name: str, namespace: str = "default"):
-        with self._lock:
-            o = self._objects[kind].get(self._key(kind, name, namespace))
+        o = self.get_ref(kind, name, namespace)
         return fast_clone(o) if o is not None else None
+
+    def get_ref(self, kind: str, name: str, namespace: str = "default"):
+        """The stored object itself, no copy (see :meth:`list_refs`): the
+        HTTP read path encodes it and never writes it."""
+        with self._lock:
+            return self._objects[kind].get(self._key(kind, name, namespace))
 
     def list(self, kind: str, namespace: Optional[str] = None) -> list:
         return [fast_clone(o) for o in self.list_refs(kind, namespace)]
@@ -494,6 +644,7 @@ class ObjectStore:
                 # a reservation is only taken against a settled sequencer,
                 # so every rv range follows from commit order
                 self._wait_journal_settled_locked()
+                self._check_writable_locked()
                 self._check_fence_locked(fence)
                 objs = self._objects[kind]
                 seen: set = set()
@@ -682,15 +833,26 @@ class ObjectStore:
 
     def _deliver(self, watches, pairs, bulk: bool) -> None:
         """Deliver [(old, new)] updates: a filter that flips over the pair
-        is delivered as an add or a delete; pairs that pass both go to the
-        bulk handler (bulk commits) or to on_update with a private copy.
-        A watch that declares ``filter_attr`` is classified by the native
-        engine's ``attr_eq_filter_pairs`` while NATIVE_PUBLISH is on: the
-        same flips, fired in pair order, then the same delivery."""
+        is delivered as an add or a delete, a pair that passes both as an
+        update. A bulk commit hands a watch's passing pairs to its bulk
+        handler in one call, after the flips; the native engine's
+        ``attr_eq_filter_pairs`` classifies them while NATIVE_PUBLISH is
+        on and the watch declares ``filter_attr``. Every other watch gets
+        the pairs one by one, in pair order, with a private copy."""
         if not pairs:
             return
         fm = _fastmodel() if self.NATIVE_PUBLISH else None
         for w in watches:
+            if not (bulk and w.on_bulk_update is not None):
+                for old, new in pairs:
+                    old_p, new_p = w.passes(old), w.passes(new)
+                    if old_p and new_p and w.on_update:
+                        w.on_update(old, fast_clone(new))
+                    elif new_p and not old_p and w.on_add:
+                        w.on_add(fast_clone(new))
+                    elif old_p and not new_p and w.on_delete:
+                        w.on_delete(old)
+                continue
             if fm is not None and w.filter_attr is not None:
                 (a0, a1), expected = w.filter_attr
                 delivery, flips = fm.attr_eq_filter_pairs(
@@ -710,13 +872,96 @@ class ObjectStore:
                         w.on_add(fast_clone(new))
                     elif old_p and w.on_delete:
                         w.on_delete(old)
-            if not delivery:
-                continue
-            if bulk and w.on_bulk_update is not None:
+            if delivery:
                 w.on_bulk_update(delivery)
-            elif w.on_update:
-                for old, new in delivery:
-                    w.on_update(old, fast_clone(new))
+
+    # -- installs at given rvs (WAL recovery) ------------------------------
+
+    def apply_replicated(self, entries, epoch: Optional[int] = None) -> int:
+        """Install a contiguous run ``[(rv, action, kind, obj)]`` at its
+        own rvs: the run must extend the journal's tail exactly, else
+        ReplicationGapError. ``epoch`` is checked against the fence floor
+        like a fenced write. Watchers see the usual add, update and delete
+        lifecycle, filter flips included. Returns the new tail."""
+        if not entries:
+            return self.current_rv()
+        deliveries: list = []
+        with self._lock:
+            self._wait_journal_settled_locked()
+            self._check_writable_locked()
+            self._check_fence_locked(epoch)
+            rvs = [int(e[0]) for e in entries]
+            expected = self._journal_tail + 1
+            if rvs[0] != expected:
+                raise ReplicationGapError(expected, rvs[0])
+            for a, b in zip(rvs, rvs[1:]):
+                if b != a + 1:
+                    raise ReplicationGapError(a + 1, b)
+            # parse the pods' requests before anything changes, so a
+            # malformed object cannot leave a run half applied
+            for _, action, kind, o in entries:
+                if kind == "pods" and action != "DELETED":
+                    o.resource_request()
+            journal: list = []
+            for rv, (_, action, kind, o) in zip(rvs, entries):
+                objs = self._objects[kind]
+                key = self.key_of(kind, o)
+                old = objs.get(key)
+                if action == "DELETED":
+                    objs.pop(key, None)
+                else:
+                    o.metadata.resource_version = rv
+                    objs[key] = o
+                journal.append((rv, action, kind, o))
+                deliveries.append((action, kind, old, o))
+            self._rv = rvs[-1]
+            self._journal_extend_locked(journal)
+            self._flush_cond.notify_all()
+            watches = {k: list(self._watches[k])
+                       for k in {d[1] for d in deliveries}}
+        for action, kind, old, o in deliveries:
+            for w in watches[kind]:
+                if action == "DELETED":
+                    if w.on_delete and w.passes(o):
+                        w.on_delete(o)
+                elif old is None:
+                    if w.on_add and w.passes(o):
+                        w.on_add(fast_clone(o))
+                else:
+                    self._deliver([w], [(old, o)], bulk=False)
+        return rvs[-1]
+
+    def install_snapshot(self, objects: Dict[str, dict], rv: int,
+                         epoch: Optional[int] = None) -> int:
+        """Replace the whole object state with ``{kind: {key: obj}}``
+        anchored at ``rv`` (each object carrying its own rv). The journal
+        clears, so cursors below the new tail re-list; watches are not
+        replayed. All or nothing: everything is checked before anything
+        changes."""
+        staged: Dict[str, dict] = {}
+        for kind in KINDS:
+            incoming = objects.get(kind) or {}
+            if kind == "pods":
+                for o in incoming.values():
+                    o.resource_request()
+            staged[kind] = dict(incoming)
+        with self._lock:
+            self._wait_journal_settled_locked()
+            self._check_writable_locked()
+            self._check_fence_locked(epoch)
+            for kind in KINDS:
+                self._objects[kind] = staged[kind]
+            self._journal.clear()
+            self._journal_parked.clear()
+            self._trace_ranges.clear()
+            self._rv = self._journal_tail = int(rv)
+            self._journal_cond.notify_all()
+            self._flush_cond.notify_all()
+            if self.wal is not None:
+                # the rv space changed wholesale: the log starts a new
+                # generation (the flusher does the I/O off this lock)
+                self.wal.on_snapshot_installed(int(rv))
+        return int(rv)
 
     # -- watch and journal readers -----------------------------------------
 

@@ -71,6 +71,7 @@ classification. The Python bodies beside them are the plain version.
 
 from __future__ import annotations
 
+import inspect
 import logging
 import threading
 import time
@@ -308,6 +309,13 @@ class SchedulerCache(EventHandlersMixin):
                         pass  # e.g. pod bound to a node we haven't seen yet
             return wrapper
 
+        # the filter's attribute-equality declaration, for a store whose
+        # watch takes it (a remote store's mirror replays events one at a
+        # time and does not)
+        pods_kw = {}
+        if "filter_attr" in inspect.signature(s.watch).parameters:
+            pods_kw["filter_attr"] = (("spec", "scheduler_name"),
+                                      self.scheduler_name)
         # nodes/podgroups/queues before pods: replayed pods reference them
         self._watches = [
             s.watch("nodes", locked(self.add_node), locked(self.update_node),
@@ -321,9 +329,7 @@ class SchedulerCache(EventHandlersMixin):
             s.watch("pods", locked(self.add_pod), locked(self.update_pod),
                     locked(self.delete_pod),
                     filter_fn=self._responsible_for,
-                    on_bulk_update=self.update_pods_bulk,
-                    filter_attr=(("spec", "scheduler_name"),
-                                 self.scheduler_name)),
+                    on_bulk_update=self.update_pods_bulk, **pods_kw),
             s.watch("priorityclasses", locked(self.add_priority_class),
                     locked(self.update_priority_class),
                     locked(self.delete_priority_class)),
@@ -1133,8 +1139,9 @@ class SchedulerCache(EventHandlersMixin):
                               self.store.clock.now(), trace=trace)
         self._clear_bind_successes(ok)
         # the store's event deque is bounded: skip the messages its append
-        # would evict at once
-        for task, pod, hostname in ok[-self.store.EVENTS_CAPACITY:]:
+        # would evict at once (a remote store records every one)
+        cap = getattr(self.store, "EVENTS_CAPACITY", 0) or len(ok)
+        for task, pod, hostname in ok[-cap:]:
             self.store.record_event(
                 "pods", pod, "Normal", "Scheduled",
                 f"Successfully assigned {task.namespace}/{task.name} "
@@ -1179,15 +1186,26 @@ class SchedulerCache(EventHandlersMixin):
 
     def _unbind_bound(self, unbind) -> None:
         """Unbind [(task, pod, hostname)]: one store patch clearing
-        ``node_name``, a GangUnbound event a pod, and a resync so the gang
-        reconciles as a unit; no retry attempt is charged to these pods
-        (their binds succeeded)."""
+        ``node_name`` (one update a pod on a store without patch_batch), a
+        GangUnbound event a pod, and a resync so the gang reconciles as a
+        unit; no retry attempt is charged to these pods (their binds
+        succeeded)."""
         def clear_node(p):
             p.spec.node_name = ""
 
-        self.store.patch_batch(
-            "pods", [(pod.metadata.name, pod.metadata.namespace, clear_node)
-                     for _, pod, _ in unbind], fence=self._current_fence())
+        fence = self._current_fence()
+        if hasattr(self.store, "patch_batch"):
+            self.store.patch_batch(
+                "pods", [(pod.metadata.name, pod.metadata.namespace,
+                          clear_node) for _, pod, _ in unbind], fence=fence)
+        else:
+            for _, pod, _ in unbind:
+                live = self.store.get("pods", pod.metadata.name,
+                                      pod.metadata.namespace)
+                if live is not None:
+                    clear_node(live)
+                    self.store.update("pods", live, skip_admission=True,
+                                      fence=fence)
         for task, pod, hostname in unbind:
             self.store.record_event(
                 "pods", pod, "Warning", "GangUnbound",
@@ -1426,14 +1444,23 @@ class SchedulerCache(EventHandlersMixin):
 
     # -- anti-entropy (docs/design/failover.md) ----------------------------
 
+    def _audit_store(self):
+        """The store the audit reads: the store itself, or a remote
+        store's mirror, whose watch and resync loop holds the server's
+        truth (the cache matches the mirror its watches are fed from)."""
+        if hasattr(self.store, "list_refs"):
+            return self.store
+        return self.store.mirror
+
     def _anti_entropy_views(self, kind: str):
         """(store view, cache view) as {key: (rv, obj)} for one kind: the
-        store's own objects (no clones) against the cache's maps. Pods are
-        this scheduler's pods with a PodGroup link, what the watch puts in
-        ``jobs``. The caller holds ``self.mutex`` with applies drained."""
+        audited store's own objects (no clones) against the cache's maps.
+        Pods are this scheduler's pods with a PodGroup link, what the
+        watch puts in ``jobs``. The caller holds ``self.mutex`` with
+        applies drained."""
         store_view: Dict[str, tuple] = {}
         cache_view: Dict[str, tuple] = {}
-        refs = self.store.list_refs(kind)
+        refs = self._audit_store().list_refs(kind)
         if kind == "pods":
             for p in refs:
                 if self._responsible_for(p) and get_job_id(p):

@@ -3,7 +3,12 @@ volcano_tpu/cache/interface.py; reference: pkg/scheduler/cache/
 interface.go:29-100): Binder, Evictor, StatusUpdater, plus the
 store-backed binder, evictor and status updater, and the volume binders:
 ``StoreVolumeBinder``, the cache's default, binds PVCs to PVs through the
-store; ``NullVolumeBinder`` counts every pod's volumes as ready."""
+store; ``NullVolumeBinder`` counts every pod's volumes as ready.
+
+The store is an ``ObjectStore`` or a ``RemoteStore`` (a remote apiserver's
+mirror). What it offers picks the path, as in the reference: the bulk
+commits (``bind_pods``, ``patch_batch``) where the store has them, one
+write an object where it does not (the remote store's REST seam)."""
 
 from __future__ import annotations
 
@@ -30,14 +35,15 @@ def bind_pods_batch(store, items, per_pod_bind, batch_ok: bool,
                     fence=None, trace=None) -> tuple:
     """Shared engine behind StoreBinder/FakeBinder ``bind_batch``: one
     ``store.bind_pods`` commit for ``[(pod, hostname)]``, or per-pod
-    ``per_pod_bind`` calls when there is no store or ``batch_ok`` is False
-    (a binder subclass overrode ``bind``). ``fence`` and ``trace``, when
-    set, ride the commit (the leader's fencing token and the flush's
-    correlation ID). Returns ``(failed, used_batch)``: the pairs that did
+    ``per_pod_bind`` calls when the store has no ``bind_pods`` (none, or
+    a remote store) or ``batch_ok`` is False (a binder subclass overrode
+    ``bind``). ``fence`` and ``trace``, when set, ride the commit (the
+    leader's fencing token and the flush's correlation ID). Returns ``(failed, used_batch)``: the pairs that did
     not bind, and whether the batch path ran. The commit's request list
     is built by the native engine's ``bind_request_items`` while the
     store's NATIVE_PUBLISH is on."""
-    if store is None or not batch_ok:
+    bind_fn = getattr(store, "bind_pods", None)
+    if bind_fn is None or not batch_ok:
         failed = []
         for pod, hostname in items:
             try:
@@ -52,7 +58,7 @@ def bind_pods_batch(store, items, per_pod_bind, batch_ok: bool,
     if reqs is None:
         reqs = [(pod.metadata.name, pod.metadata.namespace, hostname)
                 for pod, hostname in items]
-    _, missing = store.bind_pods(reqs, fence=fence, trace=trace)
+    _, missing = bind_fn(reqs, fence=fence, trace=trace)
     if not missing:
         return [], True
     gone = set(missing)
@@ -79,7 +85,8 @@ class StoreBinder:
         if live is None:
             raise KeyError(f"pod {pod.metadata.key()} not found")
         live.spec.node_name = hostname
-        self.store.update("pods", live, fence=self.fence, trace=self.trace)
+        self.store.update("pods", live, skip_admission=True,
+                          fence=self.fence, trace=self.trace)
 
     def bind_batch(self, items) -> list:
         """Batched bind; returns the failed [(pod, hostname)]."""
@@ -98,7 +105,8 @@ class StoreEvictor:
 
     def evict(self, pod: Pod, reason: str) -> None:
         self.store.record_event("pods", pod, "Normal", "Evict", reason)
-        self.store.delete("pods", pod.metadata.name, pod.metadata.namespace)
+        self.store.delete("pods", pod.metadata.name, pod.metadata.namespace,
+                          skip_admission=True)
 
 
 class StoreStatusUpdater:
@@ -113,11 +121,17 @@ class StoreStatusUpdater:
         if live is not None:
             live.status.reason = reason
             live.status.message = message
-            self.store.update("pods", live)
+            self.store.update("pods", live, skip_admission=True)
 
     def update_pod_conditions(self, items) -> None:
         """Bulk condition push: ``[(pod, reason, message)]`` as one
-        patch_batch commit."""
+        patch_batch commit (one update a pod on a store without
+        patch_batch)."""
+        if not hasattr(self.store, "patch_batch"):
+            for pod, reason, message in items:
+                self.update_pod_condition(pod, reason, message)
+            return
+
         def setter(reason, message):
             def fn(live):
                 live.status.reason = reason
@@ -135,11 +149,15 @@ class StoreStatusUpdater:
             return None
         # status subresource only: the session's pg.spec is a snapshot copy
         live.status = pg.status
-        return self.store.update("podgroups", live)
+        return self.store.update("podgroups", live, skip_admission=True)
 
     def update_pod_groups(self, pgs) -> list:
-        """Bulk status push as one patch_batch commit. Returns the new
-        stored objects index-aligned with ``pgs`` (None where gone)."""
+        """Bulk status push as one patch_batch commit (one update a group
+        on a store without patch_batch). Returns the new stored objects
+        index-aligned with ``pgs`` (None where gone)."""
+        if not hasattr(self.store, "patch_batch"):
+            return [self.update_pod_group(pg) for pg in pgs]
+
         def setter(status):
             def fn(live):
                 live.status = status
@@ -269,12 +287,14 @@ class StoreVolumeBinder:
     def _find_pv(self, pvc, node_name: str, planned: set) -> Optional[str]:
         """The name of the smallest fitting PV (k8s' smallest fit; the
         first in store order on a tie), or None. Reads the stored PVs
-        without copying them."""
+        without copying them where the store lends its objects
+        (``list_refs``), else a list of copies."""
         want = pvc.requested_bytes()
         cls = pvc.storage_class()
         best = None
         best_bytes = 0.0
-        for pv in self.store.list_refs("persistentvolumes"):
+        list_fn = getattr(self.store, "list_refs", None) or self.store.list
+        for pv in list_fn("persistentvolumes"):
             name = pv.metadata.name
             if pv.phase != "Available" or pv.claim_ref:
                 continue
@@ -318,9 +338,11 @@ class StoreVolumeBinder:
                 continue
             pv.claim_ref = pvc_key
             pv.phase = "Bound"
-            self.store.update("persistentvolumes", pv, fence=fence)
+            self.store.update("persistentvolumes", pv, skip_admission=True,
+                              fence=fence)
             pvc.volume_name = pv_name
             pvc.phase = "Bound"
-            self.store.update("persistentvolumeclaims", pvc, fence=fence)
+            self.store.update("persistentvolumeclaims", pvc,
+                              skip_admission=True, fence=fence)
             self._assumed.discard(pv_name)
             self._assumed_pvc.discard(pvc_key)

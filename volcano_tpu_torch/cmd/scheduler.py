@@ -1,11 +1,15 @@
 """The vc-scheduler binary (counterpart of volcano_tpu/cmd/scheduler.py;
 reference: cmd/scheduler/app/server.go).
 
-    python -m volcano_tpu_torch.cmd.scheduler [--scheduler-conf FILE] \\
-        [--leader-elect] [--plugins-dir DIR] [--schedule-period 1] \\
-        [--listen-address :8080] [--enable-tracing] [--device cpu]
+    python -m volcano_tpu_torch.cmd.scheduler [--server URL] \\
+        [--scheduler-conf FILE] [--leader-elect] [--plugins-dir DIR] \\
+        [--schedule-period 1] [--listen-address :8080] [--enable-tracing] \\
+        [--device cpu]
 
-Runs the scheduler alone against an embedded store: one cycle every
+Runs the scheduler against a remote apiserver (``--server URL``: a
+``RemoteStore`` mirror, apiserver/remote.py, listed from the server and
+kept current by its watch stream; the binds go back one REST write a
+pod) or alone against an embedded store: one cycle every
 ``--schedule-period`` seconds on ``cuda:0`` (``--device cpu`` runs the
 plain loop; without a GPU and without it the command raises), the conf
 file reloaded when it changes, ``/metrics`` and ``/debug/*`` served on
@@ -15,9 +19,7 @@ writes carry the lease's fencing token. ``--plugins-dir`` loads the
 out-of-tree plugins of a directory (``framework/registry.py:
 load_plugins_dir``). ``--percentage-nodes-to-find``, ``--default-queue``
 and ``--lock-object-namespace`` are accepted and ignored, as in the
-reference. ``--server`` (a remote apiserver) needs the port of
-``apiserver/remote.py``, which is not done: the command then exits
-non-zero.
+reference.
 """
 
 from __future__ import annotations
@@ -37,8 +39,8 @@ from ..utils.leaderelection import LeaderElector
 def add_flags(parser: argparse.ArgumentParser) -> None:
     """cmd/scheduler/app/options/options.go:81-108, and ``--device``."""
     parser.add_argument("--server", default=None,
-                        help="remote apiserver URL; not ported yet (the "
-                             "command exits non-zero)")
+                        help="remote apiserver URL (default: an embedded "
+                             "store)")
     parser.add_argument("--scheduler-name", default="volcano")
     parser.add_argument("--scheduler-conf", default=None)
     parser.add_argument("--schedule-period", type=float, default=1.0)
@@ -63,6 +65,17 @@ def add_flags(parser: argparse.ArgumentParser) -> None:
                              "(default: the GPU, cuda:0; 'cpu' runs the "
                              "plain loop)")
     parser.add_argument("--version", action="store_true")
+
+
+def open_store(args):
+    """The store the flags name: a RemoteStore over ``--server`` with its
+    watch thread running, or a fresh embedded ObjectStore."""
+    if args.server:
+        from ..apiserver.remote import RemoteStore
+        store = RemoteStore(args.server)
+        store.run()
+        return store
+    return ObjectStore()
 
 
 def run_scheduler(store: ObjectStore, args) -> Scheduler:
@@ -103,12 +116,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.version:
         from ..version import print_version_and_exit
         print_version_and_exit()
-    if args.server:
-        print(f"vc-scheduler: --server {args.server}: a remote apiserver "
-              "needs apiserver/remote.py, which this port does not have "
-              "yet; run without --server for the embedded store",
-              file=sys.stderr)
-        return 2
     from ..trace import tracer
     if args.enable_tracing:
         # an explicit --trace-cycles wins, then VOLCANO_TRACE_CAPACITY,
@@ -119,7 +126,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         tracer.enable(capacity=cap)
     elif tracer.enable_from_env() and args.trace_cycles is not None:
         tracer.configure(args.trace_cycles)
-    store = ObjectStore()
+    store = open_store(args)
     scheduler = run_scheduler(store, args)
     from ..metrics.server import MetricsServer
     host, _, port_s = args.listen_address.rpartition(":")
@@ -130,8 +137,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         # port: election and scheduling go on without exposition
         print(f"metrics endpoint unavailable ({e}); continuing without",
               file=sys.stderr)
-    print("vc-scheduler running against the embedded store on "
-          f"{scheduler.device}", flush=True)
+    print(f"vc-scheduler running against "
+          f"{args.server or 'the embedded store'} on {scheduler.device}",
+          flush=True)
     try:
         threading.Event().wait()
     except KeyboardInterrupt:
@@ -140,6 +148,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             # standby takes over at its next round
             scheduler.elector.stop(timeout=10.0)
         scheduler.stop()
+        if args.server:
+            store.stop()
     return 0
 
 

@@ -16,9 +16,12 @@ Routes:
   /debug/timeseries  last N cycles of key gauges/counters (metrics ring)
   /debug/explain     placement decision provenance (?job=ns/name) and the
                      pruning-readiness aggregates
-
-The reference's serving, replication and durability routes come with
-those modules.
+  /debug/serving     the serving hub's shard depths and fan-out latency, and
+                     the per-tenant admission counters
+  /debug/replication the replica-set state (standalone until replication's
+                     follower half is ported)
+  /debug/durability  the write-ahead log: durable rv and lag, fsyncs,
+                     segments, read-only mode, the last recovery
 
 Unknown paths answer 404 with a JSON error body (never a bare status
 line), like every other route.
@@ -45,6 +48,12 @@ DEBUG_ENDPOINTS = {
     "/debug/timeseries": "last N cycles of key gauges/counters",
     "/debug/explain": "placement decision provenance (?job=ns/name) + "
                       "pruning-readiness aggregates",
+    "/debug/serving": "serving hub shard depths / fan-out latency + "
+                      "per-tenant admission counters",
+    "/debug/replication": "replica-set state (standalone: no replica set)",
+    "/debug/durability": "write-ahead-log state: durable rv / lag, fsync "
+                         "latency, segments, read-only degradation, last "
+                         "recovery",
 }
 
 
@@ -83,6 +92,15 @@ def _debug_response(path: str, query: dict):
     if path == "/debug/health":
         report = m.health_report()
         return (200 if report["healthy"] else 503), report
+    if path == "/debug/serving":
+        from ..serving import serving_report
+        return 200, serving_report()
+    if path == "/debug/replication":
+        from ..replication import replication_report
+        return 200, replication_report()
+    if path == "/debug/durability":
+        from ..apiserver.wal import durability_report
+        return 200, durability_report()
     if path == "/debug/explain":
         from ..trace import explain
         job = query.get("job")

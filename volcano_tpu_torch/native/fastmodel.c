@@ -2065,13 +2065,20 @@ err:
  * ordered (is_add, obj) events — fail->pass yields (True, new),
  * pass->fail (False, old) — in pair order, so the caller fires
  * on_add/on_delete exactly as the per-pair Python loop would.
- * fail->fail drops. Two Python filter calls per pod otherwise. */
+ * fail->fail drops. Two Python filter calls per pod otherwise.
+ *
+ * An object without the attribute shape raises TypeError (the store's
+ * watches declare the filter of their own kind), unless missing_is_none
+ * is true: then a missing attribute reads as None and any other value
+ * compares with ==, as the serving hub's getattr(..., None) filter does
+ * over a burst of every kind. */
 static PyObject *
 attr_eq_filter_pairs(PyObject *self, PyObject *args)
 {
     PyObject *pairs, *attr0, *attr1, *expected;
-    if (!PyArg_ParseTuple(args, "O!UUO", &PyList_Type, &pairs,
-                          &attr0, &attr1, &expected))
+    int missing_is_none = 0;
+    if (!PyArg_ParseTuple(args, "O!UUO|p", &PyList_Type, &pairs,
+                          &attr0, &attr1, &expected, &missing_is_none))
         return NULL;
     PyObject *delivery = PyList_New(0);
     PyObject *flips = PyList_New(0);
@@ -2095,6 +2102,14 @@ attr_eq_filter_pairs(PyObject *self, PyObject *args)
             PyObject *val = sub == NULL ? NULL : dict_attr(sub, attr1);
             if (PyErr_Occurred())
                 goto fail;
+            if (missing_is_none) {
+                if (val == NULL)
+                    val = Py_None;
+                flags[k] = str_eq(val, expected);
+                if (PyErr_Occurred())
+                    goto fail;
+                continue;
+            }
             if (val == NULL || (!PyUnicode_Check(val)
                                 && val != Py_None)) {
                 /* a shape the filter's equality does not cover */
@@ -2165,6 +2180,363 @@ bind_request_items(PyObject *self, PyObject *arg)
     return reqs;
 }
 
+/* ---- the compact JSON encoder (codec.dumps_compact) ---------------
+ *
+ * encode_object_json(o) -> bytes | None: codec.encode() (the dataclass
+ * reflection walk) fused with json.dumps(separators=(",", ":")) into one
+ * pass over the object graph, written straight into a growing byte
+ * buffer.  The write-ahead log's records, the HTTP bodies and the hub's
+ * frames are these bytes, and the hub splices them verbatim into every
+ * subscriber's frame, whose crc decides the storm gate's drops: the
+ * contract is byte parity with the Python body.  Parity choices, each
+ * held by tests/test_torch_native_encoder.py:
+ *   - dataclass fields in dataclasses.fields() order (resolved once
+ *     per type through the real dataclasses.fields, cached);
+ *   - dict keys str()-ed like codec.encode, insertion order kept;
+ *   - bytes -> {"__bytes__": "<base64>"} exactly as codec.encode;
+ *   - ensure_ascii \uXXXX escapes (surrogate pairs for astral),
+ *     int/float via int.__repr__/float.__repr__ like the stdlib
+ *     C encoder (so bool-masquerading ints and shortest-repr floats
+ *     cannot drift), NaN/Infinity spelled as json.dumps spells them.
+ * A value of a shape this walker does not know (a set, a custom class)
+ * is a designed hand-back: None, with nothing raised, and the caller
+ * runs the Python body on the whole value.  Every other failure raises.
+ *
+ * jenc returns 0, -1 (exception set) or JENC_HANDBACK. */
+
+#define JENC_HANDBACK (-2)
+
+static PyObject *dc_fields_func = NULL;   /* dataclasses.fields */
+static PyObject *dc_field_cache = NULL;   /* type -> (name str, ...) */
+static PyObject *s_dataclass_fields;
+
+typedef struct {
+    char *buf;
+    Py_ssize_t len, cap;
+} jbuf;
+
+static int
+jbuf_grow(jbuf *b, Py_ssize_t extra)
+{
+    if (b->len + extra <= b->cap)
+        return 0;
+    Py_ssize_t cap = b->cap ? b->cap : 256;
+    while (cap < b->len + extra)
+        cap *= 2;
+    char *nb = PyMem_Realloc(b->buf, cap);
+    if (nb == NULL) {
+        PyErr_NoMemory();
+        return -1;
+    }
+    b->buf = nb;
+    b->cap = cap;
+    return 0;
+}
+
+static int
+jbuf_put(jbuf *b, const char *s, Py_ssize_t n)
+{
+    if (jbuf_grow(b, n) < 0)
+        return -1;
+    memcpy(b->buf + b->len, s, n);
+    b->len += n;
+    return 0;
+}
+
+static int
+jbuf_putc(jbuf *b, char c)
+{
+    return jbuf_put(b, &c, 1);
+}
+
+/* the str()/repr() of o as ASCII bytes into the buffer (int/float
+ * reprs are always ASCII) */
+static int
+jbuf_put_ascii_repr(jbuf *b, PyObject *r)
+{
+    Py_ssize_t n;
+    const char *s = PyUnicode_AsUTF8AndSize(r, &n);
+    if (s == NULL)
+        return -1;
+    return jbuf_put(b, s, n);
+}
+
+/* json.dumps ensure_ascii string escape: ", \\, \b \f \n \r \t,
+ * \u00XX for other control chars, \uXXXX for everything >= 0x7f
+ * (surrogate pairs above the BMP) */
+static int
+jbuf_put_escaped(jbuf *b, PyObject *str)
+{
+#if PY_VERSION_HEX < 0x030C0000
+    if (PyUnicode_READY(str) < 0)
+        return -1;
+#endif
+    Py_ssize_t n = PyUnicode_GET_LENGTH(str);
+    int kind = PyUnicode_KIND(str);
+    const void *data = PyUnicode_DATA(str);
+    static const char *hex = "0123456789abcdef";
+    if (jbuf_putc(b, '"') < 0)
+        return -1;
+    for (Py_ssize_t i = 0; i < n; i++) {
+        Py_UCS4 c = PyUnicode_READ(kind, data, i);
+        if (c >= 0x20 && c < 0x7f && c != '"' && c != '\\') {
+            if (jbuf_putc(b, (char)c) < 0)
+                return -1;
+            continue;
+        }
+        char esc[12];
+        Py_ssize_t m;
+        switch (c) {
+        case '"':  esc[0] = '\\'; esc[1] = '"';  m = 2; break;
+        case '\\': esc[0] = '\\'; esc[1] = '\\'; m = 2; break;
+        case '\b': esc[0] = '\\'; esc[1] = 'b';  m = 2; break;
+        case '\f': esc[0] = '\\'; esc[1] = 'f';  m = 2; break;
+        case '\n': esc[0] = '\\'; esc[1] = 'n';  m = 2; break;
+        case '\r': esc[0] = '\\'; esc[1] = 'r';  m = 2; break;
+        case '\t': esc[0] = '\\'; esc[1] = 't';  m = 2; break;
+        default:
+            if (c >= 0x10000) {
+                /* astral plane: UTF-16 surrogate pair, like the
+                 * stdlib's ensure_ascii encoder */
+                Py_UCS4 v = c - 0x10000;
+                Py_UCS4 hi = 0xd800 + (v >> 10);
+                Py_UCS4 lo = 0xdc00 + (v & 0x3ff);
+                esc[0] = '\\'; esc[1] = 'u';
+                esc[2] = hex[(hi >> 12) & 0xf];
+                esc[3] = hex[(hi >> 8) & 0xf];
+                esc[4] = hex[(hi >> 4) & 0xf];
+                esc[5] = hex[hi & 0xf];
+                esc[6] = '\\'; esc[7] = 'u';
+                esc[8] = hex[(lo >> 12) & 0xf];
+                esc[9] = hex[(lo >> 8) & 0xf];
+                esc[10] = hex[(lo >> 4) & 0xf];
+                esc[11] = hex[lo & 0xf];
+                m = 12;
+            } else {
+                esc[0] = '\\'; esc[1] = 'u';
+                esc[2] = hex[(c >> 12) & 0xf];
+                esc[3] = hex[(c >> 8) & 0xf];
+                esc[4] = hex[(c >> 4) & 0xf];
+                esc[5] = hex[c & 0xf];
+                m = 6;
+            }
+        }
+        if (jbuf_put(b, esc, m) < 0)
+            return -1;
+    }
+    return jbuf_putc(b, '"');
+}
+
+/* bytes -> {"__bytes__":"<standard base64, padded>"} — the codec's
+ * base64.b64encode rendering */
+static int
+jbuf_put_bytes(jbuf *b, PyObject *bytes)
+{
+    static const char *b64 =
+        "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz"
+        "0123456789+/";
+    const unsigned char *p = (const unsigned char *)PyBytes_AS_STRING(bytes);
+    Py_ssize_t n = PyBytes_GET_SIZE(bytes);
+    if (jbuf_put(b, "{\"__bytes__\":\"", 14) < 0)
+        return -1;
+    for (Py_ssize_t i = 0; i < n; i += 3) {
+        unsigned v = p[i] << 16;
+        if (i + 1 < n) v |= p[i + 1] << 8;
+        if (i + 2 < n) v |= p[i + 2];
+        char q[4];
+        q[0] = b64[(v >> 18) & 63];
+        q[1] = b64[(v >> 12) & 63];
+        q[2] = i + 1 < n ? b64[(v >> 6) & 63] : '=';
+        q[3] = i + 2 < n ? b64[v & 63] : '=';
+        if (jbuf_put(b, q, 4) < 0)
+            return -1;
+    }
+    return jbuf_put(b, "\"}", 2);
+}
+
+/* the type's dataclass field-name tuple (dataclasses.fields order —
+ * NOT __dataclass_fields__, which also carries ClassVar/InitVar
+ * pseudo-fields), cached per type; NULL = not a dataclass instance
+ * (no exception) or error (exception set) */
+static PyObject *
+dc_field_names(PyObject *o)
+{
+    PyObject *tp = (PyObject *)Py_TYPE(o);
+    int has = PyObject_HasAttr(tp, s_dataclass_fields);
+    if (!has)
+        return NULL;
+    PyObject *cached = PyDict_GetItemWithError(dc_field_cache, tp);
+    if (cached != NULL || PyErr_Occurred())
+        return cached;
+    if (dc_fields_func == NULL) {
+        PyObject *mod = PyImport_ImportModule("dataclasses");
+        if (mod == NULL)
+            return NULL;
+        dc_fields_func = PyObject_GetAttrString(mod, "fields");
+        Py_DECREF(mod);
+        if (dc_fields_func == NULL)
+            return NULL;
+    }
+    PyObject *fields = PyObject_CallFunctionObjArgs(dc_fields_func, o,
+                                                    NULL);
+    if (fields == NULL)
+        return NULL;
+    Py_ssize_t n = PySequence_Length(fields);
+    PyObject *names = n < 0 ? NULL : PyTuple_New(n);
+    if (names == NULL) {
+        Py_DECREF(fields);
+        return NULL;
+    }
+    for (Py_ssize_t i = 0; i < n; i++) {
+        PyObject *f = PySequence_GetItem(fields, i);
+        PyObject *name = f == NULL ? NULL
+            : PyObject_GetAttr(f, s_name);
+        Py_XDECREF(f);
+        if (name == NULL || !PyUnicode_Check(name)) {
+            Py_XDECREF(name);
+            Py_DECREF(names);
+            Py_DECREF(fields);
+            if (!PyErr_Occurred())
+                PyErr_SetString(PyExc_TypeError,
+                                "dataclass field name is not a str");
+            return NULL;
+        }
+        PyTuple_SET_ITEM(names, i, name);
+    }
+    Py_DECREF(fields);
+    if (PyDict_SetItem(dc_field_cache, tp, names) < 0) {
+        Py_DECREF(names);
+        return NULL;
+    }
+    Py_DECREF(names);           /* cache holds the reference */
+    return PyDict_GetItemWithError(dc_field_cache, tp);
+}
+
+static int jenc(jbuf *b, PyObject *o);
+
+static int
+jenc_kv(jbuf *b, PyObject *key, PyObject *val, int first)
+{
+    if (!first && jbuf_putc(b, ',') < 0)
+        return -1;
+    if (jbuf_put_escaped(b, key) < 0)
+        return -1;
+    if (jbuf_putc(b, ':') < 0)
+        return -1;
+    return jenc(b, val);
+}
+
+static int
+jenc(jbuf *b, PyObject *o)
+{
+    if (o == Py_None)
+        return jbuf_put(b, "null", 4);
+    if (o == Py_True)
+        return jbuf_put(b, "true", 4);
+    if (o == Py_False)
+        return jbuf_put(b, "false", 5);
+    if (PyLong_Check(o)) {
+        /* int.__repr__, not repr(o): an int SUBCLASS must serialize
+         * as its integer value, exactly like the stdlib encoder */
+        PyObject *r = PyLong_Type.tp_repr(o);
+        if (r == NULL)
+            return -1;
+        int rc = jbuf_put_ascii_repr(b, r);
+        Py_DECREF(r);
+        return rc;
+    }
+    if (PyFloat_Check(o)) {
+        double d = PyFloat_AS_DOUBLE(o);
+        if (isnan(d))
+            return jbuf_put(b, "NaN", 3);
+        if (isinf(d))
+            return d > 0 ? jbuf_put(b, "Infinity", 8)
+                         : jbuf_put(b, "-Infinity", 9);
+        PyObject *r = PyFloat_Type.tp_repr(o);   /* shortest repr */
+        if (r == NULL)
+            return -1;
+        int rc = jbuf_put_ascii_repr(b, r);
+        Py_DECREF(r);
+        return rc;
+    }
+    if (PyUnicode_Check(o))
+        return jbuf_put_escaped(b, o);
+    if (PyBytes_Check(o))
+        return jbuf_put_bytes(b, o);
+    if (PyDict_Check(o)) {
+        if (jbuf_putc(b, '{') < 0)
+            return -1;
+        PyObject *key, *val;
+        Py_ssize_t pos = 0;
+        int first = 1;
+        while (PyDict_Next(o, &pos, &key, &val)) {
+            /* codec.encode str()s every key before json sees it */
+            PyObject *ks = PyUnicode_Check(key)
+                ? (Py_INCREF(key), key) : PyObject_Str(key);
+            if (ks == NULL)
+                return -1;
+            int rc = jenc_kv(b, ks, val, first);
+            Py_DECREF(ks);
+            if (rc < 0)
+                return rc;
+            first = 0;
+        }
+        return jbuf_putc(b, '}');
+    }
+    if (PyList_Check(o) || PyTuple_Check(o)) {
+        if (jbuf_putc(b, '[') < 0)
+            return -1;
+        Py_ssize_t n = PySequence_Fast_GET_SIZE(o);
+        PyObject **items = PySequence_Fast_ITEMS(o);
+        for (Py_ssize_t i = 0; i < n; i++) {
+            if (i && jbuf_putc(b, ',') < 0)
+                return -1;
+            int rc = jenc(b, items[i]);
+            if (rc < 0)
+                return rc;
+        }
+        return jbuf_putc(b, ']');
+    }
+    if (!PyType_Check(o)) {
+        PyObject *names = dc_field_names(o);
+        if (names != NULL) {
+            if (jbuf_putc(b, '{') < 0)
+                return -1;
+            Py_ssize_t n = PyTuple_GET_SIZE(names);
+            for (Py_ssize_t i = 0; i < n; i++) {
+                PyObject *name = PyTuple_GET_ITEM(names, i);
+                PyObject *val = PyObject_GetAttr(o, name);
+                if (val == NULL)
+                    return -1;
+                int rc = jenc_kv(b, name, val, i == 0);
+                Py_DECREF(val);
+                if (rc < 0)
+                    return rc;
+            }
+            return jbuf_putc(b, '}');
+        }
+        if (PyErr_Occurred())
+            return -1;
+    }
+    return JENC_HANDBACK;
+}
+
+static PyObject *
+encode_object_json(PyObject *self, PyObject *o)
+{
+    jbuf b = {NULL, 0, 0};
+    int rc = jenc(&b, o);
+    if (rc < 0) {
+        PyMem_Free(b.buf);
+        if (rc == JENC_HANDBACK)
+            Py_RETURN_NONE;
+        return NULL;
+    }
+    PyObject *out = PyBytes_FromStringAndSize(b.buf, b.len);
+    PyMem_Free(b.buf);
+    return out;
+}
+
 static PyMethodDef methods[] = {
     {"register_task_type", register_task_type, METH_O,
      "Register the TaskInfo class (reads its slot offsets)."},
@@ -2200,13 +2572,16 @@ static PyMethodDef methods[] = {
      "A bulk delivery classified by an attribute-equality filter."},
     {"bind_request_items", bind_request_items, METH_O,
      "bind_pods_batch's request: [(pod, host)] -> [(name, ns, host)]."},
+    {"encode_object_json", encode_object_json, METH_O,
+     "codec.dumps_compact: the compact JSON of a value, or None for a "
+     "shape it hands back."},
     {NULL, NULL, 0, NULL}
 };
 
 static struct PyModuleDef moduledef = {
     PyModuleDef_HEAD_INIT, "volcano_tpu_torch_fastmodel",
-    "The native engine of volcano_tpu_torch's snapshot clones and bind "
-    "commit path.", -1, methods
+    "The native engine of volcano_tpu_torch's snapshot clones, bind "
+    "commit path and JSON encoder.", -1, methods
 };
 
 static PyObject **const interned[] = {
@@ -2217,6 +2592,7 @@ static PyObject **const interned[] = {
     &s_accepted, &s_bound, &s_idle, &s_used, &s_name, &s_node,
     &s_gpu_devices, &s_allocated, &s_pending_request, &s_namespace_str,
     &s_append, &s_hop, &s_queue_label, &s_rr, &s_group_sig,
+    &s_dataclass_fields,
 };
 static const char *const interned_text[] = {
     "metadata", "spec", "node_name", "resource_version", "MODIFIED",
@@ -2226,6 +2602,7 @@ static const char *const interned_text[] = {
     "accepted", "bound", "idle", "used", "name", "node",
     "gpu_devices", "allocated", "pending_request", "namespace",
     "append", "hop", "queue", "_rr", "_sched_group_sig",
+    "__dataclass_fields__",
 };
 
 PyMODINIT_FUNC
@@ -2240,5 +2617,7 @@ PyInit_volcano_tpu_torch_fastmodel(void)
         if ((*interned[i] = PyUnicode_InternFromString(interned_text[i]))
                 == NULL)
             return NULL;
+    if ((dc_field_cache = PyDict_New()) == NULL)
+        return NULL;
     return PyModule_Create(&moduledef);
 }

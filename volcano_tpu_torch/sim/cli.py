@@ -12,10 +12,11 @@ in-process (that is the point — a violation shrinks to ``{seed, tick}``
 with no cluster state to capture).
 
 The gates (smoke, chaos, failover, obs, incr, constraints, explain,
-prune) keep the reference's configs, checks and exit codes. ``mesh``
-waits for the multi-GPU solver and ``storm``, ``durability`` and
-``federation`` for the serving hub, the write-ahead log and replication:
-they exit 2 with a message and run nothing in their place.
+prune, storm) keep the reference's configs, checks and exit codes.
+``mesh`` waits for the multi-GPU solver and ``durability`` and
+``federation`` for the simulator's durability harness and replication's
+follower half: they exit 2 with a message and run nothing in their
+place.
 """
 
 from __future__ import annotations
@@ -33,10 +34,18 @@ from typing import List, Optional
 # waits (ROADMAP.md)
 WAITING = {
     "mesh": "the multi-GPU sharded solver (ROADMAP item 13)",
-    "storm": "the serving hub and the HTTP apiserver (ROADMAP item 10)",
-    "durability": "the write-ahead log (ROADMAP item 10)",
-    "federation": "replication (ROADMAP item 10)",
+    "durability": "sim/durability.py, the durability harness "
+                  "(ROADMAP item 10b)",
+    "federation": "replication's follower half (ROADMAP item 10b)",
 }
+
+
+# run_storm's counters beside the verdict's own keys (``port_facts``)
+STORM_FACTS = ("final_rv", "converged", "gaps_detected", "gaps_unrecovered",
+               "frames_dropped", "frames_total", "events_total", "relists",
+               "noisy_throttled_writes", "noisy_subscription_throttles",
+               "bind_fingerprint", "ledger_fingerprint", "violations",
+               "watch_drops", "divergence_repairs")
 
 
 def add_sim_parser(sub) -> None:
@@ -187,6 +196,24 @@ def add_sim_parser(sub) -> None:
                     help="shortlist width (0 = node count: the "
                          "complete-shortlist exactness regime)")
     pr.add_argument("--json", action="store_true")
+
+    storm = sim.add_parser(
+        "storm", help="CI gate: watcher storm — 1k+ "
+                      "hub subscribers across tenants with seeded frame "
+                      "drops, a mid-storm journal gap and real cache "
+                      "watch faults, through a bind-flush storm; every "
+                      "cursor must converge to the final rv with zero "
+                      "unrecovered gaps, >=1 structured relist, >=1 "
+                      "throttled tenant, coalesced (not per-event) "
+                      "delivery, and a bit-identical double run on bind "
+                      "AND ledger fingerprints")
+    storm.add_argument("--seed", type=int, default=43)
+    storm.add_argument("--ticks", type=int, default=80)
+    storm.add_argument("--nodes", type=int, default=192)
+    storm.add_argument("--subscribers", type=int, default=1024)
+    storm.add_argument("--shards", type=int, default=8)
+    storm.add_argument("--drop-rate", type=float, default=0.03)
+    storm.add_argument("--json", action="store_true")
 
     rep = sim.add_parser("replay", help="re-run a violation repro bundle")
     rep.add_argument("--bundle", required=True)
@@ -1069,6 +1096,93 @@ def dispatch_sim(args) -> int:
             for name, ok in checks.items():
                 print(f"  {name}: {'ok' if ok else 'FAIL'}")
             print(f"prune-smoke: {'PASS' if verdict['pass'] else 'FAIL'}")
+        return 0 if verdict["pass"] else 1
+
+    if args.verb == "storm":
+        from ..serving.storm import run_storm
+
+        def one_run():
+            return run_storm(seed=args.seed, ticks=args.ticks,
+                             nodes=args.nodes,
+                             subscribers=args.subscribers,
+                             shards=args.shards, drop_rate=args.drop_rate,
+                             device=args.device)
+
+        v1 = one_run()
+        v2 = one_run()
+        checks = {
+            # the engine's own invariant catalog (journal order incl.)
+            # stayed clean under the storm in both runs
+            "no_violations": v1["violations"] == 0
+                             and v2["violations"] == 0,
+            # every subscriber session reached the final store rv
+            "all_converged": v1["converged"] == v1["subscribers"]
+                             and v2["converged"] == v2["subscribers"]
+                             and v1["subscribers"] >= args.subscribers
+                             - max(16, args.subscribers // 50),
+            # and no frame-chain hole survived recovery
+            "zero_gaps": v1["gaps_unrecovered"] == 0
+                         and v2["gaps_unrecovered"] == 0,
+            # the faults provably fired: frames dropped + chain gaps
+            # detected and recovered client-side
+            "faults_fired": v1["frames_dropped"] > 0
+                            and v1["gaps_detected"] > 0,
+            # cache-side watch faults at storm scale (the
+            # commit-order-stable fault coin makes them replayable
+            # here), diverging the scheduler's cache and repaired by
+            # anti-entropy before each tick's audit
+            "cache_watch_faults_fired": v1["watch_drops"] > 0
+                                        and v1["divergence_repairs"] > 0,
+            # the mid-storm journal gap took the structured relist path
+            "relist_taken": v1["relists"] >= 1,
+            # the noisy tenant was throttled at the admission edge
+            "throttled_tenant_observed":
+                v1["noisy_throttled_writes"] >= 1
+                or v1["noisy_subscription_throttles"] >= 1,
+            # a storm burst reaches a client as coalesced frames, not
+            # per-event deliveries
+            "coalesced_delivery": v1["coalesce_ratio"] >= 5.0,
+            "deterministic_replay":
+                v1["bind_fingerprint"] == v2["bind_fingerprint"]
+                and v1["ledger_fingerprint"] == v2["ledger_fingerprint"]
+                and v1["noisy_throttled_writes"]
+                == v2["noisy_throttled_writes"]
+                and v1["watch_drops"] == v2["watch_drops"],
+        }
+        verdict = {
+            "storm": v1["storm"],
+            "fanout_ms": v1["fanout_ms"],
+            "subscribers": v1["subscribers"],
+            "frames_total": v1["frames_total"],
+            "events_total": v1["events_total"],
+            "coalesce_ratio": v1["coalesce_ratio"],
+            "relists": v1["relists"],
+            "throttled": v1["throttled"],
+            "checks": checks,
+            "pass": all(checks.values()),
+            # the port's additions: the rest of the gate's counters of
+            # both runs, which the port's tests and chip_smoke hold to
+            # the reference's record
+            "port_facts": {k: [v[k] for v in (v1, v2)] for k in STORM_FACTS},
+        }
+        if args.json:
+            print(json.dumps(verdict, indent=1))
+        else:
+            _print_summary(v1["storm"], False)
+            print(f"subscribers={v1['subscribers']} "
+                  f"converged={v1['converged']} "
+                  f"frames={v1['frames_total']} "
+                  f"events={v1['events_total']} "
+                  f"(x{v1['coalesce_ratio']} coalesced) "
+                  f"dropped={v1['frames_dropped']} "
+                  f"gaps={v1['gaps_detected']} relists={v1['relists']}")
+            f = v1["fanout_ms"]
+            print(f"fan-out ms: p50={f['p50']} p95={f['p95']} "
+                  f"p99={f['p99']} (n={f['count']})")
+            print(f"throttled: {v1['throttled']}")
+            for name, ok in checks.items():
+                print(f"  {name}: {'ok' if ok else 'FAIL'}")
+            print(f"storm-smoke: {'PASS' if verdict['pass'] else 'FAIL'}")
         return 0 if verdict["pass"] else 1
 
     if args.verb == "replay":

@@ -24,14 +24,15 @@ Three layers:
   :func:`synthesize_evict_storms` emit plain events (drain/undrain,
   kill/re-add, storms) from a seeded RNG so they ride the same replayable
   stream as arrivals.
-
-Left out of this port: the storage faults of the write-ahead log
-(``FileFaults``, ``FaultyFile``, ``flip_bit``, ``tear_tail``), which wait
-for the log itself.
+* **Storage faults** — :class:`FileFaults` feeds the write-ahead log's
+  ``opener=`` seam (ENOSPC as a short write, EIO on fsync), and
+  :func:`flip_bit` / :func:`tear_tail` damage a segment offline.
 """
 
 from __future__ import annotations
 
+import errno
+import os
 import random
 import zlib
 from dataclasses import dataclass, field
@@ -355,3 +356,118 @@ def apply_evict_storm(store, event: Event) -> List[str]:
         except KeyError:
             pass
     return deleted
+
+
+# ---------------------------------------------------------------------------
+# storage faults: the WAL's opener seam + offline segment damage
+# ---------------------------------------------------------------------------
+
+class FileFaults:
+    """Deterministic storage-fault schedule for the WAL's ``opener=``
+    seam (docs/design/durability.md).
+
+    ``enospc_after_bytes`` — total bytes the "disk" accepts across every
+    file opened through this schedule; the write that crosses the budget
+    lands only its allowed PREFIX (real ENOSPC is a short write, which
+    is exactly the torn record the WAL must wind back) and raises
+    ``OSError(ENOSPC)``. Set to ``None`` for unlimited. ``refill()``
+    models the operator freeing space — the next successful flush heals
+    the read-only gate.
+
+    ``fail_fsync_after`` — fsyncs to allow before every later fsync
+    raises ``OSError(EIO)`` (the fsyncgate failure: page-cache state
+    after a failed fsync is unknowable, so the WAL must poison itself,
+    not retry). ``None`` disables.
+    """
+
+    def __init__(self, enospc_after_bytes: Optional[int] = None,
+                 fail_fsync_after: Optional[int] = None):
+        self.enospc_after_bytes = enospc_after_bytes
+        self.fail_fsync_after = fail_fsync_after
+        self.bytes_written = 0
+        self.fsyncs = 0
+        self.enospc_hits = 0
+        self.eio_hits = 0
+
+    def refill(self, budget: Optional[int] = None) -> None:
+        """Free space: reset the byte budget (default: unlimited)."""
+        self.bytes_written = 0
+        self.enospc_after_bytes = budget
+
+    def opener(self, path: str):
+        """The ``WriteAheadLog(opener=...)`` entry point."""
+        return FaultyFile(open(path, "ab", buffering=0), self)
+
+
+class FaultyFile:
+    """Unbuffered append file wrapper that injects the FileFaults
+    schedule. Implements the exact surface the WAL touches: ``write``,
+    ``fsync`` (the seam ``_do_fsync_locked`` prefers over
+    ``os.fsync``), ``fileno``, ``close``."""
+
+    def __init__(self, raw, faults: FileFaults):
+        self._raw = raw
+        self._faults = faults
+
+    def write(self, data: bytes) -> int:
+        f = self._faults
+        if f.enospc_after_bytes is not None:
+            allowed = f.enospc_after_bytes - f.bytes_written
+            if len(data) > allowed:
+                prefix = data[:max(0, allowed)]
+                if prefix:                    # the torn partial write
+                    self._raw.write(prefix)
+                    f.bytes_written += len(prefix)
+                f.enospc_hits += 1
+                raise OSError(errno.ENOSPC, "injected: no space left "
+                                             "on device")
+        n = self._raw.write(data)
+        f.bytes_written += n
+        return n
+
+    def fsync(self) -> None:
+        f = self._faults
+        if f.fail_fsync_after is not None \
+                and f.fsyncs >= f.fail_fsync_after:
+            f.eio_hits += 1
+            raise OSError(errno.EIO, "injected: fsync I/O error")
+        os.fsync(self._raw.fileno())
+        f.fsyncs += 1
+
+    def fileno(self) -> int:
+        return self._raw.fileno()
+
+    def close(self) -> None:
+        self._raw.close()
+
+
+def flip_bit(path: str, offset: Optional[int] = None,
+             seed: int = 0) -> int:
+    """Flip one bit in ``path`` (default: a seeded position past the
+    first record so the segment header stays intact) — the latent media
+    error recovery must refuse on when durable records follow. Returns
+    the byte offset flipped."""
+    with open(path, "rb") as f:
+        data = bytearray(f.read())
+    if not data:
+        raise ValueError(f"cannot flip a bit in empty file {path}")
+    if offset is None:
+        lo, hi = min(16, len(data) - 1), len(data)
+        offset = lo + random.Random(seed ^ 0xB17).randrange(hi - lo)
+    data[offset] ^= 1 << (seed % 8)
+    with open(path, "r+b") as f:     # in-place damage, no truncation
+        f.seek(offset)
+        f.write(bytes([data[offset]]))
+    return offset
+
+
+def tear_tail(path: str, nbytes: int = 7) -> int:
+    """Chop the last ``nbytes`` off ``path`` — the torn final record a
+    power cut mid-write leaves. Recovery must truncate it away and
+    continue (NOT refuse: nothing durable follows). Returns the new
+    size."""
+    size = os.path.getsize(path)
+    new = max(0, size - int(nbytes))
+    with open(path, "r+b") as f:
+        f.truncate(new)
+    return new
