@@ -316,6 +316,22 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
     seconds, the cycle's split, the kernel's CUDA-event ms, launches and
     prune fields, flush_ms and the bind rate, the log's records and
     fsyncs, the recovery's seconds and entries, and peak device memory.
+    (d) A follower of that apiserver, ``python -m
+    volcano_tpu_torch.cmd.apiserver --replicate-from <leader> --data-dir
+    D2`` (a child process like the leader), started once the leader has
+    booted: it bootstraps from ``/replicate/snapshot`` (66,251 objects at
+    the leader's rv) while the embedded cycle runs, streams the placing
+    cycle's binds live (its rv sampled once a second between the
+    anchor and the leader's during the flush), ends at the leader's
+    durable rv with ``/replicate/snapshot`` digests
+    (replication/chaos.py:_audit_digest, every object with its rv)
+    identical to the leader's, and a RemoteStore of it lists every bind
+    at the leader's rvs; after the leader's SIGKILL and restart (and the
+    second cycle) it reaches the leader's rv again with identical digests,
+    by a catch-up or a bootstrap, whichever the protocol takes. It prints
+    the bootstrap seconds, the lag in rvs when the flush ends, the
+    catch-up seconds and which path the restart took; flush_ms and the
+    bind rate are with the follower attached.
     ``storm``: (b) ``python -m volcano_tpu_torch.sim.cli storm --device
     cuda --json`` at the reference's shape (seed 43, 80 ticks, 192 nodes,
     1,024 subscribers, 8 shards, drop rate 0.03) twice through the CLI's
@@ -327,6 +343,30 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
     printed and not gated: ``wal_bind_flush_ms`` and ``wal_off_flush_ms``
     in five paired rounds beside the reference's budget of 1.10, the
     drain, the fsync p99 and the recovery;
+15j. federation: ``python -m volcano_tpu_torch.sim.cli federation
+    --device cuda --json`` at the reference's shape (seed 43, 60 ticks,
+    128 nodes, 1,024 subscribers, 4 shards, 2 followers, drop rate 0.02)
+    twice through the CLI's main: the bind storm on the leader's store
+    placed by the kernel, replicated to two follower mirrors, one killed
+    mid-storm with its cursors handed off, a forced journal gap (a
+    snapshot bootstrap) and a deposed leader's frame (fenced). Exit 0
+    with all 11 checks true, both runs' bind and ledger fingerprints and
+    the counters that repeat (converged, handoffs, fenced frames,
+    bootstraps, the audit's verdict, violations, watch drops, repairs)
+    equal to the reference's record (tests/torch_sim_reference.json
+    ``federation``), launches per placing tick as the prune outcomes
+    give; each run prints its cycle_ms, fan-out, final rv and mirror
+    fingerprint (these vary from run to run, in both packages);
+15k. replicas, host-only: ``federation --procs`` (three port apiserver
+    members behind the seeded chaos proxies, 192 writer pods, 1,024
+    watch clients: a half-open partition and a takeover with a fenced
+    write, then the new leader SIGKILLed and restarted from its log) and
+    ``durability`` (seed 47, 72 pods, 8 nodes: torn tail, bit flip and
+    disk full in process, then an apiserver child SIGKILLed at
+    pre-fsync, post-fsync-pre-rename and mid-compaction), each the CLI's
+    double run in a child process with no CUDA device visible, both at
+    once: exit 0, every check true, the double runs' content
+    fingerprints equal; the group's own process initialises no CUDA;
 16. the kernels line (with the table refreshes, the cluster's blocks and
     each block's shared memory, the plan and R, as the main path's launch
     reported them, the shapes_vs_plain summary, traced_cycle's overhead,
@@ -337,18 +377,25 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
     the sim group's launches per tick in each run of (a), (b) and (c)
     and whether its fingerprints agreed (``sim``), the served north
     star's launches, kernel ms, flush ms and binds recovered
-    (``served``), the storm's launches per tick and whether its
-    fingerprints agreed (``storm``), and a ``prune`` entry for the north-star cycle's place: union, padded
+    (``served``) with its follower's bootstrap seconds, lag at the end of
+    the flush and whether its digests were identical before and after
+    the leader's kill (``served.follower``), the storm's launches per
+    tick and whether its fingerprints agreed (``storm``), the federation
+    gate's launches per placing tick in each run and whether its
+    fingerprints agreed (``federation``), and a ``prune`` entry for the north-star cycle's place: union, padded
     width, launches, refreshes, whether the reduced run served; a second
     entry for the slot path), then the card's nvidia-smi line, then
     {"ok": true, "device": {...}} as the last line.
 
-The phases after 8 run in six groups (GROUPS), each in a process of
+The phases after 8 run in eight groups (GROUPS), each in a process of
 its own, beside phases 3-8 on the one card: ``cycles`` (9-11, 15e, 12),
-``binary_victims`` (15f, 13, 14, 15, 15c) and ``commit`` (15b, 15d, 15g)
-start together after the build; ``sim`` (15h), ``served`` and ``storm``
-(15i) start once phases 3-6 and the cycles group have timed the kernel,
-so that their 10,000-node launches stay out of the kernel's timed runs. Their lines reach stdout
+``binary_victims`` (15f, 13, 14, 15, 15c) and ``commit`` (15b, 15d,
+15g) start together after the build; ``sim`` (15h), ``served`` and
+``storm`` (15i) and ``federation`` (15j) start once phases 3-6 and the
+cycles group have timed the kernel, so that their launches stay out of
+the kernel's timed runs; ``replicas`` (15k) starts once every group but
+``served`` has ended, so that its leases are renewed on a host with
+cores to spare. Their lines reach stdout
 through the script; their host times carry each other's load, on the
 host's cores and the card's time slices (``--group NAME`` runs one
 group alone, for host times without that load). A group that fails
@@ -402,6 +449,7 @@ from volcano_tpu_torch.apiserver.store import FencedError  # noqa: E402
 from volcano_tpu_torch.apiserver import persistence  # noqa: E402
 from volcano_tpu_torch.apiserver import wal as wal_mod  # noqa: E402
 from volcano_tpu_torch.apiserver.http import StoreClient  # noqa: E402
+from volcano_tpu_torch.apiserver.remote import RemoteStore  # noqa: E402
 from volcano_tpu_torch.cache import SchedulerCache  # noqa: E402
 from volcano_tpu_torch.cache.event_handlers import (  # noqa: E402
     EventHandlersMixin)
@@ -425,6 +473,7 @@ from volcano_tpu_torch.sim import engine as sim_engine  # noqa: E402
 from volcano_tpu_torch.sim.faults import FlakyBinder  # noqa: E402
 from volcano_tpu_torch.plugins import numaaware as numaaware_plugin  # noqa: E402
 from volcano_tpu_torch.plugins import tdm as tdm_plugin  # noqa: E402
+from volcano_tpu_torch.replication import chaos  # noqa: E402
 from volcano_tpu_torch.trace import ledger, pending, tracer  # noqa: E402
 from volcano_tpu_torch.utils import test_utils as tu  # noqa: E402
 from volcano_tpu_torch.utils.clock import FakeClock  # noqa: E402
@@ -4212,6 +4261,10 @@ def sim_group(dev) -> dict:
 SERVED_FLUSH_TIMEOUT_S = 1200.0     # 50,000 per-pod REST binds
 SERVED_WAIT_S = 60.0                # the apiserver's boot and recovery
 SERVED_PERIOD_S = 1.0
+# (d): the follower's snapshot bootstrap of the north star's 66,251
+# objects, and its catch-ups
+SERVED_FOLLOWER_WAIT_S = 300.0
+SERVED_LAG_PERIOD_S = 1.0
 # the storm gate's shape, from the record it is held to
 STORM_VERB = ["storm", "--device", "cuda", "--json"]
 # (c): the reference's WAL leg (bench.py's WAL worker) at the north star
@@ -4242,48 +4295,71 @@ class ApiServer:
     ``--checkpoint-interval 0`` (no periodic compaction), so a restart
     replays the write-ahead log of everything written since the save,
     and no compaction's snapshot of 66,000 objects holds the store's
-    lock while the binds stream in."""
+    lock while the binds stream in. ``args``: more of the command's
+    flags (``--replicate-from URL`` makes it a follower)."""
 
-    def __init__(self, data_dir: str):
+    def __init__(self, data_dir: str, args=(), wait_s=SERVED_WAIT_S):
         self.data_dir = data_dir
+        self.args = list(args)
+        self.wait_s = wait_s
         self.port, self.mport = free_port(), free_port()
         self.url = f"http://127.0.0.1:{self.port}"
         self.murl = f"http://127.0.0.1:{self.mport}"
+        self.log_path = f"{data_dir}.log"
         self.proc = None
+        self.launched = None
 
     def start(self) -> float:
         """Start it and wait until it answers; returns the seconds."""
+        self.launch()
+        return self.wait_ready()
+
+    def launch(self) -> None:
+        """Start the process. Call it from the group's main thread: the
+        child dies with the thread that started it (PR_SET_PDEATHSIG)."""
         env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-        t0 = time.perf_counter()
+        self.launched = time.perf_counter()
         # its log goes to a file: a pipe nobody reads would block it
-        log_path = f"{self.data_dir}.log"
-        with open(log_path, "a") as log:
+        with open(self.log_path, "a") as log:
             self.proc = subprocess.Popen(
                 [sys.executable, "-m", "volcano_tpu_torch.cmd.apiserver",
                  "--port", str(self.port), "--data-dir", self.data_dir,
                  "--checkpoint-interval", "0",
-                 "--metrics", f"127.0.0.1:{self.mport}"],
+                 "--metrics", f"127.0.0.1:{self.mport}", *self.args],
                 env=env, stdout=log, stderr=log,
                 preexec_fn=die_with_parent)
-        deadline = time.monotonic() + SERVED_WAIT_S
+
+    def check_alive(self) -> None:
+        if self.proc.poll() is not None:
+            with open(self.log_path) as log:
+                tail = log.read()[-2000:]
+            fail(f"served: the apiserver {self.args} exited "
+                 f"{self.proc.returncode}: {tail}")
+
+    def wait_ready(self) -> float:
+        """Wait until it answers; returns the seconds since the launch."""
+        deadline = time.monotonic() + self.wait_s
         while True:
-            if self.proc.poll() is not None:
-                with open(log_path) as log:
-                    tail = log.read()[-2000:]
-                fail(f"served: the apiserver exited {self.proc.returncode}: "
-                     f"{tail}")
+            self.check_alive()
             try:
                 get_json(f"{self.url}/rv", 2.0)
                 get_json(f"{self.murl}/debug/durability", 2.0)
-                return time.perf_counter() - t0
+                return time.perf_counter() - self.launched
             except OSError:
                 if time.monotonic() > deadline:
                     fail("served: the apiserver did not answer in "
-                         f"{SERVED_WAIT_S:g} s")
+                         f"{self.wait_s:g} s")
                 time.sleep(0.1)
 
     def durability(self) -> dict:
         return get_json(f"{self.murl}/debug/durability")
+
+    def replication(self) -> dict:
+        return get_json(f"{self.murl}/debug/replication")
+
+    def rv(self) -> int:
+        self.check_alive()
+        return get_json(f"{self.url}/rv")["rv"]
 
     def kill(self) -> None:
         self.proc.send_signal(signal.SIGKILL)
@@ -4297,6 +4373,64 @@ class ApiServer:
             except subprocess.TimeoutExpired:
                 self.proc.kill()
                 self.proc.wait()
+
+
+def replica_audit(server: ApiServer) -> dict:
+    """One replica's ``/replicate/snapshot`` through the process
+    federation gate's audit digest (replication/chaos.py:_audit_digest:
+    every object's encoding with its rv): its rv, digest and objects."""
+    snap = get_json(f"{server.url}/replicate/snapshot", 300.0)
+    return {"rv": snap["rv"], "digest": chaos._audit_digest(snap),
+            "objects": sum(len(v) for v in snap["objects"].values())}
+
+
+def follow_to(follower: ApiServer, leader: ApiServer, rv: int,
+              ctx: str) -> float:
+    """Wait until the follower has applied the leader's rv, ``rv`` or
+    later; returns the seconds."""
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + SERVED_FOLLOWER_WAIT_S
+    while (got := follower.rv()) < rv or got != leader.rv():
+        if time.monotonic() > deadline:
+            fail(f"served follower: at rv {got}, {ctx} at {rv} and the "
+                 f"leader at {leader.rv()} after "
+                 f"{SERVED_FOLLOWER_WAIT_S:g} s")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def same_replicas(leader: ApiServer, follower: ApiServer, ctx: str) -> dict:
+    """The two replicas' audit digests, which must be identical."""
+    a, b = replica_audit(leader), replica_audit(follower)
+    if a != b:
+        fail(f"served follower {ctx}: the leader's snapshot {a}, the "
+             f"follower's {b}")
+    return a
+
+
+class LagProbe:
+    """Samples the leader's and the follower's rvs once a second on a
+    thread of its own, while the binds stream."""
+
+    def __init__(self, leader: ApiServer, follower: ApiServer):
+        self.samples = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, args=(leader, follower), daemon=True)
+        self._thread.start()
+
+    def _run(self, leader, follower):
+        while not self._stop.wait(SERVED_LAG_PERIOD_S):
+            try:
+                lead, fol = leader.rv(), follower.rv()
+            except OSError:
+                continue
+            self.samples.append((lead, fol))
+
+    def stop(self) -> list:
+        self._stop.set()
+        self._thread.join()
+        return self.samples
 
 
 class Listed:
@@ -4379,8 +4513,28 @@ def served_north_star(dev) -> dict:
     if boot["snapshot_objects"] != count or boot["final_rv"] != anchor:
         fail(f"served: the apiserver recovered {boot}, the save wrote "
              f"{count} objects at rv {anchor}")
-    # the control: the port's embedded cycle on the same seeded store
-    embedded = embedded_binds(store, dev)
+    # (d): a follower of the leader with a data directory of its own,
+    # bootstrapping from /replicate/snapshot while the control runs: the
+    # port's embedded cycle on the same seeded store
+    follower = ApiServer(os.path.join(tmp, "follower"),
+                         ["--replicate-from", api.url],
+                         SERVED_FOLLOWER_WAIT_S)
+    atexit.register(follower.stop)
+
+    def boot_follower():
+        seconds = follower.wait_ready()
+        return seconds, replica_audit(follower), follower.replication()
+    follower.launch()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        booting = pool.submit(boot_follower)
+        embedded = embedded_binds(store, dev)
+        bootstrap_s, f_boot, f_rep = booting.result()
+    f_rep = f_rep["follower"]
+    if (f_boot["rv"], f_boot["objects"]) != (anchor, count) or \
+            f_rep["snapshot_bootstraps"] != 1 or \
+            f_rep["applied_rv"] != anchor:
+        fail(f"served follower: bootstrapped {f_boot}, {f_rep}; the "
+             f"leader holds {count} objects at rv {anchor}")
     del store
     conf_path = os.path.join(tmp, "scheduler.yaml")
     with open(conf_path, "w") as f:
@@ -4393,11 +4547,22 @@ def served_north_star(dev) -> dict:
         t0 = time.perf_counter()
         remote = scheduler_cmd.open_store(args)
         list_s = time.perf_counter() - t0
+        probe = LagProbe(api, follower)
         sched = scheduler_cmd.run_scheduler(remote, args)
         try:
             if sched.device != dev:
                 fail(f"served: the binary runs on {sched.device}")
             first = rec.wait(sched, 1, "served placing cycle")[0]
+            # the flush has ended: how far the follower trails
+            lead_end, fol_end = api.rv(), follower.rv()
+            samples = probe.stop()
+            # it streamed the binds while they landed, not after: a
+            # sample in the flush holds it between the anchor and the
+            # leader's rv at the flush's end
+            if not any(anchor < f < lead_end for _, f in samples):
+                fail(f"served follower: no sample shows it between the "
+                     f"anchor {anchor} and {lead_end} during the flush: "
+                     f"{samples[:5]}...{samples[-5:]}")
             sched.stop()
             if sched.thread is not None:
                 sched.thread.join(SERVED_FLUSH_TIMEOUT_S)
@@ -4425,6 +4590,20 @@ def served_north_star(dev) -> dict:
                     fail(f"served: durable rv {dur['durable_rv']} short of "
                          f"{last_rv}")
                 time.sleep(0.05)
+            # the follower: at the leader's durable rv, its snapshot the
+            # leader's, and a RemoteStore of it lists every bind at the
+            # leader's rvs
+            catchup_s = follow_to(follower, api, last_rv,
+                                  "the leader's durable rv")
+            before = same_replicas(api, follower, "after the flush")
+            f_remote = RemoteStore(follower.url)
+            f_binds, f_bind_fp, f_journal_fp, _ = served_view(f_remote)
+            f_remote.stop()
+            if f_binds != binds or (f_bind_fp, f_journal_fp) != (
+                    bind_fp, journal_fp):
+                fail("served follower: its listing's binds or rvs differ "
+                     "from the leader's")
+            f_rep1 = follower.replication()["follower"]
             restarts0 = remote.watch_restarts
             api.kill()
             restart_s = api.start()
@@ -4456,11 +4635,18 @@ def served_north_star(dev) -> dict:
             audit = sched.cache.anti_entropy()
             if audit["divergent"] or audit["repaired"]:
                 fail(f"served: the mirror's audit repaired {audit}")
+            # the follower after the leader's SIGKILL and restart
+            catchup2_s = follow_to(follower, api, api.rv(),
+                                   "the restarted leader")
+            after = same_replicas(api, follower, "after the leader's "
+                                  "restart")
+            f_rep2 = follower.replication()["follower"]
         finally:
             sched.stop()
             sched.cache.stop()
             remote.stop()
             api.stop()
+            follower.stop()
     gc.unfreeze()
     flush_s = first["flush_ms"] / 1000.0
     out = {"populate_s": populate_s, "save_s": save_s, "boot_s": boot_s,
@@ -4484,7 +4670,25 @@ def served_north_star(dev) -> dict:
            "watch_restarts": remote.watch_restarts - restarts0,
            "second_cycle_ms": second["cycle_ms"],
            "second_launches": second["launches"],
-           "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "follower": {
+               "bootstrap_s": bootstrap_s,
+               "bootstrap_objects": f_boot["objects"],
+               "bootstrap_rv": f_boot["rv"],
+               "lag_rvs_end_of_flush": lead_end - fol_end,
+               "lag_rvs_max_in_flush": max(lead - f for lead, f in samples),
+               "lag_samples": len(samples),
+               "catchup_s": catchup_s, "rv": before["rv"],
+               "objects": before["objects"],
+               "identical_before_kill": True,
+               "frames_applied": f_rep1["frames_applied"],
+               "events_applied": f_rep1["events_applied"],
+               "after_restart": "bootstrap" if f_rep2["snapshot_bootstraps"]
+               > f_rep1["snapshot_bootstraps"] else "catch-up",
+               "catchup_after_restart_s": catchup2_s,
+               "rv_after_restart": after["rv"],
+               "identical_after_restart": True,
+               "report_after_restart": f_rep2}}
     line("served", shape={"tasks": FULL["n_tasks"],
                           "nodes": FULL["n_nodes"], "gang": FULL["gang"]},
          **out)
@@ -4495,10 +4699,16 @@ def served_group(dev) -> dict:
     """Phase 15i (a): the served north star. Returns the kernels line's
     entry."""
     r = served_north_star(dev)
+    f = r["follower"]
     return {"gang_allocate": {"served": {
         "launches": r["launches"], "kernel_ms": r["kernel_ms"],
         "flush_ms": r["flush_ms"], "binds_recovered": r["binds_recovered"],
-        "cycle_ms": r["cycle_ms"]}}}
+        "cycle_ms": r["cycle_ms"], "follower": {
+            "bootstrap_s": f["bootstrap_s"],
+            "lag_rvs_end_of_flush": f["lag_rvs_end_of_flush"],
+            "identical_before_kill": f["identical_before_kill"],
+            "identical_after_restart": f["identical_after_restart"],
+            "after_restart": f["after_restart"]}}}}
 
 
 def storm_reference() -> dict:
@@ -4656,16 +4866,163 @@ def storm_group(dev) -> dict:
         wal["wal_flush_overhead_ratio"]}}}
 
 
+# ---- 15j. federation: the federation gate on the card
+
+FEDERATION_VERB = ["federation", "--device", "cuda", "--json"]
+# the record's counters by where the CLI's verdict carries them: among its
+# own keys (the first run's), and in its port_facts (both runs')
+FEDERATION_VERDICT_KEYS = ("subscribers", "epoch", "dead")
+FEDERATION_RUN_KEYS = ("converged", "gaps_unrecovered", "cursor_handoffs",
+                       "handed_off_clients", "fenced_frames",
+                       "snapshot_bootstraps", "catchup_relists",
+                       "replication_gaps", "audit_verdict", "relists",
+                       "violations", "watch_drops", "divergence_repairs")
+
+
+def federation_group(dev) -> dict:
+    """Phase 15j: ``python -m volcano_tpu_torch.sim.cli federation --device
+    cuda --json`` at the reference's shape twice through the CLI's main,
+    each call's two runs held to the reference's record
+    (tests/torch_sim_reference.json ``federation``). Returns the kernels
+    line's entry."""
+    with open(SIM_REFERENCE) as f:
+        want = json.load(f)["federation"]
+    ref = {k: v for k, v in want.items() if k != "kwargs"}
+    runs = []
+    for i in range(2):
+        buf = io.StringIO()
+        with SimTap() as tap, contextlib.redirect_stdout(buf):
+            gang_allocate_cuda.launches = 0
+            t0 = time.perf_counter()
+            rc = sim_cli.main(FEDERATION_VERB)
+            seconds = time.perf_counter() - t0
+        verdict = json.loads(buf.getvalue())
+        checks = verdict["checks"]
+        if rc != 0 or not verdict["pass"] or len(checks) != 11 or \
+                not all(checks.values()):
+            fail(f"federation {i}: exit {rc}, failed checks "
+                 f"{sorted(k for k, v in checks.items() if not v)}")
+        pf = verdict["port_facts"]
+        for j in range(2):
+            facts = {k: pf[k][j] for k in FEDERATION_RUN_KEYS}
+            facts.update(bind=pf["bind_fingerprint"][j],
+                         ledger=pf["ledger_fingerprint"][j])
+            if j == 0:
+                facts.update(sim_facts(verdict["federation"]))
+                facts.update({k: verdict[k]
+                              for k in FEDERATION_VERDICT_KEYS})
+            diff = {k: v for k, v in facts.items() if v != ref[k]}
+            if diff:
+                fail(f"federation {i} run {j}: {diff} differ from the "
+                     f"reference's")
+        if len(tap.runs) != 2:
+            fail(f"federation {i}: {len(tap.runs)} engine runs")
+        launches = [check_sim_launches(f"federation {i} run {j}", t, True)
+                    for j, t in enumerate(tap.runs)]
+        runs.append({"seconds": seconds,
+                     "launches_per_placing_tick": [
+                         x["launches_per_placing_tick"] for x in launches],
+                     "launches_per_tick": [x["launches_per_tick"]
+                                           for x in launches]})
+        line("federation", run=i, shape=want["kwargs"],
+             checks=sorted(checks), **runs[-1],
+             cycle_ms=verdict["federation"]["cycle_ms"],
+             fanout_ms=verdict["fanout_ms"],
+             coalesce_ratio=verdict["coalesce_ratio"],
+             follower_lag_rvs=verdict["follower_lag_rvs"],
+             final_rv=pf["final_rv"],
+             mirror_fingerprint=pf["mirror_fingerprint"],
+             frames_total=pf["frames_total"],
+             events_total=pf["events_total"],
+             frames_dropped=pf["frames_dropped"],
+             gaps_detected=pf["gaps_detected"],
+             binds=verdict["federation"]["binds"],
+             bind_fingerprint=pf["bind_fingerprint"][0])
+    return {"gang_allocate": {"federation": {
+        "launches_per_tick": [r["launches_per_tick"] for r in runs],
+        "launches_per_placing_tick": [r["launches_per_placing_tick"]
+                                      for r in runs],
+        "seconds": [r["seconds"] for r in runs],
+        "fingerprints_agree": True}}}
+
+
+# ---- 15k. replicas: the process-mode federation gate and the durability
+# gate, host-only
+
+REPLICAS_VERBS = {"federation_procs": ["federation", "--procs", "--json"],
+                  "durability": ["durability", "--json"]}
+REPLICAS_TIMEOUT_S = 900.0
+
+
+def replicas_group(dev) -> dict:
+    """Phase 15k: ``python -m volcano_tpu_torch.sim.cli federation --procs
+    --json`` and ``durability --json`` at the reference's defaults, each
+    as a child process with no CUDA device visible, both at once (they
+    mostly wait on their apiserver children): exit 0, every check true,
+    the double runs' content fingerprints equal. This group's process
+    initialises no CUDA. Returns the group's result (no kernel runs
+    here)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = {}
+
+    def run(name):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "volcano_tpu_torch.sim.cli",
+             *REPLICAS_VERBS[name]], env=env, capture_output=True,
+            text=True, timeout=REPLICAS_TIMEOUT_S,
+            preexec_fn=die_with_parent)
+        return proc, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(REPLICAS_VERBS)) as pool:
+        done = {name: pool.submit(run, name) for name in REPLICAS_VERBS}
+        results = {name: f.result() for name, f in done.items()}
+    for name, (proc, seconds) in results.items():
+        try:
+            verdict = json.loads(proc.stdout)
+        except ValueError:
+            fail(f"replicas {name}: exit {proc.returncode}, no verdict: "
+                 f"{proc.stderr[-2000:]}")
+        checks = verdict["checks"]
+        if proc.returncode != 0 or not verdict["pass"] or \
+                not all(checks.values()):
+            fail(f"replicas {name}: exit {proc.returncode}, failed checks "
+                 f"{sorted(k for k, v in checks.items() if not v)}")
+        keep = ("elapsed_s", "bind_fingerprint", "ledger_fingerprint",
+                "final_rv", "final_epoch", "takeovers", "subscribers",
+                "converged", "client_failovers", "writer_repairs",
+                "faults_total", "audit_identical", "seed")
+        out[name] = {"seconds": seconds, "checks": sorted(checks),
+                     **{k: verdict[k] for k in keep if k in verdict}}
+        if name == "durability":
+            out[name]["episodes"] = [
+                {k: e[k] for k in ("label", "nth", "writer_repairs",
+                                   "restarts")}
+                for e in verdict["episodes"]]
+        line("replicas", gate=name, **out[name])
+    if torch.cuda.is_initialized():
+        fail("replicas: the group's process initialised CUDA")
+    return {"replicas": out}
+
+
 # the phases after the kernel's own, in groups that need nothing of each
 # other: by default each group runs in a process of its own (this script
 # with --group), all at once and beside main's phases 3-8, on the one card
 GROUPS = {"cycles": cycles_group, "binary_victims": binary_victims_group,
-          "commit": commit_group, "sim": sim_group, "served": served_group,
-          "storm": storm_group}
+          "commit": commit_group, "replicas": replicas_group,
+          "sim": sim_group, "served": served_group, "storm": storm_group,
+          "federation": federation_group}
 # groups whose card work would land in the kernel's timed runs: started
 # once main has timed the kernel (phases 3-6) and the cycles group has
 # timed it on the cycles' inputs (TIMED_TAG)
-LATE_GROUPS = ("sim", "served", "storm")
+LATE_GROUPS = ("sim", "served", "storm", "federation")
+# host-only groups whose gates time leases and restarts in seconds: on a
+# host whose cores the other groups and the plain loop's workers fill,
+# a starved member's lease lapses and the gate counts a takeover too many.
+# Started once every other group but the longest, WAITED_LAST, has ended;
+# its flush mostly waits on the apiserver
+LAST_GROUPS = ("replicas",)
+WAITED_LAST = "served"
 # a group's process prints its result as its last line, after this tag
 RESULT_TAG = "chip_smoke group result: "
 # the cycles group prints this line once it has timed the kernel alone
@@ -4724,7 +5081,9 @@ class Groups:
         self.threads = []
         # set when the cycles group has timed the kernel, or has ended
         self.timed = threading.Event()
-        self._start([n for n in GROUPS if n not in LATE_GROUPS])
+        self.by_name = {}
+        self._start([n for n in GROUPS
+                     if n not in LATE_GROUPS + LAST_GROUPS])
 
     def _start(self, names) -> None:
         env = dict(os.environ, CHIP_SMOKE_STARTED=repr(STARTED))
@@ -4737,17 +5096,30 @@ class Groups:
             t = threading.Thread(target=self._relay, args=(name, proc),
                                  daemon=True)
             self.threads.append(t)
+            self.by_name[name] = t
             t.start()
 
     def start_late(self) -> None:
         """Start LATE_GROUPS, on a thread of their own, once the cycles
-        group has timed the kernel (main has, by the time it calls this).
+        group has timed the kernel (main has, by the time it calls this),
+        and LAST_GROUPS once every group but WAITED_LAST has ended.
         ``wait`` waits for them too."""
         def start():
             self.timed.wait()
-            if "cycles" not in self.failed:
-                line("late_groups", started=list(LATE_GROUPS))
-                self._start(LATE_GROUPS)
+            if "cycles" in self.failed:
+                return
+            line("late_groups", started=list(LATE_GROUPS))
+            self._start(LATE_GROUPS)
+            for name, t in list(self.by_name.items()):
+                if name != WAITED_LAST:
+                    t.join()
+            if not self.failed:
+                line("last_groups", started=list(LAST_GROUPS))
+                self._start(LAST_GROUPS)
+            # a group dies with the thread that started it (its
+            # PR_SET_PDEATHSIG): this one lives until every group ends
+            for t in list(self.by_name.values()):
+                t.join()
         self.starter = threading.Thread(target=start, daemon=True)
         self.starter.start()
 

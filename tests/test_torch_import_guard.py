@@ -2,7 +2,9 @@
 imports with jax blocked and loads no module of the JAX package, and
 chip_smoke.py imports neither; the port's C source (the native engine)
 includes and opens nothing of the JAX package. Entry points need a GPU
-unless the caller names another device."""
+unless the caller names another device. The apiserver children that the
+federation, durability and served gates start (a follower, a federation
+member, a durable leader) load neither and never initialise CUDA."""
 
 import ast
 import re
@@ -37,7 +39,9 @@ print(' '.join(names))
 # build, the churn simulator with the store checkpoint, and the
 # apiserver's durable, served layer (the write-ahead log, the HTTP server
 # and RemoteStore, the serving hub and its storm gate, replication's
-# leader half, the apiserver binary)
+# leader half, the apiserver binary), and replication's follower half
+# (follower, replica set, election, the federation gates, the chaos
+# harness) with the durability gate
 CYCLE_MODULES = ("volcano_tpu_torch.apiserver.store",
                  "volcano_tpu_torch.native",
                  "volcano_tpu_torch.native.build",
@@ -85,7 +89,13 @@ CYCLE_MODULES = ("volcano_tpu_torch.apiserver.store",
                  "volcano_tpu_torch.replication",
                  "volcano_tpu_torch.replication.leader",
                  "volcano_tpu_torch.cli.util",
-                 "volcano_tpu_torch.cmd.apiserver")
+                 "volcano_tpu_torch.cmd.apiserver",
+                 "volcano_tpu_torch.replication.follower",
+                 "volcano_tpu_torch.replication.federation",
+                 "volcano_tpu_torch.replication.election",
+                 "volcano_tpu_torch.replication.gate",
+                 "volcano_tpu_torch.replication.chaos",
+                 "volcano_tpu_torch.sim.durability")
 
 
 def _is_reference(module: str) -> bool:
@@ -178,3 +188,95 @@ def test_chip_smoke_alone_prints_no_result(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+# one apiserver child, run as the gates run it, under a wrapper that blocks
+# jax and reports at exit what the process loaded and whether CUDA was
+# initialised in it
+_CHILD = """
+import atexit, json, runpy, sys
+sys.modules['jax'] = None
+import torch
+
+def report():
+    leaked = sorted(m for m in sys.modules
+                    if m == 'volcano_tpu' or m.startswith('volcano_tpu.'))
+    print('CHILD ' + json.dumps({'leaked': leaked,
+                                 'cuda': torch.cuda.is_initialized()}),
+          flush=True)
+atexit.register(report)
+sys.argv = ['vc-apiserver'] + sys.argv[1:]
+runpy.run_module('volcano_tpu_torch.cmd.apiserver', run_name='__main__')
+"""
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.parametrize("mode", ["follower", "member", "durable"])
+def test_apiserver_children_load_no_reference_and_no_cuda(mode, tmp_path):
+    """The children of the gates: a follower with its own log (the served
+    north star's), a federation member that takes the lease (the process
+    federation gate's), a durable leader armed with a WAL crash point
+    that does not fire (the durability gate's). Each serves, replicates
+    or logs a write, ends on SIGTERM, and loaded no module of jax or of
+    the JAX package and initialised no CUDA."""
+    import json
+    import os
+    import time
+    import urllib.request
+
+    from volcano_tpu_torch.apiserver.http import StoreClient, StoreHTTPServer
+    from volcano_tpu_torch.apiserver.store import ObjectStore
+    from volcano_tpu_torch.apiserver.wal import CRASH_ENV
+    from volcano_tpu_torch.utils.test_utils import build_pod
+
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    leader = ObjectStore()
+    server = StoreHTTPServer(leader, port=0)
+    server.start()
+    argv = ["--port", str(port), "--data-dir", str(tmp_path / "d")]
+    env = dict(os.environ)
+    if mode == "follower":
+        argv += ["--replicate-from", f"http://127.0.0.1:{server.port}"]
+    elif mode == "member":
+        argv += ["--peers", f"a={url}", "--replica-name", "a",
+                 "--bootstrap-leader", "--renew-interval", "0.2"]
+    else:
+        env[CRASH_ENV] = "mid-compaction:1000"
+    proc = subprocess.Popen([sys.executable, "-c", _CHILD, *argv], cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.monotonic() + 60.0
+        while True:
+            assert proc.poll() is None and time.monotonic() < deadline
+            try:
+                urllib.request.urlopen(url + "/rv", timeout=1).read()
+                break
+            except OSError:
+                time.sleep(0.1)
+        pod = build_pod("default", "p", "", "Pending", {"cpu": "1"})
+        if mode == "follower":
+            leader.create("pods", pod)
+        else:
+            StoreClient(url).create("pods", pod)
+
+        def rv():
+            with urllib.request.urlopen(url + "/rv", timeout=2) as r:
+                return json.loads(r.read())["rv"]
+        while rv() < 1:
+            assert time.monotonic() < deadline
+            time.sleep(0.1)
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=60)[0]
+        server.stop()
+    assert proc.returncode == 0, out
+    child = [ln for ln in out.splitlines() if ln.startswith("CHILD ")]
+    assert json.loads(child[-1][6:]) == {"leaked": [], "cuda": False}, out

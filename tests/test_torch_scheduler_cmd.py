@@ -632,13 +632,72 @@ def test_server_exits_non_zero(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--replicate-from", "--peers"])
-def test_apiserver_replication_flags_exit_naming_10b(flag, capsys):
-    """The apiserver's follower and member flags wait for ROADMAP item
-    10b: the command exits non-zero and starts no server."""
-    import volcano_tpu_torch.cmd.apiserver as api_cmd
-    assert api_cmd.main(["--port", "0", flag, "a=http://127.0.0.1:1"]) == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP item 10b" in err and flag in err
+def test_apiserver_replication_flags_exit_naming_10b(flag):
+    """The apiserver's follower and member flags, which exited 2 naming
+    ROADMAP item 10b before replication's follower half was ported, now
+    start a follower of a leader (``/leader`` says ``follower`` and names
+    the leader) or a lone member that takes the lease
+    (``--bootstrap-leader``: ``leader``), and the process ends cleanly on
+    SIGTERM. A follower whose leader does not answer exits non-zero and
+    serves nothing."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    import urllib.request
+
+    from volcano_tpu_torch.apiserver.http import StoreHTTPServer
+    from volcano_tpu_torch.apiserver.store import ObjectStore
+
+    def port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    me = port()
+    url = f"http://127.0.0.1:{me}"
+    leader = ObjectStore()
+    server = StoreHTTPServer(leader, port=0)
+    server.start()
+    lurl = f"http://127.0.0.1:{server.port}"
+    if flag == "--replicate-from":
+        extra = [flag, lurl]
+        want = {"role": "follower", "url": lurl, "accepts_writes": False}
+    else:
+        extra = [flag, f"a={url}", "--replica-name", "a",
+                 "--bootstrap-leader", "--renew-interval", "0.2"]
+        want = {"role": "leader", "holder": "a", "accepts_writes": True}
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-m", "volcano_tpu_torch.cmd.apiserver",
+           "--port", str(me), "--serving-shards", "0"]
+    proc = subprocess.Popen(cmd + extra, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.monotonic() + 30.0
+        info = {}
+        while time.monotonic() < deadline and proc.poll() is None:
+            try:
+                with urllib.request.urlopen(url + "/leader",
+                                            timeout=1) as r:
+                    info = json.loads(r.read())
+                if all(info.get(k) == v for k, v in want.items()):
+                    break
+            except OSError:
+                pass
+            time.sleep(0.1)
+        assert all(info.get(k) == v for k, v in want.items()), info
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+        server.stop()
+    assert proc.returncode == 0, out
+    # a follower of nothing does not come up as a standalone store
+    dead = subprocess.run(cmd + ["--replicate-from",
+                                 f"http://127.0.0.1:{port()}"],
+                          env=env, capture_output=True, text=True,
+                          timeout=60)
+    assert dead.returncode != 0 and "serving on" not in dead.stdout
 
 
 def test_version_prints_and_exits(capsys):

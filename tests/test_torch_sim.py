@@ -702,18 +702,22 @@ def test_explain_gate_matches_reference():
 
 
 def test_cli_needs_a_device_or_cpu(monkeypatch, capsys):
-    """Without a GPU a verb exits non-zero unless given ``--device cpu``;
-    the verbs whose layers are not ported exit 2 naming where they
-    wait."""
+    """Without a GPU a verb exits non-zero unless given ``--device cpu``
+    (federation's in-process gate too); the verb whose layer is not
+    ported exits 2 naming where it waits, and the host-only durability
+    gate takes no device."""
     import torch
 
     from volcano_tpu_torch.sim import cli
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main(["smoke"]) == 2
     assert "no CUDA device" in capsys.readouterr().err
-    for verb, item in (("mesh", "13"), ("durability", "10b"),
-                       ("federation", "10b")):
-        assert cli.main([verb, "--ticks", "3"]) == 2
-        assert f"ROADMAP item {item}" in capsys.readouterr().err
+    assert cli.main(["mesh", "--ticks", "3"]) == 2
+    assert "ROADMAP item 13" in capsys.readouterr().err
+    assert cli.main(["federation", "--ticks", "3"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+    assert set(cli.WAITING) == {"mesh"}
+    with pytest.raises(SystemExit):
+        cli.main(["durability", "--device", "cpu"])
     with pytest.raises(SystemExit):
         cli.main(["smoke", "--device", "cpu", "--no-such-flag"])

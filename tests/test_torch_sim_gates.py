@@ -12,9 +12,10 @@ counters. The other verbs are in tests/test_torch_sim_verbs.py and
 tests/test_torch_sim_smoke.py.
 
 tests/torch_sim_reference.json records the reference's first run at the
-shapes chip_smoke.py runs (``RECORDED``), and its storm gate's first run
-at the gate's own shape (``STORM_RECORDED``: the fingerprints and the
-counters that repeat from run to run); ``generate_reference`` makes it
+shapes chip_smoke.py runs (``RECORDED``), and its storm and federation
+gates' first runs at the gates' own shapes (``STORM_RECORDED``,
+``FEDERATION_RECORDED``: the fingerprints and the counters that repeat
+from run to run); ``generate_reference`` makes it
 (``python -m tests.test_torch_sim_gates`` rewrites it), and the slow test
 regenerates it and requires it unchanged.
 
@@ -72,6 +73,32 @@ STORM_RECORDED = {"seed": 43, "ticks": 80, "nodes": 192,
 STORM_FACTS = ("subscribers", "converged", "gaps_unrecovered",
                "noisy_throttled_writes", "noisy_subscription_throttles",
                "violations", "watch_drops", "divergence_repairs")
+
+
+# the federation gate's shape (sim/cli.py federation's defaults) and what
+# its first run is held to beside summary_facts. final_rv, the frame and
+# event totals, frames_dropped, gaps_detected and the mirror fingerprint
+# (a crc over each replica's count, max rv and key@rv lines) vary from run
+# to run in both packages: the leader's status writers commit a
+# timing-dependent number of updates, so the rvs differ while every
+# decision is the same. Mirror identity is held within each run instead
+# (audit_verdict).
+FEDERATION_RECORDED = {"seed": 43, "ticks": 60, "nodes": 128,
+                       "subscribers": 1024, "shards": 4, "drop_rate": 0.02,
+                       "followers": 2}
+FEDERATION_FACTS = ("subscribers", "converged", "gaps_unrecovered",
+                    "cursor_handoffs", "handed_off_clients",
+                    "fenced_frames", "snapshot_bootstraps",
+                    "catchup_relists", "replication_gaps", "audit_verdict",
+                    "epoch", "dead", "relists", "violations", "watch_drops",
+                    "divergence_repairs")
+
+
+def federation_facts(verdict: dict) -> dict:
+    """What a run_federation verdict (either package) is held to."""
+    out = summary_facts(verdict["storm"])
+    out.update({k: verdict[k] for k in FEDERATION_FACTS})
+    return out
 
 
 def storm_facts(verdict: dict) -> dict:
@@ -139,7 +166,7 @@ def generate_reference() -> dict:
                         **summary_facts(result.summary())}
     return {"generator": "tests/test_torch_sim_gates.py:generate_reference",
             "reference_commit": reference_commit(), "shapes": shapes,
-            "storm": generate_storm()}
+            "storm": generate_storm(), "federation": generate_federation()}
 
 
 def generate_storm() -> dict:
@@ -149,6 +176,18 @@ def generate_storm() -> dict:
     verdict = run_storm(**STORM_RECORDED)
     assert verdict["violations"] == 0
     return {"kwargs": STORM_RECORDED, **storm_facts(verdict)}
+
+
+def generate_federation() -> dict:
+    """The reference's federation gate's first run at
+    FEDERATION_RECORDED."""
+    from volcano_tpu.metrics import metrics
+    from volcano_tpu.replication.gate import run_federation
+    reset_breaker()
+    metrics.reset()
+    verdict = run_federation(**FEDERATION_RECORDED)
+    assert verdict["violations"] == 0
+    return {"kwargs": FEDERATION_RECORDED, **federation_facts(verdict)}
 
 
 def recorded_config(cli, name: str, **extra):
@@ -218,6 +257,22 @@ def test_recorded_storm_schema():
     assert set(entry) == {"kwargs", "bind", "outcome", "ledger", *COUNTERS,
                           *STORM_FACTS}
     assert entry["binds"] > 0 and entry["converged"] == entry["subscribers"]
+
+
+def test_recorded_federation_schema():
+    entry = recorded()["federation"]
+    assert entry["kwargs"] == FEDERATION_RECORDED
+    assert set(entry) == {"kwargs", "bind", "outcome", "ledger", *COUNTERS,
+                          *FEDERATION_FACTS}
+    assert entry["binds"] > 0 and entry["converged"] == entry["subscribers"]
+    assert entry["audit_verdict"] == "identical"
+    assert entry["fenced_frames"] >= 1 and entry["snapshot_bootstraps"] >= 1
+    # the CLI's defaults are the recorded shape (chip_smoke runs them)
+    parser = port_cli.argparse.ArgumentParser()
+    port_cli.add_sim_parser(parser.add_subparsers(dest="group"))
+    parsed = parser.parse_args(["sim", "federation"])
+    assert {k: getattr(parsed, k) for k in FEDERATION_RECORDED} == \
+        FEDERATION_RECORDED
 
 
 def test_port_gives_recorded_storm_facts():

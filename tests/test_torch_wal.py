@@ -5,9 +5,10 @@ each. Then cross-recovery: a data directory written by either package's
 WAL and checkpointer is recovered by the other, to the fingerprint the
 writer's own recovery gives, in both directions.
 
-The reference's mid-bulk compaction case also checks a live follower,
-which waits for replication's follower half (ROADMAP item 10b): here the
-mid-bulk anchor is held against the live store and the recovered one.
+The reference's mid-bulk compaction case runs twice: the anchor held
+against the live store and the recovered one, and with a live HTTP
+follower replicating throughout (the reference's own case), whose mirror
+must end identical to both.
 
 Tolerance: exact.
 """
@@ -466,6 +467,59 @@ def test_compact_mid_bulk_recovers_the_live_store(pkg, tmp_path):
     assert rec.current_rv() == rv
     assert fingerprint(pkg, rec) == live
     assert rep["snapshot_rv"] > 0
+
+
+def test_compact_mid_bulk_with_live_follower(pkg, tmp_path):
+    """The same mid-bulk compaction with a follower replicating over
+    HTTP from the first bind to the last: the mirror, the live store and
+    the recovered store fingerprint the same."""
+    http = importlib.import_module(f"{pkg.name}.apiserver.http")
+    follower_mod = importlib.import_module(
+        f"{pkg.name}.replication.follower")
+    store, wal = _mk_wal(pkg, tmp_path)
+    n = 4500
+    _create(pkg, store, n, ns="sb")
+    wal.pump()
+    server = http.StoreHTTPServer(store, port=0)
+    server.start()
+    try:
+        follower = follower_mod.FollowerReplica(
+            "f1", follower_mod.HTTPReplicationSource(
+                f"http://127.0.0.1:{server.port}"))
+        follower.bootstrap()
+        follower.start()
+        errs = []
+
+        def bulk():
+            try:
+                pairs, missing = store.bind_pods(
+                    [(f"p{i}", "sb", f"node-{i % 7}") for i in range(n)])
+                assert not missing and len(pairs) == n
+            except Exception as e:
+                errs.append(e)
+
+        t = threading.Thread(target=bulk)
+        t.start()
+        compactions = 0
+        while t.is_alive():
+            wal.compact()
+            compactions += 1
+        t.join()
+        assert not errs, errs
+        assert compactions >= 1
+        wal.pump()
+        follower.stop()
+        follower.sync_to_head()
+        live = fingerprint(pkg, store)
+        assert fingerprint(pkg, follower.store) == live
+        rv = store.current_rv()
+        wal.close()
+        rec, rep = pkg.wal.recover_store(str(tmp_path))
+        assert rec.current_rv() == rv
+        assert fingerprint(pkg, rec) == live
+        assert rep["snapshot_rv"] > 0
+    finally:
+        server.stop()
 
 
 def test_report_shape(pkg, tmp_path):

@@ -28,9 +28,10 @@ per-tenant write rate limits at the edge — throttled writes answer a
 structured 429 with Retry-After, which :class:`StoreClient` surfaces as
 ``ApiError.retry_after`` and RemoteStore honors in its backoff.
 
-The server is a standalone apiserver: ``/leader`` names it the write
-target. The reference's federation member (role-gated writes, lease
-pushes, staleness annotations) comes with replication's follower half.
+With a federation member (``StoreHTTPServer(member=...)``) writes are
+role-gated, ``/lease/<sender>`` takes peer lease pushes and a
+non-leader's reads carry its staleness; without one the server is a
+standalone apiserver and ``/leader`` names it the write target.
 The object bytes of every body and frame are ``codec.dumps_compact``'s
 (the native encoder while ``codec.NATIVE_ENCODE`` is on).
 """
@@ -111,13 +112,23 @@ class StoreHTTPServer:
     """The apiserver seam. ``hub``/``admission`` are optional: without
     them the server behaves exactly as the pre-serving era (no
     /watchstream, no write throttling) — cmd/apiserver wires both in
-    for the production multi-tenant edge."""
+    for the production multi-tenant edge.
+
+    ``member`` (a :class:`~volcano_tpu_torch.replication.election.
+    FederationMember`) turns on federation process mode: ``/leader``
+    answers leader discovery, ``/lease/<sender>`` takes peer lease
+    pushes, object writes are role-gated (a follower or degraded
+    replica answers a structured 503 + Retry-After + leader hint
+    instead of silently forking the rv space), and follower reads are
+    annotated with a staleness bound."""
 
     def __init__(self, store: ObjectStore, host: str = "127.0.0.1",
-                 port: int = 8181, hub=None, admission=None):
+                 port: int = 8181, hub=None, admission=None,
+                 member=None):
         self.store = store
         self.hub = hub
         self.admission = admission
+        self.member = member
         if hub is not None and getattr(hub, "encoder", None) is None:
             # pre-serialize frames once per burst at the hub so the
             # watchstream fan-out shares object bytes across subscribers
@@ -175,17 +186,63 @@ class StoreHTTPServer:
                 self.end_headers()
                 self.wfile.write(body)
 
+            def _gate_write(self) -> bool:
+                """Federation role gate on the write path: only the
+                fenced leader takes writes. False = a structured 503
+                with Retry-After and the current leader hint already
+                went out (retry_transient honors the delay; a failover
+                client re-discovers the leader from the hint)."""
+                member = server.member
+                if member is None or member.accepts_writes():
+                    return True
+                hint = member.leader_hint()
+                retry_after = member.retry_after()
+                payload = {"error": f"replica {member.name} is "
+                                    f"{member.role()}: writes go to the "
+                                    f"leader",
+                           "role": member.role(),
+                           "retry_after": retry_after,
+                           "leader": hint}
+                stale = member.staleness()
+                if stale is not None:
+                    payload["staleness"] = stale
+                self._send(503, payload,
+                           headers={"Retry-After":
+                                    str(max(1, math.ceil(retry_after)))})
+                return False
+
             def _send_read_only(self, e: ReadOnlyError) -> None:
                 """Durability degradation (docs/design/durability.md):
                 the WAL can no longer persist writes (ENOSPC/EIO), so
-                the store answers every mutation with a structured 503 +
-                Retry-After, which the client pacer honors."""
+                the store answers every mutation with the same
+                structured 503 + Retry-After shape the federation role
+                gate uses, which the client pacer honors."""
                 retry_after = float(getattr(e, "retry_after", 5.0))
                 self._send(503, {"error": str(e), "read_only": True,
                                  "reason": getattr(e, "reason", str(e)),
                                  "retry_after": retry_after},
                            headers={"Retry-After":
                                     str(max(1, math.ceil(retry_after)))})
+
+            def _staleness_headers(self) -> Optional[dict]:
+                """Read-path annotation: a non-leader replica stamps
+                its role and staleness bound (applied rv + estimated
+                lag) on every read so clients know how far behind the
+                data may be."""
+                member = server.member
+                if member is None:
+                    return None
+                role = member.role()
+                if role == "leader":
+                    return None
+                headers = {"X-Volcano-Role": role}
+                stale = member.staleness()
+                if stale is not None:
+                    headers["X-Volcano-Applied-Rv"] = \
+                        str(stale["applied_rv"])
+                    headers["X-Volcano-Staleness-Rvs"] = \
+                        str(stale["lag_rvs"])
+                return headers
 
             def _admit_tenant(self, query: dict) -> bool:
                 """Per-tenant write admission; False = throttled (the
@@ -338,16 +395,30 @@ class StoreHTTPServer:
                     # have advanced the live cursor past frames sitting
                     # in the outbox, and a hello ahead of those frames
                     # turns them into client-visible duplicates
-                    self._chunk({"hello": True, "rv": sub.anchor,
-                                 "client": client, "epoch": hub.epoch})
+                    hello = {"hello": True, "rv": sub.anchor,
+                             "client": client, "epoch": hub.epoch}
+                    member = server.member
+                    if member is not None:
+                        hello["role"] = member.role()
+                        stale = member.staleness()
+                        if stale is not None:
+                            hello["staleness_rvs"] = stale["lag_rvs"]
+                    self._chunk(hello)
                     while True:
                         frame = sub.next_frame(timeout=heartbeat)
                         if sub.closed:
                             break
                         if frame is None:
-                            self._chunk({"ping": True,
-                                         "rv": store.current_rv(),
-                                         "epoch": hub.epoch})
+                            ping = {"ping": True,
+                                    "rv": store.current_rv(),
+                                    "epoch": hub.epoch}
+                            if member is not None:
+                                ping["role"] = member.role()
+                                stale = member.staleness()
+                                if stale is not None:
+                                    ping["staleness_rvs"] = \
+                                        stale["lag_rvs"]
+                            self._chunk(ping)
                             continue
                         if frame.get("relist"):
                             self._chunk({"relist": True,
@@ -427,11 +498,20 @@ class StoreHTTPServer:
                 if parsed.path == "/fence":
                     return self._send(200, {"floor": store.fence_floor()})
                 if parsed.path == "/leader":
-                    # a standalone apiserver is the write target
-                    return self._send(200, {
-                        "role": "standalone", "accepts_writes": True,
-                        "holder": "", "url": "",
-                        "token": store.fence_floor(), "live": True})
+                    member = server.member
+                    if member is None:
+                        # a standalone apiserver is the write target
+                        return self._send(200, {
+                            "role": "standalone", "accepts_writes": True,
+                            "holder": "", "url": "",
+                            "token": store.fence_floor(), "live": True})
+                    info = member.leader_hint()
+                    info["role"] = member.role()
+                    info["accepts_writes"] = member.accepts_writes()
+                    stale = member.staleness()
+                    if stale is not None:
+                        info["staleness"] = stale
+                    return self._send(200, info)
                 if parsed.path == "/watchstream":
                     return self._watchstream(
                         urllib.parse.parse_qs(parsed.query))
@@ -462,21 +542,38 @@ class StoreHTTPServer:
                 # live refs — encoding only READS, stored objects are
                 # replaced never mutated, so the per-request deep copy
                 # bought nothing but writer-lock contention
+                stale_headers = self._staleness_headers()
                 if name is None:
                     namespace = query.get("namespace", [None])[0]
                     items = store.list_refs(kind, namespace)
                     return self._send(200, {"items": [
-                        encode_object(kind, o) for o in items]})
+                        encode_object(kind, o) for o in items]},
+                        headers=stale_headers)
                 o = store.get_ref(kind, name, ns)
                 if o is None:
                     return self._send(404, {"error": f"{kind} {name} not found"})
-                return self._send(200, encode_object(kind, o))
+                return self._send(200, encode_object(kind, o),
+                                  headers=stale_headers)
 
             def do_POST(self):
                 parsed = urllib.parse.urlparse(self.path)
                 if not self._admit_tenant(
                         urllib.parse.parse_qs(parsed.query)):
                     return
+                if parsed.path.startswith("/lease/"):
+                    # a peer's leader lease push (process-mode election
+                    # side channel — NEVER the replicated rv space)
+                    member = server.member
+                    if not hasattr(member, "receive_lease"):
+                        # standalone, or a plain follower: no election
+                        return self._send(404, {
+                            "error": "not a federation member"})
+                    body = self._body() or {}
+                    view = member.receive_lease(
+                        body.get("holder", ""),
+                        int(body.get("token", 0)),
+                        body.get("url", ""))
+                    return self._send(200, view)
                 if parsed.path == "/fence":
                     # the LeaderElector of a remote process announcing its
                     # freshly-acquired token; floor advance is monotonic
@@ -484,6 +581,8 @@ class StoreHTTPServer:
                     floor = store.advance_fence(int(body.get("token", 0)))
                     return self._send(200, {"floor": floor})
                 if parsed.path == "/events":
+                    if not self._gate_write():
+                        return
                     body = self._body()
                     o = decode_object(body["kind"], body["object"]) \
                         if body.get("object") else None
@@ -511,6 +610,8 @@ class StoreHTTPServer:
                 route = self._parse()
                 if route is None:
                     return self._send(404, {"error": "not found"})
+                if not self._gate_write():
+                    return
                 kind, _ns, _name, query = route
                 try:
                     fence = _fence_of(query)
@@ -536,6 +637,8 @@ class StoreHTTPServer:
                     return self._send(404, {"error": "not found"})
                 kind, _ns, _name, query = route
                 if not self._admit_tenant(query):
+                    return
+                if not self._gate_write():
                     return
                 try:
                     fence = _fence_of(query)
@@ -563,6 +666,8 @@ class StoreHTTPServer:
                     return self._send(404, {"error": "not found"})
                 kind, ns, name, query = route
                 if not self._admit_tenant(query):
+                    return
+                if not self._gate_write():
                     return
                 try:
                     fence = _fence_of(query)

@@ -15,9 +15,16 @@ The process is host-only: it never touches a GPU.
     python -m volcano_tpu_torch.cmd.apiserver --port 8181 [--data-dir D] \
         [--nodes 4 --node-resources cpu=16,memory=32Gi] [--default-queue]
 
-``--replicate-from`` and ``--peers`` (a follower replica, a federation
-member) wait for replication's follower half (ROADMAP item 10b): given
-either, the command exits non-zero and starts no server.
+``--replicate-from URL`` makes the process a follower replica: its store
+mirrors the leader's journal at the leader's rvs (a snapshot bootstrap on
+a cold start; with ``--data-dir`` it resumes from its own log while the
+leader's epoch allows), and it serves reads and watches. ``--peers
+NAME=URL,...`` makes it a federation member: it runs the leader elector
+against a lease its peers push to it, follows whichever replica holds the
+lease, role-gates its writes and takes over when the lease lapses.
+
+    python -m volcano_tpu_torch.cmd.apiserver --port 8182 \
+        --replicate-from http://127.0.0.1:8181 [--data-dir D2]
 """
 
 from __future__ import annotations
@@ -30,9 +37,6 @@ from ..apiserver.http import StoreHTTPServer
 from ..apiserver.store import ObjectStore
 from ..cli.util import parse_resource_list
 from ..models.objects import (Node, NodeStatus, ObjectMeta, Queue, QueueSpec)
-
-# the flags whose replication roles are not ported yet
-WAITING_FLAGS = ("replicate_from", "peers")
 
 
 def main(argv=None) -> int:
@@ -109,13 +113,6 @@ def main(argv=None) -> int:
     if args.version:
         from ..version import print_version_and_exit
         print_version_and_exit()
-    for flag in WAITING_FLAGS:
-        if getattr(args, flag):
-            print(f"vc-apiserver: --{flag.replace('_', '-')}: replication's "
-                  "follower half (follower replicas and federation "
-                  "members) is not ported yet; it waits for ROADMAP item "
-                  "10b", file=sys.stderr)
-            return 2
 
     store = ObjectStore()
     wal = None
@@ -164,16 +161,94 @@ def main(argv=None) -> int:
         hub = ServingHub(store, shards=args.serving_shards,
                          admission=admission)
         serving.set_active(hub=hub, admission=admission)
+    follower = None
+    member = None
+    if args.peers:
+        from ..replication import set_active
+        from ..replication.election import FederationMember
+        peers = {}
+        for part in args.peers.split(","):
+            pname, _, purl = part.partition("=")
+            if not pname or not purl:
+                parser.error(f"malformed --peers entry {part!r} "
+                             "(want NAME=URL)")
+            peers[pname.strip()] = purl.strip()
+        name = args.replica_name or f"{args.host}:{args.port}"
+        advertise = args.advertise_url or f"http://{args.host}:{args.port}"
+        initial = args.initial_leader or ""
+        member = FederationMember(
+            name, store, hub=hub, peers=peers, advertise_url=advertise,
+            lease_duration=args.lease_duration,
+            renew_interval=args.renew_interval,
+            bootstrap_leader=args.bootstrap_leader,
+            initial_leader=initial,
+            initial_leader_url=peers.get(initial, ""),
+            local_recovery_floor=(recovery["fence_floor"]
+                                  if recovered_rv > 0 else None))
+        set_active(member=member)
+    elif args.replicate_from:
+        from ..replication import set_active
+        from ..replication.follower import (FollowerReplica, FollowerRole,
+                                            HTTPReplicationSource)
+        source = HTTPReplicationSource(args.replicate_from)
+        name = args.replica_name or f"{args.host}:{args.port}"
+        follower = FollowerReplica(name, source, store=store, hub=hub)
+        resume_local = False
+        if recovered_rv > 0:
+            # federation restart fast path (docs/design/durability.md):
+            # local WAL recovery already re-anchored the mirror at the
+            # leader's rvs — resume the journal pull from there and only
+            # fall back to the peer snapshot bootstrap when the sync
+            # loop proves the log behind the leader's retained window
+            # (gap -> catch-up relist -> bootstrap, follower.py).
+            # Guarded like FederationMember._ensure_following
+            # (election.py): the local log is only trusted while the
+            # upstream's fence epoch is <= the recovered floor (no
+            # takeover since the log's last durable fence record) and
+            # our rv does not run AHEAD of the upstream head — a
+            # rebuilt/diverged upstream whose rv space overlaps ours
+            # contiguously would otherwise resume silently divergent
+            # (the sync loop sees no gap to trip on).
+            try:
+                up_head = source.current_rv()
+                _, _, gone, up_epoch = source.collect(up_head,
+                                                      timeout=0.0)
+                resume_local = (not gone
+                                and up_epoch <= recovery["fence_floor"]
+                                and recovered_rv <= up_head)
+            except Exception as e:
+                print(f"follower: upstream probe failed ({e}); "
+                      f"falling back to snapshot bootstrap", flush=True)
+        if resume_local:
+            print(f"follower resuming from local WAL at rv "
+                  f"{recovered_rv} (peer bootstrap skipped)", flush=True)
+        else:
+            follower.bootstrap()              # cold-start snapshot
+        follower.start()                      # continuous journal pull
+        set_active(follower=follower)
     metrics_server = None
     if args.metrics:
         from ..metrics.server import MetricsServer
         mhost, _, mport = args.metrics.rpartition(":")
         metrics_server = MetricsServer(mhost or "127.0.0.1", int(mport))
         metrics_server.start()
+    # a plain follower's mirror takes writes from the leader's journal
+    # only: its server answers writes with a 503 naming the leader
     server = StoreHTTPServer(store, host=args.host, port=args.port,
-                             hub=hub, admission=admission)
+                             hub=hub, admission=admission,
+                             member=member if follower is None
+                             else FollowerRole(follower))
     server.start()
-    print(f"vc-apiserver (leader) serving on {args.host}:{server.port}",
+    if member is not None:
+        if args.bootstrap_leader:
+            member.step()   # claim the lease before the first client
+        member.start()
+        role = f"member:{member.role()}"
+    elif follower is not None:
+        role = f"follower of {args.replicate_from}"
+    else:
+        role = "leader"
+    print(f"vc-apiserver ({role}) serving on {args.host}:{server.port}",
           flush=True)
     stop = threading.Event()
     import signal as _signal
@@ -185,6 +260,10 @@ def main(argv=None) -> int:
     stop.wait()
     if metrics_server is not None:
         metrics_server.stop()
+    if member is not None:
+        member.stop()
+    if follower is not None:
+        follower.stop()
     if wal is not None:
         # stop accepting writes BEFORE the final flush+compact: an acked
         # write landing after the last fsync would be lost on restart

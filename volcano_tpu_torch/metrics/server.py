@@ -18,8 +18,8 @@ Routes:
                      pruning-readiness aggregates
   /debug/serving     the serving hub's shard depths and fan-out latency, and
                      the per-tenant admission counters
-  /debug/replication the replica-set state (standalone until replication's
-                     follower half is ported)
+  /debug/replication the replica-set state: epoch, follower lag and applied
+                     rvs, gap/bootstrap/fence counters, last audit
   /debug/durability  the write-ahead log: durable rv and lag, fsyncs,
                      segments, read-only mode, the last recovery
 
@@ -50,7 +50,8 @@ DEBUG_ENDPOINTS = {
                       "pruning-readiness aggregates",
     "/debug/serving": "serving hub shard depths / fan-out latency + "
                       "per-tenant admission counters",
-    "/debug/replication": "replica-set state (standalone: no replica set)",
+    "/debug/replication": "replica-set state: epoch, follower lag/applied "
+                          "rvs, gap/bootstrap/fence counters, last audit",
     "/debug/durability": "write-ahead-log state: durable rv / lag, fsync "
                          "latency, segments, read-only degradation, last "
                          "recovery",

@@ -4,9 +4,8 @@ volcano_tpu/replication/leader.py, docs/design/federation.md).
 The leader does not push: followers PULL contiguous journal ranges
 through a :class:`ReplicationSource`, either in-process (the simulator
 and gate) or over the apiserver's chunked-NDJSON ``/replicate`` routes
-(the follower's ``HTTPReplicationSource`` is the client; the
-follower is not ported yet). Every frame is stamped with the leader's fencing epoch —
-the same monotonic token the write fence enforces — so a deposed
+(:class:`~.follower.HTTPReplicationSource` is the client). Every frame
+is stamped with the leader's fencing epoch — the same monotonic token the write fence enforces — so a deposed
 leader's frames are rejectable at the follower no matter how late they
 arrive.
 

@@ -5,18 +5,19 @@ volcano_tpu/sim/cli.py).
     python -m volcano_tpu_torch.sim.cli smoke            # the CI gate
     python -m volcano_tpu_torch.sim.cli replay --bundle sim_repro_seed7_tick42/
 
-Every verb takes ``--device``: the card (cuda:0) by default, ``cpu`` for
-the kernels' plain versions; without a GPU and without ``--device cpu`` a
-verb exits non-zero. The simulator owns its whole control plane
-in-process (that is the point — a violation shrinks to ``{seed, tick}``
-with no cluster state to capture).
+Every verb that schedules takes ``--device``: the card (cuda:0) by
+default, ``cpu`` for the kernels' plain versions; without a GPU and
+without ``--device cpu`` a verb exits non-zero. The simulator owns its
+whole control plane in-process (that is the point — a violation shrinks
+to ``{seed, tick}`` with no cluster state to capture).
 
 The gates (smoke, chaos, failover, obs, incr, constraints, explain,
-prune, storm) keep the reference's configs, checks and exit codes.
-``mesh`` waits for the multi-GPU solver and ``durability`` and
-``federation`` for the simulator's durability harness and replication's
-follower half: they exit 2 with a message and run nothing in their
-place.
+prune, storm, federation, durability) keep the reference's configs,
+checks and exit codes. ``durability`` and ``federation --procs`` run
+apiserver child processes and no scheduler: they are host-only, and
+``durability`` takes no ``--device`` (``federation --procs`` leaves it
+unread). ``mesh`` waits for the multi-GPU solver: it exits 2 with a
+message and runs nothing in its place.
 """
 
 from __future__ import annotations
@@ -34,10 +35,9 @@ from typing import List, Optional
 # waits (ROADMAP.md)
 WAITING = {
     "mesh": "the multi-GPU sharded solver (ROADMAP item 13)",
-    "durability": "sim/durability.py, the durability harness "
-                  "(ROADMAP item 10b)",
-    "federation": "replication's follower half (ROADMAP item 10b)",
 }
+# the verbs that run no scheduler, and so take no --device
+HOST_ONLY = ("durability",)
 
 
 # run_storm's counters beside the verdict's own keys (``port_facts``)
@@ -46,6 +46,16 @@ STORM_FACTS = ("final_rv", "converged", "gaps_detected", "gaps_unrecovered",
                "noisy_throttled_writes", "noisy_subscription_throttles",
                "bind_fingerprint", "ledger_fingerprint", "violations",
                "watch_drops", "divergence_repairs")
+# run_federation's counters and fingerprints beside the verdict's own keys
+FEDERATION_FACTS = ("final_rv", "converged", "gaps_detected",
+                    "gaps_unrecovered", "frames_dropped", "frames_total",
+                    "events_total", "relists", "cursor_handoffs",
+                    "handed_off_clients", "fenced_frames",
+                    "snapshot_bootstraps", "catchup_relists",
+                    "replication_gaps", "audit_verdict",
+                    "mirror_fingerprint", "bind_fingerprint",
+                    "ledger_fingerprint", "violations", "watch_drops",
+                    "divergence_repairs")
 
 
 def add_sim_parser(sub) -> None:
@@ -215,6 +225,60 @@ def add_sim_parser(sub) -> None:
     storm.add_argument("--drop-rate", type=float, default=0.03)
     storm.add_argument("--json", action="store_true")
 
+    fed = sim.add_parser(
+        "federation", help="CI gate: federated control plane — the "
+                           "bind storm on the leader replicated to "
+                           "follower mirrors, 1k+ "
+                           "subscribers served across 3 replicas' hubs, "
+                           "one replica killed mid-storm (cursors hand "
+                           "off to peers), a forced journal gap "
+                           "(snapshot bootstrap) and a deposed-leader "
+                           "frame (fenced); every cursor must converge "
+                           "with zero unrecovered gaps, every settled "
+                           "mirror must fingerprint-identical to the "
+                           "leader, and the double run must be "
+                           "bit-identical on bind AND ledger "
+                           "fingerprints")
+    fed.add_argument("--seed", type=int, default=43)
+    fed.add_argument("--ticks", type=int, default=60)
+    fed.add_argument("--nodes", type=int, default=128)
+    fed.add_argument("--subscribers", type=int, default=1024)
+    fed.add_argument("--shards", type=int, default=4)
+    fed.add_argument("--followers", type=int, default=2)
+    fed.add_argument("--drop-rate", type=float, default=0.02)
+    # process mode: 3 real vc-apiserver OS processes behind
+    # fault-injecting proxies, elector-driven epochs, a half-open
+    # partition + a leader SIGKILL, client replica failover
+    fed.add_argument("--procs", action="store_true",
+                     help="run the chaos process-mode gate: real "
+                          "apiserver child processes, seeded fault "
+                          "proxies, elector takeovers, client failover")
+    fed.add_argument("--pods", type=int, default=192,
+                     help="(--procs) writer workload size")
+    fed.add_argument("--watchdog", type=float, default=240.0,
+                     help="(--procs) per-run hard deadline, seconds")
+    fed.add_argument("--json", action="store_true")
+
+    dur = sim.add_parser(
+        "durability", help="CI gate: the WAL's crash-consistency "
+                           "story — torn-tail "
+                           "truncation, mid-log bit-flip refusal (with "
+                           "offset+CRC evidence), ENOSPC read-only "
+                           "degradation (structured 503) + heal, and "
+                           "real vc-apiserver children SIGKILLed at "
+                           "three injection points (pre-fsync, "
+                           "post-fsync-pre-rename, mid-compaction) "
+                           "whose recovered journal/bind/ledger "
+                           "fingerprints must be bit-identical to an "
+                           "uninterrupted run; double run bit-identical")
+    dur.add_argument("--seed", type=int, default=47)
+    dur.add_argument("--pods", type=int, default=72,
+                     help="writer workload size per process run")
+    dur.add_argument("--nodes", type=int, default=8)
+    dur.add_argument("--watchdog", type=float, default=420.0,
+                     help="per-run hard deadline, seconds")
+    dur.add_argument("--json", action="store_true")
+
     rep = sim.add_parser("replay", help="re-run a violation repro bundle")
     rep.add_argument("--bundle", required=True)
     rep.add_argument("--use-trace", action="store_true",
@@ -227,7 +291,7 @@ def add_sim_parser(sub) -> None:
         sim.add_parser(verb, help=f"not ported yet: waits for {why}")
 
     for verb, parser in sim.choices.items():
-        if verb not in WAITING:
+        if verb not in WAITING and verb not in HOST_ONLY:
             parser.add_argument(
                 "--device", default=None,
                 help="torch device (default: the GPU, cuda:0; 'cpu' runs "
@@ -612,6 +676,10 @@ def dispatch_sim(args) -> int:
         print(f"sim {args.verb}: not ported yet; it waits for "
               f"{WAITING[args.verb]}", file=sys.stderr)
         return 2
+    if args.verb == "durability":
+        return _durability(args)
+    if args.verb == "federation" and args.procs:
+        return _federation_procs(args)
     from ..utils.platform import default_device
     try:
         default_device(args.device)
@@ -1185,6 +1253,102 @@ def dispatch_sim(args) -> int:
             print(f"storm-smoke: {'PASS' if verdict['pass'] else 'FAIL'}")
         return 0 if verdict["pass"] else 1
 
+    if args.verb == "federation":
+        from ..metrics import metrics as _metrics
+        from ..replication.gate import run_federation
+
+        def one_run():
+            _metrics.reset()
+            return run_federation(
+                seed=args.seed, ticks=args.ticks, nodes=args.nodes,
+                subscribers=args.subscribers, shards=args.shards,
+                drop_rate=args.drop_rate, followers=args.followers,
+                device=args.device)
+
+        v1 = one_run()
+        v2 = one_run()
+        checks = {
+            # the engine's invariant catalog stayed clean in both runs
+            "no_violations": v1["violations"] == 0
+                             and v2["violations"] == 0,
+            # every cursor — including every handed-off one — reached
+            # the final leader rv on whichever replica now serves it
+            "all_converged": v1["converged"] == v1["subscribers"]
+                             and v2["converged"] == v2["subscribers"],
+            "zero_gaps": v1["gaps_unrecovered"] == 0
+                         and v2["gaps_unrecovered"] == 0,
+            # a replica died mid-storm and its cursors moved to peers
+            "replica_killed": len(v1["dead"]) >= 1,
+            "cursors_handed_off": v1["cursor_handoffs"] >= 1
+                                  and v1["handed_off_clients"] >= 1,
+            # the deposed leader's stale-epoch frame was fenced
+            "stale_leader_fenced": v1["fenced_frames"] >= 1
+                                   and v2["fenced_frames"] >= 1,
+            # the forced journal gap took the snapshot-bootstrap path
+            "snapshot_bootstrap_taken": v1["snapshot_bootstraps"] >= 1,
+            # every settled mirror fingerprints identical to the leader
+            # (the PR-5 anti-entropy machinery pointed across replicas)
+            "mirrors_identical": v1["audit_verdict"] == "identical"
+                                 and v2["audit_verdict"] == "identical",
+            # client-side faults provably fired and recovered
+            "faults_fired": v1["frames_dropped"] > 0
+                            and v1["gaps_detected"] > 0,
+            "coalesced_delivery": v1["coalesce_ratio"] >= 5.0,
+            # the storm gate's determinism contract: decision outputs
+            # bit-identical (rv COUNTS may differ — async status
+            # writers commit a timing-dependent number of no-decision
+            # updates; rv ORDER per commit order is gated by
+            # tests/test_torch_replication.py's double-run identity test)
+            "deterministic_replay":
+                v1["bind_fingerprint"] == v2["bind_fingerprint"]
+                and v1["ledger_fingerprint"] == v2["ledger_fingerprint"]
+                and v1["watch_drops"] == v2["watch_drops"]
+                and v1["cursor_handoffs"] == v2["cursor_handoffs"],
+        }
+        verdict = {
+            "federation": v1["storm"],
+            "epoch": v1["epoch"],
+            "replicas": v1["replicas"],
+            "dead": v1["dead"],
+            "subscribers": v1["subscribers"],
+            "converged": v1["converged"],
+            "cursor_handoffs": v1["cursor_handoffs"],
+            "fenced_frames": v1["fenced_frames"],
+            "snapshot_bootstraps": v1["snapshot_bootstraps"],
+            "catchup_relists": v1["catchup_relists"],
+            "follower_lag_rvs": v1["follower_lag_rvs"],
+            "audit_verdict": v1["audit_verdict"],
+            "coalesce_ratio": v1["coalesce_ratio"],
+            "relists": v1["relists"],
+            "fanout_ms": v1["fanout_ms"],
+            "checks": checks,
+            "pass": all(checks.values()),
+            # the port's additions: the rest of the gate's counters and
+            # fingerprints of both runs, which the port's tests and
+            # chip_smoke hold to the reference's record
+            "port_facts": {k: [v[k] for v in (v1, v2)]
+                           for k in FEDERATION_FACTS},
+        }
+        if args.json:
+            print(json.dumps(verdict, indent=1))
+        else:
+            _print_summary(v1["storm"], False)
+            print(f"replicas={v1['replicas']} dead={v1['dead']} "
+                  f"epoch={v1['epoch']} "
+                  f"subscribers={v1['subscribers']} "
+                  f"converged={v1['converged']} "
+                  f"handoffs={v1['cursor_handoffs']} "
+                  f"fenced={v1['fenced_frames']} "
+                  f"bootstraps={v1['snapshot_bootstraps']}")
+            print(f"audit: {v1['audit_verdict']} "
+                  f"(divergent: {v1['audit_divergent']}) "
+                  f"lag: {v1['follower_lag_rvs']}")
+            for name, ok in checks.items():
+                print(f"  {name}: {'ok' if ok else 'FAIL'}")
+            print(f"federation-smoke: "
+                  f"{'PASS' if verdict['pass'] else 'FAIL'}")
+        return 0 if verdict["pass"] else 1
+
     if args.verb == "replay":
         from .replay import load_bundle, replay_bundle
         bundle = load_bundle(args.bundle)
@@ -1202,6 +1366,138 @@ def dispatch_sim(args) -> int:
         return 1 if result.violations else 0
 
     raise ValueError(f"unknown sim verb {args.verb!r}")
+
+
+def _durability(args) -> int:
+    """The durability gate, twice (host-only: apiserver children)."""
+    from .durability import durability_checks, run_durability
+
+    def one_dur_run():
+        return run_durability(seed=args.seed, pods=args.pods,
+                              nodes=args.nodes,
+                              watchdog_s=args.watchdog)
+
+    v1 = one_dur_run()
+    v2 = one_dur_run()
+    checks = durability_checks(v1, v2)
+    verdict = dict(v1, checks=checks, pass_=all(checks.values()))
+    verdict["pass"] = verdict.pop("pass_")
+    if args.json:
+        print(json.dumps(verdict, indent=1))
+    else:
+        eps = v1.get("episodes", [])
+        print(f"crash episodes: "
+              + " ".join(f"{e['label']}(nth={e.get('nth')},"
+                         f"repairs={e.get('writer_repairs')})"
+                         for e in eps))
+        print(f"fingerprints: bind={v1.get('bind_fingerprint')} "
+              f"ledger={v1.get('ledger_fingerprint')} "
+              f"elapsed={v1.get('elapsed_s')}s"
+              f"+{v2.get('elapsed_s')}s")
+        for name, ok in checks.items():
+            print(f"  {name}: {'ok' if ok else 'FAIL'}")
+        print(f"durability-smoke: "
+              f"{'PASS' if verdict['pass'] else 'FAIL'}")
+    return 0 if verdict["pass"] else 1
+
+
+def federation_procs_checks(v1: dict, v2: dict) -> dict:
+    """The process-mode federation gate's pass/fail map over a double
+    run (bit-identity across runs is itself one of the checks)."""
+    return {
+        "replicas_ready": v1.get("replicas_ready", False)
+                          and v2.get("replicas_ready", False),
+        "watchdog_quiet": not v1["watchdog_fired"]
+                          and not v2["watchdog_fired"],
+        # two elector-driven takeovers: the partitioned leader
+        # deposed (token 2), then the SIGKILLed leader replaced
+        # (token 3) — the harness never calls advance_epoch
+        "elector_takeovers": v1.get("takeovers") == 2
+                             and v2.get("takeovers") == 2,
+        "deposed_leader_demoted":
+            v1.get("deposed_leader_demoted", False),
+        # >=1 write under the deposed regime's fence token rejected
+        "fenced_deposed_write":
+            v1.get("fenced_deposed_writes", 0) >= 1
+            and v2.get("fenced_deposed_writes", 0) >= 1,
+        # no-leader window: structured 503 + Retry-After, reads
+        # still annotated with the staleness bound
+        "degraded_fail_fast": v1.get("degraded_503", False)
+                              and v1.get("degraded_retry_after")
+                              is not None,
+        "staleness_annotated": v1.get("staleness_annotated",
+                                      False),
+        "supervisor_restarted":
+            v1.get("supervisor_restarts", 0) >= 1
+            and v1.get("restarted_ready", False),
+        # the SIGKILLed replica came back through local WAL replay
+        # (--data-dir on every replica; docs/design/durability.md)
+        "restarted_recovered_wal":
+            v1.get("restarted_recovered_wal", False)
+            and v2.get("restarted_recovered_wal", False),
+        # every watch client's chain converged on a live replica
+        # with zero duplicated frames; every acked write survives
+        # the takeovers (post-replay diff empty)
+        "all_converged": v1.get("unconverged", 1) == 0
+                         and v2.get("unconverged", 1) == 0,
+        "zero_lost_events": v1.get("lost_events", 1) == 0
+                            and v2.get("lost_events", 1) == 0,
+        "clients_failed_over": v1.get("client_failovers", 0) > 0
+                               and v2.get("client_failovers",
+                                          0) > 0,
+        # every proxy fault class provably fired
+        "faults_fired": all(
+            v1.get("faults_total", {}).get(k, 0) > 0
+            for k in ("reset", "stall", "truncate",
+                      "lease_blocked")),
+        # cross-replica audit: every mirror bit-identical at the
+        # leader's rvs
+        "audit_identical": v1.get("audit_identical", False)
+                           and v2.get("audit_identical", False),
+        # double run bit-identical on the CONTENT fingerprints
+        "deterministic_replay":
+            v1.get("bind_fingerprint")
+            == v2.get("bind_fingerprint")
+            and v1.get("ledger_fingerprint")
+            == v2.get("ledger_fingerprint"),
+    }
+
+
+def _federation_procs(args) -> int:
+    """The process-mode federation gate, twice (host-only: apiserver
+    children behind the chaos proxies)."""
+    from ..replication.chaos import run_federation_procs
+
+    def one_proc_run():
+        return run_federation_procs(
+            seed=args.seed, subscribers=args.subscribers,
+            pods=args.pods, watchdog_s=args.watchdog)
+
+    v1 = one_proc_run()
+    v2 = one_proc_run()
+    checks = federation_procs_checks(v1, v2)
+    verdict = dict(v1, checks=checks, pass_=all(checks.values()))
+    verdict["pass"] = verdict.pop("pass_")
+    if args.json:
+        print(json.dumps(verdict, indent=1))
+    else:
+        print(f"procs={v1['procs']} epoch={v1.get('final_epoch')} "
+              f"takeovers={v1.get('takeovers')} "
+              f"fenced={v1.get('fenced_deposed_writes')} "
+              f"restarts={v1.get('supervisor_restarts')} "
+              f"subscribers={v1.get('subscribers')} "
+              f"converged={v1.get('converged')} "
+              f"client_failovers={v1.get('client_failovers')} "
+              f"lost={v1.get('lost_events')}")
+        print(f"faults: {v1.get('faults_total')} "
+              f"rv={v1.get('final_rv')} "
+              f"elapsed={v1.get('elapsed_s')}s"
+              f"+{v2.get('elapsed_s')}s")
+        for name, ok in checks.items():
+            print(f"  {name}: {'ok' if ok else 'FAIL'}")
+        print(f"federation-proc-smoke: "
+              f"{'PASS' if verdict['pass'] else 'FAIL'}")
+    return 0 if verdict["pass"] else 1
 
 
 def main(argv: Optional[List[str]] = None) -> int:

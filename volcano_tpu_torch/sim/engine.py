@@ -145,14 +145,7 @@ class SimConfig:
     def from_dict(cls, d: dict) -> "SimConfig":
         d = dict(d)
         d["workload"] = WorkloadConfig(**d.get("workload", {}))
-        faults = dict(d.get("faults", {}))
-        # the reference's bundles name their watch-fault coin; the port
-        # has only the per-key sequence, the reference's default
-        coin = faults.pop("watch_coin", "seq")
-        if coin != "seq":
-            raise ValueError(f"watch_coin {coin!r}: the rv-keyed coin "
-                             f"waits for ROADMAP item 10")
-        d["faults"] = FaultConfig(**faults)
+        d["faults"] = FaultConfig(**d.get("faults", {}))
         d["queues"] = [tuple(q) for q in d.get("queues", [])]
         return cls(**d)
 
@@ -365,7 +358,8 @@ class SimEngine:
             from .faults import FlakyWatch
             self._flaky_watch = FlakyWatch(seed=f.seed,
                                            drop_rate=f.watch_drop_rate,
-                                           delay_rate=f.watch_delay_rate)
+                                           delay_rate=f.watch_delay_rate,
+                                           coin=f.watch_coin)
         for w in self.cache._watches:
             if w.kind == "pods":
                 self._flaky_watch.wrap(w)

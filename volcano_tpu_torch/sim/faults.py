@@ -3,7 +3,7 @@ volcano_tpu/sim/faults.py): flaky binds, API latency, node churn
 schedules, evict storms, watch-delivery faults and mid-flush scheduler
 crashes.
 
-Three layers:
+Four layers:
 
 * **Live injectors** — :class:`FlakyBinder` wraps the recording binder
   with a seeded per-bind failure coin and a virtual-clock latency charge;
@@ -73,6 +73,14 @@ class FaultConfig:
     # one-tick delay — divergence for the anti-entropy pass to repair
     watch_drop_rate: float = 0.0
     watch_delay_rate: float = 0.0
+    # fault-coin identity: "seq" keys on (key, per-key delivery
+    # sequence), the commit-order key that sidesteps a timing-dependent
+    # rv interleaving; "rv" keys on the delivered object's
+    # resource_version directly. With the store's settle barrier
+    # (docs/design/federation.md) rv assignment is itself a pure function
+    # of commit order, so "rv" is just as stable, and a double run with
+    # it is the proof
+    watch_coin: str = "seq"
 
 
 class FlakyBinder(FakeBinder):
@@ -176,17 +184,21 @@ class FlakyWatch:
     bit-identical but an rv-keyed coin would turn the reordering
     semantic. A key's own delivery ORDER is commit order (writes to one
     object serialize), so the per-key sequence is the stable identity.
-    Bulk deliveries are coined per pair. Delayed
+    ``coin="rv"`` keys on the delivered object's resource_version
+    instead (FaultConfig.watch_coin). Bulk deliveries are coined per
+    pair. Delayed
     deliveries are re-played in recorded order by
     :meth:`release_delayed` (the engine calls it at the top of each
     tick); the production handlers treat them like any stale event.
     """
 
     def __init__(self, seed: int = 0, drop_rate: float = 0.0,
-                 delay_rate: float = 0.0):
+                 delay_rate: float = 0.0, coin: str = "seq"):
         self.seed = seed
         self.drop_rate = drop_rate
         self.delay_rate = delay_rate
+        # "seq" (default) or "rv": see FaultConfig.watch_coin
+        self.coin = coin
         self.dropped = 0
         self.delayed = 0
         self._watch = None
@@ -202,8 +214,11 @@ class FlakyWatch:
 
     def _coin(self, action: str, o) -> int:
         key = o.metadata.key()
-        ident = self._key_seq.get(key, 0) + 1
-        self._key_seq[key] = ident
+        if self.coin == "rv":
+            ident = o.metadata.resource_version
+        else:
+            ident = self._key_seq.get(key, 0) + 1
+            self._key_seq[key] = ident
         h = zlib.crc32(f"{action}:{key}:{ident}:{self.seed}".encode())
         u = (h % 10_000) / 10_000.0
         if u < self.drop_rate:
