@@ -334,8 +334,9 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
     bind rate are with the follower attached.
     ``storm``: (b) ``python -m volcano_tpu_torch.sim.cli storm --device
     cuda --json`` at the reference's shape (seed 43, 80 ticks, 192 nodes,
-    1,024 subscribers, 8 shards, drop rate 0.03) twice through the CLI's
-    main: exit 0 with every check true, both runs' bind and ledger
+    1,024 subscribers, 8 shards, drop rate 0.03) through the CLI's main
+    (STORM_CALLS calls; the CLI runs the gate twice): exit 0
+    with every check true, both runs' bind and ledger
     fingerprints and the gate's counters equal to the reference's record
     (tests/torch_sim_reference.json ``storm``), launches per placing tick
     as the prune outcomes give; (c) the reference's pure store-and-WAL
@@ -346,7 +347,8 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
 15j. federation: ``python -m volcano_tpu_torch.sim.cli federation
     --device cuda --json`` at the reference's shape (seed 43, 60 ticks,
     128 nodes, 1,024 subscribers, 4 shards, 2 followers, drop rate 0.02)
-    twice through the CLI's main: the bind storm on the leader's store
+    through the CLI's main (FEDERATION_CALLS calls; the CLI runs the gate
+    twice): the bind storm on the leader's store
     placed by the kernel, replicated to two follower mirrors, one killed
     mid-storm with its cursors handed off, a forced journal gap (a
     snapshot bootstrap) and a deposed leader's frame (fenced). Exit 0
@@ -367,6 +369,32 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
     double run in a child process with no CUDA device visible, both at
     once: exit 0, every check true, the double runs' content
     fingerprints equal; the group's own process initialises no CUDA;
+15l. jobs: the job path of the control plane (controllers/, webhooks/,
+    utils/kubelet.py, cmd/{cluster,deploy,controller_manager,
+    webhook_manager}.py, cli/). (a) The north star as vcjobs: the
+    record's shape (tests/torch_sim_reference.json ``jobs``: 10,000
+    nodes of cpu 64, memory 256 Gi and 110 pods, 6,250 vcjobs of one
+    task of 8 pods with minAvailable 8, cpu 2 and memory 4 Gi each),
+    submitted through the admission chain into cmd/cluster.py's
+    build_cluster plane (a FakeClock, the scheduler on the card under
+    the default conf), then rounds of the controllers' sync, one
+    scheduling cycle, its flush and a kubelet tick until every job is
+    Running: every job, PodGroup and pod Running, the binds within
+    allocatable and gangs whole, the queue's counts the jobs', and the
+    rounds, phases after each round and bind fingerprint equal to the
+    reference's record; each cycle's launches as its prune outcomes
+    give, every launch held exactly against the plain loop on its
+    captured tensors; it prints the submit's seconds and each round's
+    sync, cycle, flush and tick, the kernel's ms, the job start latency
+    and peak device memory. (b) ``python -m volcano_tpu_torch.cmd.deploy``
+    at its defaults (exit 0, admission live, the smoke gang bound 4/4),
+    then the apiserver, the webhook manager (TLS), the controller manager
+    and the scheduler (on the card) as child processes with a
+    SimulatedKubelet over a RemoteStore here, driven by vcctl over HTTP:
+    job run, list (Running), suspend (Aborted), resume (Running), delete
+    (no pods left), queue create, close and delete; it prints each
+    step's seconds and the scheduler child's launches (its
+    ``/metrics``), and the three other children initialise no CUDA;
 16. the kernels line (with the table refreshes, the cluster's blocks and
     each block's shared memory, the plan and R, as the main path's launch
     reported them, the shapes_vs_plain summary, traced_cycle's overhead,
@@ -382,20 +410,25 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
     the leader's kill (``served.follower``), the storm's launches per
     tick and whether its fingerprints agreed (``storm``), the federation
     gate's launches per placing tick in each run and whether its
-    fingerprints agreed (``federation``), and a ``prune`` entry for the north-star cycle's place: union, padded
+    fingerprints agreed (``federation``), the job path's launches per
+    cycle, whether its fingerprint equalled the record and its job
+    start latency (``jobs``) and the deployment's scheduler child's
+    launches (``deploy``), and a ``prune`` entry for the north-star cycle's place: union, padded
     width, launches, refreshes, whether the reduced run served; a second
     entry for the slot path), then the card's nvidia-smi line, then
     {"ok": true, "device": {...}} as the last line.
 
-The phases after 8 run in eight groups (GROUPS), each in a process of
+The phases after 8 run in nine groups (GROUPS), each in a process of
 its own, beside phases 3-8 on the one card: ``cycles`` (9-11, 15e, 12),
 ``binary_victims`` (15f, 13, 14, 15, 15c) and ``commit`` (15b, 15d,
 15g) start together after the build; ``sim`` (15h), ``served`` and
 ``storm`` (15i) and ``federation`` (15j) start once phases 3-6 and the
 cycles group have timed the kernel, so that their launches stay out of
 the kernel's timed runs; ``replicas`` (15k) starts once every group but
-``served`` has ended, so that its leases are renewed on a host with
-cores to spare. Their lines reach stdout
+``served`` has ended and main's plain-loop workers are done, so that its
+leases are renewed on a host with cores to spare, and ``jobs`` (15l)
+once ``replicas`` has ended, so that its host-bound pump takes no cores
+from the follower's bootstrap or the leases. Their lines reach stdout
 through the script; their host times carry each other's load, on the
 host's cores and the card's time slices (``--group NAME`` runs one
 group alone, for host times without that load). A group that fails
@@ -419,6 +452,7 @@ import concurrent.futures
 import contextlib
 import ctypes
 import gc
+import hashlib
 import io
 import json
 import logging
@@ -448,11 +482,13 @@ from volcano_tpu_torch.apiserver import ObjectStore  # noqa: E402
 from volcano_tpu_torch.apiserver.store import FencedError  # noqa: E402
 from volcano_tpu_torch.apiserver import persistence  # noqa: E402
 from volcano_tpu_torch.apiserver import wal as wal_mod  # noqa: E402
-from volcano_tpu_torch.apiserver.http import StoreClient  # noqa: E402
+from volcano_tpu_torch.apiserver.http import ApiError, StoreClient  # noqa: E402
 from volcano_tpu_torch.apiserver.remote import RemoteStore  # noqa: E402
 from volcano_tpu_torch.cache import SchedulerCache  # noqa: E402
 from volcano_tpu_torch.cache.event_handlers import (  # noqa: E402
     EventHandlersMixin)
+from volcano_tpu_torch.cli import vcctl  # noqa: E402
+from volcano_tpu_torch.cmd import cluster as cluster_cmd  # noqa: E402
 from volcano_tpu_torch.cmd import cycle as cycle_cmd  # noqa: E402
 from volcano_tpu_torch.cmd import scheduler as scheduler_cmd  # noqa: E402
 from volcano_tpu_torch.framework import parse_scheduler_conf  # noqa: E402
@@ -477,6 +513,7 @@ from volcano_tpu_torch.replication import chaos  # noqa: E402
 from volcano_tpu_torch.trace import ledger, pending, tracer  # noqa: E402
 from volcano_tpu_torch.utils import test_utils as tu  # noqa: E402
 from volcano_tpu_torch.utils.clock import FakeClock  # noqa: E402
+from volcano_tpu_torch.utils.kubelet import SimulatedKubelet  # noqa: E402
 from volcano_tpu_torch.utils.reservation import RESERVATION  # noqa: E402
 from volcano_tpu_torch.utils.synth import (  # noqa: E402
     UNMATCHED_CLAIM, populate_preempt_store, populate_reclaim_store,
@@ -1934,6 +1971,10 @@ class LatePlain:
         self.jobs.append((ctx, sa, got, done, self.pool.submit(
             plain_on_cpu, arrays, w, kw)))
 
+    def idle(self) -> None:
+        """Wait until every plain run submitted so far has ended."""
+        concurrent.futures.wait([job[-1] for job in self.jobs])
+
     def finish(self) -> None:
         try:
             for ctx, sa, got, done, fut in self.jobs:
@@ -2985,7 +3026,8 @@ def plugins_full_width(dev, north_star: dict, late) -> dict:
             binds, groups = store_state(store)
             free = numa_free(cache)
             host = [pl["host_predicates"] or {} for pl in places]
-            held = hold_plugin_launches(run, places, inputs.inputs, late)
+            held = hold_cycle_launches(f"plugins_cycle {run}", places,
+                                       inputs.inputs, late)
             runs.append(dict(
                 run=run, launches=launches, flush_ms=flush_ms,
                 held=held,
@@ -3034,14 +3076,15 @@ def plugins_full_width(dev, north_star: dict, late) -> dict:
     return {"runs": runs, "populate_s": t1 - t0, "sync_s": t2 - t1}
 
 
-def hold_plugin_launches(run: str, places: list, inputs: list,
-                         late) -> list:
-    """Hold each captured launch of a plugins_cycle (a) cycle against the
-    plain loop (hold_inputs, then late.finish); a place's launch report
-    must equal the rerun's on its last launch's inputs. Returns one dict
-    a launch, which late.finish completes with the comparison."""
+def hold_cycle_launches(ctx: str, places: list, inputs: list,
+                        late) -> list:
+    """Hold each captured launch of a cycle (``inputs``, a ReducedTap's)
+    against the plain loop (hold_inputs, then late.finish); a place's
+    launch report must equal the rerun's on its last launch's inputs.
+    Returns one dict a launch, which late.finish completes with the
+    comparison."""
     if len(inputs) != sum(pl["launches"] for pl in places):
-        fail(f"plugins_cycle {run}: {len(inputs)} launches captured for "
+        fail(f"{ctx}: {len(inputs)} launches captured for "
              f"{[pl['launches'] for pl in places]} launches by place")
     held, i = [], 0
     for p, pl in enumerate(places):
@@ -3053,20 +3096,20 @@ def hold_plugin_launches(run: str, places: list, inputs: list,
                      "G": a["group_req"].shape[0],
                      "N": a["node_idle"].shape[0],
                      "R": a["group_req"].shape[1]}
-            ctx = f"plugins_cycle {run} place {p} launch {k} inputs"
+            name = f"{ctx} place {p} launch {k} inputs"
             kw = dict(allow_pipeline=cap["allow_pipeline"],
                       ns_live=cap["ns_live"], **convert.slot_kwargs(a))
 
-            def print_held(r, ctx=ctx):
-                line("kernel_vs_plain", case=ctx.replace(" ", "_"), **r)
+            def print_held(r, name=name):
+                line("kernel_vs_plain", case=name.replace(" ", "_"), **r)
             res, _, _ = hold_inputs(a, cap["gmask"], cap["weights"],
-                                    cap["deserved"], kw, ctx, plain=late,
+                                    cap["deserved"], kw, name, plain=late,
                                     done=print_held)
             res["shape"] = shape
             held.append(res)
         if pl["launches"] and pl["launch"][0] != held[-1]["refreshes"]:
-            fail(f"plugins_cycle {run} place {p}: the cycle's launch and "
-                 f"the kernel rerun on its inputs refreshed their tables "
+            fail(f"{ctx} place {p}: the cycle's launch and the kernel "
+                 f"rerun on its inputs refreshed their tables "
                  f"{pl['launch'][0]} and {held[-1]['refreshes']} times")
     return held
 
@@ -4716,13 +4759,20 @@ def storm_reference() -> dict:
         return json.load(f)["storm"]
 
 
+# calls of the storm and federation CLIs (each runs its gate twice): one,
+# since the jobs group loads the host beside served's flush, which sets
+# the script's length
+STORM_CALLS = 1
+FEDERATION_CALLS = 1
+
+
 def storm_gate(dev) -> dict:
-    """15i (b): the storm gate through the port's CLI on the card, twice,
-    each run held to the reference's record."""
+    """15i (b): the storm gate through the port's CLI on the card
+    (STORM_CALLS calls), each run held to the reference's record."""
     want = storm_reference()
     shape = want["kwargs"]
     runs = []
-    for i in range(2):
+    for i in range(STORM_CALLS):
         buf = io.StringIO()
         with SimTap() as tap, contextlib.redirect_stdout(buf):
             gang_allocate_cuda.launches = 0
@@ -4881,15 +4931,16 @@ FEDERATION_RUN_KEYS = ("converged", "gaps_unrecovered", "cursor_handoffs",
 
 def federation_group(dev) -> dict:
     """Phase 15j: ``python -m volcano_tpu_torch.sim.cli federation --device
-    cuda --json`` at the reference's shape twice through the CLI's main,
-    each call's two runs held to the reference's record
+    cuda --json`` at the reference's shape through the CLI's main
+    (FEDERATION_CALLS calls), each call's two runs held to the reference's
+    record
     (tests/torch_sim_reference.json ``federation``). Returns the kernels
     line's entry."""
     with open(SIM_REFERENCE) as f:
         want = json.load(f)["federation"]
     ref = {k: v for k, v in want.items() if k != "kwargs"}
     runs = []
-    for i in range(2):
+    for i in range(FEDERATION_CALLS):
         buf = io.StringIO()
         with SimTap() as tap, contextlib.redirect_stdout(buf):
             gang_allocate_cuda.launches = 0
@@ -5005,23 +5056,403 @@ def replicas_group(dev) -> dict:
     return {"replicas": out}
 
 
+# ---- 15l. jobs: the job path of the control plane on the card
+
+# (b)'s scheduler children place on the card (cmd/scheduler.py's default
+# device); a rehearsal on a host without one sets ["--device", "cpu"]
+DEPLOY_DEVICE_ARGS: list = []
+DEPLOY_TIMEOUT_S = 300.0
+# a child of the four-process plane, run under a wrapper that ends it on
+# SIGTERM through SystemExit (so that atexit runs) and reports whether
+# CUDA was initialised in it
+CHILD_REPORT = """
+import atexit, json, runpy, signal, sys
+import torch
+atexit.register(lambda: print('CHILD ' + json.dumps(
+    {'cuda': torch.cuda.is_initialized()}), flush=True))
+signal.signal(signal.SIGTERM, lambda *_: sys.exit(0))
+module = sys.argv[1]
+sys.argv = [module] + sys.argv[2:]
+runpy.run_module(module, run_name='__main__')
+"""
+
+
+def jobs_reference() -> dict:
+    with open(SIM_REFERENCE) as f:
+        return json.load(f)["jobs"]
+
+
+def vcjob(i: int, shape: dict) -> obj.Job:
+    """The i-th vcjob of (a): one task of ``replicas`` pods with
+    minAvailable ``replicas``, requesting the north star's cpu and
+    memory, in queue default (tests/torch_job_parity.py:vcjob)."""
+    return obj.Job(
+        metadata=obj.ObjectMeta(name=f"vj-{i:05d}", namespace="default"),
+        spec=obj.JobSpec(
+            min_available=shape["replicas"], queue="default",
+            tasks=[obj.TaskSpec(
+                name="main", replicas=shape["replicas"],
+                template=obj.PodTemplate(
+                    metadata=obj.ObjectMeta(name="main"),
+                    spec=obj.PodSpec(containers=[obj.Container(
+                        name="main", requests={
+                            "cpu": shape["cpu"],
+                            "memory": shape["memory"]})])))]))
+
+
+def bind_fingerprint(binds: dict) -> str:
+    """sha256 over the sorted ``namespace/pod->node`` lines
+    (tests/torch_job_parity.py:bind_fingerprint)."""
+    h = hashlib.sha256()
+    for key, node in sorted(binds.items()):
+        h.update(f"{key}->{node}\n".encode())
+    return h.hexdigest()
+
+
+def job_phases(store) -> dict:
+    out: dict = {}
+    for j in store.list_refs("jobs"):
+        out[j.status.state.phase] = out.get(j.status.state.phase, 0) + 1
+    return dict(sorted(out.items()))
+
+
+def jobs_north_star(dev) -> dict:
+    """15l (a): the north star as vcjobs through cmd/cluster.py's
+    in-process control plane (build_cluster on a FakeClock, the scheduler
+    on the card under its default conf): every vcjob of the record's
+    shape submitted through the admission chain, then rounds of the
+    controllers' sync, one scheduling cycle, its flush and a kubelet tick
+    until every job is Running. Each cycle's launches are counted from 0
+    just before it and read just after, and each launch is captured and
+    held exactly against the plain loop on its tensors (LatePlain, in the
+    group's workers). Held to the reference's record
+    (tests/torch_sim_reference.json ``jobs``): rounds, phases after each
+    round, binds, the queue's counts and the bind fingerprint."""
+    want = jobs_reference()
+    shape = want["kwargs"]
+    n_pods = shape["jobs"] * shape["replicas"]
+    # built already in a whole run; alone, the build stays out of the
+    # cycles' times
+    t0 = time.perf_counter()
+    build.build_all()
+    native_build.build()
+    build_s = time.perf_counter() - t0
+    late = LatePlain()
+    try:
+        t0 = time.perf_counter()
+        store, manager, kubelet, sched, server = cluster_cmd.build_cluster(
+            port=0, nodes=shape["nodes"],
+            node_resources=shape["node_resources"],
+            clock=FakeClock(start=100.0), device=dev)
+        server.httpd.server_close()
+        sched.cache.run()
+        plane_s = time.perf_counter() - t0
+        torch.cuda.init()           # nothing of this process touched it yet
+        torch.cuda.reset_peak_memory_stats(dev)
+        t_submit = time.perf_counter()
+        for i in range(shape["jobs"]):
+            store.create("jobs", vcjob(i, shape))
+        submit_s = time.perf_counter() - t_submit
+        rounds, held = [], []
+        gc.collect()
+        gc.freeze()
+        try:
+            for rnd in range(shape["max_rounds"]):
+                t = time.perf_counter()
+                manager.sync()
+                sync_s = time.perf_counter() - t
+                with ReducedTap(full=True) as inputs:
+                    gang_allocate_cuda.launches = 0
+                    t = time.perf_counter()
+                    sched.run_once()
+                    torch.cuda.synchronize(dev)
+                    cycle_s = time.perf_counter() - t
+                    launches = gang_allocate_cuda.launches
+                ctx = f"jobs round {rnd}"
+                flush_ms = flush(sched.cache, ctx)
+                t = time.perf_counter()
+                kubelet.tick()
+                tick_s = time.perf_counter() - t
+                places = sched.last_cycle["places"]
+                check_launches(ctx, launches, places, True)
+                if inputs.inputs:
+                    held.append(hold_cycle_launches(ctx, places,
+                                                    inputs.inputs, late))
+                phases = job_phases(store)
+                rounds.append(dict(
+                    round=rnd, sync_s=sync_s, cycle_s=cycle_s,
+                    flush_ms=flush_ms, tick_s=tick_s, launches=launches,
+                    kernel_ms=[pl["kernel_ms"] for pl in places],
+                    prune=[pl["prune"] for pl in places],
+                    cycle_ms=sched.last_cycle["cycle_ms"], phases=phases))
+                line("jobs", part="round", **rounds[-1])
+                if phases == {"Running": shape["jobs"]}:
+                    break
+        finally:
+            gc.unfreeze()
+        start_latency_s = time.perf_counter() - t_submit
+        peak = torch.cuda.max_memory_allocated(dev)
+        late.finish()
+    finally:
+        late.close()
+    if phases != {"Running": shape["jobs"]}:
+        fail(f"jobs: {phases} after {len(rounds)} rounds")
+    binds, groups = store_state(store)
+    pods_running = sum(p.status.phase == "Running"
+                       for p in store.list_refs("pods"))
+    pgs_running = sum(g[0] == "Running" for g in groups.values())
+    q = store.get("queues", "default")
+    check_binds(store, "jobs")
+    facts = {"rounds": len(rounds),
+             "phases_by_round": [r["phases"] for r in rounds],
+             "binds": len(binds), "pods_running": pods_running,
+             "podgroups_running": pgs_running,
+             "queue_running": q.status.running,
+             "queue_pending": q.status.pending,
+             "queue_inqueue": q.status.inqueue,
+             "bind": bind_fingerprint(binds)}
+    ref = {k: v for k, v in want.items() if k != "kwargs"}
+    if facts["binds"] != n_pods or pods_running != n_pods or \
+            pgs_running != shape["jobs"]:
+        fail(f"jobs: {facts['binds']} binds, {pods_running} pods and "
+             f"{pgs_running} PodGroups Running")
+    if facts != ref:
+        diff = {k: (v, ref.get(k)) for k, v in facts.items()
+                if v != ref.get(k)}
+        fail(f"jobs: differs from the reference's record: {diff}")
+    placing = [r for r in rounds if r["launches"]]
+    out = {"shape": shape, "build_s": build_s, "plane_s": plane_s,
+           "submit_s": submit_s,
+           "start_latency_s": start_latency_s, "rounds": len(rounds),
+           "launches_per_cycle": [r["launches"] for r in rounds],
+           "kernel_ms": [k for r in placing for k in r["kernel_ms"]],
+           "sync_s": [r["sync_s"] for r in rounds],
+           "cycle_s": [r["cycle_s"] for r in rounds],
+           "flush_ms": [r["flush_ms"] for r in rounds],
+           "held": [{k: h.get(k) for k in ("shape", "placed", "kernel_ms",
+                                           "plain_ms", "max_abs_err",
+                                           "assign_mismatches")}
+                    for hs in held for h in hs],
+           "fingerprint_equal": True, "binds": facts["binds"],
+           "max_memory_allocated": peak}
+    line("jobs", part="north_star", **{k: v for k, v in out.items()
+                                       if k != "held"})
+    sched.cache.stop()
+    return out
+
+
+def plane_child(module: str, *args: str) -> subprocess.Popen:
+    """One child of the four-process plane, under CHILD_REPORT."""
+    return subprocess.Popen(
+        [sys.executable, "-c", CHILD_REPORT, module, *args],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        preexec_fn=die_with_parent)
+
+
+def vcctl_run(url: str, *argv: str) -> str:
+    """``vcctl --server url argv`` through its main; its output."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = vcctl.main(["--server", url, *argv])
+    if rc != 0:
+        fail(f"deploy: vcctl {' '.join(argv)} exited {rc}")
+    return buf.getvalue()
+
+
+def wait_for(cond, timeout: float, what: str) -> float:
+    """Seconds until cond() holds; fails past ``timeout``."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            fail(f"deploy: {what} did not happen in {timeout:g} s")
+        time.sleep(0.2)
+    return time.perf_counter() - t0
+
+
+def kernel_runs(metrics_url: str) -> float:
+    """``volcano_solver_kernel_runs_total{kernel="cuda"}`` of a scheduler
+    child's /metrics."""
+    with urllib.request.urlopen(metrics_url + "/metrics", timeout=10) as r:
+        text = r.read().decode()
+    return sum(float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+               if ln.startswith("volcano_solver_kernel_runs_total")
+               and 'kernel="cuda"' in ln)
+
+
+def deploy_on_card(dev) -> dict:
+    """15l (b): ``python -m volcano_tpu_torch.cmd.deploy`` at its defaults
+    (exit 0, admission live, the smoke gang of 4 bound), then the four
+    processes as tests/test_multiprocess.py starts them (apiserver,
+    webhook manager with TLS admission, controller manager, the scheduler
+    on the card with its metrics on a local port) with a SimulatedKubelet
+    over a RemoteStore in this process, driven by vcctl over HTTP: job
+    run, list (Running), suspend (Aborted), resume (Running), delete (no
+    pods left), queue create, operate close (Closed) and delete. The
+    apiserver, webhook manager and controller manager initialise no
+    CUDA."""
+    out = {}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "volcano_tpu_torch.cmd.deploy",
+         *DEPLOY_DEVICE_ARGS], capture_output=True, text=True,
+        timeout=DEPLOY_TIMEOUT_S, preexec_fn=die_with_parent)
+    out["deploy_s"] = time.perf_counter() - t0
+    if proc.returncode != 0 or "admission live" not in proc.stdout or \
+            "smoke job bound: 4/4" not in proc.stdout:
+        fail(f"deploy: exit {proc.returncode}: {proc.stdout[-2000:]} "
+             f"{proc.stderr[-2000:]}")
+    line("deploy", part="deploy_command", seconds=out["deploy_s"],
+         lines=[ln for ln in proc.stdout.splitlines()
+                if "admission live" in ln or "smoke job bound" in ln])
+
+    port, metrics_port = free_port(), free_port()
+    url = f"http://127.0.0.1:{port}"
+    metrics_url = f"http://127.0.0.1:{metrics_port}"
+    host_only = {}
+    procs = []
+    kubelet_store = None
+    steps = {}
+    try:
+        t0 = time.perf_counter()
+        host_only["apiserver"] = plane_child(
+            "volcano_tpu_torch.cmd.apiserver", "--port", str(port),
+            "--nodes", "4", "--node-resources", "cpu=16,memory=32Gi",
+            "--default-queue")
+        client = StoreClient(url)
+
+        def up():
+            try:
+                client.list("queues")
+                return True
+            except OSError:
+                return False
+        wait_for(up, 60.0, "the apiserver's start")
+        host_only["webhook_manager"] = plane_child(
+            "volcano_tpu_torch.cmd.webhook_manager", "--server", url,
+            "--port", "0")
+        host_only["controller_manager"] = plane_child(
+            "volcano_tpu_torch.cmd.controller_manager", "--server", url)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "volcano_tpu_torch.cmd.scheduler",
+             "--server", url, "--schedule-period", "0.5",
+             "--listen-address", f"127.0.0.1:{metrics_port}",
+             *DEPLOY_DEVICE_ARGS], stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL, preexec_fn=die_with_parent))
+        kubelet_store = RemoteStore(url)
+        kubelet_store.run()
+        kubelet = SimulatedKubelet(kubelet_store)
+
+        def admission_live():
+            bad = obj.Job(metadata=obj.ObjectMeta(name="deploy-bad"),
+                          spec=obj.JobSpec(min_available=5, tasks=[
+                              obj.TaskSpec(name="main", replicas=2)]))
+            try:
+                client.create("jobs", bad)
+                client.delete("jobs", "deploy-bad", "default")
+            except ApiError as e:
+                return e.code == 422
+            except OSError:
+                return False
+            return False
+        wait_for(admission_live, 90.0, "admission")
+        steps["plane_up_s"] = time.perf_counter() - t0
+
+        def job():
+            return client.get("jobs", "demo")
+
+        def phase_is(want):
+            def cond():
+                j = job()
+                return j is not None and j.status.state.phase == want
+            return cond
+
+        def timed_step(name, fn, cond, timeout=120.0):
+            """vcctl's call and the wait for what it asked for."""
+            t = time.perf_counter()
+            fn()
+            wait_for(cond, timeout, name)
+            steps[name + "_s"] = time.perf_counter() - t
+        timed_step("job_run", lambda: vcctl_run(
+            url, "job", "run", "-N", "demo", "-r", "4", "-m", "4"),
+            phase_is("Running"))
+        listing = vcctl_run(url, "job", "list")
+        if not any(ln.split()[:1] == ["demo"] and "Running" in ln.split()
+                   for ln in listing.splitlines()):
+            fail(f"deploy: vcctl job list shows no Running demo: {listing}")
+        timed_step("suspend", lambda: vcctl_run(
+            url, "job", "suspend", "-N", "demo"), phase_is("Aborted"))
+        timed_step("resume", lambda: vcctl_run(
+            url, "job", "resume", "-N", "demo"), phase_is("Running"))
+        timed_step("delete", lambda: vcctl_run(
+            url, "job", "delete", "-N", "demo"),
+            lambda: job() is None and not client.list("pods", "default"))
+        timed_step("queue_create", lambda: vcctl_run(
+            url, "queue", "create", "-n", "team-a", "-w", "2"),
+            lambda: client.get("queues", "team-a") is not None)
+        timed_step("queue_close", lambda: vcctl_run(
+            url, "queue", "operate", "-n", "team-a", "-a", "close"),
+            lambda: client.get("queues", "team-a").status.state == "Closed")
+        timed_step("queue_delete", lambda: vcctl_run(
+            url, "queue", "delete", "-n", "team-a"),
+            lambda: client.get("queues", "team-a") is None)
+        launches = kernel_runs(metrics_url)
+        if launches < 2:
+            fail(f"deploy: the scheduler child launched the kernel "
+                 f"{launches:g} times (run and resume each place a gang)")
+        kubelet.stop()
+    finally:
+        if kubelet_store is not None:
+            kubelet_store.stop()
+        for p in procs + list(host_only.values()):
+            p.terminate()
+        reports = {}
+        for name, p in host_only.items():
+            text = p.communicate(timeout=60)[0]
+            got = [ln for ln in text.splitlines() if ln.startswith("CHILD ")]
+            reports[name] = json.loads(got[-1][6:]) if got else None
+        for p in procs:
+            p.wait(timeout=60)
+    if any(r != {"cuda": False} for r in reports.values()):
+        fail(f"deploy: a host-only child initialised CUDA or did not "
+             f"report: {reports}")
+    out.update(steps, scheduler_launches=launches, host_children=reports)
+    line("deploy", part="four_process", **out)
+    return out
+
+
+def jobs_group(dev) -> dict:
+    """Phase 15l: (a) the north star as vcjobs and (b) the four-process
+    deployment with vcctl. Returns the kernels line's entry."""
+    a = jobs_north_star(dev)
+    b = deploy_on_card(dev)
+    return {"gang_allocate": {
+        "jobs": {"launches_per_cycle": a["launches_per_cycle"],
+                 "fingerprint_equal": a["fingerprint_equal"],
+                 "start_latency_s": a["start_latency_s"],
+                 "kernel_ms": a["kernel_ms"], "held": a["held"]},
+        "deploy": {"scheduler_launches": b["scheduler_launches"]}}}
+
+
 # the phases after the kernel's own, in groups that need nothing of each
 # other: by default each group runs in a process of its own (this script
 # with --group), all at once and beside main's phases 3-8, on the one card
 GROUPS = {"cycles": cycles_group, "binary_victims": binary_victims_group,
           "commit": commit_group, "replicas": replicas_group,
           "sim": sim_group, "served": served_group, "storm": storm_group,
-          "federation": federation_group}
+          "federation": federation_group, "jobs": jobs_group}
 # groups whose card work would land in the kernel's timed runs: started
 # once main has timed the kernel (phases 3-6) and the cycles group has
 # timed it on the cycles' inputs (TIMED_TAG)
 LATE_GROUPS = ("sim", "served", "storm", "federation")
-# host-only groups whose gates time leases and restarts in seconds: on a
-# host whose cores the other groups and the plain loop's workers fill,
-# a starved member's lease lapses and the gate counts a takeover too many.
-# Started once every other group but the longest, WAITED_LAST, has ended;
-# its flush mostly waits on the apiserver
-LAST_GROUPS = ("replicas",)
+# groups started one after another once every other group but the
+# longest, WAITED_LAST, has ended (its flush mostly waits on the
+# apiserver): ``replicas``, host-only, whose gates time leases and
+# restarts in seconds (on a host whose cores the other groups and the
+# plain loop's workers fill, a starved member's lease lapses and the gate
+# counts a takeover too many), then ``jobs``, whose host-bound pump took
+# the cores that served's follower bootstrap and replicas' leases need
+# when it ran beside them (three of four whole runs failed there)
+LAST_GROUPS = ("replicas", "jobs")
 WAITED_LAST = "served"
 # a group's process prints its result as its last line, after this tag
 RESULT_TAG = "chip_smoke group result: "
@@ -5099,11 +5530,13 @@ class Groups:
             self.by_name[name] = t
             t.start()
 
-    def start_late(self) -> None:
+    def start_late(self, idle) -> None:
         """Start LATE_GROUPS, on a thread of their own, once the cycles
         group has timed the kernel (main has, by the time it calls this),
-        and LAST_GROUPS once every group but WAITED_LAST has ended.
-        ``wait`` waits for them too."""
+        and LAST_GROUPS one after another once every group but
+        WAITED_LAST has ended and ``idle()`` has returned (main's
+        plain-loop workers are done, so that they do not share the host
+        with the replicas gate's leases). ``wait`` waits for them too."""
         def start():
             self.timed.wait()
             if "cycles" in self.failed:
@@ -5113,9 +5546,13 @@ class Groups:
             for name, t in list(self.by_name.items()):
                 if name != WAITED_LAST:
                     t.join()
-            if not self.failed:
-                line("last_groups", started=list(LAST_GROUPS))
-                self._start(LAST_GROUPS)
+            idle()
+            for name in LAST_GROUPS:
+                if self.failed:
+                    break
+                line("last_groups", started=[name])
+                self._start([name])
+                self.by_name[name].join()
             # a group dies with the thread that started it (its
             # PR_SET_PDEATHSIG): this one lives until every group ends
             for t in list(self.by_name.values()):
@@ -5325,7 +5762,7 @@ def main() -> None:
          placed=int((to_np(w_out[0]) >= 0).sum()),
          us_per_refresh=per_refresh_us, us_per_served_step=per_step_us,
          gang8_refreshes=n_refresh, gang8_steps=steps)
-    groups.start_late()
+    groups.start_late(late.idle)
 
     shapes = shapes_vs_plain(dev, args, solver.weights, sa)
     cycle_vs_plain()

@@ -4,7 +4,9 @@ chip_smoke.py imports neither; the port's C source (the native engine)
 includes and opens nothing of the JAX package. Entry points need a GPU
 unless the caller names another device. The apiserver children that the
 federation, durability and served gates start (a follower, a federation
-member, a durable leader) load neither and never initialise CUDA."""
+member, a durable leader) and the children cmd/deploy.py starts beside
+the scheduler (its apiserver, webhook manager and controller manager)
+load neither and never initialise CUDA."""
 
 import ast
 import re
@@ -41,7 +43,8 @@ print(' '.join(names))
 # and RemoteStore, the serving hub and its storm gate, replication's
 # leader half, the apiserver binary), and replication's follower half
 # (follower, replica set, election, the federation gates, the chaos
-# harness) with the durability gate
+# harness) with the durability gate, and the job path (the controllers,
+# admission webhooks, kubelets, the control-plane binaries and the CLI)
 CYCLE_MODULES = ("volcano_tpu_torch.apiserver.store",
                  "volcano_tpu_torch.native",
                  "volcano_tpu_torch.native.build",
@@ -95,7 +98,41 @@ CYCLE_MODULES = ("volcano_tpu_torch.apiserver.store",
                  "volcano_tpu_torch.replication.election",
                  "volcano_tpu_torch.replication.gate",
                  "volcano_tpu_torch.replication.chaos",
-                 "volcano_tpu_torch.sim.durability")
+                 "volcano_tpu_torch.sim.durability",
+                 "volcano_tpu_torch.controllers",
+                 "volcano_tpu_torch.controllers.apis",
+                 "volcano_tpu_torch.controllers.cache",
+                 "volcano_tpu_torch.controllers.framework",
+                 "volcano_tpu_torch.controllers.garbagecollector",
+                 "volcano_tpu_torch.controllers.podgroup",
+                 "volcano_tpu_torch.controllers.job.controller",
+                 "volcano_tpu_torch.controllers.job.state",
+                 "volcano_tpu_torch.controllers.job.plugins",
+                 "volcano_tpu_torch.controllers.job.plugins.env",
+                 "volcano_tpu_torch.controllers.job.plugins.ssh",
+                 "volcano_tpu_torch.controllers.job.plugins.svc",
+                 "volcano_tpu_torch.controllers.queue.controller",
+                 "volcano_tpu_torch.controllers.queue.state",
+                 "volcano_tpu_torch.webhooks",
+                 "volcano_tpu_torch.webhooks.jobs",
+                 "volcano_tpu_torch.webhooks.pods",
+                 "volcano_tpu_torch.webhooks.podgroups",
+                 "volcano_tpu_torch.webhooks.queues",
+                 "volcano_tpu_torch.webhooks.router",
+                 "volcano_tpu_torch.webhooks.util",
+                 "volcano_tpu_torch.utils.certs",
+                 "volcano_tpu_torch.utils.rsa_fallback",
+                 "volcano_tpu_torch.utils.kubelet",
+                 "volcano_tpu_torch.utils.process_kubelet",
+                 "volcano_tpu_torch.cmd.cluster",
+                 "volcano_tpu_torch.cmd.deploy",
+                 "volcano_tpu_torch.cmd.controller_manager",
+                 "volcano_tpu_torch.cmd.webhook_manager",
+                 "volcano_tpu_torch.cli",
+                 "volcano_tpu_torch.cli.vcctl",
+                 "volcano_tpu_torch.cli.job",
+                 "volcano_tpu_torch.cli.queue",
+                 "volcano_tpu_torch.cli.singles")
 
 
 def _is_reference(module: str) -> bool:
@@ -109,7 +146,7 @@ def test_every_port_module_imports_without_jax_or_reference():
     assert out.returncode == 0, out.stderr
     first, walked = out.stdout.strip().split("\n")
     count, leaked = first.split(" ", 1)
-    assert int(count) >= 95, out.stdout
+    assert int(count) >= 130, out.stdout
     assert leaked == "[]", leaked
     assert set(CYCLE_MODULES) <= set(walked.split()), walked
 
@@ -279,4 +316,122 @@ def test_apiserver_children_load_no_reference_and_no_cuda(mode, tmp_path):
         server.stop()
     assert proc.returncode == 0, out
     child = [ln for ln in out.splitlines() if ln.startswith("CHILD ")]
+    assert json.loads(child[-1][6:]) == {"leaked": [], "cuda": False}, out
+
+
+# a child of cmd/deploy.py, run as deploy runs it, under a wrapper that
+# blocks jax, ends the child on SIGTERM through SystemExit (so that atexit
+# runs) and reports what the process loaded and whether CUDA was
+# initialised in it
+_DEPLOY_CHILD = """
+import atexit, json, runpy, signal, sys
+sys.modules['jax'] = None
+import torch
+
+def report():
+    leaked = sorted(m for m in sys.modules
+                    if m == 'volcano_tpu' or m.startswith('volcano_tpu.'))
+    print('CHILD ' + json.dumps({'leaked': leaked,
+                                 'cuda': torch.cuda.is_initialized()}),
+          flush=True)
+atexit.register(report)
+signal.signal(signal.SIGTERM, lambda *_: sys.exit(0))
+module = sys.argv[1]
+sys.argv = [module] + sys.argv[2:]
+runpy.run_module(module, run_name='__main__')
+"""
+
+
+@pytest.mark.parametrize("module,extra", [
+    ("volcano_tpu_torch.cmd.apiserver", ()),
+    ("volcano_tpu_torch.cmd.webhook_manager", ()),
+    ("volcano_tpu_torch.cmd.controller_manager", ()),
+    ("volcano_tpu_torch.cmd.controller_manager", ("--leader-elect",)),
+    ("volcano_tpu_torch.cmd.scheduler", ("--device", "cpu"))])
+def test_deploy_children_load_no_reference_and_no_cuda(module, extra,
+                                                       tmp_path):
+    """Each child cmd/deploy.py starts beside the scheduler, with deploy's
+    arguments: the apiserver with its nodes and default queue, the
+    webhook manager (TLS, registered with the apiserver) and the
+    controller manager, both over ``--server`` (the controller manager
+    also as a ``--leader-elect`` candidate, which takes the
+    vc-controller-manager lease before it expands the job). A job
+    submitted through the plane is admitted (or refused with a 422 once
+    the webhook is registered) and expanded, and the scheduler (here on
+    the CPU) binds a gang; each child ends on SIGTERM having loaded no
+    module of jax or of the JAX package and initialised no CUDA."""
+    import json
+    import time
+
+    from volcano_tpu_torch.apiserver.http import StoreHTTPServer
+    from volcano_tpu_torch.apiserver.store import ObjectStore
+    from volcano_tpu_torch.cli.job import run_job
+    from volcano_tpu_torch.utils.test_utils import build_queue
+
+    store = ObjectStore()
+    store.create("queues", build_queue("default"))
+    server = StoreHTTPServer(store, port=0)
+    server.start()
+    url = f"http://127.0.0.1:{server.port}"
+    if module.endswith("apiserver"):
+        url = f"http://127.0.0.1:{_free_port()}"
+        argv = ["--port", url.rsplit(":", 1)[1], "--default-queue",
+                "--nodes", "4", "--node-resources", "cpu=16,memory=32Gi"]
+    elif module.endswith("webhook_manager"):
+        argv = ["--server", url, "--port", "0",
+                "--tls-cert-dir", str(tmp_path / "certs")]
+    elif module.endswith("scheduler"):
+        argv = ["--server", url, "--listen-address",
+                f"127.0.0.1:{_free_port()}", "--schedule-period", "0.2",
+                *extra]
+        from volcano_tpu_torch.utils import test_utils as tu
+        store.create("nodes", tu.build_node("n1", {"cpu": "4",
+                                                   "memory": "8Gi"}))
+        store.create("podgroups", tu.build_pod_group(
+            "pg", "default", "default", 1, phase="Inqueue"))
+        pod = tu.build_pod("default", "p0", "", "Pending",
+                           {"cpu": "1", "memory": "1Gi"}, groupname="pg")
+        store.create("pods", pod)
+    else:
+        argv = ["--server", url, *extra]
+    proc = subprocess.Popen([sys.executable, "-c", _DEPLOY_CHILD, module,
+                             *argv], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        from volcano_tpu_torch.apiserver.http import StoreClient
+        client = StoreClient(url)
+        deadline = time.monotonic() + 60.0
+
+        def settled() -> bool:
+            if module.endswith("apiserver"):
+                return len(client.list("nodes")) == 4
+            if module.endswith("webhook_manager"):
+                return bool(store._hooks)
+            if module.endswith("scheduler"):
+                return store.get("pods", "p0").spec.node_name == "n1"
+            return store.get("podgroups", "j1") is not None and (
+                not extra or store.get(
+                    "configmaps", "vc-controller-manager",
+                    "volcano-system") is not None)
+        if module.endswith("controller_manager"):
+            run_job(store, "j1", replicas=2, min_available=2)
+        while True:
+            assert proc.poll() is None and time.monotonic() < deadline
+            try:
+                if settled():
+                    break
+            except OSError:
+                pass
+            time.sleep(0.1)
+        if module.endswith("webhook_manager"):
+            assert "successfully" in run_job(store, "j2", replicas=2,
+                                             min_available=2)
+            with pytest.raises(Exception, match="minAvailable"):
+                run_job(store, "bad", replicas=2, min_available=5)
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=60)[0]
+        server.stop()
+    child = [ln for ln in out.splitlines() if ln.startswith("CHILD ")]
+    assert child, out
     assert json.loads(child[-1][6:]) == {"leaked": [], "cuda": False}, out

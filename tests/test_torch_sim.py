@@ -425,6 +425,22 @@ def _other_kinds(o):
         ("persistentvolumeclaims", o.PersistentVolumeClaim(
             metadata=meta(name="c0", namespace="ns1"))),
         ("persistentvolumes", o.PersistentVolume(metadata=meta(name="v0"))),
+        ("jobs", o.Job(
+            metadata=meta(name="j0", namespace="ns1"),
+            spec=o.JobSpec(min_available=2, tasks=[o.TaskSpec(
+                name="t", replicas=2, policies=[o.LifecyclePolicy(
+                    event=o.JobEvent.POD_FAILED,
+                    action=o.JobAction.RESTART_TASK)])]))),
+        ("commands", o.Command(metadata=meta(name="c0", namespace="ns1"),
+                               action=o.JobAction.ABORT_JOB,
+                               target_name="j0")),
+        ("services", o.Service(metadata=meta(name="s0", namespace="ns1"),
+                               selector={"a": "b"}, ports=[22])),
+        ("secrets", o.Secret(metadata=meta(name="k0", namespace="ns1"),
+                             data={"id_rsa": b"\x00\x01key"})),
+        ("networkpolicies", o.NetworkPolicy(
+            metadata=meta(name="np0", namespace="ns1"),
+            pod_selector={"a": "b"}, ingress_from_selector={"a": "b"})),
     ]
 
 

@@ -15,7 +15,9 @@ tests/torch_sim_reference.json records the reference's first run at the
 shapes chip_smoke.py runs (``RECORDED``), and its storm and federation
 gates' first runs at the gates' own shapes (``STORM_RECORDED``,
 ``FEDERATION_RECORDED``: the fingerprints and the counters that repeat
-from run to run); ``generate_reference`` makes it
+from run to run), and the job path's pump at chip_smoke.py's ``jobs``
+shape (``jobs``: tests/torch_job_parity.py's ``JOBS_SHAPE``, 6,250
+vcjobs of 8 on 10,000 nodes); ``generate_reference`` makes it
 (``python -m tests.test_torch_sim_gates`` rewrites it), and the slow test
 regenerates it and requires it unchanged.
 
@@ -166,7 +168,8 @@ def generate_reference() -> dict:
                         **summary_facts(result.summary())}
     return {"generator": "tests/test_torch_sim_gates.py:generate_reference",
             "reference_commit": reference_commit(), "shapes": shapes,
-            "storm": generate_storm(), "federation": generate_federation()}
+            "storm": generate_storm(), "federation": generate_federation(),
+            "jobs": generate_jobs()}
 
 
 def generate_storm() -> dict:
@@ -188,6 +191,14 @@ def generate_federation() -> dict:
     verdict = run_federation(**FEDERATION_RECORDED)
     assert verdict["violations"] == 0
     return {"kwargs": FEDERATION_RECORDED, **federation_facts(verdict)}
+
+
+def generate_jobs() -> dict:
+    """The reference's job path at JOBS_SHAPE: every vcjob submitted
+    through admission into its in-process control plane, pumped until
+    every job is Running (tests/torch_job_parity.py:run_jobs_shape)."""
+    from tests.torch_job_parity import JOBS_SHAPE, REFERENCE, run_jobs_shape
+    return {"kwargs": JOBS_SHAPE, **run_jobs_shape(REFERENCE, JOBS_SHAPE)}
 
 
 def recorded_config(cli, name: str, **extra):
@@ -275,6 +286,28 @@ def test_recorded_federation_schema():
         FEDERATION_RECORDED
 
 
+def test_recorded_jobs_schema():
+    """The job path's record: its shape is chip_smoke's, every job and
+    PodGroup Running, every pod bound and Running, the default queue's
+    counts those of the jobs."""
+    from tests.torch_job_parity import JOBS_SHAPE
+    entry = recorded()["jobs"]
+    assert entry["kwargs"] == JOBS_SHAPE
+    assert set(entry) == {"kwargs", "rounds", "phases_by_round", "binds",
+                          "pods_running", "podgroups_running",
+                          "queue_running", "queue_pending", "queue_inqueue",
+                          "bind"}
+    pods = JOBS_SHAPE["jobs"] * JOBS_SHAPE["replicas"]
+    assert entry["binds"] == entry["pods_running"] == pods
+    assert entry["podgroups_running"] == entry["queue_running"] == \
+        JOBS_SHAPE["jobs"]
+    assert entry["queue_pending"] == entry["queue_inqueue"] == 0
+    assert entry["phases_by_round"][-1] == {"Running": JOBS_SHAPE["jobs"]}
+    assert entry["rounds"] == len(entry["phases_by_round"]) <= \
+        JOBS_SHAPE["max_rounds"]
+    assert len(entry["bind"]) == 64 and int(entry["bind"], 16) >= 0
+
+
 def test_port_gives_recorded_storm_facts():
     """The port's storm gate at the gate's shape on the CPU (run_storm, as
     the CLI's first run) gives the recorded fingerprints and counters."""
@@ -302,7 +335,8 @@ def test_port_gives_recorded_chaos_fingerprints():
 def test_recorded_reference_is_current():
     """Regenerate tests/torch_sim_reference.json from the JAX package, in
     a process with one JAX device (``generate_reference``); it must be
-    unchanged (about three minutes, the north star's two of them)."""
+    unchanged (about six minutes: the north star's two of them, and the
+    job path's pump at JOBS_SHAPE about three)."""
     flags = " ".join(f for f in os.environ.get("XLA_FLAGS", "").split()
                      if "xla_force_host_platform_device_count" not in f)
     env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=flags)

@@ -40,10 +40,15 @@ KIND_TYPES: Dict[str, type] = {
     "nodes": obj.Node,
     "podgroups": obj.PodGroup,
     "queues": obj.Queue,
+    "jobs": obj.Job,
+    "commands": obj.Command,
     "priorityclasses": obj.PriorityClass,
     "resourcequotas": obj.ResourceQuota,
     "numatopologies": obj.Numatopology,
+    "services": obj.Service,
     "configmaps": obj.ConfigMap,
+    "secrets": obj.Secret,
+    "networkpolicies": obj.NetworkPolicy,
     "persistentvolumeclaims": obj.PersistentVolumeClaim,
     "persistentvolumes": obj.PersistentVolume,
 }

@@ -51,8 +51,8 @@ from ..trace import tracer
 from ..utils.clock import GLOBAL_CLOCK, Clock
 from ..utils.fastclone import fast_clone
 
-NAMESPACED = {"pods", "podgroups", "resourcequotas", "configmaps",
-              "persistentvolumeclaims"}
+NAMESPACED = {"pods", "podgroups", "jobs", "commands", "resourcequotas", "services",
+              "configmaps", "secrets", "networkpolicies", "persistentvolumeclaims"}
 CLUSTER_SCOPED = {"nodes", "queues", "priorityclasses", "numatopologies",
                   "persistentvolumes"}
 KINDS = NAMESPACED | CLUSTER_SCOPED

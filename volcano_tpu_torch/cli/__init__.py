@@ -1,2 +1,6 @@
-"""Command-line helpers of the port (the reference's ``cli/``; only
-``util.parse_resource_list`` so far, which cmd/apiserver.py uses)."""
+"""Command-line tools of the port (the reference's ``cli/``): vcctl and
+the single-verb tools. The reference's ``debug`` group is not ported yet."""
+
+from .vcctl import build_parser, dispatch, main
+
+__all__ = ["build_parser", "dispatch", "main"]

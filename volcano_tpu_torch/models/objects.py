@@ -1,15 +1,16 @@
-"""API objects a scheduling cycle reads (the port's own copy of the core,
-scheduling and priority slice of volcano_tpu/models/objects.py).
+"""API objects of the control plane (the port's own copy of
+volcano_tpu/models/objects.py).
 
-  * core: ObjectMeta, Pod, Node, PriorityClass, ResourceQuota, ConfigMap
-    (the leader-election lease), PersistentVolumeClaim, PersistentVolume
+  * core: ObjectMeta, Pod, Node, PriorityClass, ResourceQuota, Service,
+    ConfigMap (also the leader-election lease), Secret, NetworkPolicy,
+    PersistentVolumeClaim, PersistentVolume
   * scheduling: PodGroup, Queue
+  * batch: Job (with TaskSpec, PodTemplate, LifecyclePolicy)
+  * bus: Command, the lifecycle actions and events
   * nodeinfo: Numatopology (the per-node NUMA topology numa-aware reads)
 
-The controller CRDs (Job, Command, Service) are not part of the
-scheduling cycle and are not ported. The clone helpers at the
-end rebuild only the mutable shells of the hot shapes and share the
-substructures a stored object never mutates.
+The clone helpers at the end rebuild only the mutable shells of the hot
+shapes and share the substructures a stored object never mutates.
 """
 
 from __future__ import annotations
@@ -396,6 +397,148 @@ class Queue:
 
 
 # ---------------------------------------------------------------------------
+# batch group: Job
+# ---------------------------------------------------------------------------
+
+class JobPhase:
+    PENDING = "Pending"
+    ABORTING = "Aborting"
+    ABORTED = "Aborted"
+    RUNNING = "Running"
+    RESTARTING = "Restarting"
+    COMPLETING = "Completing"
+    COMPLETED = "Completed"
+    TERMINATING = "Terminating"
+    TERMINATED = "Terminated"
+    FAILED = "Failed"
+
+
+class JobEvent:
+    """Lifecycle events (reference: vendor/.../bus/v1alpha1/events.go)."""
+    ANY = "*"
+    POD_FAILED = "PodFailed"
+    POD_EVICTED = "PodEvicted"
+    UNSCHEDULABLE = "Unschedulable"
+    POD_PENDING = "PodPending"
+    TASK_COMPLETED = "TaskCompleted"
+    TASK_FAILED = "TaskFailed"
+    JOB_UNKNOWN = "JobUnknown"
+    OUT_OF_SYNC = "OutOfSync"
+    COMMAND_ISSUED = "CommandIssued"
+    JOB_UPDATED = "JobUpdated"
+
+
+class JobAction:
+    """Lifecycle actions (reference: vendor/.../bus/v1alpha1/actions.go:20-50)."""
+    ABORT_JOB = "AbortJob"
+    RESTART_JOB = "RestartJob"
+    RESTART_TASK = "RestartTask"
+    TERMINATE_JOB = "TerminateJob"
+    COMPLETE_JOB = "CompleteJob"
+    RESUME_JOB = "ResumeJob"
+    SYNC_JOB = "SyncJob"
+    ENQUEUE_JOB = "EnqueueJob"
+    SYNC_QUEUE = "SyncQueue"
+    OPEN_QUEUE = "OpenQueue"
+    CLOSE_QUEUE = "CloseQueue"
+
+
+@dataclass
+class LifecyclePolicy:
+    event: str = ""
+    events: List[str] = field(default_factory=list)
+    action: str = ""
+    exit_code: Optional[int] = None
+    timeout_seconds: Optional[float] = None
+
+    def matches(self, event: str, exit_code: Optional[int] = None) -> bool:
+        if self.exit_code is not None:
+            return exit_code is not None and exit_code == self.exit_code
+        evs = set(self.events)
+        if self.event:
+            evs.add(self.event)
+        return event in evs or JobEvent.ANY in evs
+
+
+@dataclass
+class PodTemplate:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PodSpec = field(default_factory=PodSpec)
+
+
+@dataclass
+class TaskSpec:
+    name: str = ""
+    replicas: int = 1
+    min_available: Optional[int] = None
+    template: PodTemplate = field(default_factory=PodTemplate)
+    policies: List[LifecyclePolicy] = field(default_factory=list)
+    topology_policy: str = ""   # NUMA: none|best-effort|restricted|single-numa-node
+
+
+@dataclass
+class JobSpec:
+    scheduler_name: str = DEFAULT_SCHEDULER_NAME
+    min_available: int = 0
+    volumes: List[Dict[str, Any]] = field(default_factory=list)
+    tasks: List[TaskSpec] = field(default_factory=list)
+    policies: List[LifecyclePolicy] = field(default_factory=list)
+    plugins: Dict[str, List[str]] = field(default_factory=dict)  # svc/ssh/env
+    queue: str = DEFAULT_QUEUE
+    max_retry: int = 3
+    ttl_seconds_after_finished: Optional[int] = None
+    priority_class_name: str = ""
+    min_success: Optional[int] = None
+
+
+@dataclass
+class JobState:
+    # empty until the job controller's initiateJob stamps Pending
+    # (reference: job_controller_actions.go initJobStatus)
+    phase: str = ""
+    reason: str = ""
+    message: str = ""
+    last_transition_time: float = 0.0
+
+
+@dataclass
+class JobStatus:
+    state: JobState = field(default_factory=JobState)
+    pending: int = 0
+    running: int = 0
+    succeeded: int = 0
+    failed: int = 0
+    terminating: int = 0
+    unknown: int = 0
+    version: int = 0
+    retry_count: int = 0
+    min_available: int = 0
+    task_status_count: Dict[str, Dict[str, int]] = field(default_factory=dict)
+    controlled_resources: Dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class Job:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: JobSpec = field(default_factory=JobSpec)
+    status: JobStatus = field(default_factory=JobStatus)
+
+
+# ---------------------------------------------------------------------------
+# bus group: Command
+# ---------------------------------------------------------------------------
+
+@dataclass
+class Command:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    action: str = ""
+    target_kind: str = "Job"
+    target_name: str = ""
+    reason: str = ""
+    message: str = ""
+
+
+# ---------------------------------------------------------------------------
 # nodeinfo group: Numatopology
 # ---------------------------------------------------------------------------
 
@@ -423,14 +566,39 @@ class Numatopology:
 
 
 # ---------------------------------------------------------------------------
-# core/v1: ConfigMap (the leader-election lease), PersistentVolumeClaim,
-# PersistentVolume
+# core/v1: Service, ConfigMap, Secret and NetworkPolicy (the job plugins'
+# controlled resources; a ConfigMap is also the leader-election lease),
+# PersistentVolumeClaim, PersistentVolume
 # ---------------------------------------------------------------------------
+
+@dataclass
+class Service:
+    """Headless service equivalent (created by the svc job plugin,
+    reference: pkg/controllers/job/plugins/svc/svc.go:219-264)."""
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    selector: Dict[str, str] = field(default_factory=dict)
+    cluster_ip: str = "None"
+    ports: List[int] = field(default_factory=list)
+
 
 @dataclass
 class ConfigMap:
     metadata: ObjectMeta = field(default_factory=ObjectMeta)
     data: Dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class Secret:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    data: Dict[str, bytes] = field(default_factory=dict)
+
+
+@dataclass
+class NetworkPolicy:
+    """Intra-job network isolation (svc plugin, svc.go:266-313)."""
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    pod_selector: Dict[str, str] = field(default_factory=dict)
+    ingress_from_selector: Dict[str, str] = field(default_factory=dict)
 
 
 @dataclass
