@@ -11,7 +11,9 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
    ptxas's registers and spills of every gang-allocate instantiation;
    and the native engine (volcano_tpu_torch/native/fastmodel.c), compiled
    with gcc, the default engine of the commit path and the snapshot's
-   clones in every later phase;
+   clones in every later phase, and the native CPU solver
+   (volcano_tpu_torch/native/solver.cc), compiled with g++, the route of
+   the solver conf's ``kernel: native`` (phase 15m);
 3. kernel against plain on the card at 4,096 tasks x 2,048 nodes, gang 8:
    one queue; four queues with budgets from the proportion water-fill;
    three namespaces with the live namespace order off and on; tight
@@ -152,7 +154,11 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
     the overhead of tracing in percent, the kernel's device time from the
     execute span's tag against the solver's own, /metrics fetched from
     the metrics server on a local port (every line must parse), and the
-    ledger must have completed every bind;
+    ledger must have completed every bind; then ``python -m
+    volcano_tpu_torch.cli.vcctl debug cycles`` and ``debug health``
+    against that server as child processes: each exits as its route
+    answers, and the cycles table lists the last 20 of the phase's
+    /debug/cycles records by seq;
 15c. incremental_cycle: the incremental steady-state cycle.
     Full width: two north-star stores (phase 9's shape), one Scheduler
     with ``incremental=True`` and one with ``False``, through one seeded
@@ -395,6 +401,24 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
     (no pods left), queue create, close and delete; it prints each
     step's seconds and the scheduler child's launches (its
     ``/metrics``), and the three other children initialise no CUDA;
+15m. native_solver (in ``commit``, after 15g): the native CPU solver
+    (ops/native.py over native/solver.cc, built by g++ in phase 2) on
+    the host. (b) At 4,096 tasks x 2,048 nodes: R = 4, tight capacity
+    that rolls gangs back, R = 16, R = 20 with topology buckets and a
+    pack bonus, per-task domain slots over 8 zones, and gangs of 320
+    (more than its table's C2 = 256 rows) that refresh inside the gang
+    and roll back: its assign, pipelined, ready, kept and final node
+    state must equal the plain loop's (run on the card) and the CUDA
+    kernel's exactly. (c) At the encoded north star (phase 4's inputs):
+    a warm-up and three timed runs on the host against the CUDA kernel's
+    three on the same inputs, exactly equal, with the bound of the work
+    on the card. (d) The north-star cycle (phase 9's store) under
+    ``kernel: native`` on Scheduler(store, device="cuda:0") against the
+    card's auto cycle on a store of the same seed: equal binds, every
+    pod bound; the native cycle's launches (counted from 0 just before,
+    read just after) and its ``volcano_solver_kernel_runs_total`` are
+    all ``native``, as its places' prune outcomes give, and the auto
+    cycle's all ``cuda``;
 16. the kernels line (with the table refreshes, the cluster's blocks and
     each block's shared memory, the plan and R, as the main path's launch
     reported them, the shapes_vs_plain summary, traced_cycle's overhead,
@@ -415,13 +439,16 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc
     start latency (``jobs``) and the deployment's scheduler child's
     launches (``deploy``), and a ``prune`` entry for the north-star cycle's place: union, padded
     width, launches, refreshes, whether the reduced run served; a second
-    entry for the slot path), then the card's nvidia-smi line, then
+    entry for the slot path; a third, ``gang_allocate_native``, route
+    ``native`` on the host: 15m's launches in (d), its north-star ms
+    against the CUDA kernel's on the same inputs, its mismatches (0)
+    and the plain loop's ms on those inputs from phase 5), then the card's nvidia-smi line, then
     {"ok": true, "device": {...}} as the last line.
 
 The phases after 8 run in nine groups (GROUPS), each in a process of
 its own, beside phases 3-8 on the one card: ``cycles`` (9-11, 15e, 12),
 ``binary_victims`` (15f, 13, 14, 15, 15c) and ``commit`` (15b, 15d,
-15g) start together after the build; ``sim`` (15h), ``served`` and
+15g, 15m) start together after the build; ``sim`` (15h), ``served`` and
 ``storm`` (15i) and ``federation`` (15j) start once phases 3-6 and the
 cycles group have timed the kernel, so that their launches stay out of
 the kernel's timed runs; ``replicas`` (15k) starts once every group but
@@ -468,6 +495,7 @@ import tempfile
 import threading
 import time
 import types
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -494,10 +522,13 @@ from volcano_tpu_torch.cmd import scheduler as scheduler_cmd  # noqa: E402
 from volcano_tpu_torch.framework import parse_scheduler_conf  # noqa: E402
 from volcano_tpu_torch.framework import statement as statement_mod  # noqa: E402
 from volcano_tpu_torch.framework.solver import DenseSolver  # noqa: E402
+from volcano_tpu_torch.metrics import metrics as metrics_mod  # noqa: E402
 from volcano_tpu_torch.ops import allocate, build, prune  # noqa: E402
 from volcano_tpu_torch.ops.cuda_allocate import (  # noqa: E402
     gang_allocate_cuda)
 from volcano_tpu_torch.ops.fairshare import proportion_waterfill  # noqa: E402
+from volcano_tpu_torch.ops import native as native_ops  # noqa: E402
+from volcano_tpu_torch.ops.native import gang_allocate_native  # noqa: E402
 from volcano_tpu_torch.models import job_info  # noqa: E402
 from volcano_tpu_torch.models import objects as obj  # noqa: E402
 from volcano_tpu_torch.native import build as native_build  # noqa: E402
@@ -2142,6 +2173,42 @@ def find_spans(span, name):
     return found
 
 
+def vcctl_debug(base: str, cycles: dict) -> dict:
+    """``vcctl debug cycles`` and ``debug health`` as child processes
+    against the metrics server at ``base``: each must exit as its route
+    answers (0, or 1 while /debug/health answers 503), and the cycles
+    table must list the last 20 of the phase's ``cycles`` payload by
+    seq. Returns each verb's exit code and seconds, and the rows."""
+    out = {}
+    for verb in ("cycles", "health"):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "volcano_tpu_torch.cli.vcctl", "debug",
+             verb, "--metrics", base], capture_output=True, text=True,
+            timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
+        out[verb] = {"rc": r.returncode,
+                     "seconds": time.perf_counter() - t0}
+        if verb == "cycles":
+            rows = r.stdout.strip().splitlines()[2:]
+            seqs = [int(row.split()[0]) for row in rows]
+            want = [c["seq"] for c in cycles["cycles"][-20:]]
+            if r.returncode != 0 or seqs != want:
+                fail(f"vcctl debug cycles: exit {r.returncode}, seqs "
+                     f"{seqs} against the phase's {want}: {r.stderr}")
+            out[verb]["rows"] = len(rows)
+        else:
+            try:
+                status = urllib.request.urlopen(base + "/debug/health",
+                                                timeout=30).status
+            except urllib.error.HTTPError as e:
+                status = e.code
+            if r.returncode != (0 if status < 400 else 1):
+                fail(f"vcctl debug health: exit {r.returncode} while "
+                     f"/debug/health answers {status}: {r.stderr}")
+            out[verb]["status"] = status
+    return out
+
+
 def traced_cycle(dev) -> dict:
     """Phase 15b: the north-star cycle with the flight recorder (and the
     lifecycle ledger tracer.enable turns on) off and on, through
@@ -2189,6 +2256,7 @@ def traced_cycle(dev) -> dict:
         cycles = json.loads(urllib.request.urlopen(
             f"http://127.0.0.1:{server.port}/debug/cycles",
             timeout=30).read().decode())
+        debug_cli = vcctl_debug(f"http://127.0.0.1:{server.port}", cycles)
     finally:
         server.stop()
     bad = [ln for ln in body.splitlines() if not PROM_LINE.match(ln)]
@@ -2211,7 +2279,7 @@ def traced_cycle(dev) -> dict:
            "span_kernel_ms": span_kernel_ms,
            "solver_kernel_ms": solver_kernel_ms,
            "metrics_lines": len(body.splitlines()),
-           "debug_cycles": len(cycles["cycles"]),
+           "debug_cycles": len(cycles["cycles"]), "vcctl_debug": debug_cli,
            "kernel_launches": [r["kernel_launches"]
                                for r in runs["off"] + runs["on"]]}
     line("traced_cycle", shape={"tasks": FULL["n_tasks"],
@@ -3994,13 +4062,14 @@ def binary_victims_group(dev) -> dict:
 
 
 def commit_group(dev) -> dict:
-    """Phases 15b, 15d and 15g: the traced cycle, the write-behind commit
-    and the native commit path. Returns, per kernel, the kernels line's
-    entries they give."""
+    """Phases 15b, 15d, 15g and 15m: the traced cycle, the write-behind
+    commit, the native commit path and the native CPU solver. Returns, per
+    kernel, the kernels line's entries they give."""
     traced = traced_cycle(dev)
     flushed = flush_cycle(dev)
     native = native_commit(dev, traced["commit"])
-    return {"gang_allocate": {
+    solver = native_solver(dev)
+    return {"gang_allocate_native": solver, "gang_allocate": {
         "traced_cycle": {k: traced[k] for k in (
             "overhead_pct", "overhead_median_pct", "cycle_ms_on",
             "cycle_ms_off", "steady_overhead_pct",
@@ -4009,6 +4078,239 @@ def commit_group(dev) -> dict:
         "launches_per_flush_cycle": flushed["full_width"]["live"][-1][
             "launches"],
         "launches_per_native_commit_cycle": native["launches"]}}
+
+
+# ---- 15m. native_solver: the native CPU solver (kernel: native)
+
+# (b)'s cases at MID's size: (name, R, seed, options); "tight" scales the
+# idle capacity, "buckets" shares topology buckets between neighbouring
+# groups with a pack bonus, "slots" gives per-task domain slots over 8
+# zones, "over_c2" leaves 600 nodes that each hold one task of one shared
+# request, so that every gang of 320 (more than the table's C2 = 256
+# rows) but the first places 280 tasks, refreshes inside the gang and
+# rolls back
+NATIVE_CASES = (("r4", 4, 1, {}),
+                ("r4_tight", 4, 2, {"tight": 0.15}),
+                ("r16", 16, 3, {}),
+                ("r20_buckets", 20, 4, {"buckets": True}),
+                ("r4_slots", 4, 5, {"slots": True}),
+                ("r4_gang_over_c2", 4, 6, {"over_c2": True}))
+NATIVE_TIMED = 3
+
+
+def native_case_inputs(r: int, seed: int, opts: dict):
+    """(SynthArrays, kernel inputs as numpy, slots or None) of one of
+    (b)'s cases."""
+    gang = 320 if opts.get("over_c2") else MID["gang"]
+    sa = synth_arrays(MID["n_tasks"], MID["n_nodes"], gang_size=gang, r=r,
+                      seed=seed, utilization=0.6 if "tight" in opts else 0.3)
+    if "tight" in opts:
+        sa.node_idle *= np.float32(opts["tight"])
+        sa.node_future[:] = sa.node_idle
+    if opts.get("buckets"):
+        g = sa.group_req.shape[0]
+        sa.task_bucket[:] = np.where(sa.task_valid,
+                                     (sa.task_group // 2) % 3, -1)
+        sa.group_pack_bonus[:] = np.random.default_rng(seed).uniform(
+            0.0, 8.0, g)
+    if opts.get("over_c2"):
+        sa.group_req[:] = sa.group_req[0]
+        sa.node_idle[:] = 0.0
+        sa.node_idle[:600] = sa.group_req[0] * np.float32(1.5)
+        sa.node_future[:] = sa.node_idle
+    arrays = sa.as_dict()
+    slots = None
+    if opts.get("slots"):
+        slots = zone_slots(sa, zones=8, every=2, unsat_every=4, seed=seed)
+        arrays.update(task_slot=slots[0], slot_ok=slots[1])
+    return sa, arrays, slots
+
+
+def native_vs_plain(dev) -> dict:
+    """(b): each case's native run on the host against the plain loop
+    (run on the card, where it rounds as on the CPU) and against the CUDA
+    kernel, exactly. Returns {case: results}."""
+    out = {}
+    for name, r, seed, opts in NATIVE_CASES:
+        sa, arrays, slots = native_case_inputs(r, seed, opts)
+        host, _ = convert.from_reference(arrays, None, "cpu")
+        card, _ = convert.from_reference(arrays, None, dev)
+        w = ScoreWeights.make(r, binpack=1.0)
+        wd = w.to(dev)
+        t0 = time.perf_counter()
+        got = gang_allocate_native(*convert.args(host), w,
+                                   **convert.slot_kwargs(host))
+        native_ms = (time.perf_counter() - t0) * 1000.0
+        refreshes_, rollbacks = gang_allocate_native.last_stats.tolist()
+        kernel, ms = timed(lambda: gang_allocate_cuda(
+            *convert.args(card), wd, **convert.slot_kwargs(card)))
+        plain, plain_ms = timed(lambda: allocate.gang_allocate(
+            *convert.args(card), wd, **convert.slot_kwargs(card)))
+        res = compare(sa, got, plain, f"native_solver {name}: the plain loop")
+        vs_kernel = compare(sa, got, kernel,
+                            f"native_solver {name}: the CUDA kernel")
+        if not in_slot_rows(to_np(got[0]), slots):
+            fail(f"native_solver {name}: a task was placed outside its "
+                 "slot row")
+        c2 = max(8, min(native_ops.C2, sa.node_idle.shape[0]))
+        if opts.get("over_c2") and not (
+                rollbacks and int(sa.job_n_tasks.max()) > c2):
+            fail(f"native_solver {name}: {rollbacks} rollbacks of gangs of "
+                 f"{int(sa.job_n_tasks.max())} over a table of {c2}")
+        if "tight" in opts and not rollbacks:
+            fail(f"native_solver {name}: no gang rolled back")
+        res.update(native_ms=native_ms, kernel_ms=ms, plain_card_ms=plain_ms,
+                   refreshes=refreshes_, rollbacks=rollbacks, c2=c2,
+                   kernel_assign_mismatches=vs_kernel["assign_mismatches"],
+                   slots=0 if slots is None else len(slots[1]) - 1)
+        line("native_solver", part="vs_plain", case=name, shape=sa.shapes,
+             **res)
+        out[name] = res
+    return out
+
+
+def native_north_star(dev) -> dict:
+    """(c): the encoded north star (phase 4's inputs): the native solver
+    on the host, a warm-up and NATIVE_TIMED timed runs, against the CUDA
+    kernel on the same inputs (under the other groups' load), exactly,
+    with the bound of the work on the card."""
+    sa = synth_arrays(FULL["n_tasks"], FULL["n_nodes"],
+                      gang_size=FULL["gang"], seed=42, utilization=0.3)
+    weights = ScoreWeights.make(sa.group_req.shape[1], binpack=1.0,
+                                device=dev)
+    solver = DenseSolver(sa, weights, dev)
+    args = convert.args(solver.arrays)
+    args[list(convert.FIELDS).index("group_mask")] = solver.static_mask()
+    host = [x.cpu() for x in args]
+    w_host = weights.to("cpu")
+    native_ms = []
+    for _ in range(1 + NATIVE_TIMED):
+        t0 = time.perf_counter()
+        got = gang_allocate_native(*host, w_host)
+        native_ms.append((time.perf_counter() - t0) * 1000.0)
+    refreshes_, rollbacks = gang_allocate_native.last_stats.tolist()
+    gang_allocate_cuda(*args, solver.weights)              # warm-up
+    cuda_runs = [timed(lambda: gang_allocate_cuda(*args, solver.weights))
+                 for _ in range(NATIVE_TIMED)]
+    res = compare(sa, got, cuda_runs[-1][0],
+                  "native_solver north star: the CUDA kernel")
+    steps = int(sa.job_n_tasks.sum())
+    N, R = sa.node_idle.shape
+    bytes_ms, ops_ms, _ = bound(args, [], got[:4], refreshes_, steps, N, R)
+    res.update(native_ms=native_ms[1:], warmup_native_ms=native_ms[0],
+               cuda_ms=[ms for _, ms in cuda_runs], refreshes=refreshes_,
+               rollbacks=rollbacks, bytes_ms=bytes_ms, ops_ms=ops_ms)
+    line("native_solver", part="north_star", shape=sa.shapes, **res)
+    return res
+
+
+def native_route_cycle(dev, conf: str, ctx: str) -> dict:
+    """One north-star cycle on a fresh store (phase 9's, seeded) under
+    ``conf`` on the card, every launch count set to 0 just before and read
+    just after; returns its binds, launches by route and places."""
+    store = synth_store(FULL["n_nodes"], FULL["n_tasks"] // FULL["gang"],
+                        FULL["gang"])
+    cache = SchedulerCache(store)
+    cache.run()
+    try:
+        sched = Scheduler(store, scheduler_conf=conf, cache=cache,
+                          device=dev)
+        runs = {k: metrics_mod.counter_total(
+            metrics_mod.SOLVER_KERNEL_RUNS, kernel=k)
+            for k in ("cuda", "native", "plain")}
+        gang_allocate_cuda.launches = 0
+        gang_allocate_native.launches = 0
+        t0 = time.perf_counter()
+        sched.run_once()
+        torch.cuda.synchronize(dev)
+        cycle_ms = (time.perf_counter() - t0) * 1000.0
+        launches = {"cuda": gang_allocate_cuda.launches,
+                    "native": gang_allocate_native.launches}
+        routes = {k: metrics_mod.counter_total(
+            metrics_mod.SOLVER_KERNEL_RUNS, kernel=k) - v
+            for k, v in runs.items()}
+        flush_ms = flush(cache, ctx)
+        binds = {f"{p.metadata.namespace}/{p.metadata.name}": p.spec.node_name
+                 for p in store.list("pods") if p.spec.node_name}
+        check_binds(store, ctx)
+        places = sched.last_cycle["places"]
+    finally:
+        cache.stop()
+    return {"binds": binds, "launches": launches, "routes": routes,
+            "cycle_ms": cycle_ms, "flush_ms": flush_ms, "places": places}
+
+
+def native_cycle(dev) -> dict:
+    """(d): the north-star cycle with ``kernel: native`` on the card's
+    Scheduler, against the card's auto cycle on the same seeded store."""
+    auto = native_route_cycle(dev, cycle_cmd.CONF, "native_solver auto")
+    nat = native_route_cycle(dev, with_solver(cycle_cmd.CONF,
+                                              kernel="native"),
+                             "native_solver kernel: native")
+    want = sum(expected_launches(nat["places"]))
+    if nat["launches"] != {"cuda": 0, "native": want} or \
+            nat["routes"] != {"cuda": 0, "native": want, "plain": 0}:
+        fail(f"native_solver: the native cycle launched "
+             f"{nat['launches']}, counted {nat['routes']}; its places "
+             f"give {want} native runs")
+    if auto["launches"]["native"] or not auto["launches"]["cuda"] or \
+            auto["routes"]["native"]:
+        fail(f"native_solver: the auto cycle launched {auto['launches']}")
+    if len(nat["binds"]) != FULL["n_tasks"] or nat["binds"] != auto["binds"]:
+        fail(f"native_solver: the native cycle bound {len(nat['binds'])} "
+             f"pods, the auto cycle {len(auto['binds'])}; "
+             f"{len(set(nat['binds'].items()) ^ set(auto['binds'].items()))}"
+             " differ")
+    res = {"launches": nat["launches"]["native"],
+           "routes": nat["routes"],
+           "cycle_ms": nat["cycle_ms"], "auto_cycle_ms": auto["cycle_ms"],
+           "flush_ms": nat["flush_ms"], "auto_flush_ms": auto["flush_ms"],
+           "kernel_ms": [ms for pl in nat["places"]
+                         for ms in pl["launch_ms"]],
+           "auto_kernel_ms": [ms for pl in auto["places"]
+                              for ms in pl["launch_ms"]],
+           "plan": [pl["plan"] for pl in nat["places"]],
+           "binds": len(nat["binds"]), "binds_equal": True,
+           **prune_fields(nat["places"])}
+    line("native_solver", part="cycle", **res)
+    return res
+
+
+def native_solver(dev) -> dict:
+    """Phase 15m: the native CPU solver, built by g++ at the script's
+    start; (b) against the plain loop and the CUDA kernel at MID's size;
+    (c) timed at the encoded north star against the CUDA kernel; (d) the
+    north-star cycle under ``kernel: native``. Returns the kernels line's
+    entry."""
+    t0 = time.perf_counter()
+    lib = native_build.build_solver()
+    build_s = time.perf_counter() - t0
+    cases = native_vs_plain(dev)
+    north = native_north_star(dev)
+    cycle_ = native_cycle(dev)
+    return {"launches": cycle_["launches"], "max_abs_err": max(
+        [north["state_max_abs_err"]]
+        + [c["state_max_abs_err"] for c in cases.values()]),
+        "ms": min(north["native_ms"]), "ms_runs": north["native_ms"],
+        "cuda_ms_same_inputs": north["cuda_ms"],
+        "bound_ms": max(north["bytes_ms"], north["ops_ms"]),
+        "bound_by": "bytes" if north["bytes_ms"] >= north["ops_ms"]
+        else "operations",
+        "mismatches": sum(c["assign_mismatches"]
+                          + c["kernel_assign_mismatches"]
+                          for c in cases.values())
+        + north["assign_mismatches"],
+        "refreshes": north["refreshes"], "library": lib.name,
+        "build_s": build_s,
+        "cases": {k: {"native_ms": v["native_ms"],
+                      "plain_card_ms": v["plain_card_ms"],
+                      "kernel_ms": v["kernel_ms"],
+                      "refreshes": v["refreshes"],
+                      "rollbacks": v["rollbacks"]}
+                  for k, v in cases.items()},
+        "cycle": {k: cycle_[k] for k in (
+            "cycle_ms", "auto_cycle_ms", "flush_ms", "kernel_ms",
+            "auto_kernel_ms", "plan", "binds_equal", "routes")}}
 
 
 # ---- 15h. sim: the churn simulator (volcano_tpu_torch/sim) on the card
@@ -5626,6 +5928,7 @@ def main() -> None:
     kernels_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     libs["fastmodel"] = native_build.build()
+    libs["solver"] = native_build.build_solver()
     native_s = time.perf_counter() - t0
     line("build", seconds=kernels_s + native_s, native_seconds=native_s,
          libraries={k: v.name for k, v in sorted(libs.items())},
@@ -5799,7 +6102,12 @@ def main() -> None:
         "shape": {"tasks": FULL["n_tasks"], "nodes": FULL["n_nodes"],
                   **HEAVY},
         "mid_cases": {k: v for k, v in mid_cases.items()
-                      if mid[k]["slots"]}}]
+                      if mid[k]["slots"]}}, {
+        "name": "gang_allocate_native", "route": "native", "device": "host",
+        "source": "volcano_tpu_torch/native/solver.cc",
+        "replaces": "volcano_tpu/native/solver.cc",
+        "plain_ms": full["plain_ms"], "plain_device": "cpu",
+        "library_ms": None, "shape": sa.shapes}]
     for res in results.values():
         for k in kernels:
             k.update(res.get(k["name"], {}))

@@ -1,12 +1,12 @@
 """The PyTorch/CUDA port stands alone: every module of volcano_tpu_torch
 imports with jax blocked and loads no module of the JAX package, and
-chip_smoke.py imports neither; the port's C source (the native engine)
-includes and opens nothing of the JAX package. Entry points need a GPU
-unless the caller names another device. The apiserver children that the
-federation, durability and served gates start (a follower, a federation
-member, a durable leader) and the children cmd/deploy.py starts beside
-the scheduler (its apiserver, webhook manager and controller manager)
-load neither and never initialise CUDA."""
+chip_smoke.py imports neither; the port's C sources (the native engine
+and the native solver) include and open nothing of the JAX package. Entry
+points need a GPU unless the caller names another device. The apiserver
+children that the federation, durability and served gates start (a
+follower, a federation member, a durable leader) and the children
+cmd/deploy.py starts beside the scheduler (its apiserver, webhook manager
+and controller manager) load neither and never initialise CUDA."""
 
 import ast
 import re
@@ -44,7 +44,8 @@ print(' '.join(names))
 # leader half, the apiserver binary), and replication's follower half
 # (follower, replica set, election, the federation gates, the chaos
 # harness) with the durability gate, and the job path (the controllers,
-# admission webhooks, kubelets, the control-plane binaries and the CLI)
+# admission webhooks, kubelets, the control-plane binaries and the CLI),
+# and the native CPU solver's binding, vcctl debug and the NUMA agent
 CYCLE_MODULES = ("volcano_tpu_torch.apiserver.store",
                  "volcano_tpu_torch.native",
                  "volcano_tpu_torch.native.build",
@@ -132,7 +133,10 @@ CYCLE_MODULES = ("volcano_tpu_torch.apiserver.store",
                  "volcano_tpu_torch.cli.vcctl",
                  "volcano_tpu_torch.cli.job",
                  "volcano_tpu_torch.cli.queue",
-                 "volcano_tpu_torch.cli.singles")
+                 "volcano_tpu_torch.cli.singles",
+                 "volcano_tpu_torch.ops.native",
+                 "volcano_tpu_torch.cli.debug",
+                 "volcano_tpu_torch.utils.numa_agent")
 
 
 def _is_reference(module: str) -> bool:
@@ -177,8 +181,8 @@ def test_native_modules_are_scanned():
     assert native == ["__init__.py", "build.py"]
 
 
-_C_SOURCES = sorted(str(p.relative_to(ROOT)) for p in
-                    (ROOT / "volcano_tpu_torch").rglob("*.c"))
+_C_SOURCES = sorted(str(p.relative_to(ROOT)) for pattern in ("*.c", "*.cc")
+                    for p in (ROOT / "volcano_tpu_torch").rglob(pattern))
 
 
 @pytest.mark.parametrize("path", _C_SOURCES)
@@ -199,6 +203,31 @@ def test_native_build_compiles_the_ports_own_source():
         "fastmodel.c"
     assert build.BUILD_DIR == ROOT / "volcano_tpu_torch" / "_build"
     assert "volcano_tpu_torch/native/fastmodel.c" in _C_SOURCES
+
+
+def test_native_solver_builds_the_ports_own_source():
+    from volcano_tpu_torch.native import build
+    assert build.SOLVER_SOURCE == ROOT / "volcano_tpu_torch" / "native" / \
+        "solver.cc"
+    assert build.solver_path().parent == build.BUILD_DIR
+    assert "volcano_tpu_torch/native/solver.cc" in _C_SOURCES
+
+
+_NEW_MODULES = """
+import sys
+sys.modules['jax'] = None
+import volcano_tpu_torch.ops.native, volcano_tpu_torch.cli.debug
+import volcano_tpu_torch.utils.numa_agent
+print(sorted(m for m in sys.modules
+             if m == 'volcano_tpu' or m.startswith('volcano_tpu.')))
+"""
+
+
+def test_native_solver_debug_cli_and_numa_agent_load_no_reference():
+    out = subprocess.run([sys.executable, "-c", _NEW_MODULES], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_reference_prefix_check_spares_the_port():
@@ -298,6 +327,14 @@ def test_apiserver_children_load_no_reference_and_no_cuda(mode, tmp_path):
                 break
             except OSError:
                 time.sleep(0.1)
+        # a member serves reads before it holds the lease, and its role
+        # gate answers writes with a 503 until then
+        while mode == "member":
+            with urllib.request.urlopen(url + "/leader", timeout=2) as r:
+                if json.loads(r.read())["accepts_writes"]:
+                    break
+            assert time.monotonic() < deadline
+            time.sleep(0.1)
         pod = build_pod("default", "p", "", "Pending", {"cpu": "1"})
         if mode == "follower":
             leader.create("pods", pod)

@@ -4,13 +4,14 @@ volcano_tpu/cli/vcctl.py; reference: cmd/cli/vcctl.go).
     vcctl job   {run,list,view,suspend,resume,delete}
     vcctl queue {create,list,get,delete,operate}
     vcctl sim   {run,smoke,chaos,failover,obs,replay,...}
+    vcctl debug {cycles,pending,health,latency,timeseries,explain,
+                 replication,durability}
 
 job/queue talk HTTP to a running control plane (python -m
 volcano_tpu_torch.cmd.cluster, or the apiserver of cmd.deploy);
 --server or $VOLCANO_SERVER selects the endpoint. sim needs no server:
-the churn simulator owns its whole control plane in-process. The
-reference's ``debug`` group (a reader of the scheduler's /debug/*
-routes) is not part of the port yet.
+the churn simulator owns its whole control plane in-process. debug reads
+a scheduler's metrics server (--metrics or $VOLCANO_METRICS, cli/debug.py).
 """
 
 from __future__ import annotations
@@ -81,6 +82,9 @@ def build_parser() -> argparse.ArgumentParser:
     from ..sim.cli import add_sim_parser
     add_sim_parser(sub)
 
+    from .debug import add_debug_parser
+    add_debug_parser(sub)
+
     return parser
 
 
@@ -131,6 +135,14 @@ def main(argv: Optional[List[str]] = None, client=None) -> int:
         from ..sim.cli import dispatch_sim
         try:
             return dispatch_sim(args)
+        except Exception as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+    if args.group == "debug":
+        # talks to the metrics server, not the apiserver client
+        from .debug import dispatch_debug
+        try:
+            return dispatch_debug(args)
         except Exception as e:
             print(f"error: {e}", file=sys.stderr)
             return 1

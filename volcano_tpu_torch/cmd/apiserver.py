@@ -232,6 +232,17 @@ def main(argv=None) -> int:
         mhost, _, mport = args.metrics.rpartition(":")
         metrics_server = MetricsServer(mhost or "127.0.0.1", int(mport))
         metrics_server.start()
+    # SIGTERM and SIGINT end the process through the shutdown below from
+    # the moment it answers a request: a signal that lands while the
+    # member still claims its lease or prints its role must not kill it
+    # unflushed
+    stop = threading.Event()
+    import signal as _signal
+
+    def _graceful(signum, frame):
+        stop.set()
+    for sig in (_signal.SIGTERM, _signal.SIGINT):
+        _signal.signal(sig, _graceful)
     # a plain follower's mirror takes writes from the leader's journal
     # only: its server answers writes with a 503 naming the leader
     server = StoreHTTPServer(store, host=args.host, port=args.port,
@@ -250,13 +261,6 @@ def main(argv=None) -> int:
         role = "leader"
     print(f"vc-apiserver ({role}) serving on {args.host}:{server.port}",
           flush=True)
-    stop = threading.Event()
-    import signal as _signal
-
-    def _graceful(signum, frame):
-        stop.set()
-    for sig in (_signal.SIGTERM, _signal.SIGINT):
-        _signal.signal(sig, _graceful)
     stop.wait()
     if metrics_server is not None:
         metrics_server.stop()

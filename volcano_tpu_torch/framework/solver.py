@@ -8,8 +8,9 @@ utils.synth.SynthArrays) and runs: the capability-fit mask through unique
 capability rows; the selector and taint masks when predicate features are
 given; the proportion water-fill of queue budgets when queue weights are
 given; the gang-allocate kernel; and the decode into per-job and per-node
-totals. One kernel serves each device: the CUDA kernel on the GPU, the
-plain loop on the CPU.
+totals. By default one kernel serves each device: the CUDA kernel on the
+GPU, the plain loop on the CPU; ``kernel: native`` in the solver conf runs
+the native CPU solver (ops/native.py, native/solver.cc) on either device.
 
 ``BatchSolver`` is the session's placement context. Plugins feed it score
 weights, mask and static-score functions and fair-share budgets while the
@@ -20,8 +21,9 @@ and Nodes (models/arrays.py), runs a ``DenseSolver`` over them and
 decodes the kernel's assignment back into per-job placements. Placement
 constraints (topology spread, pod anti-affinity) reach the kernel through
 ops/constraints.py, as per-task domain slots on the place path and as
-split groups in host contexts. The conf keys of the reference that only
-choose among exact kernels are accepted and ignored.
+split groups in host contexts. Of the conf keys of the reference that
+choose among exact kernels, ``kernel: native`` picks the native solver and
+the others are accepted and ignored.
 
 On the incremental cycle (docs/design/incremental_cycle.md) the cache
 keeps an ``_IncrNodeState``: the host NodeArrays and the five node
@@ -32,8 +34,9 @@ patched since (``NodeArrays.update_rows``) and the unpruned launch copies
 only those rows into the resident tensors (``index_copy_``); the kernel
 only reads them. Each launch counts
 on ``volcano_solver_kernel_runs_total{kernel}`` under its route, "cuda"
-(the hand kernel) or "plain" (the plain loop on the CPU), and is traced
-as the reference's ``kernel`` span (``DenseSolver.launch``).
+(the hand kernel), "plain" (the plain loop on the CPU) or "native" (the
+native solver on the host), and is traced as the reference's ``kernel``
+span (``DenseSolver.launch``).
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from ..ops import constraints, prune
 from ..ops.cuda_allocate import cluster_plan, gang_allocate_cuda
 from ..ops.fairshare import proportion_waterfill
 from ..ops.fit import group_fit_mask, selector_mask, taint_mask
+from ..ops.native import gang_allocate_native
 from ..ops.prune import PruneConf
 from ..ops.score import ScoreWeights
 from ..trace import explain
@@ -170,9 +174,11 @@ class DensePlacement:
     node_alloc_vec: torch.Tensor  # [N, R] f32 idle claimed per node
     queue_deserved: torch.Tensor  # [Q, R] f32 the budgets the kernel used
     group_mask: torch.Tensor      # [G, N] bool the static mask the kernel used
-    kernel_ms: float              # the gang-allocate call on the device
-    route: str = "plain"          # the kernel's route: "cuda" or "plain"
-    plan: str = "shared"          # its cluster plan (ops/cuda_allocate.py)
+    kernel_ms: float              # the gang-allocate call
+    route: str = "plain"          # the kernel's route: "cuda", "plain" or
+                                  # "native"
+    plan: str = "shared"          # its cluster plan (ops/cuda_allocate.py),
+                                  # "host" on the native route
     r: int = 0                    # its resource count R
 
     @property
@@ -199,14 +205,21 @@ class DenseSolver:
     nodes marked in ``valid`` ([N] bool) are placeable when it is given,
     else every node is (padded nodes have zero capability and fail the
     fit). A snapshot that carries ``task_slot`` ([T] i32) and ``slot_ok``
-    ([S+1, N] bool) restricts each task to the nodes of its slot row."""
+    ([S+1, N] bool) restricts each task to the nodes of its slot row.
+    ``kernel`` is the solver conf's: "native" runs the native CPU solver
+    on either device, anything else the device's own kernel."""
 
     def __init__(self, snapshot: Any, weights: ScoreWeights,
                  device=None, *, features: Optional[PredicateFeatures] = None,
                  queues: Optional[QueueBudgets] = None,
                  capability: Any = None, valid: Any = None,
-                 node_inputs: Optional[Callable] = None):
+                 node_inputs: Optional[Callable] = None,
+                 kernel: str = "auto"):
         self.device = default_device(device)
+        self.kernel = kernel
+        # the snapshot's host entries, which the native route reads
+        # without a round trip through the device
+        self._snapshot = snapshot if kernel == "native" else None
         # ``node_inputs`` () -> ({field: tensor}, bytes copied) supplies
         # the NODE_FIELDS at the first full-width launch (the resident
         # tensors of the incremental cycle); the snapshot then lacks them
@@ -242,6 +255,18 @@ class DenseSolver:
             self.arrays.update(nodes)
             self._staged_bytes += node_xfer
             self.node_bytes += node_xfer
+
+    def _host_inputs(self, a: Dict[str, Any],
+                     arrays: Optional[Dict[str, Any]]
+                     ) -> Dict[str, torch.Tensor]:
+        """The kernel inputs ``a`` on the host for the native route: the
+        snapshot's (or ``arrays``') host entries as they are, the rest
+        copied back from the device."""
+        src = dict(convert.entries(self._snapshot if arrays is None
+                                   else arrays))
+        return convert.as_tensors(
+            {k: v if isinstance(src.get(k, v), torch.Tensor) else src[k]
+             for k, v in a.items()}, "cpu")
 
     def static_mask(self, stages: Optional[list] = None,
                     parts=()) -> torch.Tensor:
@@ -305,14 +330,21 @@ class DenseSolver:
         here.
 
         Traced as the reference's ``kernel`` span (tags: the route,
-        ``cuda`` or ``plain``, the padded shapes, whether pruned, the
-        bytes copied), with ``tensor_build`` > ``transfer`` (the argument
-        list, and the host->device copy of host entries) and ``execute``
-        (the launch; asynchronous on the card, so the span times only the
-        launch, and its ``kernel_ms`` tag is the kernel's device time from
-        the CUDA events, read at the decode's existing sync)."""
-        on_cuda = self.device.type == "cuda"
-        route = "cuda" if on_cuda else "plain"
+        ``cuda``, ``plain`` or ``native``, the padded shapes, whether
+        pruned, the bytes copied), with ``tensor_build`` > ``transfer``
+        (the argument list, and the host->device copy of host entries) and
+        ``execute`` (the launch; asynchronous on the card, so the span
+        times only the launch, and its ``kernel_ms`` tag is the kernel's
+        device time from the CUDA events, read at the decode's existing
+        sync; on the native route the solver's wall time).
+
+        The native route takes its inputs on the host: the snapshot's (or
+        ``arrays``') host entries as they are, the device's tensors (the
+        static mask, the budgets, resident node tensors) copied back; its
+        outputs move to the solver's device for the decode."""
+        native = self.kernel == "native"
+        on_cuda = self.device.type == "cuda" and not native
+        route = "native" if native else "cuda" if on_cuda else "plain"
         G, N = gmask.shape
         with tr.span("kernel", kernel=route, g_pad=int(G), n_pad=int(N),
                      t_pad=int(self.arrays["task_group"].shape[0]),
@@ -323,6 +355,8 @@ class DenseSolver:
                         self.materialize_nodes()
                     xfer, self._staged_bytes = self._staged_bytes, 0
                     a = self.arrays if arrays is None else arrays
+                    if native:
+                        host_in = self._host_inputs(a, arrays)
                     host = {k: int(np.asarray(v).nbytes)
                             for k, v in a.items()
                             if not isinstance(v, torch.Tensor)}
@@ -339,9 +373,10 @@ class DenseSolver:
             m.inc(m.DEVICE_TRANSFER_BYTES, float(xfer))
             tr.add_tags(transfer_bytes=xfer)
             R = a["group_req"].shape[1]
-            plan = cluster_plan(int(N), int(R), int(deserved.shape[0]),
-                                int(a["ns_weight"].shape[0]),
-                                int(a["pool_queue"].shape[0])).kind
+            plan = "host" if native else cluster_plan(
+                int(N), int(R), int(deserved.shape[0]),
+                int(a["ns_weight"].shape[0]),
+                int(a["pool_queue"].shape[0])).kind
 
             if on_cuda:
                 start = torch.cuda.Event(enable_timing=True)
@@ -351,9 +386,19 @@ class DenseSolver:
                     start.record()
                 else:
                     t0 = time.perf_counter()
-                assign, pipelined, ready, kept, _ = gang_allocate_cuda(
-                    *args, self.weights, allow_pipeline=allow_pipeline,
-                    ns_live=ns_live, **convert.slot_kwargs(a))
+                if native:
+                    host_in["group_mask"] = gmask.cpu()
+                    host_in["queue_deserved"] = deserved.cpu()
+                    out = gang_allocate_native(
+                        *convert.args(host_in), self.weights.to("cpu"),
+                        allow_pipeline=allow_pipeline, ns_live=ns_live,
+                        **convert.slot_kwargs(host_in))
+                    assign, pipelined, ready, kept = (
+                        x.to(self.device) for x in out[:4])
+                else:
+                    assign, pipelined, ready, kept, _ = gang_allocate_cuda(
+                        *args, self.weights, allow_pipeline=allow_pipeline,
+                        ns_live=ns_live, **convert.slot_kwargs(a))
                 if on_cuda:
                     end.record()
                 else:
@@ -411,10 +456,17 @@ class BatchSolver:
     """The session's placement context on one device (``device``:
     default the GPU, which raises when there is none).
 
-    Conf (``configurations: [{name: solver, arguments: {...}}]``): the
-    reference's keys that only choose among exact kernels (``kernel``,
-    ``mesh.*``, ``breaker.window``) are accepted and ignored: this port
-    runs one kernel per device. ``apply`` is the reference's: by default
+    Conf (``configurations: [{name: solver, arguments: {...}}]``):
+    ``kernel: native`` runs every place on the native CPU solver
+    (ops/native.py), on either device, as the reference's forced native
+    kernel does; with ``auto`` (the default) the CUDA kernel runs on the
+    card and the plain loop on a CPU device, where the reference's
+    ``auto`` would pick its native solver off a TPU (the port's CPU tests
+    hold the plain loop). The reference's other kernel values
+    (``pallas``, ``chunked``, ``scan``) and ``mesh.*`` and
+    ``breaker.window`` are accepted and ignored: all its kernels are
+    exact. A native solver that cannot be built raises; no route stands
+    in for it. ``apply`` is the reference's: by default
     (``deferred``) the allocate action records placed gangs as per-job
     deltas and ``task.node_name`` markers, and their object-model staging
     runs at ``Session.materialize``, when something reads placement state
@@ -465,6 +517,8 @@ class BatchSolver:
         # reference's default; ``apply: eager`` stages at once
         self.deferred_apply = solver_args is None or \
             solver_args.get_str("apply", "deferred") != "eager"
+        self.kernel = "auto" if solver_args is None else \
+            (solver_args.get_str("kernel", "auto") or "auto").strip().lower()
         self.sampling = False
         self.sampling_pct = 0.0
         self.sampling_min = 100
@@ -888,7 +942,8 @@ class BatchSolver:
                 feats.group_tolerates)
         dense = DenseSolver(snapshot, self.score_weights(), device,
                             features=features, capability=narr.capability,
-                            valid=narr.valid, node_inputs=node_inputs)
+                            valid=narr.valid, node_inputs=node_inputs,
+                            kernel=self.kernel)
         return narr, batch, dense
 
     def build_host_context(self, ordered_jobs):
@@ -954,7 +1009,12 @@ class BatchSolver:
         kept_list = out.kept.cpu().tolist()
         t2 = time.perf_counter()
         m.observe(m.SOLVER_KERNEL_LATENCY, (t2 - t_kernel) * 1000.0)
-        stats = gang_allocate_cuda.last_stats
+        if out.route == "native":
+            stats = gang_allocate_native.last_stats
+        elif out.route == "cuda":
+            stats = gang_allocate_cuda.last_stats
+        else:
+            stats = None
         prune_record = None
         if ctx is not None:
             prune_record = dict(ctx.summary(), served=ctx.fallback is None,
@@ -968,8 +1028,7 @@ class BatchSolver:
             "kernel_ms": sum(r.kernel_ms for r in runs),
             "launches": len(runs),
             "launch_ms": [r.kernel_ms for r in runs],
-            "launch": stats.tolist() if stats is not None
-            and self.device.type == "cuda" else None,
+            "launch": stats.tolist() if stats is not None else None,
             "plan": out.plan,
             "R": out.r,
             "node_bytes": dense.node_bytes,

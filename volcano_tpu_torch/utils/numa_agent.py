@@ -1,29 +1,32 @@
-"""Numatopology fixtures (the port's own copy of what the scheduler's
-tests and chip_smoke.py need of volcano_tpu/utils/numa_agent.py).
+"""Simulated NUMA node agent (the port's own copy of
+volcano_tpu/utils/numa_agent.py).
 
 The reference's Numatopology CRDs are written by a per-node agent that
 introspects the kubelet's CPU/topology managers (SURVEY.md section 2.9,
 nodeinfo/v1alpha1.Numatopology); the scheduler only consumes them. This
-module builds that object for a simulated node of a given hardware shape,
-with the static CPU manager. The reference's node-watching ``NumaAgent``
-waits for the simulator's port (ROADMAP.md queue 1 item 9).
+agent plays that role for simulated nodes: given a hardware shape it
+publishes the Numatopology object for each node (``build_numatopology``),
+and ``NumaAgent`` watches the nodes of a store so that nodes added later
+get topology too, so numaaware scheduling works end to end.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 from ..models.objects import CpuInfo, Numatopology, NumaResInfo, ObjectMeta
 
 
 @dataclass
 class NumaShape:
-    """Hardware shape of a simulated node (static CPU manager)."""
+    """Hardware shape of a simulated node."""
     numa_count: int = 2
     cores_per_numa: int = 8
     threads_per_core: int = 2
+    cpu_manager_policy: str = "static"
     topology_manager_policy: str = "best-effort"
+    reserved_cpu_milli: float = 0.0
 
     @property
     def cpus_per_numa(self) -> int:
@@ -48,10 +51,43 @@ def build_numatopology(node_name: str, shape: NumaShape) -> Numatopology:
                 detail[cpu_id] = CpuInfo(numa_id=numa, socket_id=numa,
                                          core_id=core)
                 cpu_id += 1
-    return Numatopology(
+    nt = Numatopology(
         metadata=ObjectMeta(name=node_name),
-        policies={"CPUManagerPolicy": "static",
+        policies={"CPUManagerPolicy": shape.cpu_manager_policy,
                   "TopologyManagerPolicy": shape.topology_manager_policy},
         numa_res={"cpu": NumaResInfo(allocatable=sorted(detail.keys()),
                                      capacity=len(detail))},
         cpu_detail=detail)
+    if shape.reserved_cpu_milli:
+        nt.res_reserved["cpu"] = shape.reserved_cpu_milli
+    return nt
+
+
+class NumaAgent:
+    """Publishes Numatopology for every node matching a shape map; watches
+    nodes so late-added nodes get topology too."""
+
+    def __init__(self, store, default_shape: Optional[NumaShape] = None,
+                 shapes: Optional[Dict[str, NumaShape]] = None):
+        self.store = store
+        self.default_shape = default_shape
+        self.shapes = shapes or {}
+        self._watches = [store.watch("nodes", self._on_node,
+                                     lambda o, n: self._on_node(n), None)]
+
+    def stop(self) -> None:
+        for w in self._watches:
+            self.store.unwatch(w)
+        self._watches = []
+
+    def _shape_for(self, node_name: str) -> Optional[NumaShape]:
+        return self.shapes.get(node_name, self.default_shape)
+
+    def _on_node(self, node) -> None:
+        shape = self._shape_for(node.metadata.name)
+        if shape is None:
+            return
+        if self.store.get("numatopologies", node.metadata.name) is None:
+            self.store.create("numatopologies",
+                              build_numatopology(node.metadata.name, shape),
+                              skip_admission=True)
